@@ -1,0 +1,47 @@
+"""Per-label-set text-feature cache (torch port of
+`lseg_tpu/text/cache.py`).
+
+The text tower runs once per distinct label set; the image path takes the
+cached (K, C) matrix as a plain argument.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence, Tuple
+
+import torch
+
+from lseg_tpu_torch import CLIPTextConfig
+from lseg_tpu_torch.models.clip_text import CLIPTextEncoder
+
+
+class TextFeatureCache:
+    """labelset (tuple of strings) -> (K, embed_dim) text features on
+    `device`."""
+
+    def __init__(self, cfg: CLIPTextConfig, state, tokenizer,
+                 dtype=torch.float32, device="cpu"):
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.device = torch.device(device)
+        self.encoder = CLIPTextEncoder(cfg, dtype=dtype, device=self.device)
+        self.encoder.load_state_dict(state)
+        self.encoder.eval()
+        self._cache: Dict[Tuple[str, ...], torch.Tensor] = {}
+
+    def __call__(self, labels: Sequence[str]) -> torch.Tensor:
+        key = tuple(labels)
+        hit = self._cache.get(key)
+        if hit is not None:
+            return hit
+        tokens = torch.as_tensor(self.tokenizer(list(labels)),
+                                 dtype=torch.long, device=self.device)
+        with torch.inference_mode():
+            feats = self.encoder(tokens)
+        self._cache[key] = feats
+        return feats
+
+    def pair_features(self, label: str,
+                      other: str = "others") -> torch.Tensor:
+        """Zero-shot episode head: the ['others', <class>] pair."""
+        return self((other, label))

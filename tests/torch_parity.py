@@ -1,0 +1,104 @@
+"""Shared set-up of the `test_torch_*` parity tests: one tiny config with
+head_dim 64 (so the fast config takes the flat flash kernel), seeded
+inputs, and JAX variables with every parameter and batch statistic
+perturbed away from its initial value, so a conversion that dropped or
+transposed one would show."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lseg_tpu.config import ViTConfig, fast_serving, flat_flash_eligible
+from lseg_tpu.testing import tiny_vit_config
+
+# bf16 bound: the port's bf16 output may stray from the JAX bf16 output
+# by at most twice what the JAX bf16 output strays from the fp32 one,
+# plus a floor of a few bf16 ulps at the logit scale for outputs whose
+# d_ref happens to be tiny.
+BF16_RATIO = 2.0
+BF16_FLOOR = 0.05
+
+
+def tiny_parity_config():
+    cfg = tiny_vit_config(vit=ViTConfig(
+        embed_dim=128, num_heads=2, depth=4, hooks=(0, 1, 2, 3),
+        post_channels=(16, 32, 64, 64), pretrain_grid=4))
+    assert flat_flash_eligible(cfg.vit.embed_dim, cfg.vit.num_heads,
+                               cfg.vit.tp_layout)
+    return cfg
+
+
+def tiny_fast_config():
+    """`fast_serving(quant=False)`: flashflat, patch kernel, tanh GELU,
+    bf16 head."""
+    cfg = fast_serving(tiny_parity_config(), quant=False)
+    assert cfg.vit.attn_impl == "flashflat" and cfg.vit.patch_fused
+    return cfg
+
+
+def fp32_reference_of(cfg):
+    """The same function as a fast config, computed in fp32 throughout."""
+    return dataclasses.replace(cfg, head_dtype="float32")
+
+
+def inputs(seed=0, n=2, h=64, w=96, k=5, out_c=64):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, h, w, 3).astype(np.float32)
+    txt = rng.randn(k, out_c).astype(np.float32)
+    return x, txt
+
+
+def perturb(tree, seed=1):
+    """numpy copy of a variables tree with every leaf moved off its
+    init: biases/means get noise, scales/variances 1 + |noise|."""
+    rng = np.random.RandomState(seed)
+
+    def visit(path, a):
+        a = np.asarray(a, dtype=np.float32)
+        name = path[-1].key
+        noise = rng.randn(*a.shape).astype(np.float32)
+        if name in ("bias", "mean", "cls_token"):
+            return a + 0.1 * noise
+        if name in ("scale", "var"):
+            return 1.0 + 0.1 * np.abs(noise)
+        return a
+
+    out = jax.tree_util.tree_map_with_path(visit, tree)
+    return jax.tree_util.tree_map(np.asarray, out)
+
+
+def jax_lseg_variables(cfg, x, txt, seed=0):
+    from lseg_tpu.models.lseg import LSegNet
+
+    v = LSegNet(cfg).init(jax.random.PRNGKey(seed), jnp.asarray(x),
+                          jnp.asarray(txt))
+    return perturb(v, seed + 1)
+
+
+def f32(a):
+    return np.asarray(jnp.asarray(a, jnp.float32))
+
+
+def assert_bf16_bound(got, jax_bf16, jax_fp32, what):
+    d_port = float(np.max(np.abs(got - jax_bf16)))
+    d_ref = float(np.max(np.abs(jax_bf16 - jax_fp32)))
+    assert d_port <= BF16_RATIO * d_ref + BF16_FLOOR, (
+        f"{what}: d_port={d_port} > {BF16_RATIO} * d_ref={d_ref} "
+        f"+ {BF16_FLOOR}")
+    return d_port, d_ref
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, or a skip: tests that run a CUDA kernel need one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
