@@ -15,7 +15,16 @@ the result line is printed:
    requests through `TextFeatureCache` + `make_predictor`; the kernels'
    launch counters prove the path went through them, and the half-res
    logits are held against the plain path and an fp32 reference;
-4. numbers: img/s at batch 8, 480x480, K=150 and peak device memory.
+3b. int8 serving: the full-width `fast_serving(clip_vitl16_384,
+   'static_cal')` model, quantized from seeded random fp32 weights by
+   `quantize_tree` and calibrated on one seeded batch without text (as
+   the reference's bench.py does), answers the same three requests
+   through `model(x, txt, return_argmax=True)`; per request the counters
+   must read B1 = 1, B2 = B3 = blocks, B4 = 1, B6 = 0, and the half-res
+   logits (B4 with the per-pixel norm) are held against the same int8
+   model on its plain twins and the fp32 model;
+4. numbers: img/s at batch 8, 480x480, K=150 and peak device memory,
+   for the bf16 and the static_cal paths, kernels and plain twins.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is the result object. Needs one GPU and
@@ -44,6 +53,19 @@ PATCH_RTOL, PATCH_ATOL = 2.0 ** -7, 1e-4
 # relative to the running row maximum, the plain version relative to the
 # row maximum, so single P entries differ by up to one bf16 ulp.
 FLASH_RTOL, FLASH_ATOL = 2e-2, 2e-2
+# ln_quantize_rows (B3): the kernel and the plain version sum the row in
+# another order, so a code may sit one level off at a bin edge; the row
+# scales agree to fp32 rounding.
+LNQ_MAX_CODE_DIFF, LNQ_MIN_EQUAL, LNQ_SCALE_RTOL = 1, 0.999, 1e-5
+# flash_attention_ln_qkv_fused_q8 (B2): dequantized outputs within 2e-2 of
+# the largest |plain| value, the bound of the reference's own variant
+# check (tests/test_pallas_ops.py:1001-1002): the LN codes, the online
+# softmax and the output codes each may round one step apart.
+LNQKV_REL = 2e-2
+# head1_correlate_fused (B4): the same bf16 operands and fp32 sums taken
+# in another order: one bf16 ulp (2^-7 relative at most) plus 1e-3
+# absolute where the sum cancels.
+HEAD1_RTOL, HEAD1_ATOL = 2.0 ** -7, 1e-3
 # Serving: the kernel path's half-res logits may stray from the plain
 # path (patch matmul form + einsum attention, same bf16 weights) by at
 # most twice what the plain bf16 path strays from the fp32 model, plus a
@@ -165,6 +187,114 @@ def phase_kernels(dev):
             results["flash_attention_flat"] = (err, ms, plain_ms)
             print(f"  flash_attention_flat (8,901,3072) 16 heads: "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    results.update(_int8_kernels(dev, g))
+    return results
+
+
+def _timed(name, shape, kernel, plain):
+    ms = cuda_time_ms(kernel)
+    plain_ms = cuda_time_ms(plain)
+    print(f"  {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return ms, plain_ms
+
+
+def _int8_kernels(dev, g):
+    from lseg_tpu_torch.ops.flash_attention import (
+        flash_attention_ln_qkv_fused_q8,
+        flash_attention_ln_qkv_fused_q8_plain,
+    )
+    from lseg_tpu_torch.ops.head1_correlate import (
+        head1_correlate_fused,
+        head1_correlate_fused_plain,
+    )
+    from lseg_tpu_torch.ops.ln_quant import (
+        ln_quantize_rows,
+        ln_quantize_rows_plain,
+    )
+
+    results = {}
+    d = 1024
+    ln_g = 1.0 + 0.1 * torch.randn(d, device=dev, generator=g)
+    ln_b = 0.1 * torch.randn(d, device=dev, generator=g)
+
+    # B3 at the flagship (8, 901, 1024)
+    x = torch.randn(8, 901, d, device=dev, generator=g).to(torch.bfloat16)
+    q, s = ln_quantize_rows(x, ln_g, ln_b)
+    qp, sp = ln_quantize_rows_plain(x, ln_g, ln_b)
+    torch.cuda.synchronize()
+    diff = (q.int() - qp.int()).abs()
+    equal = float((diff == 0).float().mean())
+    scale_rel = float(((s - sp).abs() / sp).max())
+    err = float((q.float() * s - qp.float() * sp).abs().max())
+    print(f"  ln_quantize_rows (8,901,1024): max code diff {int(diff.max())}"
+          f", equal {equal:.6f}, scale rel {scale_rel:.3g}, dequant max_abs "
+          f"{err:.6g} (codes within {LNQ_MAX_CODE_DIFF}, equal >= "
+          f"{LNQ_MIN_EQUAL}, scales rtol {LNQ_SCALE_RTOL:g})")
+    if (int(diff.max()) > LNQ_MAX_CODE_DIFF or equal < LNQ_MIN_EQUAL
+            or scale_rel > LNQ_SCALE_RTOL):
+        fail("ln_quantize_rows: kernel disagrees with its plain version")
+    ms, plain_ms = _timed("ln_quantize_rows", "(8,901,1024)",
+                          lambda: ln_quantize_rows(x, ln_g, ln_b),
+                          lambda: ln_quantize_rows_plain(x, ln_g, ln_b))
+    results["ln_quantize_rows"] = (err, ms, plain_ms)
+
+    # B2 at (8, 901, 1024) and the padded (8, 904, 1024), valid_len 901
+    wq = torch.randint(-127, 128, (3 * d, d), device=dev, generator=g,
+                       dtype=torch.int8)
+    sw = 1e-3 * torch.rand(3 * d, device=dev, generator=g)
+    bias = 0.05 * torch.randn(3 * d, device=dev, generator=g)
+    scale = 64 ** -0.5
+    for t, vl in ((901, None), (904, 901)):
+        x = torch.randn(8, t, d, device=dev, generator=g).to(torch.bfloat16)
+        args = (x, ln_g, ln_b, wq, sw, bias, 16, scale, vl)
+        oq, os_ = flash_attention_ln_qkv_fused_q8(*args)
+        pq, ps = flash_attention_ln_qkv_fused_q8_plain(*args)
+        torch.cuda.synchronize()
+        got, ref = oq.float() * os_, pq.float() * ps
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        equal = float((oq == pq).float().mean())
+        if not torch.isfinite(got).all():
+            fail("flash_attention_ln_qkv_fused_q8: non-finite output")
+        print(f"  flash_attention_ln_qkv_fused_q8 (8,{t},1024) valid_len="
+              f"{vl}: dequant max_abs {err:.6g} = {rel:.4g} of max|plain| "
+              f"(tol {LNQKV_REL:g}), codes equal {equal:.6f}")
+        if rel > LNQKV_REL:
+            fail("flash_attention_ln_qkv_fused_q8: kernel disagrees with "
+                 "its plain version")
+        if vl is None:
+            ms, plain_ms = _timed(
+                "flash_attention_ln_qkv_fused_q8", "(8,901,1024) 16 heads",
+                lambda: flash_attention_ln_qkv_fused_q8(*args),
+                lambda: flash_attention_ln_qkv_fused_q8_plain(*args))
+            results["flash_attention_ln_qkv_fused_q8"] = (err, ms, plain_ms)
+
+    # B4: lowres head (normalize=False) and the half-res logits head
+    w1q = torch.randint(-127, 128, (512, 256), device=dev, generator=g,
+                        dtype=torch.int8)
+    s1 = 1e-3 * torch.rand(512, device=dev, generator=g) + 1e-4
+    b1 = 0.1 * torch.randn(512, device=dev, generator=g)
+    txt = torch.randn(150, 512, device=dev, generator=g)
+    sx = torch.tensor(0.02, device=dev)
+    for shape, normalize in (((8, 120, 120, 256), False),
+                             ((8, 240, 240, 256), True)):
+        xq = torch.randint(-127, 128, shape, device=dev, generator=g,
+                           dtype=torch.int8)
+        args = (xq, sx, w1q, s1, b1, txt, 1.0 / 0.07, normalize)
+        err = check_close(
+            f"head1_correlate_fused {shape}->K=150 normalize={normalize}",
+            head1_correlate_fused(*args), head1_correlate_fused_plain(*args),
+            HEAD1_RTOL, HEAD1_ATOL)
+        if not normalize:
+            ms, plain_ms = _timed(
+                "head1_correlate_fused", f"{shape}->K=150 normalize=False",
+                lambda: head1_correlate_fused(*args),
+                lambda: head1_correlate_fused_plain(*args))
+            results["head1_correlate_fused"] = (err, ms, plain_ms)
+        else:
+            _timed("head1_correlate_fused", f"{shape}->K=150 normalize=True",
+                   lambda: head1_correlate_fused(*args),
+                   lambda: head1_correlate_fused_plain(*args))
     return results
 
 
@@ -283,26 +413,158 @@ def phase_serving(dev):
         fail(f"kernel path deviates {d_kernel} > {SERVE_RATIO} * {d_ref} "
              f"+ {SERVE_FLOOR}")
     del ref32
-    return plain, predict, cache, ade, launches
+    return plain, predict, cache, ade, requests, launches
 
 
-def phase_numbers(dev, plain, predict, cache, ade):
+def _kernel_counters():
+    from lseg_tpu_torch.ops.flash_attention import (
+        flash_attention_flat,
+        flash_attention_ln_qkv_fused_q8,
+    )
+    from lseg_tpu_torch.ops.head1_correlate import head1_correlate_fused
+    from lseg_tpu_torch.ops.ln_quant import ln_quantize_rows
+    from lseg_tpu_torch.ops.patch_embed import patch_embed
+
+    return {"patch_embed": patch_embed,
+            "flash_attention_flat": flash_attention_flat,
+            "ln_quantize_rows": ln_quantize_rows,
+            "flash_attention_ln_qkv_fused_q8": flash_attention_ln_qkv_fused_q8,
+            "head1_correlate_fused": head1_correlate_fused}
+
+
+def phase_serving_int8(dev, cache, requests):
+    from lseg_tpu_torch import fast_serving, get_config
+    from lseg_tpu_torch.models.layers import random_init_
+    from lseg_tpu_torch.models.lseg import LSegNet
+    from lseg_tpu_torch.ops.quant import calibrate_act_scales, quantize_tree
+
+    print("[3b] serving fast_serving(clip_vitl16_384, 'static_cal'), int8")
+    cfg = fast_serving(get_config("clip_vitl16_384"), "static_cal")
+    vit = cfg.vit
+    print(f"  attn {vit.attn_impl}, ln_quant_fused {vit.ln_quant_fused}, "
+          f"mlp_act_cal {vit.mlp_act_cal}, quant_int8 {vit.quant_int8}; "
+          f"decoder_quant {cfg.decoder_quant}, head_fused {cfg.head_fused},"
+          f" decoder_conv_first {cfg.decoder_conv_first}")
+    # the same function unquantized in fp32: the source of the int8 tree
+    # and the reference of d_ref
+    fast = fast_serving(get_config("clip_vitl16_384"), quant=False)
+    ref_cfg = dataclasses.replace(fast, head_dtype="float32",
+                                  vit=dataclasses.replace(
+                                      fast.vit, attn_impl="xla",
+                                      attn_scores_dtype="float32",
+                                      patch_fused=False))
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    ref32 = random_init_(LSegNet(ref_cfg, torch.float32, dev), g).eval()
+    state = quantize_tree(ref32.state_dict(), decoder=True, act_scale=True)
+    model = LSegNet(cfg, torch.bfloat16, dev).eval()
+    model.load_state_dict(state)
+    del state
+    cal = _images(g, dev, 8, 480, 480)
+    calibrate_act_scales(model, cal, None)
+    plain = LSegNet(cfg, torch.bfloat16, dev, plain=True).eval()
+    plain.load_state_dict(model.state_dict())
+    torch.cuda.synchronize()
+    scales = [v for k, v in model.state_dict().items()
+              if k.endswith("act_scale")]
+    if not scales or any(float(v) == 1.0 or not torch.isfinite(v)
+                         for v in scales):
+        fail("calibration left an act_scale at its placeholder")
+    print(f"  quantize_tree + calibrate_act_scales (one batch of 8): "
+          f"{time.perf_counter() - t0:.2f} s, {len(scales)} act scales in "
+          f"[{min(float(v) for v in scales):.4g}, "
+          f"{max(float(v) for v in scales):.4g}]")
+
+    counters = _kernel_counters()
+    blocks = vit.hooks[-1] + 1
+    expected = {"patch_embed": 1, "flash_attention_flat": 0,
+                "ln_quantize_rows": blocks,
+                "flash_attention_ln_qkv_fused_q8": blocks,
+                "head1_correlate_fused": 1}
+    for fn in counters.values():
+        fn.launches = 0
+    for name, labels, images in requests:
+        before = {k: fn.launches for k, fn in counters.items()}
+        t0 = time.perf_counter()
+        txt = cache(labels)
+        with torch.inference_mode():
+            pred = model(images, txt, return_argmax=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n, h, w, _ = images.shape
+        k = len(labels)
+        if pred.shape != (n, h, w) or pred.dtype != torch.int32:
+            fail(f"int8 {name}: labels {tuple(pred.shape)} {pred.dtype}")
+        lo, hi = int(pred.min()), int(pred.max())
+        if lo < 0 or hi >= k:
+            fail(f"int8 {name}: labels outside [0, {k}): [{lo}, {hi}]")
+        delta = {key: fn.launches - before[key]
+                 for key, fn in counters.items()}
+        print(f"  request {name}: K={k}, labels {tuple(pred.shape)} int32 "
+              f"in [{lo}, {hi}], {len(torch.unique(pred))} distinct, "
+              f"{dt:.3f} s (first call), launches {delta}")
+        if delta != expected:
+            fail(f"int8 {name}: expected launches {expected}, got {delta}")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"  main path launches: {launches}")
+
+    # half-res logits: kernel path vs plain path vs the fp32 model
+    _, labels, images = requests[1]
+    txt = cache(labels)
+    with torch.inference_mode():
+        lk = model(images, txt, return_halfres=True).float()
+        lp = plain(images, txt, return_halfres=True).float()
+        lr = ref32(images, txt, return_halfres=True).float()
+    for name, t in (("kernel", lk), ("plain", lp), ("fp32", lr)):
+        if not torch.isfinite(t).all():
+            fail(f"int8 half-res logits of the {name} path are not finite")
+    d_kernel = float((lk - lp).abs().max())
+    d_ref = float((lp - lr).abs().max())
+    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    agree_ref = float((lp.argmax(-1) == lr.argmax(-1)).float().mean())
+    print(f"  int8 half-res logits {tuple(lk.shape)}: |kernel - plain| max "
+          f"{d_kernel:.6g}, |plain int8 - fp32| max {d_ref:.6g}, max "
+          f"|logit| {float(lr.abs().max()):.4g}; label agreement kernel vs "
+          f"plain {agree:.4f}, plain vs fp32 {agree_ref:.4f} (not gated)")
+    if d_kernel > SERVE_RATIO * d_ref + SERVE_FLOOR:
+        fail(f"int8 kernel path deviates {d_kernel} > {SERVE_RATIO} * "
+             f"{d_ref} + {SERVE_FLOOR}")
+    del ref32
+    return model, plain, launches
+
+
+def _measure(name, fn):
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    ms = cuda_time_ms(fn, warmup=2, iters=10)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {name}: {ms:.3f} ms/batch, img_per_sec_chip_480x480_"
+          f"ade20k150_zeroshot={8e3 / ms:.2f}, peak memory "
+          f"{peak / 2**30:.3f} GiB ({resident / 2**30:.3f} GiB resident "
+          f"before the call)")
+
+
+def phase_numbers(dev, plain, predict, cache, ade, model_q, plain_q):
     from lseg_tpu_torch.engine.serve import make_predictor
 
     print("[4] numbers: batch 8, 480x480, K=150")
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     images = _images(g, dev, 8, 480, 480)
     txt = cache(ade)
-    for name, fn in (("kernel path", predict),
-                     ("plain path", make_predictor(plain))):
-        fn(images, txt)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ms = cuda_time_ms(lambda: fn(images, txt), warmup=2, iters=10)
-        peak = torch.cuda.max_memory_allocated()
-        print(f"  {name}: {ms:.3f} ms/batch, img_per_sec_chip_480x480_"
-              f"ade20k150_zeroshot={8e3 / ms:.2f}, peak memory "
-              f"{peak / 2**30:.3f} GiB")
+    plain_predict = make_predictor(plain)
+    _measure("kernel path", lambda: predict(images, txt))
+    _measure("plain path", lambda: plain_predict(images, txt))
+
+    def argmax_call(model):
+        def call():
+            with torch.inference_mode():
+                return model(images, txt, return_argmax=True)
+        return call
+
+    _measure("static_cal kernel path", argmax_call(model_q))
+    _measure("static_cal plain path", argmax_call(plain_q))
 
 
 def main() -> int:
@@ -313,13 +575,27 @@ def main() -> int:
     t_start = time.perf_counter()
     name = phase_device_and_build()
     kernels = phase_kernels(dev)
-    plain, predict, cache, ade, launches = phase_serving(dev)
-    phase_numbers(dev, plain, predict, cache, ade)
+    plain, predict, cache, ade, requests, launches = phase_serving(dev)
+    model_q, plain_q, launches_q = phase_serving_int8(dev, cache, requests)
+    phase_numbers(dev, plain, predict, cache, ade, model_q, plain_q)
+    # each kernel's launches on the path that runs it: B1 and B6 on the
+    # bf16 path (phase 3), B2, B3 and B4 on the int8 path (phase 3b, which
+    # also checked B1 per request)
+    launches.update({k: launches_q[k] for k in (
+        "ln_quantize_rows", "flash_attention_ln_qkv_fused_q8",
+        "head1_correlate_fused")})
     sources = {
         "patch_embed": ("lseg_tpu_torch/csrc/patch_embed.cu",
                         "lseg_tpu/ops/pallas_patch.py:59"),
         "flash_attention_flat": ("lseg_tpu_torch/csrc/flash_attention_flat.cu",
                                  "lseg_tpu/ops/pallas_attention.py:110"),
+        "ln_quantize_rows": ("lseg_tpu_torch/csrc/ln_quantize_rows.cu",
+                             "lseg_tpu/ops/pallas_ln.py:43"),
+        "flash_attention_ln_qkv_fused_q8": (
+            "lseg_tpu_torch/csrc/flash_attention_ln_qkv_q8.cu",
+            "lseg_tpu/ops/pallas_attention.py:780"),
+        "head1_correlate_fused": ("lseg_tpu_torch/csrc/head1_correlate.cu",
+                                  "lseg_tpu/ops/pallas_correlation.py:638"),
     }
     rows = []
     for k, (err, ms, plain_ms) in kernels.items():

@@ -11,7 +11,10 @@ callers of the port name only this package.
 
 Hand-written Hopper kernels live in `csrc/` and are built with `nvcc`
 at first use (`ops/_build.py`); each has a plain PyTorch twin beside
-its wrapper (`ops/patch_embed.py`, `ops/flash_attention.py`).
+its wrapper (`ops/patch_embed.py`, `ops/flash_attention.py`,
+`ops/ln_quant.py`, `ops/head1_correlate.py`). The int8 serving layer
+(`quantize_tree`, `calibrate_act_scales`, the int8 dense and conv
+products) is `ops/quant.py`.
 """
 
 from lseg_tpu.config import (  # noqa: F401

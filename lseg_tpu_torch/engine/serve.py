@@ -8,7 +8,11 @@ image path.
 The head is the reference's default (`use_pallas=False`) head: the
 pixel embeddings from `LSegNet(x, None)`, then the correlation and the
 x2 align-corners upsample in the config's head dtype (bf16 in the fast
-config), then the argmax over K at full resolution, int32 out. The
+config), then the argmax over K at full resolution, int32 out. On the
+int8 configs `LSegNet(x, None)` runs head1 unfused (`StaticQuantConv`),
+as the reference's predictor does; the fused head B4 serves
+`LSegNet(x, text, return_argmax=True)`, the call of the reference's
+bench. The
 `use_pallas=True` head of the reference runs two more TPU kernels,
 B10 (`fused_correlate`) and B11 (`upsample2x_argmax`), which are not
 ported yet.

@@ -1,10 +1,14 @@
-"""DPT decoder blocks (torch port of the unquantized paths of
-`lseg_tpu/models/blocks.py`): readout, reassemble, scratch projection and
-RefineNet-style fusion. Activations stay NHWC as in the reference; the
-convolutions run on NCHW views of the channels-last tensors.
+"""DPT decoder blocks (torch port of `lseg_tpu/models/blocks.py`):
+readout, reassemble, scratch projection and RefineNet-style fusion.
+Activations stay NHWC as in the reference; the float convolutions run on
+NCHW views of the channels-last tensors.
 
-The spatial-regularisation head blocks (`arch_option` 1/2) and the int8
-serving paths are not ported yet.
+`quant` is the config's `decoder_quant`: 'static' / 'static_cal' swap the
+readout dense and the reassemble, scratch, RCU and out_conv convolutions
+for their pre-quantized int8 twins (`ops.quant`), with dynamic or
+calibrated activation scales, and run the fusion x2 upsample in the model
+dtype. The spatial-regularisation head blocks (`arch_option` 1/2) and the
+fused RCU / fused tail kernels (B18, B19) are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,15 +25,35 @@ from lseg_tpu_torch.models.layers import (
     Dense,
     lecun_normal_,
 )
+from lseg_tpu_torch.ops.quant import StaticQuantConv, StaticQuantDense
 from lseg_tpu_torch.ops.resize import upsample2x
+
+QUANT_MODES = ("static", "static_cal")
+
+
+def conv(in_ch: int, out_ch: int, kernel: int, quant=False,
+         dtype=torch.float32, stride: int = 1, padding: int = 0,
+         bias: bool = True, device=None) -> nn.Module:
+    """`Conv2d`, or its pre-quantized int8 twin for `quant` 'static'
+    (dynamic activation scales) / 'static_cal' (calibrated), as the
+    reference's `_conv`."""
+    if quant in QUANT_MODES:
+        return StaticQuantConv(in_ch, out_ch, kernel, stride, padding, bias,
+                               dtype, quant == "static_cal", device)
+    return Conv2d(in_ch, out_ch, kernel, stride, padding, bias, dtype,
+                  device)
 
 
 class ProjectReadout(nn.Module):
-    """concat(patch, cls) -> Linear(2D -> D) -> exact GELU."""
+    """concat(patch, cls) -> Linear(2D -> D) -> exact GELU; the linear
+    is the int8 `StaticQuantDense` under `quant`."""
 
-    def __init__(self, dim: int, dtype=torch.float32, device=None):
+    def __init__(self, dim: int, dtype=torch.float32, quant=False,
+                 device=None):
         super().__init__()
-        self.project = Dense(2 * dim, dim, dtype, device)
+        self.project = (StaticQuantDense(2 * dim, dim, dtype, device=device)
+                        if quant in QUANT_MODES
+                        else Dense(2 * dim, dim, dtype, device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, t, d = x.shape
@@ -89,20 +113,23 @@ class Reassemble(nn.Module):
     resample (token upsample, identity or stride-2 3x3 conv)."""
 
     def __init__(self, out_channels: int, resample: float, vit_dim: int,
-                 readout: str, dtype=torch.float32, device=None):
+                 readout: str, dtype=torch.float32, quant=False,
+                 device=None):
         super().__init__()
         self.kind = readout
         self.vit_dim = vit_dim
         if readout == "project":
-            self.readout = ProjectReadout(vit_dim, dtype, device)
-        self.proj = Conv2d(vit_dim, out_channels, 1, dtype=dtype,
-                           device=device)
+            self.readout = ProjectReadout(vit_dim, dtype, quant, device)
+        self.proj = conv(vit_dim, out_channels, 1, quant, dtype,
+                         device=device)
         if resample > 1:
+            # the token upsample stays float under quant, as in the
+            # reference
             self.resample = TokenUpsample(out_channels, int(resample),
                                           dtype, device)
         elif resample < 1:
-            self.resample = Conv2d(out_channels, out_channels, 3, stride=2,
-                                   padding=1, dtype=dtype, device=device)
+            self.resample = conv(out_channels, out_channels, 3, quant, dtype,
+                                 stride=2, padding=1, device=device)
         else:
             self.resample = nn.Identity()
 
@@ -119,12 +146,13 @@ class ResidualConvUnit(nn.Module):
     Conv bias only without BN."""
 
     def __init__(self, features: int, use_bn: bool = True,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, quant=False, device=None):
         super().__init__()
         self.use_bn = use_bn
-        kw = dict(padding=1, bias=not use_bn, dtype=dtype, device=device)
-        self.conv1 = Conv2d(features, features, 3, **kw)
-        self.conv2 = Conv2d(features, features, 3, **kw)
+        kw = dict(quant=quant, dtype=dtype, padding=1, bias=not use_bn,
+                  device=device)
+        self.conv1 = conv(features, features, 3, **kw)
+        self.conv2 = conv(features, features, 3, **kw)
         if use_bn:
             self.bn1 = BatchNorm(features, 1e-5, dtype, device)
             self.bn2 = BatchNorm(features, 1e-5, dtype, device)
@@ -140,24 +168,39 @@ class ResidualConvUnit(nn.Module):
 
 
 class FeatureFusionBlock(nn.Module):
-    """(+ RCU1(skip)) -> RCU2 -> x2 bilinear (align_corners, fp32
-    compute on the unquantized path) -> 1x1 out_conv."""
+    """(+ RCU1(skip)) -> RCU2 -> x2 bilinear (align_corners) -> 1x1
+    out_conv. The upsample computes in fp32 on the unquantized path and in
+    the model dtype under `quant`. `conv_first` runs out_conv BEFORE the
+    upsample (they commute exactly: a channel-only conv, a spatial-only
+    interpolation whose rows sum to 1); `skip_out_upsample` then returns
+    the low-resolution conv output (the lowres serving head)."""
 
     def __init__(self, features: int, use_bn: bool = True,
-                 dtype=torch.float32, with_skip: bool = True, device=None):
+                 dtype=torch.float32, with_skip: bool = True, quant=False,
+                 conv_first: bool = False, device=None):
         super().__init__()
+        self.quant = quant
+        self.conv_first = conv_first
+        self.up_dtype = dtype if quant in QUANT_MODES else torch.float32
         if with_skip:
-            self.rcu1 = ResidualConvUnit(features, use_bn, dtype, device)
-        self.rcu2 = ResidualConvUnit(features, use_bn, dtype, device)
-        self.out_conv = Conv2d(features, features, 1, dtype=dtype,
-                               device=device)
+            self.rcu1 = ResidualConvUnit(features, use_bn, dtype, quant,
+                                         device)
+        self.rcu2 = ResidualConvUnit(features, use_bn, dtype, quant, device)
+        self.out_conv = conv(features, features, 1, quant, dtype,
+                             device=device)
 
-    def forward(self, x: torch.Tensor,
-                skip: torch.Tensor = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, skip: torch.Tensor = None,
+                skip_out_upsample: bool = False) -> torch.Tensor:
         if skip is not None:
             x = x + self.rcu1(skip)
         x = self.rcu2(x)
-        x = upsample2x(x, align_corners=True, compute_dtype=torch.float32)
+        if self.conv_first:
+            x = self.out_conv(x)
+            if skip_out_upsample:
+                return x
+            return upsample2x(x, align_corners=True,
+                              compute_dtype=self.up_dtype)
+        x = upsample2x(x, align_corners=True, compute_dtype=self.up_dtype)
         return self.out_conv(x)
 
 
@@ -165,11 +208,11 @@ class Scratch(nn.Module):
     """Four 3x3 no-bias convs projecting the pyramid to `features`."""
 
     def __init__(self, in_channels: Sequence[int], features: int,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, quant=False, device=None):
         super().__init__()
         for i, c in enumerate(in_channels):
-            self.add_module(f"layer{i + 1}_rn", Conv2d(
-                c, features, 3, padding=1, bias=False, dtype=dtype,
+            self.add_module(f"layer{i + 1}_rn", conv(
+                c, features, 3, quant, dtype, padding=1, bias=False,
                 device=device))
 
     def forward(self, layers: Sequence[torch.Tensor]) -> List[torch.Tensor]:

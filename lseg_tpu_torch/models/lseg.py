@@ -1,5 +1,5 @@
 """The LSeg network (torch port of `lseg_tpu/models/lseg.py`, ViT
-backbones, unquantized paths).
+backbones).
 
     taps   = DenseViT(x)                      # 4 tapped token sequences
     layers = Reassemble_i(taps_i)             # multi-res pyramid
@@ -8,6 +8,17 @@ backbones, unquantized paths).
     img    = head1(path1)                     # (N, H/2, W/2, out_c)
     out    = correlate(img, text)             # (N, H/2, W/2, K)
     out    = x2 bilinear (align_corners=True) # (N, H, W, K)
+
+The int8 fast config (`fast_serving(cfg, 'static' | 'static_cal')`) sets
+`head_fused='lowres'` and `decoder_conv_first`: with text features the
+int8 head1 projection and the correlation run in kernel B4
+(`ops.head1_correlate`), quantizing path1 on head1's (calibrated or
+dynamic) per-tensor grid first. In argmax mode (`return_argmax`)
+refinenet1 skips its x2 upsample, B4 correlates at H/4 without the
+per-pixel norm, and only the K-logit map is x2-upsampled before the
+argmax; otherwise B4 correlates at H/2 with the norm. Without text
+features head1 runs unfused (`StaticQuantConv`), as `make_predictor` and
+the calibration forward use it.
 
 Text features come precomputed (`text.cache.TextFeatureCache`), so a
 label-set swap never re-encodes. Inputs and outputs are NHWC, as in the
@@ -21,13 +32,19 @@ from torch import nn
 
 from lseg_tpu_torch import LSegConfig
 from lseg_tpu_torch.models.blocks import (
+    QUANT_MODES,
     FeatureFusionBlock,
     Reassemble,
     Scratch,
+    conv,
 )
-from lseg_tpu_torch.models.layers import Conv2d
 from lseg_tpu_torch.models.vit import DenseViT
 from lseg_tpu_torch.ops.correlation import correlate
+from lseg_tpu_torch.ops.head1_correlate import (
+    head1_correlate_fused,
+    head1_correlate_fused_plain,
+)
+from lseg_tpu_torch.ops.quant import quantize_tensor
 from lseg_tpu_torch.ops.resize import upsample2x
 
 
@@ -41,16 +58,20 @@ def _nearest2x(pred: torch.Tensor) -> torch.Tensor:
 
 
 def _check_supported(cfg: LSegConfig) -> None:
+    """Raise for the options whose reference path runs a kernel (or a
+    module) the port does not have yet."""
     if not cfg.is_vit:
         raise NotImplementedError("the ResNet backbone is not ported yet")
+    vit = cfg.vit
     unported = {
-        "arch_option": cfg.arch_option not in (0,),
-        "decoder_quant": bool(cfg.decoder_quant),
-        "head_fused": bool(cfg.head_fused),
-        "decoder_conv_first": cfg.decoder_conv_first,
-        "decoder_fused_tail": cfg.decoder_fused_tail,
-        "decoder_fused_rcu": cfg.decoder_fused_rcu,
-        "vit.quant_int8": bool(cfg.vit.quant_int8),
+        "arch_option (head blocks 1/2)": cfg.arch_option not in (0,),
+        "decoder_fused_rcu (kernel B18)": cfg.decoder_fused_rcu,
+        "decoder_fused_tail (kernel B19)": cfg.decoder_fused_tail,
+        "head_fused='wup' (kernel B14)": cfg.head_fused == "wup",
+        "vit.mlp_fused (kernel B16)": vit.mlp_fused,
+        "vit.attn_impl='flashq' (kernel B8)": vit.attn_impl == "flashq",
+        "vit.attn_impl='flashqp' (kernel B15)": vit.attn_impl == "flashqp",
+        "vit.quant_int8 dynamic": vit.quant_int8 in (True, "dynamic"),
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -65,27 +86,50 @@ class LSegNet(nn.Module):
     - default: (N, H, W, K) fp32 logits;
     - `return_halfres`: skip the x2 output upsample;
     - `return_argmax`: (N, H, W) int32 labels from the half-res argmax,
-      nearest-x2 upsampled (half-res with `return_halfres`)."""
+      nearest-x2 upsampled (half-res with `return_halfres`).
 
-    def __init__(self, cfg: LSegConfig, dtype=torch.float32, device=None):
+    `plain=True` swaps every kernel for its plain PyTorch twin."""
+
+    def __init__(self, cfg: LSegConfig, dtype=torch.float32, device=None,
+                 plain: bool = False):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
         self.dtype = dtype
+        self.plain = plain
+        # set by ops.quant.calibrate_act_scales: head1 then runs unfused
+        # so that its act_scale site records path1
+        self.calibrating = False
         vit = cfg.vit
-        self.vit = DenseViT(vit, dtype, device)
+        q = cfg.decoder_quant
+        self.vit = DenseViT(vit, dtype, device, plain)
         for i in range(4):
             self.add_module(f"reassemble{i + 1}", Reassemble(
                 vit.post_channels[i], vit.resample[i], vit.embed_dim,
-                cfg.readout, dtype, device))
-        self.scratch = Scratch(vit.post_channels, cfg.features, dtype,
+                cfg.readout, dtype, q, device))
+        self.scratch = Scratch(vit.post_channels, cfg.features, dtype, q,
                                device)
         for i in range(1, 5):
             self.add_module(f"refinenet{i}", FeatureFusionBlock(
-                cfg.features, cfg.use_bn, dtype, with_skip=i != 4,
+                cfg.features, cfg.use_bn, dtype, with_skip=i != 4, quant=q,
+                conv_first=cfg.decoder_conv_first and i == 1,
                 device=device))
-        self.head1 = Conv2d(cfg.features, cfg.out_c, 1, dtype=dtype,
-                            device=device)
+        self.head1 = conv(cfg.features, cfg.out_c, 1, q, dtype,
+                          device=device)
+
+    def _fused_head(self, path1, text_features, normalize):
+        """B4 on path1 quantized on head1's per-tensor grid."""
+        h1 = self.head1
+        if h1.static_act:
+            sx = h1.act_scale / 127.0
+            xq = torch.clamp(torch.round(path1.float() / sx), -127, 127
+                             ).to(torch.int8)
+        else:
+            xq, sx = quantize_tensor(path1)
+        op = head1_correlate_fused_plain if self.plain else \
+            head1_correlate_fused
+        return op(xq.contiguous(), sx, h1.weight_q, h1.scale, h1.bias,
+                  text_features, self.cfg.logit_scale, normalize)
 
     def forward(self, x: torch.Tensor, text_features: torch.Tensor = None,
                 return_halfres: bool = False, return_argmax: bool = False):
@@ -97,12 +141,40 @@ class LSegNet(nn.Module):
         path = self.refinenet4(rn[3])
         path = self.refinenet3(path, rn[2])
         path = self.refinenet2(path, rn[1])
-        path = self.refinenet1(path, rn[0])
-        image_features = self.head1(path)
-        if text_features is None:
-            return image_features
+
+        use_head_fused = (
+            bool(cfg.head_fused) and cfg.decoder_quant in QUANT_MODES
+            and cfg.head_dtype == "bfloat16"
+            and text_features is not None and not self.calibrating)
+        use_lowres_head = (use_head_fused and cfg.head_fused == "lowres"
+                           and cfg.decoder_conv_first and return_argmax)
+        if use_head_fused and return_argmax and not use_lowres_head:
+            raise NotImplementedError(
+                "the fused argmax head (head_fused=True with return_argmax) "
+                "needs kernel B5 (head1_correlate_argmax_fused_t), which is "
+                "not ported yet")
+        path1 = self.refinenet1(path, rn[0],
+                                skip_out_upsample=use_lowres_head)
 
         hd = head_dtype(cfg)
+        if use_lowres_head:
+            # raw e.Tn scores at H/4; the positive per-pixel norm is
+            # argmax-invariant, the x2 upsample commutes with the head
+            s_lo = self._fused_head(path1, text_features, normalize=False)
+            up = upsample2x(s_lo, align_corners=True,
+                            compute_dtype=torch.bfloat16)
+            pred = torch.argmax(up.float(), dim=-1).to(torch.int32)
+            return pred if return_halfres else _nearest2x(pred)
+        if use_head_fused:
+            out = self._fused_head(path1, text_features, normalize=True)
+            if return_halfres:
+                return out
+            return upsample2x(out, align_corners=True,
+                              compute_dtype=torch.bfloat16).float()
+
+        image_features = self.head1(path1)
+        if text_features is None:
+            return image_features
         out = correlate(image_features, text_features,
                         logit_scale=cfg.logit_scale, compute_dtype=hd,
                         defer_pixel_norm=cfg.head_dtype == "bfloat16")

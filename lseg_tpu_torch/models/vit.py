@@ -9,12 +9,27 @@ not padded to a multiple of 8 (a TPU sublane concern), so attention runs
 over exactly the 1 + gh*gw real tokens.
 
 Attention `impl`:
-- 'flashflat' (fast config, head_dim 64, even heads): the fused qkv
-  projection's flat (N, T, 3D) output goes straight into the
-  hand-written flash kernel (`ops.flash_attention`), which emits the flat
-  (N, T, D) input of the output projection;
+- 'flashlnq' with `quant_int8='static'` (the int8 fast config, head_dim
+  64, even heads): LayerNorm 1, the int8 qkv projection, attention and the
+  per-row int8 quantize of its output run in kernel B2
+  (`ops.flash_attention.flash_attention_ln_qkv_fused_q8`), whose codes
+  feed the int8 output projection directly;
+- 'flashflat' (or 'flashlnq' unquantized): the fused qkv projection's
+  flat (N, T, 3D) output goes straight into the flash kernel B6, which
+  emits the flat (N, T, D) input of the output projection;
 - anything else: einsum attention with fp32 softmax (the reference's
   'xla' path), scores in `scores_dtype`.
+
+With `quant_int8='static'` the projections are `StaticQuantDense`, and
+with `ln_quant_fused` the MLP takes LayerNorm 2 + the row quantize from
+kernel B3 (`ops.ln_quant.ln_quantize_rows`); `mlp_act_cal` adds the
+calibrated per-tensor scale of the GELU output (the block's `act_scale`).
+The reference takes that MLP branch only where its padded T is a multiple
+of 8, which holds wherever its flash path pads; the port takes it under
+the same condition, computed from the reference's padded T.
+
+`plain=True` swaps every kernel for its plain PyTorch twin (the
+comparison path of `chip_smoke.py`); nothing picks it automatically.
 """
 
 from __future__ import annotations
@@ -25,13 +40,42 @@ from torch import nn
 
 from lseg_tpu_torch import ViTConfig, flat_flash_eligible
 from lseg_tpu_torch.models.layers import Dense, LayerNorm, lecun_normal_
-from lseg_tpu_torch.ops.flash_attention import flash_attention_flat
+from lseg_tpu_torch.ops.flash_attention import (
+    flash_attention_flat,
+    flash_attention_flat_plain,
+    flash_attention_ln_qkv_fused_q8,
+    flash_attention_ln_qkv_fused_q8_plain,
+)
+from lseg_tpu_torch.ops.ln_quant import (
+    ln_quantize_rows,
+    ln_quantize_rows_plain,
+)
 from lseg_tpu_torch.ops.patch_embed import patch_embed, patch_embed_plain
+from lseg_tpu_torch.ops.quant import (
+    EPS,
+    StaticQuantDense,
+    int8_matmul_preact,
+    int8_matmul_prequant,
+    int8_matmul_prequant_act,
+    record_amax,
+)
 from lseg_tpu_torch.ops.resize import resize_bilinear
+
+# attention impls whose reference path pads T to a multiple of 8
+_PADDING_IMPLS = ("flashflat", "flashq", "flashlnq")
 
 
 def _dtype(name: str) -> torch.dtype:
     return torch.bfloat16 if name == "bfloat16" else torch.float32
+
+
+def dense(in_features: int, out_features: int, dtype, quant,
+          device=None) -> nn.Module:
+    """`Dense`, or `StaticQuantDense` for `quant='static'`."""
+    if quant == "static":
+        return StaticQuantDense(in_features, out_features, dtype,
+                                device=device)
+    return Dense(in_features, out_features, dtype, device)
 
 
 class Attention(nn.Module):
@@ -39,14 +83,34 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32,
                  impl: str = "xla", scores_dtype=torch.float32,
-                 device=None):
+                 quant=False, plain: bool = False, device=None):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
-        self.impl = impl
         self.scores_dtype = scores_dtype
-        self.qkv = Dense(dim, 3 * dim, dtype, device)
-        self.proj = Dense(dim, dim, dtype, device)
+        self.plain = plain
+        flat_ok = flat_flash_eligible(dim, num_heads, False)
+        # LN1 inside kernel B2 (the reference's flashlnq branch)
+        self.ln_fused = impl == "flashlnq" and flat_ok and quant == "static"
+        self.flat = impl in ("flashflat", "flashlnq") and flat_ok
+        self.qkv = dense(dim, 3 * dim, dtype, quant, device)
+        self.proj = dense(dim, dim, dtype, quant, device)
+
+    def forward_ln(self, x: torch.Tensor, norm: LayerNorm) -> torch.Tensor:
+        """attn(norm(x)) for the `ln_fused` path: `x` is the RAW residual
+        stream; B2 returns its output as int8 codes + row scales, which go
+        straight into the int8 output projection (bias after the cast)."""
+        n, t, d = x.shape
+        op = (flash_attention_ln_qkv_fused_q8_plain if self.plain
+              else flash_attention_ln_qkv_fused_q8)
+        qkv = self.qkv
+        oq, os_ = op(x.to(torch.bfloat16).contiguous(), norm.weight,
+                     norm.bias, qkv.weight_q, qkv.scale, qkv.bias,
+                     self.num_heads, (d // self.num_heads) ** -0.5,
+                     eps=norm.eps)
+        p = self.proj
+        return int8_matmul_prequant_act(oq, os_, p.weight_q, p.scale, p.bias,
+                                        self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, t, d = x.shape
@@ -54,8 +118,10 @@ class Attention(nn.Module):
         hd = d // h
         scale = hd ** -0.5
         qkv = self.qkv(x)
-        if self.impl == "flashflat" and flat_flash_eligible(d, h, False):
-            return self.proj(flash_attention_flat(qkv, h, scale))
+        if self.flat:
+            op = flash_attention_flat_plain if self.plain else \
+                flash_attention_flat
+            return self.proj(op(qkv, h, scale))
         q, k, v = qkv.reshape(n, t, 3, h, hd).unbind(2)
         s = torch.einsum("nqhd,nkhd->nhqk", q.float(), k.float())
         s = s.to(self.scores_dtype) * scale
@@ -68,11 +134,11 @@ class Mlp(nn.Module):
     """fc1 -> GELU ('exact' erf or 'tanh') -> fc2."""
 
     def __init__(self, dim: int, hidden: int, dtype=torch.float32,
-                 gelu: str = "exact", device=None):
+                 gelu: str = "exact", quant=False, device=None):
         super().__init__()
         self.approximate = "tanh" if gelu == "tanh" else "none"
-        self.fc1 = Dense(dim, hidden, dtype, device)
-        self.fc2 = Dense(hidden, dim, dtype, device)
+        self.fc1 = dense(dim, hidden, dtype, quant, device)
+        self.fc2 = dense(hidden, dim, dtype, quant, device)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
@@ -82,18 +148,70 @@ class Block(nn.Module):
     """Pre-norm transformer block: x += attn(ln1(x)); x += mlp(ln2(x)),
     LayerNorm eps 1e-6."""
 
-    def __init__(self, cfg: ViTConfig, dtype=torch.float32, device=None):
+    def __init__(self, cfg: ViTConfig, dtype=torch.float32, device=None,
+                 plain: bool = False):
         super().__init__()
         d = cfg.embed_dim
+        quant = cfg.quant_int8
+        self.dtype = dtype
+        self.plain = plain
         self.norm1 = LayerNorm(d, 1e-6, dtype, device)
         self.attn = Attention(d, cfg.num_heads, dtype, cfg.attn_impl,
-                              _dtype(cfg.attn_scores_dtype), device)
+                              _dtype(cfg.attn_scores_dtype), quant, plain,
+                              device)
         self.norm2 = LayerNorm(d, 1e-6, dtype, device)
         self.mlp = Mlp(d, int(d * cfg.mlp_ratio), dtype, cfg.mlp_gelu,
-                       device)
+                       quant, device)
+        # the static part of the reference's LN2 + quantize gate; the
+        # T % 8 part comes with each call
+        self.ln_quant = (cfg.ln_quant_fused and quant == "static"
+                         and not cfg.mlp_fused and d % 128 == 0)
+        if self.ln_quant and cfg.mlp_act_cal:
+            self.act_scale = nn.Parameter(torch.empty(
+                (), dtype=torch.float32, device=device), requires_grad=False)
+            self.calibrating = False
+            self.cal_amax = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
+    def reset_parameters(self, generator=None):
+        if hasattr(self, "act_scale"):
+            self.act_scale.fill_(1.0)
+
+    def _mlp_ln_quant(self, x: torch.Tensor) -> torch.Tensor:
+        """mlp(norm2(x)) with LN2 + row quantize in kernel B3 and int8
+        fc1/fc2 (the reference's `ln_quant_fused` branch)."""
+        n, t, d = x.shape
+        dt = self.dtype
+        op = ln_quantize_rows_plain if self.plain else ln_quantize_rows
+        yq, sy = op(x.contiguous(), self.norm2.weight, self.norm2.bias,
+                    self.norm2.eps)
+        fc1, fc2 = self.mlp.fc1, self.mlp.fc2
+        h = (int8_matmul_preact(yq.reshape(n * t, d), sy.reshape(n * t, 1),
+                                fc1.weight_q, fc1.scale, dt)
+             + fc1.bias.to(dt))
+        h = F.gelu(h, approximate=self.mlp.approximate)
+        if hasattr(self, "act_scale") and not self.calibrating:
+            # calibrated per-tensor scale of the GELU output
+            sh = torch.clamp(self.act_scale, min=EPS) / 127.0
+            hq = torch.clamp(torch.round(h.float() / sh), -127, 127).to(
+                torch.int8)
+            y = int8_matmul_preact(hq, sh.reshape(1, 1), fc2.weight_q,
+                                   fc2.scale, dt)
+        else:
+            if hasattr(self, "act_scale"):
+                # calibration keeps the dynamic math; real rows only (the
+                # reference's amax also sees its pad rows)
+                record_amax(self, h.float().abs().amax())
+            y = int8_matmul_prequant(h, fc2.weight_q, fc2.scale, dt)
+        return (y + fc2.bias.to(dt)).reshape(n, t, d)
+
+    def forward(self, x: torch.Tensor, ln_quant_ok: bool = False
+                ) -> torch.Tensor:
+        if self.attn.ln_fused:
+            x = x + self.attn.forward_ln(x, self.norm1)
+        else:
+            x = x + self.attn(self.norm1(x))
+        if self.ln_quant and ln_quant_ok:
+            return x + self._mlp_ln_quant(x)
         return x + self.mlp(self.norm2(x))
 
 
@@ -133,7 +251,8 @@ class PatchEmbed(nn.Module):
 class DenseViT(nn.Module):
     """(N, H, W, 3) -> 4 tapped (N, 1 + gh*gw, D) sequences and (gh, gw)."""
 
-    def __init__(self, cfg: ViTConfig, dtype=torch.float32, device=None):
+    def __init__(self, cfg: ViTConfig, dtype=torch.float32, device=None,
+                 plain: bool = False):
         super().__init__()
         if cfg.tp_layout:
             raise NotImplementedError("tp_layout is a JAX sharding layout")
@@ -142,7 +261,7 @@ class DenseViT(nn.Module):
         d = cfg.embed_dim
         g0 = cfg.pretrain_grid
         self.patch_embed = PatchEmbed(d, cfg.patch_size, 3, dtype,
-                                      cfg.patch_fused, device)
+                                      cfg.patch_fused and not plain, device)
         self.cls_token = nn.Parameter(torch.empty(
             (1, 1, d), dtype=torch.float32, device=device),
             requires_grad=False)
@@ -150,7 +269,8 @@ class DenseViT(nn.Module):
             (1, 1 + g0 * g0, d), dtype=torch.float32, device=device),
             requires_grad=False)
         self.blocks = nn.ModuleList(
-            Block(cfg, dtype, device) for _ in range(cfg.hooks[-1] + 1))
+            Block(cfg, dtype, device, plain)
+            for _ in range(cfg.hooks[-1] + 1))
 
     def reset_parameters(self, generator=None):
         self.cls_token.zero_()
@@ -178,10 +298,18 @@ class DenseViT(nn.Module):
             pos_grid = pos_grid.reshape(1, gh * gw, d)
         x = x + torch.cat([pos_tok, pos_grid], dim=1).to(self.dtype)
 
+        # the reference pads T to a multiple of 8 on its flash paths and
+        # takes the LN2 + quantize branch where that T is a multiple of 8
+        t = 1 + gh * gw
+        if cfg.attn_impl in _PADDING_IMPLS and flat_flash_eligible(
+                d, cfg.num_heads, cfg.tp_layout):
+            t = -(-t // 8) * 8
+        ln_quant_ok = t % 8 == 0
+
         taps = []
         hooks = set(cfg.hooks)
         for i, blk in enumerate(self.blocks):
-            x = blk(x)
+            x = blk(x, ln_quant_ok)
             if i in hooks:
                 taps.append(x)
         return taps, (gh, gw)

@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels of `lseg_tpu_torch/csrc`.
 
-All `*.cu` sources compile with `nvcc` for `sm_90a` into ONE shared
-library with a plain C interface, which is loaded with `ctypes`. No
-PyTorch headers are included, so a cold build takes seconds; PyTorch's
-`torch.utils.cpp_extension` is not used (it needs `ninja` and compiles the
-PyTorch headers for minutes).
+Every `*.cu` source compiles with `nvcc` for `sm_90a` to an object of
+its own, all of them at once in parallel processes; the objects link into
+ONE shared library with a plain C interface, which is loaded with
+`ctypes`. No PyTorch headers are included, so a cold build takes seconds;
+PyTorch's `torch.utils.cpp_extension` is not used (it needs `ninja` and
+compiles the PyTorch headers for minutes). Device code shared between
+kernels lives in `*.cuh` headers with internal linkage.
 
 The library lands in `build/kernels/` at the root of the checkout, named
 by a hash of the sources and flags, so an edited source rebuilds and an
@@ -27,7 +29,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -39,6 +41,14 @@ SIGNATURES = {
     # qkv, out, n, t, dim, valid_len, scale, stream
     "lseg_flash_attention_flat": (_P, _P, _I, _I, _I, _I, ctypes.c_float,
                                   _P),
+    # x, ln_g, ln_b, q, s, rows, dim, eps, stream
+    "lseg_ln_quantize_rows": (_P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P),
+    # x, ln_g, ln_b, wq, sw, bias, xq, sx, qkv (scratch), oq, os,
+    # n, t, dim, valid_len, scale, eps, stream
+    "lseg_flash_attention_ln_qkv_q8": (_P,) * 11 + (
+        _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _P),
+    # xq, w, sc, b1, tn, out, m, c, e, k, normalize, stream
+    "lseg_head1_correlate": (_P,) * 6 + (_I,) * 5 + (_P,),
 }
 
 
@@ -82,15 +92,35 @@ def load_kernels() -> ctypes.CDLL:
     if not lib_path.exists():
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{lib_path.stem}.{os.getpid()}"
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for cmd, _, proc in jobs:
+            out = proc.communicate()[0]
+            log.append(f"$ {' '.join(cmd)}\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{out}")
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log_path.write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
+        if not failed:
+            cmd = [nvcc, "-shared", "-o", str(tmp),
+                   *[str(obj) for _, obj, _ in jobs]]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+            if proc.returncode != 0:
+                failed.append(f"nvcc link failed ({proc.returncode}):\n"
+                              f"{proc.stdout}{proc.stderr}")
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
+        log_path.write_text("\n".join(log))
+        if failed:
+            raise RuntimeError("\n".join(failed))
         os.replace(tmp, lib_path)
     load_kernels.build_seconds = time.perf_counter() - t0
     load_kernels.build_log = (log_path.read_text()

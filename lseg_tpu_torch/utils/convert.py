@@ -2,9 +2,10 @@
 
 `from_jax_variables` takes `LSegNet` variables (`params` +
 `batch_stats`) as a nested dict of numpy arrays; `from_jax_text_params`
-takes `CLIPTextEncoder` params. Both return {name: fp32 tensor} for
-`load_state_dict`, which rounds each entry to its parameter's dtype, the
-same cast the reference makes at every call.
+takes `CLIPTextEncoder` params. Both return {name: tensor} for
+`load_state_dict`: int8 leaves stay int8, everything else is fp32, which
+`load_state_dict` rounds to its parameter's dtype, the same cast the
+reference makes at every call.
 
 The rules:
 - scan-stacked blocks (`vit/seg{i}/blocks/*`, `resblocks/*`; leading
@@ -12,6 +13,11 @@ The rules:
   numbered on across the segments;
 - `nn.Dense` kernels (in, out) -> `weight` (out, in);
 - conv kernels HWIO -> OIHW;
+- int8 `kernel_q` leaves (a `quantize_tree` serving tree) -> `weight_q`,
+  transposed exactly as `kernel` is; the `scale` beside a `kernel_q` is the
+  per-output-channel weight scale and keeps its name, as does each 0-d
+  `act_scale` (stacked `(L,)` under the scan segments, so it unstacks with
+  the blocks);
 - the TokenUpsample kernel (C_in, s, s, C_out) -> ConvTranspose2d's
   (C_in, C_out, s, s); it is told apart from the stride-2 (3, 3, C, C)
   conv that can sit at the same place by its equal middle dimensions;
@@ -29,38 +35,45 @@ import numpy as np
 import torch
 
 _RENAME = {"scale": "weight", "mean": "running_mean",
-           "var": "running_var", "kernel": "weight"}
+           "var": "running_var", "kernel": "weight", "kernel_q": "weight_q"}
 
 
 def _flatten(tree, prefix=()) -> Iterator[Tuple[tuple, np.ndarray]]:
+    """(path, array) of every leaf; the `scale` of a quantized leaf set
+    comes out as `scale_q` so that it keeps its name (`_name`)."""
     for k in sorted(tree):
         v = tree[k]
         if isinstance(v, dict):
             yield from _flatten(v, prefix + (k,))
         else:
-            yield prefix + (k,), np.asarray(v, dtype=np.float32)
+            a = np.asarray(v)
+            key = "scale_q" if k == "scale" and "kernel_q" in tree else k
+            yield prefix + (key,), (a if a.dtype == np.int8
+                                    else a.astype(np.float32))
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+    return torch.from_numpy(np.array(a, order="C"))
 
 
 def _convert_leaf(path: tuple, a: np.ndarray) -> np.ndarray:
-    if path[-1] != "kernel":
+    if path[-1] not in ("kernel", "kernel_q"):
         return a
     if "patch_embed" in path:
         return a.reshape(-1, a.shape[-1])
     if a.ndim == 2:
         return a.T
     if a.ndim == 4:
-        if path[-2] == "resample" and a.shape[1] == a.shape[2] != 3:
+        if path[-2:-1] == ("resample",) and a.shape[1] == a.shape[2] != 3:
             return a.transpose(0, 3, 1, 2)   # TokenUpsample
         return a.transpose(3, 2, 0, 1)       # HWIO -> OIHW
     raise ValueError(f"unexpected kernel {'/'.join(path)} {a.shape}")
 
 
 def _name(path: tuple) -> str:
-    return ".".join(path[:-1] + (_RENAME.get(path[-1], path[-1]),))
+    leaf = "scale" if path[-1] == "scale_q" else _RENAME.get(path[-1],
+                                                             path[-1])
+    return ".".join(path[:-1] + (leaf,))
 
 
 def _stacked(tree, key: str, out_prefix: tuple, start: int,

@@ -112,13 +112,63 @@ def test_lseg_return_argmax_matches_jitted_batch1(setup):
     assert agree >= 0.99, agree
 
 
-def test_lseg_rejects_unported_options():
+def _option_cases():
+    """config option -> a tiny config whose reference path runs a kernel
+    (or a module) the port does not have yet."""
     import dataclasses
 
     from lseg_tpu.config import fast_serving
+    from lseg_tpu.testing import tiny_rn_config
 
-    with pytest.raises(NotImplementedError, match="decoder_quant"):
-        LSegNet(fast_serving(tiny_parity_config(), quant="static"))
-    with pytest.raises(NotImplementedError, match="arch_option"):
-        LSegNet(dataclasses.replace(tiny_parity_config(), arch_option=1,
-                                    block_depth=1))
+    rep = dataclasses.replace
+    base = tiny_parity_config()
+    fast = fast_serving(base, quant="static")
+    return {
+        "arch_option": rep(base, arch_option=1, block_depth=1),
+        "ResNet": tiny_rn_config(),
+        "decoder_fused_rcu": rep(fast, decoder_fused_rcu=True),        # B18
+        "decoder_fused_tail": rep(fast, decoder_fused_tail=True),      # B19
+        "head_fused='wup'": rep(fast, head_fused="wup"),               # B14
+        "vit.mlp_fused": rep(fast, vit=rep(fast.vit, mlp_fused=True)),  # B16
+        "vit.attn_impl='flashq'": rep(                                  # B8
+            fast, vit=rep(fast.vit, attn_impl="flashq")),
+        "vit.attn_impl='flashqp'": rep(                                 # B15
+            fast, vit=rep(fast.vit, attn_impl="flashqp")),
+    }
+
+
+@pytest.mark.parametrize("option", list(_option_cases()))
+def test_lseg_rejects_unported_options(option):
+    import re
+
+    with pytest.raises(NotImplementedError, match=re.escape(option)):
+        LSegNet(_option_cases()[option])
+
+
+@pytest.mark.parametrize("quant", ["static", "static_cal"])
+def test_lseg_builds_int8_configs(quant):
+    from lseg_tpu.config import fast_serving
+
+    cfg = fast_serving(tiny_parity_config(), quant=quant)
+    model = LSegNet(cfg, dtype=torch.bfloat16)
+    assert model.vit.blocks[0].attn.ln_fused
+    assert model.vit.blocks[0].ln_quant
+    assert hasattr(model.vit.blocks[0], "act_scale") == (quant == "static_cal")
+    assert model.head1.weight_q.dtype == torch.int8
+
+
+def test_lseg_fused_argmax_head_needs_b5(setup):
+    """head_fused=True in argmax mode runs kernel B5 in the reference: the
+    port raises instead of taking another path."""
+    import dataclasses
+
+    from lseg_tpu.config import fast_serving
+    from lseg_tpu_torch.models.layers import random_init_
+
+    x, txt, *_ = setup
+    cfg = dataclasses.replace(fast_serving(tiny_parity_config(), "static"),
+                              head_fused=True)
+    model = random_init_(LSegNet(cfg, dtype=torch.bfloat16),
+                         torch.Generator().manual_seed(0))
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="B5"):
+        model(torch.from_numpy(x), torch.from_numpy(txt), return_argmax=True)
