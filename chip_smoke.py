@@ -24,7 +24,26 @@ the result line is printed:
    logits (B4 with the per-pixel norm) are held against the same int8
    model on its plain twins and the fp32 model;
 4. numbers: img/s at batch 8, 480x480, K=150 and peak device memory,
-   for the bf16 and the static_cal paths, kernels and plain twins.
+   for the bf16 and the static_cal paths, kernels and plain twins;
+5. training, after the serving models are freed: the full-width
+   `get_config(clip_vitl16_384)` model with `attn_impl='flashflat'`,
+   bf16 compute, fp32 master weights from a seeded random init and remat
+   (train.py's configuration), against the K=150 ADE20K label set from
+   the text cache:
+   (a) `fit` for one epoch of 4 batches of 8 over
+       `SyntheticSegDataset(size=480, num_classes=150)` with validation
+       and a checkpoint in a temporary directory, then a second `fit`
+       that resumes from it and runs the next epoch; launch counts per
+       fit must read B6 = 48 per step + 24 per validation batch, B7 = 24
+       per step;
+   (b) one train step at batch 2 from identical weights on the kernel
+       path, the plain path and an fp32 model: the ViT gradients' global
+       relative deviation, kernel vs plain, must stay within 2x that of
+       plain bf16 vs fp32 plus a floor (printed per block); finite
+       losses;
+   (c) ms/step, img/s and peak memory at batch 8, kernel and plain
+       paths (CUDA events, 5 steps after 2 warm-ups), with per-step
+       launch counts B6 = 48 (forward + remat recompute), B7 = 24.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is the result object. Needs one GPU and
@@ -34,9 +53,11 @@ no network; imports no JAX.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -66,6 +87,14 @@ LNQKV_REL = 2e-2
 # in another order: one bf16 ulp (2^-7 relative at most) plus 1e-3
 # absolute where the sum cancels.
 HEAD1_RTOL, HEAD1_ATOL = 2.0 ** -7, 1e-3
+# flash_attention_flat_bwd (B7): each of dq, dk and dv within 2e-2 of
+# max|plain|: the two sum in another order and round pn and ds to bf16,
+# so single entries may round a bf16 step apart.
+FLASH_BWD_REL = 2e-2
+# Training: the kernel path's ViT gradients may stray from the plain
+# path's (global relative norm) by at most twice what the plain bf16
+# step strays from an fp32 step, plus a floor of one bf16 ulp (2^-8).
+GRAD_RATIO, GRAD_FLOOR = 2.0, 2.0 ** -8
 # Serving: the kernel path's half-res logits may stray from the plain
 # path (patch matmul form + einsum attention, same bf16 weights) by at
 # most twice what the plain bf16 path strays from the fp32 model, plus a
@@ -187,8 +216,50 @@ def phase_kernels(dev):
             results["flash_attention_flat"] = (err, ms, plain_ms)
             print(f"  flash_attention_flat (8,901,3072) 16 heads: "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    results["flash_attention_flat_bwd"] = _flash_bwd(dev, g, scale)
     results.update(_int8_kernels(dev, g))
     return results
+
+
+def _flash_bwd(dev, g, scale):
+    from lseg_tpu_torch.ops.flash_attention import (
+        flash_attention_flat,
+        flash_attention_flat_bwd,
+        flash_attention_flat_bwd_plain,
+    )
+
+    d = 1024
+    for t, vl in ((901, None), (904, 901)):
+        qkv = torch.randn(8, t, 3 * d, device=dev, generator=g
+                          ).to(torch.bfloat16)
+        do = torch.randn(8, t, d, device=dev, generator=g).to(torch.bfloat16)
+        out = flash_attention_flat(qkv, 16, scale, vl)
+        args = (qkv, out, do, 16, scale, vl)
+        got = flash_attention_flat_bwd(*args)
+        ref = flash_attention_flat_bwd_plain(*args)
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or not torch.isfinite(got.float()).all():
+            fail(f"flash_attention_flat_bwd: {tuple(got.shape)}, finite "
+                 f"{bool(torch.isfinite(got.float()).all())}")
+        errs = []
+        for name, lo in (("dq", 0), ("dk", d), ("dv", 2 * d)):
+            a, b = got[..., lo:lo + d].float(), ref[..., lo:lo + d].float()
+            err = float((a - b).abs().max())
+            rel = err / float(b.abs().max())
+            errs.append(err)
+            print(f"  flash_attention_flat_bwd (8,{t},3072) valid_len={vl} "
+                  f"{name}: max_abs {err:.6g} = {rel:.4g} of max|plain| "
+                  f"(tol {FLASH_BWD_REL:g})")
+            if rel > FLASH_BWD_REL:
+                fail(f"flash_attention_flat_bwd {name}: kernel disagrees "
+                     f"with its plain version")
+        if vl is None:
+            err = max(errs)
+            ms, plain_ms = _timed(
+                "flash_attention_flat_bwd", "(8,901,3072) 16 heads",
+                lambda: flash_attention_flat_bwd(*args),
+                lambda: flash_attention_flat_bwd_plain(*args))
+    return err, ms, plain_ms
 
 
 def _timed(name, shape, kernel, plain):
@@ -419,6 +490,7 @@ def phase_serving(dev):
 def _kernel_counters():
     from lseg_tpu_torch.ops.flash_attention import (
         flash_attention_flat,
+        flash_attention_flat_bwd,
         flash_attention_ln_qkv_fused_q8,
     )
     from lseg_tpu_torch.ops.head1_correlate import head1_correlate_fused
@@ -427,6 +499,7 @@ def _kernel_counters():
 
     return {"patch_embed": patch_embed,
             "flash_attention_flat": flash_attention_flat,
+            "flash_attention_flat_bwd": flash_attention_flat_bwd,
             "ln_quantize_rows": ln_quantize_rows,
             "flash_attention_ln_qkv_fused_q8": flash_attention_ln_qkv_fused_q8,
             "head1_correlate_fused": head1_correlate_fused}
@@ -478,7 +551,7 @@ def phase_serving_int8(dev, cache, requests):
     counters = _kernel_counters()
     blocks = vit.hooks[-1] + 1
     expected = {"patch_embed": 1, "flash_attention_flat": 0,
-                "ln_quantize_rows": blocks,
+                "flash_attention_flat_bwd": 0, "ln_quantize_rows": blocks,
                 "flash_attention_ln_qkv_fused_q8": blocks,
                 "head1_correlate_fused": 1}
     for fn in counters.values():
@@ -567,6 +640,181 @@ def phase_numbers(dev, plain, predict, cache, ade, model_q, plain_q):
     _measure("static_cal plain path", argmax_call(plain_q))
 
 
+def _vit_grad_deviation(a, b, blocks):
+    """Global relative norm |g_a - g_b| / |g_b| over the ViT's parameter
+    gradients, and the same per block."""
+    def rel(prefix):
+        num = den = 0.0
+        for name, pa in a.vit.named_parameters():
+            if not name.startswith(prefix):
+                continue
+            ga = pa.grad.float()
+            gb = b.vit.get_parameter(name).grad.float()
+            num += float(((ga - gb) ** 2).sum())
+            den += float((gb ** 2).sum())
+        return (num / den) ** 0.5
+
+    return rel(""), [rel(f"blocks.{i}.") for i in range(blocks)]
+
+
+def _train_timing(name, state, step, batch, txt, counters, expect):
+    """ms/step over 5 steps after 2 warm-ups (CUDA events), peak memory,
+    and the launches of each step."""
+    def one():
+        before = {k: fn.launches for k, fn in counters.items()}
+        step(state, batch, txt)
+        delta = {k: fn.launches - before[k] for k, fn in counters.items()}
+        if delta != expect:
+            fail(f"{name}: launches per train step {delta}, expected "
+                 f"{expect}")
+
+    for _ in range(2):
+        one()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        one()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 5
+    peak = torch.cuda.max_memory_allocated()
+    n = batch["image"].shape[0]
+    print(f"  {name}: {ms:.3f} ms/step, train img/s {n * 1e3 / ms:.2f} at "
+          f"batch {n}, peak memory {peak / 2**30:.3f} GiB "
+          f"({resident / 2**30:.3f} GiB resident before the steps), "
+          f"launches per step {expect}")
+
+
+def phase_training(dev, cache, ade):
+    from lseg_tpu.data.synthetic import SyntheticSegDataset
+    from lseg_tpu_torch import get_config
+    from lseg_tpu_torch.data.loader import DataLoader
+    from lseg_tpu_torch.models.layers import random_init_
+    from lseg_tpu_torch.models.lseg import LSegNet
+    from lseg_tpu_torch.train.loop import FitConfig, fit
+    from lseg_tpu_torch.train.optim import make_optimizer
+    from lseg_tpu_torch.train.step import (
+        TrainState,
+        enable_grads,
+        make_train_step,
+    )
+
+    print("[5] training get_config(clip_vitl16_384), flashflat, bf16 with "
+          "fp32 masters, remat")
+    base = get_config("clip_vitl16_384")
+    cfg = dataclasses.replace(base, vit=dataclasses.replace(
+        base.vit, attn_impl="flashflat"))
+    blocks = cfg.vit.hooks[-1] + 1
+    txt = cache(ade)
+    k = txt.shape[0]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = random_init_(LSegNet(cfg, torch.bfloat16, dev, remat=True,
+                                 param_dtype=torch.float32), g)
+    init_state = {n: t.clone() for n, t in model.state_dict().items()}
+    enable_grads(model)
+    n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    print(f"  built + random init: {time.perf_counter() - t0:.2f} s, "
+          f"{n_train / 1e6:.1f} M trainable fp32 parameters; K={k}, crop "
+          f"480, batch 8, attn {cfg.vit.attn_impl}, head {cfg.head_dtype}")
+
+    counters = _kernel_counters()
+    train_ds = SyntheticSegDataset(n=32, size=480, num_classes=k)
+    val_ds = SyntheticSegDataset(n=8, size=480, num_classes=k, seed=1)
+    loader = DataLoader(train_ds, 8, num_workers=8, device=dev)
+    val_loader = DataLoader(val_ds, 8, shuffle=False, num_workers=8,
+                            device=dev)
+    state = TrainState(model, make_optimizer(
+        model, 0.004, max_steps=2 * len(loader), batch_size=8))
+    fit_expect = {"flash_attention_flat": 48 * len(loader)
+                  + 24 * len(val_loader),
+                  "flash_attention_flat_bwd": 24 * len(loader)}
+    launches = None
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        for epochs in (1, 2):
+            for fn in counters.values():
+                fn.launches = 0
+            logs = []
+            t0 = time.perf_counter()
+            fit(state, loader, txt, FitConfig(
+                max_epochs=epochs, ckpt_dir=ckpt_dir, log_every=1,
+                tensorboard=False), val_loader=val_loader, log=logs.append)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            got = {key: counters[key].launches for key in fit_expect}
+            for line in logs:
+                print(f"    {line}")
+            print(f"  fit to epoch {epochs}: {dt:.2f} s, step {state.step}, "
+                  f"launches {got}")
+            if launches is None:
+                launches = got
+            if got != fit_expect:
+                fail(f"fit: launches {got}, expected {fit_expect}")
+            if state.step != epochs * len(loader):
+                fail(f"fit ended at step {state.step}")
+            if epochs == 2 and f"resumed from step {len(loader)} (epoch 1)" \
+                    not in logs:
+                fail("the second fit did not resume from the checkpoint")
+        with open(f"{ckpt_dir}/metrics.csv") as f:
+            rows = f.read().splitlines()
+        print(f"  metrics.csv: {rows}")
+        for row in rows[1:]:
+            loss, acc = row.split(",")[1], row.split(",")[3]
+            if not (float(loss) == float(loss) and 0.0 <= float(acc) <= 1.0):
+                fail(f"metrics.csv row {row!r}: loss or val_acc invalid")
+
+    # (b) one step at batch 2 from identical weights: kernel, plain, fp32
+    batch8 = next(iter(DataLoader(train_ds, 8, shuffle=False, device=dev)))
+    batch2 = {key: v[:2] for key, v in batch8.items()}
+    step = make_train_step()
+    model.load_state_dict(init_state)
+    plain = LSegNet(cfg, torch.bfloat16, dev, plain=True, remat=True,
+                    param_dtype=torch.float32)
+    ref32 = LSegNet(cfg, torch.float32, dev, plain=True, remat=True)
+    losses = {}
+    states = {}
+    for name, m in (("kernel", model), ("plain", plain), ("fp32", ref32)):
+        m.load_state_dict(init_state)
+        enable_grads(m)
+        states[name] = TrainState(m, make_optimizer(m, 0.004, 100,
+                                                    batch_size=2))
+        _, metrics = step(states[name], batch2, txt)
+        losses[name] = float(metrics["loss"])
+    torch.cuda.synchronize()
+    print(f"  one step at batch 2, losses {losses}")
+    if not all(v == v and abs(v) != float("inf") for v in losses.values()):
+        fail("a training loss is not finite")
+    d_kernel, per_k = _vit_grad_deviation(model, plain, blocks)
+    d_ref, per_r = _vit_grad_deviation(plain, ref32, blocks)
+    print(f"  ViT gradients: |kernel - plain| / |plain| {d_kernel:.6g}, "
+          f"|plain bf16 - fp32| / |fp32| {d_ref:.6g} (bound {GRAD_RATIO} * "
+          f"d_ref + {GRAD_FLOOR:g})")
+    print("  per block kernel vs plain: "
+          + " ".join(f"{v:.4g}" for v in per_k))
+    print("  per block plain vs fp32:   "
+          + " ".join(f"{v:.4g}" for v in per_r))
+    if not d_kernel <= GRAD_RATIO * d_ref + GRAD_FLOOR:
+        fail(f"kernel-path gradients deviate {d_kernel} > {GRAD_RATIO} * "
+             f"{d_ref} + {GRAD_FLOOR}")
+    del states["fp32"], ref32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) numbers at batch 8
+    _train_timing("kernel path", states["kernel"], step, batch8, txt,
+                  {key: counters[key] for key in fit_expect},
+                  {"flash_attention_flat": 2 * blocks,
+                   "flash_attention_flat_bwd": blocks})
+    _train_timing("plain path", states["plain"], step, batch8, txt,
+                  {key: counters[key] for key in fit_expect},
+                  {"flash_attention_flat": 0, "flash_attention_flat_bwd": 0})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is False)")
@@ -578,17 +826,27 @@ def main() -> int:
     plain, predict, cache, ade, requests, launches = phase_serving(dev)
     model_q, plain_q, launches_q = phase_serving_int8(dev, cache, requests)
     phase_numbers(dev, plain, predict, cache, ade, model_q, plain_q)
+    del plain, predict, model_q, plain_q
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_t = phase_training(dev, cache, ade)
     # each kernel's launches on the path that runs it: B1 and B6 on the
     # bf16 path (phase 3), B2, B3 and B4 on the int8 path (phase 3b, which
-    # also checked B1 per request)
+    # also checked B1 per request), B7 on the training path (phase 5a,
+    # the first fit)
     launches.update({k: launches_q[k] for k in (
         "ln_quantize_rows", "flash_attention_ln_qkv_fused_q8",
         "head1_correlate_fused")})
+    launches["flash_attention_flat_bwd"] = launches_t[
+        "flash_attention_flat_bwd"]
     sources = {
         "patch_embed": ("lseg_tpu_torch/csrc/patch_embed.cu",
                         "lseg_tpu/ops/pallas_patch.py:59"),
         "flash_attention_flat": ("lseg_tpu_torch/csrc/flash_attention_flat.cu",
                                  "lseg_tpu/ops/pallas_attention.py:110"),
+        "flash_attention_flat_bwd": (
+            "lseg_tpu_torch/csrc/flash_attention_flat_bwd.cu",
+            "lseg_tpu/ops/pallas_attention.py:612"),
         "ln_quantize_rows": ("lseg_tpu_torch/csrc/ln_quantize_rows.cu",
                              "lseg_tpu/ops/pallas_ln.py:43"),
         "flash_attention_ln_qkv_fused_q8": (

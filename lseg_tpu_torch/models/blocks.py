@@ -102,7 +102,8 @@ class TokenUpsample(nn.Module):
         n, h, w, c = x.shape
         s = self.scale
         o = self.weight.shape[1]
-        wm = self.weight.permute(0, 2, 3, 1).reshape(c, s * s * o)
+        wm = self.weight.to(self.dtype).permute(0, 2, 3, 1).reshape(
+            c, s * s * o)
         y = torch.matmul(x.to(self.dtype).float(), wm.float())
         y = (y.reshape(n, h, w, s, s, o) + self.bias).to(self.dtype)
         return y.permute(0, 1, 3, 2, 4, 5).reshape(n, h * s, w * s, o)

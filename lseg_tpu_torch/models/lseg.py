@@ -38,6 +38,7 @@ from lseg_tpu_torch.models.blocks import (
     Scratch,
     conv,
 )
+from lseg_tpu_torch.models.layers import set_param_dtype_
 from lseg_tpu_torch.models.vit import DenseViT
 from lseg_tpu_torch.ops.correlation import correlate
 from lseg_tpu_torch.ops.head1_correlate import (
@@ -88,10 +89,18 @@ class LSegNet(nn.Module):
     - `return_argmax`: (N, H, W) int32 labels from the half-res argmax,
       nearest-x2 upsampled (half-res with `return_halfres`).
 
-    `plain=True` swaps every kernel for its plain PyTorch twin."""
+    `plain=True` swaps every kernel for its plain PyTorch twin.
+
+    The model is built in eval mode, as the reference's `train=False`
+    default; `.train()` turns on the BatchNorm batch statistics (training
+    calls the forward with text features and gets the full-resolution
+    fp32 logits of the parity head). `remat` checkpoints each ViT block;
+    `param_dtype` stores the float parameters apart from the compute
+    `dtype` (fp32 masters for training, `layers.set_param_dtype_`)."""
 
     def __init__(self, cfg: LSegConfig, dtype=torch.float32, device=None,
-                 plain: bool = False):
+                 plain: bool = False, remat: bool = False,
+                 param_dtype: torch.dtype = None):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
@@ -102,7 +111,7 @@ class LSegNet(nn.Module):
         self.calibrating = False
         vit = cfg.vit
         q = cfg.decoder_quant
-        self.vit = DenseViT(vit, dtype, device, plain)
+        self.vit = DenseViT(vit, dtype, device, plain, remat)
         for i in range(4):
             self.add_module(f"reassemble{i + 1}", Reassemble(
                 vit.post_channels[i], vit.resample[i], vit.embed_dim,
@@ -116,6 +125,9 @@ class LSegNet(nn.Module):
                 device=device))
         self.head1 = conv(cfg.features, cfg.out_c, 1, q, dtype,
                           device=device)
+        if param_dtype is not None:
+            set_param_dtype_(self, param_dtype)
+        self.eval()
 
     def _fused_head(self, path1, text_features, normalize):
         """B4 on path1 quantized on head1's per-tensor grid."""

@@ -16,7 +16,9 @@ Attention `impl`:
   feed the int8 output projection directly;
 - 'flashflat' (or 'flashlnq' unquantized): the fused qkv projection's
   flat (N, T, 3D) output goes straight into the flash kernel B6, which
-  emits the flat (N, T, D) input of the output projection;
+  emits the flat (N, T, D) input of the output projection; where grad is
+  enabled it goes through `flash_attention_flat_fn`, whose backward is
+  kernel B7 and writes dqkv in the same flat layout;
 - anything else: einsum attention with fp32 softmax (the reference's
   'xla' path), scores in `scores_dtype`.
 
@@ -30,6 +32,10 @@ the same condition, computed from the reference's padded T.
 
 `plain=True` swaps every kernel for its plain PyTorch twin (the
 comparison path of `chip_smoke.py`); nothing picks it automatically.
+
+`remat=True` runs each block under `torch.utils.checkpoint` where grad
+is enabled (the reference's `nn.remat(Block)`): the backward recomputes
+the block's activations, so the attention forward runs twice per step.
 """
 
 from __future__ import annotations
@@ -37,11 +43,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from lseg_tpu_torch import ViTConfig, flat_flash_eligible
 from lseg_tpu_torch.models.layers import Dense, LayerNorm, lecun_normal_
 from lseg_tpu_torch.ops.flash_attention import (
     flash_attention_flat,
+    flash_attention_flat_fn,
     flash_attention_flat_plain,
     flash_attention_ln_qkv_fused_q8,
     flash_attention_ln_qkv_fused_q8_plain,
@@ -119,6 +127,9 @@ class Attention(nn.Module):
         scale = hd ** -0.5
         qkv = self.qkv(x)
         if self.flat:
+            if torch.is_grad_enabled():
+                return self.proj(flash_attention_flat_fn(
+                    qkv, h, scale, plain=self.plain))
             op = flash_attention_flat_plain if self.plain else \
                 flash_attention_flat
             return self.proj(op(qkv, h, scale))
@@ -242,8 +253,9 @@ class PatchEmbed(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused and self.dtype == torch.bfloat16:
-            return patch_embed(x.float().contiguous(), self.weight,
-                               self.bias, self.patch)
+            return patch_embed(x.float().contiguous(),
+                               self.weight.to(self.dtype), self.bias,
+                               self.patch)
         return patch_embed_plain(x, self.weight, self.bias, self.patch,
                                  self.dtype)
 
@@ -252,12 +264,13 @@ class DenseViT(nn.Module):
     """(N, H, W, 3) -> 4 tapped (N, 1 + gh*gw, D) sequences and (gh, gw)."""
 
     def __init__(self, cfg: ViTConfig, dtype=torch.float32, device=None,
-                 plain: bool = False):
+                 plain: bool = False, remat: bool = False):
         super().__init__()
         if cfg.tp_layout:
             raise NotImplementedError("tp_layout is a JAX sharding layout")
         self.cfg = cfg
         self.dtype = dtype
+        self.remat = remat
         d = cfg.embed_dim
         g0 = cfg.pretrain_grid
         self.patch_embed = PatchEmbed(d, cfg.patch_size, 3, dtype,
@@ -308,8 +321,12 @@ class DenseViT(nn.Module):
 
         taps = []
         hooks = set(cfg.hooks)
+        remat = self.remat and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            x = blk(x, ln_quant_ok)
+            if remat:
+                x = checkpoint(blk, x, ln_quant_ok, use_reentrant=False)
+            else:
+                x = blk(x, ln_quant_ok)
             if i in hooks:
                 taps.append(x)
         return taps, (gh, gw)

@@ -25,6 +25,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -49,6 +51,9 @@ SIGNATURES = {
         _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _P),
     # xq, w, sc, b1, tn, out, m, c, e, k, normalize, stream
     "lseg_head1_correlate": (_P,) * 6 + (_I,) * 5 + (_P,),
+    # qkv, out, dout, dqkv, stats, n, t, dim, valid_len, scale, stream
+    "lseg_flash_attention_flat_bwd": (_P,) * 5 + (_I,) * 4 + (
+        ctypes.c_float, _P),
 }
 
 
@@ -133,6 +138,18 @@ def load_kernels() -> ctypes.CDLL:
     lib.lseg_cuda_error_string.argtypes = [ctypes.c_int]
     lib.lseg_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def check_no_grad(name: str, *tensors) -> None:
+    """Raise if a tensor that requires grad would reach a raw kernel
+    launch, which has no autograd and would cut its gradient silently."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the kernel launch has no "
+            f"autograd; call it under torch.no_grad() or through its "
+            f"autograd.Function")
 
 
 def check_launch(lib: ctypes.CDLL, name: str, rc: int) -> None:

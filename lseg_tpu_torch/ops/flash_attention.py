@@ -14,19 +14,35 @@ CUDA source is `lseg_tpu_torch/csrc/flash_attention_ln_qkv_q8.cu`, a
 chain of three launches behind one op; its header says which tensors now
 pass through device memory that the TPU kept on chip.
 
-`flash_attention_flat` is the wrapper: on a CUDA tensor it launches the
-kernel (or raises), on a CPU tensor it runs
-`flash_attention_flat_plain`, the plain PyTorch version with the TPU
-kernel's rounding points: fp32 scores times scale, fp32 softmax
-numerator and sum, P cast to the qkv dtype for P.V with fp32
-accumulation, division by the sum at the end.
+B7 replaces `pallas_attention.py` · `_flash_flat_bwd_impl`, the Pallas
+backward of `flash_attention_flat_vjp`: (qkv, O, dO) -> dqkv in the same
+flat layout. The CUDA source is
+`lseg_tpu_torch/csrc/flash_attention_flat_bwd.cu` (three passes: row
+statistics, dK/dV per key tile, dQ per query tile).
+
+`flash_attention_flat` and `flash_attention_flat_bwd` are the wrappers:
+on a CUDA tensor they launch the kernel (or raise), on a CPU tensor they
+run the plain PyTorch versions `flash_attention_flat_plain` and
+`flash_attention_flat_bwd_plain`, which keep the TPU kernels' rounding
+points: fp32 scores times scale, fp32 softmax numerator and sum, P cast
+to the qkv dtype for P.V with fp32 accumulation, division by the sum at
+the end; in the backward, P normalized in fp32 before its cast.
+
+Neither the wrappers nor the plain versions are differentiable: a tensor
+that requires grad makes them raise. Gradients go through
+`flash_attention_flat_fn` (the `FlashAttentionFlat` autograd.Function),
+whose forward is B6 and whose backward is B7, or their plain versions.
 """
 
 from __future__ import annotations
 
 import torch
 
-from lseg_tpu_torch.ops._build import check_launch, load_kernels
+from lseg_tpu_torch.ops._build import (
+    check_launch,
+    check_no_grad,
+    load_kernels,
+)
 from lseg_tpu_torch.ops.ln_quant import ln_quantize_rows_plain
 from lseg_tpu_torch.ops.quant import int8_mm, quantize_rows
 
@@ -54,6 +70,7 @@ def flash_attention_flat_plain(qkv: torch.Tensor, num_heads: int,
                                valid_len: int = None) -> torch.Tensor:
     """(N, T, 3D) -> (N, T, D): per-head einsum attention with the
     kernel's rounding points; keys >= valid_len are masked."""
+    check_no_grad("flash_attention_flat_plain", qkv)
     n, t, d, vl = _check(qkv, num_heads, valid_len)
     r = qkv.reshape(n, t, 3, num_heads, HEAD_DIM)
     q, k, v = r[:, :, 0].float(), r[:, :, 1].float(), r[:, :, 2]
@@ -70,6 +87,7 @@ def flash_attention_flat_plain(qkv: torch.Tensor, num_heads: int,
 def flash_attention_flat(qkv: torch.Tensor, num_heads: int, scale: float,
                          valid_len: int = None) -> torch.Tensor:
     """Kernel wrapper: (N, T, 3D) bf16 contiguous -> (N, T, D) bf16."""
+    check_no_grad("flash_attention_flat", qkv)
     n, t, d, vl = _check(qkv, num_heads, valid_len)
     if qkv.device.type == "cpu":
         return flash_attention_flat_plain(qkv, num_heads, scale, valid_len)
@@ -94,6 +112,110 @@ def flash_attention_flat(qkv: torch.Tensor, num_heads: int, scale: float,
 
 
 flash_attention_flat.launches = 0
+
+
+def flash_attention_flat_bwd_plain(qkv: torch.Tensor, out: torch.Tensor,
+                                   do: torch.Tensor, num_heads: int,
+                                   scale: float,
+                                   valid_len: int = None) -> torch.Tensor:
+    """(qkv (N, T, 3D), O (N, T, D), dO (N, T, D)) -> dqkv (N, T, 3D) in
+    the qkv dtype, per-head einsums with the TPU kernel's rounding
+    points; keys >= valid_len are masked."""
+    check_no_grad("flash_attention_flat_bwd_plain", qkv, out, do)
+    n, t, d, vl = _check(qkv, num_heads, valid_len)
+    dt = qkv.dtype
+    r = qkv.reshape(n, t, 3, num_heads, HEAD_DIM).float()
+    q, k, v = r[:, :, 0], r[:, :, 1], r[:, :, 2]
+    o = out.reshape(n, t, num_heads, HEAD_DIM).float()
+    g = do.to(dt).reshape(n, t, num_heads, HEAD_DIM).float()
+    s = torch.einsum("nqhd,nkhd->nhqk", q, k) * scale
+    if vl != t:
+        s[..., vl:] = float("-inf")
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    pn = p / p.sum(dim=-1, keepdim=True)
+    dv = torch.einsum("nhqk,nqhd->nkhd", pn.to(dt).float(), g)
+    dp = torch.einsum("nqhd,nkhd->nhqk", g, v)
+    d_row = (g * o).sum(dim=-1).permute(0, 2, 1).unsqueeze(-1)
+    ds = (pn * (dp - d_row)).to(dt).float()
+    dq = torch.einsum("nhqk,nkhd->nqhd", ds, k) * scale
+    dk = torch.einsum("nhqk,nqhd->nkhd", ds, q) * scale
+    return torch.cat([x.reshape(n, t, d) for x in (dq, dk, dv)],
+                     dim=-1).to(dt)
+
+
+def flash_attention_flat_bwd(qkv: torch.Tensor, out: torch.Tensor,
+                             do: torch.Tensor, num_heads: int, scale: float,
+                             valid_len: int = None) -> torch.Tensor:
+    """Kernel wrapper (B7): bf16 contiguous qkv (N, T, 3D), O and dO
+    (N, T, D) -> dqkv (N, T, 3D) bf16."""
+    check_no_grad("flash_attention_flat_bwd", qkv, out, do)
+    n, t, d, vl = _check(qkv, num_heads, valid_len)
+    if out.shape != (n, t, d) or do.shape != (n, t, d):
+        raise ValueError(f"flash_attention_flat_bwd: out {tuple(out.shape)}"
+                         f" and dO {tuple(do.shape)} for qkv "
+                         f"{tuple(qkv.shape)}")
+    if qkv.device.type == "cpu":
+        return flash_attention_flat_bwd_plain(qkv, out, do, num_heads, scale,
+                                              valid_len)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"flash_attention_flat_bwd: unsupported device "
+                         f"{qkv.device}")
+    for name, x in (("qkv", qkv), ("out", out), ("dO", do)):
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"flash_attention_flat_bwd kernel takes bf16, "
+                            f"got {name} {x.dtype}")
+        if (not x.is_contiguous() or x.data_ptr() % 16
+                or x.device != qkv.device):
+            raise ValueError(f"flash_attention_flat_bwd: {name} must be "
+                             f"contiguous, 16-byte aligned and on "
+                             f"{qkv.device}")
+    lib = load_kernels()
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((3, n, num_heads, t), dtype=torch.float32,
+                        device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.lseg_flash_attention_flat_bwd(
+            qkv.data_ptr(), out.data_ptr(), do.data_ptr(), dqkv.data_ptr(),
+            stats.data_ptr(), n, t, d, vl, float(scale), stream)
+    check_launch(lib, "lseg_flash_attention_flat_bwd", rc)
+    flash_attention_flat_bwd.launches += 1
+    return dqkv
+
+
+flash_attention_flat_bwd.launches = 0
+
+
+class FlashAttentionFlat(torch.autograd.Function):
+    """Flat flash attention with a gradient: forward B6, backward B7 (the
+    reference's `flash_attention_flat_vjp`); with `plain`, or on the CPU,
+    their plain versions. The residuals are qkv and O, as in the
+    reference; the cotangent is cast to the qkv dtype first."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, scale, valid_len, plain):
+        fwd = flash_attention_flat_plain if plain else flash_attention_flat
+        out = fwd(qkv, num_heads, scale, valid_len)
+        ctx.save_for_backward(qkv, out)
+        ctx.args = (num_heads, scale, valid_len, plain)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, out = ctx.saved_tensors
+        num_heads, scale, valid_len, plain = ctx.args
+        bwd = (flash_attention_flat_bwd_plain if plain
+               else flash_attention_flat_bwd)
+        dqkv = bwd(qkv, out, do.to(qkv.dtype).contiguous(), num_heads, scale,
+                   valid_len)
+        return dqkv, None, None, None, None
+
+
+def flash_attention_flat_fn(qkv: torch.Tensor, num_heads: int, scale: float,
+                            valid_len: int = None,
+                            plain: bool = False) -> torch.Tensor:
+    """Differentiable flat flash attention (see `FlashAttentionFlat`)."""
+    return FlashAttentionFlat.apply(qkv, num_heads, scale, valid_len, plain)
 
 
 def _check_q8(x, wq, sw, bias, num_heads, valid_len):
@@ -141,6 +263,8 @@ def flash_attention_ln_qkv_fused_q8(
     """Kernel wrapper: (N, T, D) bf16, fp32 LN params (D,), int8 (3D, D)
     weight, fp32 (3D,) scales and bias -> (int8 (N, T, D), fp32
     (N, T, 1)). head_dim 64, D % 256 == 0, any T."""
+    check_no_grad("flash_attention_ln_qkv_fused_q8", x, ln_scale, ln_bias,
+                  bias)
     n, t, d, vl = _check_q8(x, wq, sw, bias, num_heads, valid_len)
     if x.device.type == "cpu":
         return flash_attention_ln_qkv_fused_q8_plain(

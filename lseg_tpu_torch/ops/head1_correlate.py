@@ -17,7 +17,11 @@ from __future__ import annotations
 
 import torch
 
-from lseg_tpu_torch.ops._build import check_launch, load_kernels
+from lseg_tpu_torch.ops._build import (
+    check_launch,
+    check_no_grad,
+    load_kernels,
+)
 from lseg_tpu_torch.ops.quant import int8_mm
 
 
@@ -74,6 +78,7 @@ def head1_correlate_fused(xq: torch.Tensor, sx, w1q: torch.Tensor,
     scale, head1 int8 kernel (E, C[, 1, 1]), fp32 (E,) scales and bias,
     (K, E) text features -> (N, H, W, K) bf16. C % 32 == 0,
     E % 128 == 0."""
+    check_no_grad("head1_correlate_fused", sx, s1, b1, text_features)
     if xq.device.type == "cpu":
         return head1_correlate_fused_plain(xq, sx, w1q, s1, b1,
                                            text_features, logit_scale,

@@ -15,7 +15,11 @@ from __future__ import annotations
 
 import torch
 
-from lseg_tpu_torch.ops._build import check_launch, load_kernels
+from lseg_tpu_torch.ops._build import (
+    check_launch,
+    check_no_grad,
+    load_kernels,
+)
 from lseg_tpu_torch.ops.quant import quantize_rows
 
 
@@ -36,6 +40,7 @@ def ln_quantize_rows(x: torch.Tensor, ln_scale: torch.Tensor,
                      ln_bias: torch.Tensor, eps: float = 1e-6):
     """Kernel wrapper: (N, T, D) bf16 contiguous, (D,) fp32 scale and bias
     -> (int8 (N, T, D), fp32 (N, T, 1)). Any T; D % 256 == 0, D <= 2048."""
+    check_no_grad("ln_quantize_rows", x, ln_scale, ln_bias)
     n, t, d = x.shape
     if ln_scale.shape != (d,) or ln_bias.shape != (d,):
         raise ValueError(f"ln_quantize_rows: LayerNorm params "

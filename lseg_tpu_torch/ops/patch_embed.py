@@ -15,7 +15,11 @@ from __future__ import annotations
 
 import torch
 
-from lseg_tpu_torch.ops._build import check_launch, load_kernels
+from lseg_tpu_torch.ops._build import (
+    check_launch,
+    check_no_grad,
+    load_kernels,
+)
 
 
 def patchify(x: torch.Tensor, patch: int) -> torch.Tensor:
@@ -50,6 +54,7 @@ def patch_embed(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         raise ValueError(
             f"weight {tuple(weight.shape)} / bias {tuple(bias.shape)} do "
             f"not match patch {patch} x {patch} x {c}")
+    check_no_grad("patch_embed", x, weight, bias)
     if x.device.type == "cpu":
         return patch_embed_plain(x, weight, bias, patch)
     if x.device.type != "cuda":

@@ -5,7 +5,11 @@
 takes `CLIPTextEncoder` params. Both return {name: tensor} for
 `load_state_dict`: int8 leaves stay int8, everything else is fp32, which
 `load_state_dict` rounds to its parameter's dtype, the same cast the
-reference makes at every call.
+reference makes at every call. A training model
+(`LSegNet(..., param_dtype=torch.float32)`) keeps the fp32 values as its
+master parameters and casts them at each call instead, so its forward
+equals the serving model's; the `batch_stats` become the BatchNorm
+running statistics that its train mode goes on updating.
 
 The rules:
 - scan-stacked blocks (`vit/seg{i}/blocks/*`, `resblocks/*`; leading
