@@ -23,8 +23,20 @@ the result line is printed:
    must read B1 = 1, B2 = B3 = blocks, B4 = 1, B6 = 0, and the half-res
    logits (B4 with the per-pixel norm) are held against the same int8
    model on its plain twins and the fp32 model;
+3c. the streamed head: the bf16 model of phase 3 answers the same
+   requests through `make_predictor(model, use_pallas=True)`; per request
+   the counters must read B1 = 1, B6 = blocks, B10 = 1, B11 = 1, and the
+   labels must agree with B10's and B11's plain twins on the same
+   embeddings (agreement with the whole plain path and the default head
+   is printed);
+3d. the fused argmax head: the static_cal tree of phase 3b with
+   `head_fused=True` answers them through `model(x, txt,
+   return_argmax=True)`; per request B1 = 1, B2 = B3 = blocks, B5 = 1,
+   B4 = 0, and the labels must agree with B5's plain twin on the same
+   path1;
 4. numbers: img/s at batch 8, 480x480, K=150 and peak device memory,
-   for the bf16 and the static_cal paths, kernels and plain twins;
+   for the bf16, the static_cal, the streamed-head and the fused-argmax
+   paths, kernels and plain twins;
 5. training, after the serving models are freed: the full-width
    `get_config(clip_vitl16_384)` model with `attn_impl='flashflat'`,
    bf16 compute, fp32 master weights from a seeded random init and remat
@@ -45,9 +57,12 @@ the result line is printed:
        paths (CUDA events, 5 steps after 2 warm-ups), with per-step
        launch counts B6 = 48 (forward + remat recompute), B7 = 24.
 
-The line before the last is a JSON object with each kernel's launches,
-error and times; the last line is the result object. Needs one GPU and
-no network; imports no JAX.
+Phase 2 also times, for each kernel, the PyTorch library call that
+computes the same function where there is one, and computes its bound
+from the inputs and the card's published peaks. The line before the last
+is a JSON object with each kernel's launches, error, times and bound; the
+last line is the result object. Needs one GPU and no network; imports no
+JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -55,6 +70,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -95,6 +111,24 @@ FLASH_BWD_REL = 2e-2
 # path's (global relative norm) by at most twice what the plain bf16
 # step strays from an fp32 step, plus a floor of one bf16 ulp (2^-8).
 GRAD_RATIO, GRAD_FLOOR = 2.0, 2.0 ** -8
+# fused_correlate (B10): fp32 normalisation and fp32 FMA sums of 512
+# products in another order than the plain version's cuBLAS SGEMM (TF32
+# off): a few fp32 ulps of the logit scale (|logit| <= 1/0.07).
+CORR_RTOL, CORR_ATOL = 1e-5, 1e-4
+# upsample2x_argmax (B11) rounds at the plain version's points, op by op:
+# the labels must agree everywhere. head1_correlate_argmax_fused (B5): the
+# same bf16 operands and codes, fp32 sums in another order, so a label may
+# flip where two logits tie to fp32 rounding.
+UPARGMAX_MIN_EQUAL, HEAD_ARGMAX_MIN_EQUAL = 1.0, 0.999
+# Served labels of the two streamed heads against their plain twins on the
+# same head inputs (the embeddings, path1).
+HEAD_SERVE_MIN_EQUAL = 0.999
+# The card's published peaks (H100 SXM data sheet, dense): the least time
+# a kernel's work could take is the larger of its bytes over the memory
+# rate and the sum, over the types of its operations, of each count over
+# that type's rate.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 # Serving: the kernel path's half-res logits may stray from the plain
 # path (patch matmul form + einsum attention, same bf16 weights) by at
 # most twice what the plain bf16 path strays from the fp32 model, plus a
@@ -126,6 +160,28 @@ def deviation(got: torch.Tensor, ref: torch.Tensor):
     return float(d.max()), float(rel.max())
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved: int, ops: dict):
+    """(bound_ms, bound_by) of `moved` bytes and {type: operations}."""
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(n / PEAK_OPS_PER_S[k] for k, n in ops.items()) * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def result(err, ms, plain_ms, moved, ops, library_ms=None):
+    bound_ms, bound_by = bound(moved, ops)
+    print(f"    bound {bound_ms:.4f} ms ({bound_by}: {moved / 1e6:.1f} MB, "
+          + ", ".join(f"{n / 1e9:.1f} G {k}" for k, n in ops.items())
+          + f"); library call "
+          + ("none" if library_ms is None else f"{library_ms:.4f} ms"))
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
 def check_close(name, got, ref, rtol, atol):
     torch.cuda.synchronize()
     if got.shape != ref.shape or got.dtype != ref.dtype:
@@ -147,27 +203,59 @@ def check_close(name, got, ref, rtol, atol):
     return max_abs
 
 
-def phase_device_and_build():
-    from lseg_tpu_torch.ops._build import load_kernels
-
-    name = torch.cuda.get_device_name(0)
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reads them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def _kernel_name(mangled: str) -> str:
+    """The `..._kernel` identifier (and template arguments) of a mangled
+    entry point: the length-prefixed name whose prefix matches."""
+    for m in re.finditer(r"(?=(\d{1,3})([a-z]\w*?_kernel)(I\w*?E)?)",
+                         mangled):
+        if int(m.group(1)) == len(m.group(2)):
+            return m.group(2) + (m.group(3) or "")
+    return mangled
+
+
+def ptxas_summary(log: str):
+    """One line per compiled kernel: registers, shared memory, spills."""
+    name = None
+    for line in log.splitlines():
+        hit = re.search(r"Compiling entry function '(\w+)'", line)
+        if hit:
+            name = _kernel_name(hit.group(1))
+        elif "spill stores" in line and name:
+            spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+        elif "Used" in line and "registers" in line and name:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            smem = re.search(r"(\d+) bytes smem", line)
+            yield (f"{name}: {regs} registers, "
+                   f"{smem.group(1) if smem else 0} B static smem, "
+                   f"{spill} B spilled")
+            name = None
+
+
+def phase_device_and_build():
+    from lseg_tpu_torch.ops._build import load_kernels
+
+    name = torch.cuda.get_device_name(0)
     print(f"[1] device: {name} (count {torch.cuda.device_count()}), "
           f"torch {torch.__version__}, cuda {torch.version.cuda}")
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_line())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("  tf32: matmul off, cudnn off")
     load_kernels()
     print(f"  kernel build: {load_kernels.build_seconds:.2f} s")
-    for line in load_kernels.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"  ptxas: {line.strip()}")
+    for line in ptxas_summary(load_kernels.build_log):
+        print(f"  ptxas: {line}")
     return name
 
 
@@ -190,15 +278,25 @@ def phase_kernels(dev):
     b = torch.randn(1024, device=dev, generator=g)
     for shape in ((8, 480, 480, 3), (2, 384, 480, 3)):
         x = torch.randn(shape, device=dev, generator=g)
-        err = check_close(f"patch_embed {shape}", patch_embed(x, w, b, 16),
+        out = patch_embed(x, w, b, 16)
+        err = check_close(f"patch_embed {shape}", out,
                           patch_embed_plain(x, w, b, 16), PATCH_RTOL,
                           PATCH_ATOL)
         if shape[0] == 8:
             ms = cuda_time_ms(lambda: patch_embed(x, w, b, 16))
             plain_ms = cuda_time_ms(lambda: patch_embed_plain(x, w, b, 16))
-            results["patch_embed"] = (err, ms, plain_ms)
             print(f"  patch_embed (8,480,480,3)->(8,900,1024): "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            # the library call: a stride-16 convolution on the same image
+            # and weight, NCHW bf16 (the layout change is not timed)
+            xc = x.permute(0, 3, 1, 2).to(torch.bfloat16)
+            wc = w.reshape(16, 16, 3, 1024).permute(3, 2, 0, 1).contiguous()
+            bc = b.to(torch.bfloat16)
+            lib_ms = cuda_time_ms(lambda: torch.nn.functional.conv2d(
+                xc, wc, bc, stride=16))
+            results["patch_embed"] = result(
+                err, ms, plain_ms, nbytes(x, w, b, out),
+                {"bf16": 2 * 8 * 900 * 768 * 1024}, lib_ms)
 
     scale = 64 ** -0.5
     for n, t, vl in ((8, 901, None), (8, 904, 901), (2, 721, None)):
@@ -213,11 +311,18 @@ def phase_kernels(dev):
             ms = cuda_time_ms(lambda: flash_attention_flat(qkv, 16, scale))
             plain_ms = cuda_time_ms(
                 lambda: flash_attention_flat_plain(qkv, 16, scale))
-            results["flash_attention_flat"] = (err, ms, plain_ms)
             print(f"  flash_attention_flat (8,901,3072) 16 heads: "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            q, k, v = qkv.view(n, t, 3, 16, 64).permute(2, 0, 3, 1, 4)
+            lib_ms = cuda_time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, scale=scale))
+            results["flash_attention_flat"] = result(
+                err, ms, plain_ms, nbytes(qkv) + nbytes(qkv) // 3,
+                {"bf16": 4 * n * 16 * t * t * 64}, lib_ms)
     results["flash_attention_flat_bwd"] = _flash_bwd(dev, g, scale)
     results.update(_int8_kernels(dev, g))
+    results.update(_head_kernels(dev, g))
     return results
 
 
@@ -259,7 +364,20 @@ def _flash_bwd(dev, g, scale):
                 "flash_attention_flat_bwd", "(8,901,3072) 16 heads",
                 lambda: flash_attention_flat_bwd(*args),
                 lambda: flash_attention_flat_bwd_plain(*args))
-    return err, ms, plain_ms
+            # the library call: the backward of scaled_dot_product_attention
+            # on the same q, k, v and output gradient
+            q, k, v = (qkv.view(8, t, 3, 16, 64).permute(2, 0, 3, 1, 4)
+                       .detach().clone().requires_grad_())
+            so = torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, scale=scale)
+            dso = do.view(8, t, 16, 64).transpose(1, 2)
+            lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
+                so, (q, k, v), dso, retain_graph=True))
+            # qkv, out, dout read, dqkv written; s recomputed: 10 T^2 hd
+            # per head (s, dp, dv, dq, dk)
+            res = result(err, ms, plain_ms, nbytes(qkv, out, do, got),
+                         {"bf16": 10 * 8 * 16 * t * t * 64}, lib_ms)
+    return res
 
 
 def _timed(name, shape, kernel, plain):
@@ -307,7 +425,9 @@ def _int8_kernels(dev, g):
     ms, plain_ms = _timed("ln_quantize_rows", "(8,901,1024)",
                           lambda: ln_quantize_rows(x, ln_g, ln_b),
                           lambda: ln_quantize_rows_plain(x, ln_g, ln_b))
-    results["ln_quantize_rows"] = (err, ms, plain_ms)
+    results["ln_quantize_rows"] = result(
+        err, ms, plain_ms, nbytes(x, ln_g, ln_b, q, s),
+        {"fp32": 8 * 8 * 901 * d})  # ~8 operations per element
 
     # B2 at (8, 901, 1024) and the padded (8, 904, 1024), valid_len 901
     wq = torch.randint(-127, 128, (3 * d, d), device=dev, generator=g,
@@ -338,7 +458,11 @@ def _int8_kernels(dev, g):
                 "flash_attention_ln_qkv_fused_q8", "(8,901,1024) 16 heads",
                 lambda: flash_attention_ln_qkv_fused_q8(*args),
                 lambda: flash_attention_ln_qkv_fused_q8_plain(*args))
-            results["flash_attention_ln_qkv_fused_q8"] = (err, ms, plain_ms)
+            results["flash_attention_ln_qkv_fused_q8"] = result(
+                err, ms, plain_ms, nbytes(x, ln_g, ln_b, wq, sw, bias, oq,
+                                          os_),
+                {"int8": 2 * 8 * t * d * 3 * d,
+                 "bf16": 4 * 8 * 16 * t * t * 64})
 
     # B4: lowres head (normalize=False) and the half-res logits head
     w1q = torch.randint(-127, 128, (512, 256), device=dev, generator=g,
@@ -361,11 +485,152 @@ def _int8_kernels(dev, g):
                 "head1_correlate_fused", f"{shape}->K=150 normalize=False",
                 lambda: head1_correlate_fused(*args),
                 lambda: head1_correlate_fused_plain(*args))
-            results["head1_correlate_fused"] = (err, ms, plain_ms)
+            m = xq.numel() // 256
+            results["head1_correlate_fused"] = result(
+                err, ms, plain_ms,
+                nbytes(xq, w1q, s1, b1, txt) + m * 150 * 2,
+                {"int8": 2 * m * 256 * 512, "bf16": 2 * m * 512 * 150})
         else:
             _timed("head1_correlate_fused", f"{shape}->K=150 normalize=True",
                    lambda: head1_correlate_fused(*args),
                    lambda: head1_correlate_fused_plain(*args))
+    return results
+
+
+def _head_kernels(dev, g):
+    """B10, B11 and B5 at the flagship shapes of their paths."""
+    from lseg_tpu_torch.ops.fused_correlate import (
+        fused_correlate,
+        fused_correlate_plain,
+    )
+    from lseg_tpu_torch.ops.head1_correlate import (
+        head1_correlate_argmax_fused,
+        head1_correlate_argmax_fused_plain,
+    )
+    from lseg_tpu_torch.ops.upsample_argmax import (
+        upsample2x_argmax,
+        upsample2x_argmax_plain,
+    )
+
+    results = {}
+    scale = 1.0 / 0.07
+    # B10: the embeddings of the use_pallas head, bf16, against K = 150;
+    # fp32 pixels and a ragged K at smaller shapes
+    emb = torch.randn(8, 240, 240, 512, device=dev, generator=g
+                      ).to(torch.bfloat16)
+    txt = torch.randn(150, 512, device=dev, generator=g)
+    logits = fused_correlate(emb, txt, scale)
+    err = check_close("fused_correlate (8,240,240,512) bf16 -> K=150",
+                      logits, fused_correlate_plain(emb, txt, scale),
+                      CORR_RTOL, CORR_ATOL)
+    for shape, k in (((1, 240, 240, 512), 21), ((2, 7, 9, 64), 5)):
+        x = torch.randn(shape, device=dev, generator=g)
+        t = torch.randn(k, shape[-1], device=dev, generator=g)
+        t[0] = 0.0  # a zero label row gives logits of 0
+        check_close(f"fused_correlate {shape} fp32 -> K={k}",
+                    fused_correlate(x, t, scale),
+                    fused_correlate_plain(x, t, scale), CORR_RTOL, CORR_ATOL)
+    ms, plain_ms = _timed("fused_correlate", "(8,240,240,512) bf16 -> K=150",
+                          lambda: fused_correlate(emb, txt, scale),
+                          lambda: fused_correlate_plain(emb, txt, scale))
+    # the library call: one fp32 matmul of the normalised operands
+    xn = torch.nn.functional.normalize(emb.float().reshape(-1, 512), dim=-1)
+    tn_t = torch.nn.functional.normalize(txt, dim=-1).t().contiguous()
+    lib_ms = cuda_time_ms(lambda: torch.matmul(xn, tn_t))
+    del xn
+    results["fused_correlate"] = result(
+        err, ms, plain_ms, nbytes(emb, txt, logits),
+        {"fp32": 2 * emb.numel() * 150}, lib_ms)
+
+    # B11: the fp32 logits of B10, then bf16; all-negative logits, where a
+    # K padding that leaked into the argmax would win
+    def labels_equal(name, lab, ref, k):
+        torch.cuda.synchronize()
+        if lab.shape != ref.shape or lab.dtype != torch.int32:
+            fail(f"{name}: {tuple(lab.shape)} {lab.dtype}")
+        equal = float((lab == ref).float().mean())
+        lo, hi = int(lab.min()), int(lab.max())
+        print(f"  {name}: labels equal {equal:.6f}, in [{lo}, {hi}]")
+        if lo < 0 or hi >= k:
+            fail(f"{name}: labels outside [0, {k})")
+        return equal
+
+    neg = -(torch.rand(2, 60, 64, 150, device=dev, generator=g) + 0.5)
+    cases = (("fp32", logits), ("bf16", logits.to(torch.bfloat16)),
+             ("all-negative fp32", neg),
+             ("all-negative bf16", neg.to(torch.bfloat16)))
+    for name, lg in cases:
+        equal = labels_equal(
+            f"upsample2x_argmax {tuple(lg.shape)} {name}",
+            upsample2x_argmax(lg), upsample2x_argmax_plain(lg), 150)
+        if equal < UPARGMAX_MIN_EQUAL:
+            fail("upsample2x_argmax: kernel disagrees with its plain version")
+    tiny = -torch.ones(1, 8, 8, 3, device=dev) * torch.tensor(
+        [3.0, 1.0, 2.0], device=dev)
+    if not bool((upsample2x_argmax(tiny) == 1).all()):
+        fail("upsample2x_argmax: all-negative logits, label is not 1")
+    lab = upsample2x_argmax(logits)
+    ms, plain_ms = _timed("upsample2x_argmax", "(8,240,240,150) fp32",
+                          lambda: upsample2x_argmax(logits),
+                          lambda: upsample2x_argmax_plain(logits))
+    nchw = logits.permute(0, 3, 1, 2)
+    lib_ms = cuda_time_ms(lambda: torch.nn.functional.interpolate(
+        nchw, scale_factor=2, mode="bilinear", align_corners=True).argmax(1))
+    up = 8 * 480 * 480 * 150
+    results["upsample2x_argmax"] = result(
+        1.0 - float((lab == upsample2x_argmax_plain(logits)).float().mean()),
+        ms, plain_ms, nbytes(logits, lab), {"fp32": 3 * up // 2 + 3 * up},
+        lib_ms)
+    del logits, lab, nchw
+
+    # B5: bf16 path1 quantized in the kernel, and int8 codes
+    path1 = 0.5 * torch.randn(8, 240, 240, 256, device=dev, generator=g
+                              ).to(torch.bfloat16)
+    sx = path1.float().abs().amax() / 127.0
+    w1q = torch.randint(-127, 128, (512, 256), device=dev, generator=g,
+                        dtype=torch.int8)
+    s1 = 1e-3 * torch.rand(512, device=dev, generator=g) + 1e-4
+    b1 = 0.1 * torch.randn(512, device=dev, generator=g)
+    xq = torch.clamp(torch.round(path1.float() / sx), -127, 127
+                     ).to(torch.int8)
+    got = {}
+    for name, x in (("bf16", path1), ("int8", xq)):
+        got[name] = head1_correlate_argmax_fused(x, sx, w1q, s1, b1, txt)
+        equal = labels_equal(
+            f"head1_correlate_argmax_fused (8,240,240,256) {name} -> K=150",
+            got[name],
+            head1_correlate_argmax_fused_plain(x, sx, w1q, s1, b1, txt), 150)
+        if equal < HEAD_ARGMAX_MIN_EQUAL:
+            fail("head1_correlate_argmax_fused: kernel disagrees with its "
+                 "plain version")
+    if not torch.equal(got["bf16"], got["int8"]):
+        fail("head1_correlate_argmax_fused: bf16 input quantized in the "
+             "kernel does not give the labels of quantizing first")
+    print("  head1_correlate_argmax_fused: bf16 and int8 inputs give the "
+          "same labels")
+    # all logits negative (every label row positive, e = b1 < 0): a K
+    # padding that leaked into the argmax would win with its logit 0
+    small = xq[:1, :16, :16].contiguous()
+    pos = torch.rand(150, 512, device=dev, generator=g) + 0.1
+    zero_w, neg_b = torch.zeros_like(w1q), -torch.ones(512, device=dev)
+    equal = labels_equal(
+        "head1_correlate_argmax_fused all-negative logits",
+        head1_correlate_argmax_fused(small, sx, zero_w, s1, neg_b, pos),
+        head1_correlate_argmax_fused_plain(small, sx, zero_w, s1, neg_b,
+                                           pos), 150)
+    if equal < HEAD_ARGMAX_MIN_EQUAL:
+        fail("head1_correlate_argmax_fused: all-negative logits disagree")
+    ms, plain_ms = _timed(
+        "head1_correlate_argmax_fused", "(8,240,240,256) bf16 -> K=150",
+        lambda: head1_correlate_argmax_fused(path1, sx, w1q, s1, b1, txt),
+        lambda: head1_correlate_argmax_fused_plain(path1, sx, w1q, s1, b1,
+                                                   txt))
+    m = path1.numel() // 256
+    results["head1_correlate_argmax_fused"] = result(
+        1.0 - float((got["bf16"] == head1_correlate_argmax_fused_plain(
+            path1, sx, w1q, s1, b1, txt)).float().mean()),
+        ms, plain_ms, nbytes(path1, w1q, s1, b1, txt, got["bf16"]),
+        {"int8": 2 * m * 256 * 512, "bf16": 2 * m * 512 * 150})
     return results
 
 
@@ -388,8 +653,6 @@ def phase_serving(dev):
     from lseg_tpu_torch.models.clip_text import CLIPTextEncoder
     from lseg_tpu_torch.models.layers import random_init_
     from lseg_tpu_torch.models.lseg import LSegNet
-    from lseg_tpu_torch.ops.flash_attention import flash_attention_flat
-    from lseg_tpu_torch.ops.patch_embed import patch_embed
     from lseg_tpu_torch.text.cache import TextFeatureCache
     from lseg_tpu_torch.text.tokenizer import ClipBPETokenizer
 
@@ -424,34 +687,9 @@ def phase_serving(dev):
          _images(g, dev, 2, 384, 480, pad_rows=12)),
     ]
     blocks = vit.hooks[-1] + 1
-    patch_embed.launches = 0
-    flash_attention_flat.launches = 0
-    for name, labels, images in requests:
-        p0, f0 = patch_embed.launches, flash_attention_flat.launches
-        t0 = time.perf_counter()
-        txt = cache(labels)
-        pred = predict(images, txt)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        n, h, w, _ = images.shape
-        k = len(labels)
-        if pred.shape != (n, h, w) or pred.dtype != torch.int32:
-            fail(f"{name}: labels {tuple(pred.shape)} {pred.dtype}")
-        lo, hi = int(pred.min()), int(pred.max())
-        if lo < 0 or hi >= k:
-            fail(f"{name}: labels outside [0, {k}): [{lo}, {hi}]")
-        dp = patch_embed.launches - p0
-        df = flash_attention_flat.launches - f0
-        print(f"  request {name}: K={k}, labels {tuple(pred.shape)} int32 "
-              f"in [{lo}, {hi}], {len(torch.unique(pred))} distinct, "
-              f"{dt:.3f} s (first call), launches patch_embed {dp}, "
-              f"flash_attention_flat {df}")
-        if dp != 1 or df != blocks:
-            fail(f"{name}: expected 1 patch_embed and {blocks} flash "
-                 f"launches, got {dp} and {df}")
-    launches = {"patch_embed": patch_embed.launches,
-                "flash_attention_flat": flash_attention_flat.launches}
-    print(f"  main path launches: {launches}")
+    _, launches = _serve_requests(
+        "bf16", predict, requests, cache, _kernel_counters(),
+        {"patch_embed": 1, "flash_attention_flat": blocks})
     if cache(ade) is not cache(ade):
         fail("text cache missed a repeated label set")
 
@@ -484,7 +722,7 @@ def phase_serving(dev):
         fail(f"kernel path deviates {d_kernel} > {SERVE_RATIO} * {d_ref} "
              f"+ {SERVE_FLOOR}")
     del ref32
-    return plain, predict, cache, ade, requests, launches
+    return model, plain, predict, cache, ade, requests, launches
 
 
 def _kernel_counters():
@@ -493,16 +731,156 @@ def _kernel_counters():
         flash_attention_flat_bwd,
         flash_attention_ln_qkv_fused_q8,
     )
-    from lseg_tpu_torch.ops.head1_correlate import head1_correlate_fused
+    from lseg_tpu_torch.ops.fused_correlate import fused_correlate
+    from lseg_tpu_torch.ops.head1_correlate import (
+        head1_correlate_argmax_fused,
+        head1_correlate_fused,
+    )
     from lseg_tpu_torch.ops.ln_quant import ln_quantize_rows
     from lseg_tpu_torch.ops.patch_embed import patch_embed
+    from lseg_tpu_torch.ops.upsample_argmax import upsample2x_argmax
 
     return {"patch_embed": patch_embed,
             "flash_attention_flat": flash_attention_flat,
             "flash_attention_flat_bwd": flash_attention_flat_bwd,
             "ln_quantize_rows": ln_quantize_rows,
             "flash_attention_ln_qkv_fused_q8": flash_attention_ln_qkv_fused_q8,
-            "head1_correlate_fused": head1_correlate_fused}
+            "head1_correlate_fused": head1_correlate_fused,
+            "fused_correlate": fused_correlate,
+            "upsample2x_argmax": upsample2x_argmax,
+            "head1_correlate_argmax_fused": head1_correlate_argmax_fused}
+
+
+def _serve_requests(tag, call, requests, cache, counters, expected):
+    """Answer each request through `call(images, txt)` with the launch
+    counters set to 0 just before and read just after; every request
+    must launch `expected` (missing keys: 0). Returns the labels and the
+    launches of the whole run."""
+    expected = {k: expected.get(k, 0) for k in counters}
+    for fn in counters.values():
+        fn.launches = 0
+    preds = []
+    for name, labels, images in requests:
+        before = {k: fn.launches for k, fn in counters.items()}
+        t0 = time.perf_counter()
+        txt = cache(labels)
+        pred = call(images, txt)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n, h, w, _ = images.shape
+        k = len(labels)
+        if pred.shape != (n, h, w) or pred.dtype != torch.int32:
+            fail(f"{tag} {name}: labels {tuple(pred.shape)} {pred.dtype}")
+        lo, hi = int(pred.min()), int(pred.max())
+        if lo < 0 or hi >= k:
+            fail(f"{tag} {name}: labels outside [0, {k}): [{lo}, {hi}]")
+        delta = {key: fn.launches - before[key]
+                 for key, fn in counters.items()}
+        print(f"  request {name}: K={k}, labels {tuple(pred.shape)} int32 "
+              f"in [{lo}, {hi}], {len(torch.unique(pred))} distinct, "
+              f"{dt:.3f} s (first call), launches "
+              f"{ {k: v for k, v in delta.items() if v} }")
+        if delta != expected:
+            fail(f"{tag} {name}: expected launches {expected}, got {delta}")
+        preds.append(pred)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"  main path launches: { {k: v for k, v in launches.items() if v} }")
+    return preds, launches
+
+
+def _agree(a, b):
+    return float((a == b).float().mean())
+
+
+def _argmax_call(model):
+    """(images, txt) -> labels through `model(x, txt, return_argmax=True)`,
+    `bench.py`'s call."""
+    def call(images, txt):
+        with torch.inference_mode():
+            return model(images, txt, return_argmax=True)
+    return call
+
+
+def phase_serving_streamed(dev, model, default_predict, cache, requests):
+    from lseg_tpu_torch.engine.serve import make_predictor
+    from lseg_tpu_torch.models.lseg import LSegNet
+    from lseg_tpu_torch.ops.fused_correlate import fused_correlate_plain
+    from lseg_tpu_torch.ops.upsample_argmax import upsample2x_argmax_plain
+
+    print("[3c] streamed head: make_predictor(fast_bf16 model, "
+          "use_pallas=True), kernels B10 + B11")
+    cfg = model.cfg
+    predict = make_predictor(model, use_pallas=True)
+    plain = LSegNet(cfg, torch.bfloat16, dev, plain=True)
+    plain.load_state_dict(model.state_dict())
+    plain_predict = make_predictor(plain, use_pallas=True)
+    blocks = cfg.vit.hooks[-1] + 1
+    preds, launches = _serve_requests(
+        "streamed", predict, requests, cache, _kernel_counters(),
+        {"patch_embed": 1, "flash_attention_flat": blocks,
+         "fused_correlate": 1, "upsample2x_argmax": 1})
+    # the served labels against the plain twins of B10 and B11 on the same
+    # embeddings (gated); against the whole plain path and the default
+    # head (printed: random-init margins are near zero)
+    for (name, labels, images), pred in zip(requests, preds):
+        txt = cache(labels)
+        with torch.inference_mode():
+            emb = model(images, None)
+            twin = upsample2x_argmax_plain(fused_correlate_plain(
+                emb, txt, cfg.logit_scale))
+        head_eq = _agree(pred, twin)
+        print(f"  {name}: labels vs B10 + B11 plain twins on the same "
+              f"embeddings {head_eq:.6f} (gate >= {HEAD_SERVE_MIN_EQUAL}); "
+              f"vs the whole plain path {_agree(pred, plain_predict(images, txt)):.4f}, "
+              f"vs the default head {_agree(pred, default_predict(images, txt)):.4f}"
+              f" (not gated)")
+        if head_eq < HEAD_SERVE_MIN_EQUAL:
+            fail(f"streamed {name}: labels disagree with the plain twins")
+    return predict, plain_predict, launches
+
+
+def phase_serving_head_fused(dev, model_q, cache, requests):
+    from lseg_tpu_torch.models.lseg import LSegNet
+    from lseg_tpu_torch.ops.head1_correlate import (
+        head1_correlate_argmax_fused_plain,
+    )
+
+    print("[3d] fused argmax head: the static_cal tree with "
+          "head_fused=True, model(x, txt, return_argmax=True), kernel B5")
+    cfg = dataclasses.replace(model_q.cfg, head_fused=True)
+    model = LSegNet(cfg, torch.bfloat16, dev).eval()
+    model.load_state_dict(model_q.state_dict())
+    plain = LSegNet(cfg, torch.bfloat16, dev, plain=True).eval()
+    plain.load_state_dict(model_q.state_dict())
+    blocks = cfg.vit.hooks[-1] + 1
+    preds, launches = _serve_requests(
+        "head_fused", _argmax_call(model), requests, cache, _kernel_counters(),
+        {"patch_embed": 1, "ln_quantize_rows": blocks,
+         "flash_attention_ln_qkv_fused_q8": blocks,
+         "head1_correlate_argmax_fused": 1})
+    h1 = model.head1
+    for (name, labels, images), pred in zip(requests, preds):
+        txt = cache(labels)
+        seen = {}
+        hook = model.refinenet1.register_forward_hook(
+            lambda mod, args, out: seen.__setitem__("path1", out))
+        with torch.inference_mode():
+            again = model(images, txt, return_argmax=True)
+            hook.remove()
+            x, sx = model._head1_codes(seen["path1"], keep_bf16=True)
+            twin = head1_correlate_argmax_fused_plain(
+                x.contiguous(), sx, h1.weight_q, h1.scale, h1.bias, txt)
+        head_eq = _agree(again[:, ::2, ::2], twin)
+        print(f"  {name}: labels vs B5's plain twin on the same path1 "
+              f"{head_eq:.6f} (gate >= {HEAD_SERVE_MIN_EQUAL}), repeat "
+              f"equal {bool(torch.equal(again, pred))}; vs the whole plain "
+              f"path {_agree(pred, _argmax_call(plain)(images, txt)):.4f}, "
+              f"vs the default lowres B4 head "
+              f"{_agree(pred, _argmax_call(model_q)(images, txt)):.4f}"
+              f" (not gated)")
+        if head_eq < HEAD_SERVE_MIN_EQUAL:
+            fail(f"head_fused {name}: labels disagree with B5's plain twin")
+    return model, plain, launches
 
 
 def phase_serving_int8(dev, cache, requests):
@@ -548,38 +926,12 @@ def phase_serving_int8(dev, cache, requests):
           f"[{min(float(v) for v in scales):.4g}, "
           f"{max(float(v) for v in scales):.4g}]")
 
-    counters = _kernel_counters()
     blocks = vit.hooks[-1] + 1
-    expected = {"patch_embed": 1, "flash_attention_flat": 0,
-                "flash_attention_flat_bwd": 0, "ln_quantize_rows": blocks,
-                "flash_attention_ln_qkv_fused_q8": blocks,
-                "head1_correlate_fused": 1}
-    for fn in counters.values():
-        fn.launches = 0
-    for name, labels, images in requests:
-        before = {k: fn.launches for k, fn in counters.items()}
-        t0 = time.perf_counter()
-        txt = cache(labels)
-        with torch.inference_mode():
-            pred = model(images, txt, return_argmax=True)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        n, h, w, _ = images.shape
-        k = len(labels)
-        if pred.shape != (n, h, w) or pred.dtype != torch.int32:
-            fail(f"int8 {name}: labels {tuple(pred.shape)} {pred.dtype}")
-        lo, hi = int(pred.min()), int(pred.max())
-        if lo < 0 or hi >= k:
-            fail(f"int8 {name}: labels outside [0, {k}): [{lo}, {hi}]")
-        delta = {key: fn.launches - before[key]
-                 for key, fn in counters.items()}
-        print(f"  request {name}: K={k}, labels {tuple(pred.shape)} int32 "
-              f"in [{lo}, {hi}], {len(torch.unique(pred))} distinct, "
-              f"{dt:.3f} s (first call), launches {delta}")
-        if delta != expected:
-            fail(f"int8 {name}: expected launches {expected}, got {delta}")
-    launches = {k: fn.launches for k, fn in counters.items()}
-    print(f"  main path launches: {launches}")
+    _, launches = _serve_requests(
+        "int8", _argmax_call(model), requests, cache, _kernel_counters(),
+        {"patch_embed": 1, "ln_quantize_rows": blocks,
+         "flash_attention_ln_qkv_fused_q8": blocks,
+         "head1_correlate_fused": 1})
 
     # half-res logits: kernel path vs plain path vs the fp32 model
     _, labels, images = requests[1]
@@ -619,7 +971,8 @@ def _measure(name, fn):
           f"before the call)")
 
 
-def phase_numbers(dev, plain, predict, cache, ade, model_q, plain_q):
+def phase_numbers(dev, plain, predict, cache, ade, model_q, plain_q,
+                  streamed, model_hf, plain_hf):
     from lseg_tpu_torch.engine.serve import make_predictor
 
     print("[4] numbers: batch 8, 480x480, K=150")
@@ -629,15 +982,18 @@ def phase_numbers(dev, plain, predict, cache, ade, model_q, plain_q):
     plain_predict = make_predictor(plain)
     _measure("kernel path", lambda: predict(images, txt))
     _measure("plain path", lambda: plain_predict(images, txt))
-
-    def argmax_call(model):
-        def call():
-            with torch.inference_mode():
-                return model(images, txt, return_argmax=True)
-        return call
-
-    _measure("static_cal kernel path", argmax_call(model_q))
-    _measure("static_cal plain path", argmax_call(plain_q))
+    _measure("static_cal kernel path",
+             lambda: _argmax_call(model_q)(images, txt))
+    _measure("static_cal plain path",
+             lambda: _argmax_call(plain_q)(images, txt))
+    _measure("streamed head (use_pallas) kernel path",
+             lambda: streamed[0](images, txt))
+    _measure("streamed head (use_pallas) plain path",
+             lambda: streamed[1](images, txt))
+    _measure("static_cal head_fused=True kernel path",
+             lambda: _argmax_call(model_hf)(images, txt))
+    _measure("static_cal head_fused=True plain path",
+             lambda: _argmax_call(plain_hf)(images, txt))
 
 
 def _vit_grad_deviation(a, b, blocks):
@@ -690,7 +1046,7 @@ def _train_timing(name, state, step, batch, txt, counters, expect):
 
 
 def phase_training(dev, cache, ade):
-    from lseg_tpu.data.synthetic import SyntheticSegDataset
+    from lseg_tpu_torch.data.synthetic import SyntheticSegDataset
     from lseg_tpu_torch import get_config
     from lseg_tpu_torch.data.loader import DataLoader
     from lseg_tpu_torch.models.layers import random_init_
@@ -823,20 +1179,30 @@ def main() -> int:
     t_start = time.perf_counter()
     name = phase_device_and_build()
     kernels = phase_kernels(dev)
-    plain, predict, cache, ade, requests, launches = phase_serving(dev)
+    model, plain, predict, cache, ade, requests, launches = phase_serving(dev)
+    *streamed, launches_s = phase_serving_streamed(dev, model, predict, cache,
+                                                   requests)
     model_q, plain_q, launches_q = phase_serving_int8(dev, cache, requests)
-    phase_numbers(dev, plain, predict, cache, ade, model_q, plain_q)
-    del plain, predict, model_q, plain_q
+    model_hf, plain_hf, launches_hf = phase_serving_head_fused(
+        dev, model_q, cache, requests)
+    phase_numbers(dev, plain, predict, cache, ade, model_q, plain_q,
+                  streamed, model_hf, plain_hf)
+    del model, plain, predict, streamed, model_q, plain_q, model_hf, plain_hf
     gc.collect()
     torch.cuda.empty_cache()
     launches_t = phase_training(dev, cache, ade)
     # each kernel's launches on the path that runs it: B1 and B6 on the
-    # bf16 path (phase 3), B2, B3 and B4 on the int8 path (phase 3b, which
-    # also checked B1 per request), B7 on the training path (phase 5a,
-    # the first fit)
+    # bf16 path (phase 3), B10 and B11 on the streamed head (phase 3c),
+    # B2, B3 and B4 on the int8 path (phase 3b, which also checked B1 per
+    # request), B5 on the fused argmax head (phase 3d), B7 on the training
+    # path (phase 5a, the first fit)
+    launches.update({k: launches_s[k] for k in (
+        "fused_correlate", "upsample2x_argmax")})
     launches.update({k: launches_q[k] for k in (
         "ln_quantize_rows", "flash_attention_ln_qkv_fused_q8",
         "head1_correlate_fused")})
+    launches["head1_correlate_argmax_fused"] = launches_hf[
+        "head1_correlate_argmax_fused"]
     launches["flash_attention_flat_bwd"] = launches_t[
         "flash_attention_flat_bwd"]
     sources = {
@@ -854,16 +1220,25 @@ def main() -> int:
             "lseg_tpu/ops/pallas_attention.py:780"),
         "head1_correlate_fused": ("lseg_tpu_torch/csrc/head1_correlate.cu",
                                   "lseg_tpu/ops/pallas_correlation.py:638"),
+        "fused_correlate": ("lseg_tpu_torch/csrc/fused_correlate.cu",
+                            "lseg_tpu/ops/pallas_correlation.py:57"),
+        "upsample2x_argmax": ("lseg_tpu_torch/csrc/upsample2x_argmax.cu",
+                              "lseg_tpu/ops/pallas_upsample_argmax.py:90"),
+        "head1_correlate_argmax_fused": (
+            "lseg_tpu_torch/csrc/head1_correlate_argmax.cu",
+            "lseg_tpu/ops/pallas_correlation.py:564"),
     }
     rows = []
-    for k, (err, ms, plain_ms) in kernels.items():
+    for k, res in kernels.items():
         if launches[k] == 0:
             fail(f"kernel {k} was not launched on the main path")
         src, rep = sources[k]
+        # max_abs_err of the label kernels (B11, B5): the fraction of
+        # labels that differ from the plain version's
         rows.append({"name": k, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": launches[k],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                     "replaces": rep, "launches": launches[k], **res})
     print(f"  total {time.perf_counter() - t_start:.1f} s")
+    print(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

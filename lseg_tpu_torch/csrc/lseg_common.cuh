@@ -1,12 +1,14 @@
-// Shared device helpers of the int8 kernels (B2, B3, B4): warp
-// reductions, fragment packing, the mma.sync wrappers (bf16 m16n8k16 and
-// s8 m16n8k32, both with 32-bit accumulators) and the int8 quantize of
-// one value (round half to even, clip to +-127, true IEEE division).
+// Shared device helpers of the kernels: warp reductions, the (value,
+// index) argmax order of jnp.argmax, fragment packing, the mma.sync
+// wrappers (bf16 m16n8k16 and s8 m16n8k32, both with 32-bit
+// accumulators) and the int8 quantize of one value (round half to even,
+// clip to +-127, true IEEE division).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 // Internal linkage: every source that includes this header gets its own
@@ -25,6 +27,25 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// (v, i) beats (bv, bi) in jnp.argmax's order: the larger value, NaN
+// above every number, ties to the smaller index (the first occurrence)
+__device__ __forceinline__ bool argmax_better(float v, int i, float bv,
+                                              int bi) {
+  const bool vn = isnan(v), bn = isnan(bv);
+  if (vn || bn) return vn && (!bn || i < bi);
+  return v > bv || (v == bv && i < bi);
+}
+
+// one butterfly step of an (value, index) argmax across lanes `o` apart
+__device__ __forceinline__ void argmax_xor(float& v, int& i, int o) {
+  const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+  const int oi = __shfl_xor_sync(0xffffffffu, i, o);
+  if (argmax_better(ov, oi, v, i)) {
+    v = ov;
+    i = oi;
+  }
 }
 
 __device__ __forceinline__ uint32_t ld_u32(const void* p) {

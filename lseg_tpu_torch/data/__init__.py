@@ -1,2 +1,4 @@
-"""Data loading of the port. The datasets themselves are the reference's
-JAX-free modules (`lseg_tpu.data.ade20k`, `.synthetic`, ...)."""
+"""Data loading of the port: the datasets (`ade20k`, `cityscapes`, `voc`,
+`coco`, `synthetic`), their transforms and the packaged label lists
+(`labels`) are framework-free copies of the reference's modules; the
+batch loader is `loader`."""

@@ -20,7 +20,7 @@ import torch
 
 class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
-                 num_workers: int = 8, device="cpu"):
+                 num_workers: int = 8, device="cuda"):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle

@@ -16,9 +16,13 @@ int8 head1 projection and the correlation run in kernel B4
 dynamic) per-tensor grid first. In argmax mode (`return_argmax`)
 refinenet1 skips its x2 upsample, B4 correlates at H/4 without the
 per-pixel norm, and only the K-logit map is x2-upsampled before the
-argmax; otherwise B4 correlates at H/2 with the norm. Without text
-features head1 runs unfused (`StaticQuantConv`), as `make_predictor` and
-the calibration forward use it.
+argmax; otherwise B4 correlates at H/2 with the norm. With
+`head_fused=True` (or 'lowres' without `decoder_conv_first`) the argmax
+mode runs kernel B5 instead: head1, the correlation and the argmax over K
+in one kernel at H/2, which takes the bf16 path1 of a calibrated model and
+quantizes it itself; only the label map leaves it. Without text features
+head1 runs unfused (`StaticQuantConv`), as `make_predictor` and the
+calibration forward use it.
 
 Text features come precomputed (`text.cache.TextFeatureCache`), so a
 label-set swap never re-encodes. Inputs and outputs are NHWC, as in the
@@ -42,6 +46,8 @@ from lseg_tpu_torch.models.layers import set_param_dtype_
 from lseg_tpu_torch.models.vit import DenseViT
 from lseg_tpu_torch.ops.correlation import correlate
 from lseg_tpu_torch.ops.head1_correlate import (
+    head1_correlate_argmax_fused,
+    head1_correlate_argmax_fused_plain,
     head1_correlate_fused,
     head1_correlate_fused_plain,
 )
@@ -129,19 +135,36 @@ class LSegNet(nn.Module):
             set_param_dtype_(self, param_dtype)
         self.eval()
 
+    def _head1_codes(self, path1, keep_bf16=False):
+        """path1 on head1's per-tensor grid: (codes, sx). With `keep_bf16`
+        a bf16 path1 on the calibrated grid stays bf16 for B5 to quantize
+        in the kernel (the same codes)."""
+        h1 = self.head1
+        if not h1.static_act:
+            return quantize_tensor(path1)
+        sx = h1.act_scale / 127.0
+        if keep_bf16 and path1.dtype == torch.bfloat16:
+            return path1, sx
+        return torch.clamp(torch.round(path1.float() / sx), -127, 127
+                           ).to(torch.int8), sx
+
     def _fused_head(self, path1, text_features, normalize):
         """B4 on path1 quantized on head1's per-tensor grid."""
         h1 = self.head1
-        if h1.static_act:
-            sx = h1.act_scale / 127.0
-            xq = torch.clamp(torch.round(path1.float() / sx), -127, 127
-                             ).to(torch.int8)
-        else:
-            xq, sx = quantize_tensor(path1)
+        xq, sx = self._head1_codes(path1)
         op = head1_correlate_fused_plain if self.plain else \
             head1_correlate_fused
         return op(xq.contiguous(), sx, h1.weight_q, h1.scale, h1.bias,
                   text_features, self.cfg.logit_scale, normalize)
+
+    def _fused_argmax_head(self, path1, text_features):
+        """B5: (N, H/2, W/2) int32 labels from path1."""
+        h1 = self.head1
+        x, sx = self._head1_codes(path1, keep_bf16=True)
+        op = head1_correlate_argmax_fused_plain if self.plain else \
+            head1_correlate_argmax_fused
+        return op(x.contiguous(), sx, h1.weight_q, h1.scale, h1.bias,
+                  text_features)
 
     def forward(self, x: torch.Tensor, text_features: torch.Tensor = None,
                 return_halfres: bool = False, return_argmax: bool = False):
@@ -160,11 +183,6 @@ class LSegNet(nn.Module):
             and text_features is not None and not self.calibrating)
         use_lowres_head = (use_head_fused and cfg.head_fused == "lowres"
                            and cfg.decoder_conv_first and return_argmax)
-        if use_head_fused and return_argmax and not use_lowres_head:
-            raise NotImplementedError(
-                "the fused argmax head (head_fused=True with return_argmax) "
-                "needs kernel B5 (head1_correlate_argmax_fused_t), which is "
-                "not ported yet")
         path1 = self.refinenet1(path, rn[0],
                                 skip_out_upsample=use_lowres_head)
 
@@ -176,6 +194,9 @@ class LSegNet(nn.Module):
             up = upsample2x(s_lo, align_corners=True,
                             compute_dtype=torch.bfloat16)
             pred = torch.argmax(up.float(), dim=-1).to(torch.int32)
+            return pred if return_halfres else _nearest2x(pred)
+        if use_head_fused and return_argmax:
+            pred = self._fused_argmax_head(path1, text_features)
             return pred if return_halfres else _nearest2x(pred)
         if use_head_fused:
             out = self._fused_head(path1, text_features, normalize=True)

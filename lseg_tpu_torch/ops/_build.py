@@ -54,6 +54,12 @@ SIGNATURES = {
     # qkv, out, dout, dqkv, stats, n, t, dim, valid_len, scale, stream
     "lseg_flash_attention_flat_bwd": (_P,) * 5 + (_I,) * 4 + (
         ctypes.c_float, _P),
+    # x, t, tnT (scratch), out, m, c, k, kp, x_bf16, scale, stream
+    "lseg_fused_correlate": (_P,) * 4 + (_I,) * 5 + (ctypes.c_float, _P),
+    # x, out, n, h, w, k, x_bf16, stream
+    "lseg_upsample2x_argmax": (_P,) * 2 + (_I,) * 5 + (_P,),
+    # x, sx, w, sc, b1, tn, out, m, c, e, k, x_bf16, stream
+    "lseg_head1_correlate_argmax": (_P,) * 7 + (_I,) * 5 + (_P,),
 }
 
 

@@ -20,7 +20,7 @@ class TextFeatureCache:
     `device`."""
 
     def __init__(self, cfg: CLIPTextConfig, state, tokenizer,
-                 dtype=torch.float32, device="cpu"):
+                 dtype=torch.float32, device="cuda"):
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.device = torch.device(device)

@@ -11,6 +11,8 @@ B6 forward and B7 backward) where the backbone allows it, seeded random
 weights, and the label embeddings from `--text_features` (a (K, out_c)
 .npy) or, without one, fixed random embeddings (smoke mode).
 `--dataset synthetic` trains the tiny test config on colored shapes.
+`--device` defaults to `cuda`; without a card the command exits unless
+it is given `--device cpu`.
 Loading a reference checkpoint (`--ckpt`) or embedding the labels with
 the text tower of one (`--bpe_vocab`) is not ported yet (ROADMAP A14)
 and raises.
@@ -75,29 +77,32 @@ def parse_args(argv=None):
                    action=argparse.BooleanOptionalAction, default=True,
                    help="train with flat flash attention (kernels B6 and "
                         "B7 on the card); needs head_dim 64 and even heads")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on (default cuda; pass "
+                        "--device cpu to train on the CPU)")
     return p.parse_args(argv)
 
 
 def build_dataset(args):
     if args.dataset == "synthetic":
-        from lseg_tpu.data.synthetic import SyntheticSegDataset
+        from lseg_tpu_torch.data.synthetic import SyntheticSegDataset
 
         train = SyntheticSegDataset(n=64, size=args.crop_size, num_classes=4)
         val = SyntheticSegDataset(n=16, size=args.crop_size, num_classes=4,
                                   seed=1)
         return train, val, [f"class{i}" for i in range(4)]
     if args.dataset == "citys":
-        from lseg_tpu.data.cityscapes import CitySegmentation as DS
+        from lseg_tpu_torch.data.cityscapes import CitySegmentation as DS
     elif args.dataset == "pascal_voc":
-        from lseg_tpu.data.voc import VOCSegmentation as DS
+        from lseg_tpu_torch.data.voc import VOCSegmentation as DS
     elif args.dataset == "pascal_aug":
-        from lseg_tpu.data.voc import VOCAugSegmentation as DS
+        from lseg_tpu_torch.data.voc import VOCAugSegmentation as DS
     elif args.dataset == "pcontext":
-        from lseg_tpu.data.voc import PContextSegmentation as DS
+        from lseg_tpu_torch.data.voc import PContextSegmentation as DS
     elif args.dataset == "coco":
-        from lseg_tpu.data.coco import COCOSegmentation as DS
+        from lseg_tpu_torch.data.coco import COCOSegmentation as DS
     else:
-        from lseg_tpu.data.ade20k import ADE20KSegmentation as DS
+        from lseg_tpu_torch.data.ade20k import ADE20KSegmentation as DS
     train = DS(args.data_path, "train", base_size=args.base_size,
                crop_size=args.crop_size, ignore_index=args.ignore_index)
     val = DS(args.data_path, "val", mode="val", base_size=args.base_size,
@@ -145,14 +150,18 @@ def main(argv=None):
         raise NotImplementedError(
             "initialising from a reference .ckpt / .npz is not ported yet "
             "(ROADMAP A14)")
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(
+            f"--device {args.device}: no CUDA card is available; pass "
+            f"--device cpu to train on the CPU")
 
     train_ds, val_ds, labels = build_dataset(args)
     if args.dry_run:
         train_ds, val_ds = _Overfit(train_ds, args.batch_size), None
 
     if args.dataset == "synthetic":
-        from lseg_tpu.testing import tiny_vit_config
+        from lseg_tpu_torch.testing import tiny_vit_config
 
         cfg = tiny_vit_config()
     else:

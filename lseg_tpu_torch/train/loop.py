@@ -2,7 +2,7 @@
 from the newest checkpoint at the epoch it recorded, one `set_epoch` per
 epoch, validation pixAcc / mIoU with the eps-guarded mean, a checkpoint
 after every epoch (last + best by val_acc), a CSV log and the metric
-sinks (`lseg_tpu.utils.sinks`, JAX-free), and on SIGTERM / SIGUSR1 a
+sinks (`utils.sinks`), and on SIGTERM / SIGUSR1 a
 checkpoint at the end of the running epoch and a clean stop, so that a
 preempted job resumes.
 """
@@ -15,7 +15,7 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
-from lseg_tpu.utils.sinks import make_sinks
+from lseg_tpu_torch.utils.sinks import make_sinks
 from lseg_tpu_torch.ops.metrics import SegmentationMetric
 from lseg_tpu_torch.train.checkpoint import CheckpointManager
 from lseg_tpu_torch.train.step import make_eval_step, make_train_step

@@ -158,17 +158,32 @@ def test_lseg_builds_int8_configs(quant):
 
 
 def test_lseg_fused_argmax_head_needs_b5(setup):
-    """head_fused=True in argmax mode runs kernel B5 in the reference: the
-    port raises instead of taking another path."""
+    """head_fused=True in argmax mode runs kernel B5 (its plain twin on
+    the CPU), as the reference does: the labels are the argmax of B4's
+    half-res logits on the same path1, up to logits that tie at bf16."""
     import dataclasses
 
     from lseg_tpu.config import fast_serving
     from lseg_tpu_torch.models.layers import random_init_
+    from lseg_tpu_torch.ops.head1_correlate import (
+        head1_correlate_argmax_fused,
+    )
 
     x, txt, *_ = setup
     cfg = dataclasses.replace(fast_serving(tiny_parity_config(), "static"),
                               head_fused=True)
     model = random_init_(LSegNet(cfg, dtype=torch.bfloat16),
                          torch.Generator().manual_seed(0))
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="B5"):
-        model(torch.from_numpy(x), torch.from_numpy(txt), return_argmax=True)
+    calls = []
+    model._fused_argmax_head = (lambda f: lambda *a: calls.append(1) or f(
+        *a))(model._fused_argmax_head)
+    launches = head1_correlate_argmax_fused.launches
+    with torch.no_grad():
+        pred = model(torch.from_numpy(x), torch.from_numpy(txt),
+                     return_argmax=True, return_halfres=True)
+        logits = model(torch.from_numpy(x), torch.from_numpy(txt),
+                       return_halfres=True)
+    assert calls == [1] and pred.dtype == torch.int32
+    assert head1_correlate_argmax_fused.launches == launches  # CPU: plain
+    agree = float((pred == logits.float().argmax(-1)).float().mean())
+    assert agree >= 0.99, agree

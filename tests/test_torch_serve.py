@@ -110,9 +110,16 @@ def test_make_logits_fn_is_the_model_forward(setup):
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
-def test_make_predictor_pallas_head_not_ported():
-    with pytest.raises(NotImplementedError, match="B10.*B11"):
-        make_predictor(LSegNet(tiny_parity_config()), use_pallas=True)
+def test_make_predictor_pallas_head_not_ported(setup):
+    """The streamed head (kernels B10 + B11, their plain twins on the CPU)
+    is ported: on the fp32 parity config it gives the default head's
+    labels, up to logits that tie at fp32 rounding."""
+    x, txt, _, sd = setup
+    model = LSegNet(tiny_parity_config())
+    got = make_predictor(model, sd, use_pallas=True)(x, txt)
+    ref = make_predictor(model)(x, txt)
+    assert got.dtype == torch.int32 and got.shape == ref.shape
+    assert float((got == ref).float().mean()) >= 0.999
 
 
 def test_text_feature_cache_hit_miss_and_shapes():
@@ -120,7 +127,7 @@ def test_text_feature_cache_hit_miss_and_shapes():
     v = perturb(JText(TINY_TEXT).init(jax.random.PRNGKey(0),
                                       jnp.zeros((2, 16), jnp.int32)))
     cache = TextFeatureCache(TINY_TEXT, from_jax_text_params(v["params"]),
-                             tok)
+                             tok, device="cpu")
     a = cache(["cat", "dog", "other"])
     assert a.shape == (3, TINY_TEXT.embed_dim) and a.dtype == torch.float32
     assert cache(["cat", "dog", "other"]) is a          # hit

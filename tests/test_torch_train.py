@@ -294,7 +294,7 @@ def test_loader_index_stream_matches_reference():
 
     ds = SyntheticSegDataset(n=11, size=16, num_classes=3)
     ref = JDataLoader(ds, 3, shuffle=True, num_workers=2)
-    got = DataLoader(ds, 3, shuffle=True, num_workers=2)
+    got = DataLoader(ds, 3, shuffle=True, num_workers=2, device="cpu")
     assert len(got) == len(ref) == 3
     for epoch in (0, 4):
         ref.set_epoch(epoch)
@@ -367,15 +367,17 @@ def test_fit_stops_on_sigterm_and_resumes(tiny_state_factory, tmp_path):
     cfg = FitConfig(max_epochs=3, ckpt_dir=str(tmp_path), tensorboard=False,
                     log_every=1)
     logs = []
-    loader = _SignalAfter(DataLoader(ds, 2, num_workers=1))
+    loader = _SignalAfter(DataLoader(ds, 2, num_workers=1, device="cpu"))
     state = fit(make(), loader, txt_t, cfg, log=logs.append)
     assert state.step == 2
     assert any("stopping after epoch 0" in s for s in logs)
     assert signal.getsignal(signal.SIGTERM) is not None
     logs.clear()
     val = DataLoader(SyntheticSegDataset(n=2, size=64, num_classes=4,
-                                         seed=1), 2, shuffle=False)
-    state = fit(make(), DataLoader(ds, 2, num_workers=1), txt_t, cfg,
+                                         seed=1), 2, shuffle=False,
+                     device="cpu")
+    state = fit(make(), DataLoader(ds, 2, num_workers=1, device="cpu"),
+                txt_t, cfg,
                 val_loader=val, log=logs.append)
     assert "resumed from step 2 (epoch 1)" in logs
     assert state.step == 6
@@ -389,8 +391,8 @@ def test_cli_dry_run_writes_metrics(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "lseg_tpu_torch.train", "--dataset",
          "synthetic", "--dry-run", "--crop_size", "64", "--batch_size", "2",
-         "--num_workers", "1", "--dtype", "float32", "--ckpt_root",
-         str(tmp_path)],
+         "--num_workers", "1", "--dtype", "float32", "--device", "cpu",
+         "--ckpt_root", str(tmp_path)],
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     rows = (tmp_path / "lseg" / "metrics.csv").read_text().splitlines()
@@ -400,6 +402,22 @@ def test_cli_dry_run_writes_metrics(tmp_path):
          "synthetic", "--ckpt", "x.npz", "--crop_size", "64"],
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0 and "A14" in proc.stderr
+
+
+def test_cli_without_card_names_the_device_flag(tmp_path):
+    """No silent CPU: without a card the CLI refuses to start unless it
+    is told `--device cpu`."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-m", "lseg_tpu_torch.train", "--dataset",
+         "synthetic", "--dry-run", "--crop_size", "64", "--ckpt_root",
+         str(tmp_path)],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "--device cpu" in proc.stderr
+    assert not (tmp_path / "lseg").exists()
 
 
 # --- training model vs serving model, graph-free serving --------------
@@ -441,7 +459,7 @@ def test_text_cache_features_train(tiny_state_factory):
                         torch.Generator().manual_seed(0))
     cache = TextFeatureCache(TINY_TEXT, text.state_dict(),
                              ClipBPETokenizer.for_tests(
-                                 TINY_TEXT.context_length))
+                                 TINY_TEXT.context_length), device="cpu")
     txt = cache(["sky", "tree", "road", "other"])
     assert not txt.requires_grad
     make, _ = tiny_state_factory
