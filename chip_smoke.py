@@ -34,9 +34,22 @@ the result line is printed:
    return_argmax=True)`; per request B1 = 1, B2 = B3 = blocks, B5 = 1,
    B4 = 0, and the labels must agree with B5's plain twin on the same
    path1;
+3e. the `fast_flashq` rung of the reference's bench.py: `fast_serving(
+   clip_vitl16_384, 'static_cal')` with `attn_impl='flashq'`,
+   `ln_quant_fused=False` and `mlp_act_cal=False`, quantized from the fp32
+   weights of phase 3b and calibrated on one batch, answers them through
+   `model(x, txt, return_argmax=True)`; per request B1 = 1, B8 = blocks,
+   B4 = 1, B2 = B3 = B6 = 0, and the half-res logits are held as in 3b;
+3f. the 'wup' logits head: the static_cal tree of phase 3b with
+   `head_fused='wup'` answers them through `model(x, txt)` (the call of
+   `make_logits_fn`), and kernel B13 takes the labels of the same path1;
+   per request B1 = 1, B2 = B3 = blocks, B14 = 1, B13 = 1, B4 = B5 = 0;
+   the full-resolution fp32 logits are held as in 3b, B13's labels
+   against its plain twin on the same codes (agreement with the argmax of
+   the logits is printed);
 4. numbers: img/s at batch 8, 480x480, K=150 and peak device memory,
-   for the bf16, the static_cal, the streamed-head and the fused-argmax
-   paths, kernels and plain twins;
+   for the bf16, the static_cal, the streamed-head, the fused-argmax, the
+   fast_flashq and the 'wup' logits paths, kernels and plain twins;
 5. training, after the serving models are freed: the full-width
    `get_config(clip_vitl16_384)` model with `attn_impl='flashflat'`,
    bf16 compute, fp32 master weights from a seeded random init and remat
@@ -101,8 +114,15 @@ LNQ_MAX_CODE_DIFF, LNQ_MIN_EQUAL, LNQ_SCALE_RTOL = 1, 0.999, 1e-5
 LNQKV_REL = 2e-2
 # head1_correlate_fused (B4): the same bf16 operands and fp32 sums taken
 # in another order: one bf16 ulp (2^-7 relative at most) plus 1e-3
-# absolute where the sum cancels.
+# absolute where the sum cancels. head1_correlate_wup_fused (B14) blends
+# two such logits along W, and the blend can cancel to near zero: the
+# ulp of each tap carried through the blend plus the blend's own rounding
+# on each side, two ulps of the blended magnitudes (the W-interp of
+# |logits|), plus 1e-3; and, against the W-interp of kernel B4's logits
+# on the same inputs, bit for bit (the same tile code, and a blend of two
+# bf16 products rounds once).
 HEAD1_RTOL, HEAD1_ATOL = 2.0 ** -7, 1e-3
+WUP_RTOL = 2 * HEAD1_RTOL
 # flash_attention_flat_bwd (B7): each of dq, dk and dv within 2e-2 of
 # max|plain|: the two sum in another order and round pn and ds to bf16,
 # so single entries may round a bf16 step apart.
@@ -116,9 +136,11 @@ GRAD_RATIO, GRAD_FLOOR = 2.0, 2.0 ** -8
 # off): a few fp32 ulps of the logit scale (|logit| <= 1/0.07).
 CORR_RTOL, CORR_ATOL = 1e-5, 1e-4
 # upsample2x_argmax (B11) rounds at the plain version's points, op by op:
-# the labels must agree everywhere. head1_correlate_argmax_fused (B5): the
-# same bf16 operands and codes, fp32 sums in another order, so a label may
-# flip where two logits tie to fp32 rounding.
+# the labels must agree everywhere, as must those of
+# head1_correlate_upsample_argmax (B13) with the plain tail of kernel B4's
+# logits. head1_correlate_argmax_fused (B5) and B13 against their plain
+# twins: the same bf16 operands and codes, fp32 sums in another order, so
+# a label may flip where two logits tie to fp32 rounding.
 UPARGMAX_MIN_EQUAL, HEAD_ARGMAX_MIN_EQUAL = 1.0, 0.999
 # Served labels of the two streamed heads against their plain twins on the
 # same head inputs (the embeddings, path1).
@@ -182,7 +204,8 @@ def result(err, ms, plain_ms, moved, ops, library_ms=None):
             "library_ms": library_ms}
 
 
-def check_close(name, got, ref, rtol, atol):
+def check_close(name, got, ref, rtol, atol, magnitude=None):
+    """Elementwise |got - ref| <= atol + rtol * magnitude (default |ref|)."""
     torch.cuda.synchronize()
     if got.shape != ref.shape or got.dtype != ref.dtype:
         fail(f"{name}: {tuple(got.shape)} {got.dtype} vs "
@@ -190,7 +213,8 @@ def check_close(name, got, ref, rtol, atol):
     if not torch.isfinite(got.float()).all():
         fail(f"{name}: non-finite output")
     max_abs, max_rel = deviation(got, ref)
-    bound = atol + rtol * ref.float().abs()
+    bound = atol + rtol * (ref.float().abs() if magnitude is None
+                           else magnitude)
     bad = int(((got.float() - ref.float()).abs() > bound).sum())
     print(f"  {name}: max_abs={max_abs:.6g} max_rel={max_rel:.6g} "
           f"over_tol={bad} (rtol={rtol:g}, atol={atol:g})", flush=True)
@@ -323,6 +347,7 @@ def phase_kernels(dev):
     results["flash_attention_flat_bwd"] = _flash_bwd(dev, g, scale)
     results.update(_int8_kernels(dev, g))
     results.update(_head_kernels(dev, g))
+    results.update(_upsampled_head_kernels(dev, g))
     return results
 
 
@@ -391,6 +416,8 @@ def _int8_kernels(dev, g):
     from lseg_tpu_torch.ops.flash_attention import (
         flash_attention_ln_qkv_fused_q8,
         flash_attention_ln_qkv_fused_q8_plain,
+        flash_attention_qkv_fused,
+        flash_attention_qkv_fused_plain,
     )
     from lseg_tpu_torch.ops.head1_correlate import (
         head1_correlate_fused,
@@ -400,6 +427,7 @@ def _int8_kernels(dev, g):
         ln_quantize_rows,
         ln_quantize_rows_plain,
     )
+    from lseg_tpu_torch.ops.quant import quantize_rows
 
     results = {}
     d = 1024
@@ -461,6 +489,38 @@ def _int8_kernels(dev, g):
             results["flash_attention_ln_qkv_fused_q8"] = result(
                 err, ms, plain_ms, nbytes(x, ln_g, ln_b, wq, sw, bias, oq,
                                           os_),
+                {"int8": 2 * 8 * t * d * 3 * d,
+                 "bf16": 4 * 8 * 16 * t * t * 64})
+
+    # B8 at (8, 901, 1024) and the padded (8, 904, 1024), valid_len 901:
+    # the row codes and scales of a LayerNorm-1 output, B2's weights
+    for t, vl in ((901, None), (904, 901)):
+        x = torch.randn(8, t, d, device=dev, generator=g).to(torch.bfloat16)
+        xq, sx = quantize_rows(x)
+        args = (xq, sx, wq, sw, bias, 16, scale, vl)
+        out = flash_attention_qkv_fused(*args)
+        ref = flash_attention_qkv_fused_plain(*args)
+        torch.cuda.synchronize()
+        if out.shape != ref.shape or not torch.isfinite(out.float()).all():
+            fail(f"flash_attention_qkv_fused: {tuple(out.shape)}, finite "
+                 f"{bool(torch.isfinite(out.float()).all())}")
+        err = float((out.float() - ref.float()).abs().max())
+        rel = err / float(ref.float().abs().max())
+        print(f"  flash_attention_qkv_fused (8,{t},1024) valid_len={vl}: "
+              f"max_abs {err:.6g} = {rel:.4g} of max|plain| (tol "
+              f"{LNQKV_REL:g})")
+        if rel > LNQKV_REL:
+            fail("flash_attention_qkv_fused: kernel disagrees with its "
+                 "plain version")
+        if vl is None:
+            ms, plain_ms = _timed(
+                "flash_attention_qkv_fused", "(8,901,1024) 16 heads",
+                lambda: flash_attention_qkv_fused(*args),
+                lambda: flash_attention_qkv_fused_plain(*args))
+            # no single PyTorch call computes the int8 qkv product of the
+            # codes together with the attention: library call none
+            results["flash_attention_qkv_fused"] = result(
+                err, ms, plain_ms, nbytes(xq, sx, wq, sw, bias, out),
                 {"int8": 2 * 8 * t * d * 3 * d,
                  "bf16": 4 * 8 * 16 * t * t * 64})
 
@@ -544,23 +604,12 @@ def _head_kernels(dev, g):
 
     # B11: the fp32 logits of B10, then bf16; all-negative logits, where a
     # K padding that leaked into the argmax would win
-    def labels_equal(name, lab, ref, k):
-        torch.cuda.synchronize()
-        if lab.shape != ref.shape or lab.dtype != torch.int32:
-            fail(f"{name}: {tuple(lab.shape)} {lab.dtype}")
-        equal = float((lab == ref).float().mean())
-        lo, hi = int(lab.min()), int(lab.max())
-        print(f"  {name}: labels equal {equal:.6f}, in [{lo}, {hi}]")
-        if lo < 0 or hi >= k:
-            fail(f"{name}: labels outside [0, {k})")
-        return equal
-
     neg = -(torch.rand(2, 60, 64, 150, device=dev, generator=g) + 0.5)
     cases = (("fp32", logits), ("bf16", logits.to(torch.bfloat16)),
              ("all-negative fp32", neg),
              ("all-negative bf16", neg.to(torch.bfloat16)))
     for name, lg in cases:
-        equal = labels_equal(
+        equal = _labels_equal(
             f"upsample2x_argmax {tuple(lg.shape)} {name}",
             upsample2x_argmax(lg), upsample2x_argmax_plain(lg), 150)
         if equal < UPARGMAX_MIN_EQUAL:
@@ -596,7 +645,7 @@ def _head_kernels(dev, g):
     got = {}
     for name, x in (("bf16", path1), ("int8", xq)):
         got[name] = head1_correlate_argmax_fused(x, sx, w1q, s1, b1, txt)
-        equal = labels_equal(
+        equal = _labels_equal(
             f"head1_correlate_argmax_fused (8,240,240,256) {name} -> K=150",
             got[name],
             head1_correlate_argmax_fused_plain(x, sx, w1q, s1, b1, txt), 150)
@@ -613,7 +662,7 @@ def _head_kernels(dev, g):
     small = xq[:1, :16, :16].contiguous()
     pos = torch.rand(150, 512, device=dev, generator=g) + 0.1
     zero_w, neg_b = torch.zeros_like(w1q), -torch.ones(512, device=dev)
-    equal = labels_equal(
+    equal = _labels_equal(
         "head1_correlate_argmax_fused all-negative logits",
         head1_correlate_argmax_fused(small, sx, zero_w, s1, neg_b, pos),
         head1_correlate_argmax_fused_plain(small, sx, zero_w, s1, neg_b,
@@ -631,6 +680,128 @@ def _head_kernels(dev, g):
             path1, sx, w1q, s1, b1, txt)).float().mean()),
         ms, plain_ms, nbytes(path1, w1q, s1, b1, txt, got["bf16"]),
         {"int8": 2 * m * 256 * 512, "bf16": 2 * m * 512 * 150})
+    return results
+
+
+def _labels_equal(name, lab, ref, k):
+    torch.cuda.synchronize()
+    if lab.shape != ref.shape or lab.dtype != torch.int32:
+        fail(f"{name}: {tuple(lab.shape)} {lab.dtype}")
+    equal = _agree(lab, ref)
+    lo, hi = int(lab.min()), int(lab.max())
+    print(f"  {name}: labels equal {equal:.6f}, in [{lo}, {hi}]")
+    if lo < 0 or hi >= k:
+        fail(f"{name}: labels outside [0, {k})")
+    return equal
+
+
+def _upsampled_head_kernels(dev, g):
+    """B14 and B13 at the flagship head shape, H/2 = 240."""
+    from lseg_tpu_torch.ops.head1_correlate import (
+        head1_correlate_fused,
+        head1_correlate_fused_plain,
+        head1_correlate_upsample_argmax,
+        head1_correlate_upsample_argmax_plain,
+        head1_correlate_wup_fused,
+        head1_correlate_wup_fused_plain,
+        upsample_argmax_bf16,
+        w_interp_bf16,
+    )
+    from lseg_tpu_torch.ops.resize import upsample2x
+
+    results = {}
+    n, h, w, c, e, k = 8, 240, 240, 256, 512, 150
+    xq = torch.randint(-127, 128, (n, h, w, c), device=dev, generator=g,
+                       dtype=torch.int8)
+    w1q = torch.randint(-127, 128, (e, c), device=dev, generator=g,
+                        dtype=torch.int8)
+    s1 = 1e-3 * torch.rand(e, device=dev, generator=g) + 1e-4
+    b1 = 0.1 * torch.randn(e, device=dev, generator=g)
+    txt = torch.randn(k, e, device=dev, generator=g)
+    sx = torch.tensor(0.02, device=dev)
+    args = (xq, sx, w1q, s1, b1, txt, 1.0 / 0.07)
+    m = n * h * w
+    head_ops = {"int8": 2 * m * c * e, "bf16": 2 * m * e * k}
+
+    # B14: two ulps of the blended magnitudes + 1e-3 against the plain
+    # twin; bit for bit against the W-interp of B4's logits
+    out = head1_correlate_wup_fused(*args)
+    lo = head1_correlate_fused(*args, True)
+    env = w_interp_bf16(head1_correlate_fused_plain(*args, True).abs())
+    err = check_close(f"head1_correlate_wup_fused {(n, h, w, c)}->K={k}",
+                      out, head1_correlate_wup_fused_plain(*args),
+                      WUP_RTOL, HEAD1_ATOL, env.float())
+    del env
+    same = torch.equal(out, w_interp_bf16(lo))
+    print(f"  head1_correlate_wup_fused equals the W-interp of B4's logits "
+          f"bit for bit: {same}")
+    if not same:
+        fail("head1_correlate_wup_fused: differs from the W-interp of B4's "
+             "logits")
+    ms, plain_ms = _timed("head1_correlate_wup_fused",
+                          f"{(n, h, w, c)}->(8,240,480,150)",
+                          lambda: head1_correlate_wup_fused(*args),
+                          lambda: head1_correlate_wup_fused_plain(*args))
+    # no single PyTorch call computes head1, the correlation and the
+    # W-interp: library call none. fp32 work: the squared norm (2 per
+    # element of e) and the blend (3 per output)
+    results["head1_correlate_wup_fused"] = result(
+        err, ms, plain_ms, nbytes(xq, w1q, s1, b1, txt, out),
+        {**head_ops, "fp32": 2 * m * e + 3 * out.numel()})
+    del out
+
+    # B13: labels >= 0.999 equal; printed: agreement with the composition
+    # B4 (normalize) -> x2 upsample in bf16 -> argmax
+    lab = head1_correlate_upsample_argmax(*args)
+    ref = head1_correlate_upsample_argmax_plain(*args)
+    equal = _labels_equal(
+        f"head1_correlate_upsample_argmax {(n, h, w, c)}->K={k}", lab, ref, k)
+    if equal < HEAD_ARGMAX_MIN_EQUAL:
+        fail("head1_correlate_upsample_argmax: kernel disagrees with its "
+             "plain version")
+    tail = _labels_equal("head1_correlate_upsample_argmax vs the plain "
+                         "tail of B4's logits", lab,
+                         upsample_argmax_bf16(lo), k)
+    if tail < UPARGMAX_MIN_EQUAL:
+        fail("head1_correlate_upsample_argmax: differs from the plain tail "
+             "of B4's logits")
+    comp = torch.argmax(upsample2x(lo, compute_dtype=torch.bfloat16).float(),
+                        dim=-1).to(torch.int32)
+    print(f"  head1_correlate_upsample_argmax vs B4 -> upsample2x bf16 -> "
+          f"argmax: {_agree(lab, comp):.6f} (blend order differs, not "
+          f"gated)")
+    del comp, lo
+    # every logit negative (embeddings below zero, text rows above), K =
+    # 13: a padded label would win with its logit 0. The logits of all
+    # pixels are then close, so near ties are many: gated bit for bit
+    # against the plain tail of B4's logits, the plain twin printed
+    neg_args = (xq[:1, :16, :16].contiguous(), sx, w1q,
+                1e-4 * torch.ones(e, device=dev), -2.0 - 100 * s1,
+                torch.rand(13, e, device=dev, generator=g) + 0.1, 1.0 / 0.07)
+    neg = head1_correlate_upsample_argmax(*neg_args)
+    lo_neg = head1_correlate_fused(*neg_args, True)
+    if not bool((lo_neg < 0).all()):
+        fail("head1_correlate_upsample_argmax: the all-negative case has a "
+             "logit >= 0")
+    if _labels_equal("head1_correlate_upsample_argmax all-negative K=13 vs "
+                     "the plain tail of B4's logits", neg,
+                     upsample_argmax_bf16(lo_neg), 13) < UPARGMAX_MIN_EQUAL:
+        fail("head1_correlate_upsample_argmax: all-negative logits "
+             "disagree")
+    print(f"    vs the plain twin "
+          f"{_agree(neg, head1_correlate_upsample_argmax_plain(*neg_args)):.6f}"
+          f" (near ties, not gated)")
+    ms, plain_ms = _timed("head1_correlate_upsample_argmax",
+                          f"{(n, h, w, c)}->(8,480,480)",
+                          lambda: head1_correlate_upsample_argmax(*args),
+                          lambda: head1_correlate_upsample_argmax_plain(*args))
+    up = n * 2 * h * 2 * w * k
+    # fp32 work: the squared norm, the H-blend (3 per blended value), the
+    # W-interp (3 per output) and the argmax (1 per output); no single
+    # PyTorch call computes it: library call none
+    results["head1_correlate_upsample_argmax"] = result(
+        1.0 - equal, ms, plain_ms, nbytes(xq, w1q, s1, b1, txt, lab),
+        {**head_ops, "fp32": 2 * m * e + 3 * up // 2 + 4 * up})
     return results
 
 
@@ -730,11 +901,14 @@ def _kernel_counters():
         flash_attention_flat,
         flash_attention_flat_bwd,
         flash_attention_ln_qkv_fused_q8,
+        flash_attention_qkv_fused,
     )
     from lseg_tpu_torch.ops.fused_correlate import fused_correlate
     from lseg_tpu_torch.ops.head1_correlate import (
         head1_correlate_argmax_fused,
         head1_correlate_fused,
+        head1_correlate_upsample_argmax,
+        head1_correlate_wup_fused,
     )
     from lseg_tpu_torch.ops.ln_quant import ln_quantize_rows
     from lseg_tpu_torch.ops.patch_embed import patch_embed
@@ -748,7 +922,11 @@ def _kernel_counters():
             "head1_correlate_fused": head1_correlate_fused,
             "fused_correlate": fused_correlate,
             "upsample2x_argmax": upsample2x_argmax,
-            "head1_correlate_argmax_fused": head1_correlate_argmax_fused}
+            "head1_correlate_argmax_fused": head1_correlate_argmax_fused,
+            "flash_attention_qkv_fused": flash_attention_qkv_fused,
+            "head1_correlate_wup_fused": head1_correlate_wup_fused,
+            "head1_correlate_upsample_argmax":
+                head1_correlate_upsample_argmax}
 
 
 def _serve_requests(tag, call, requests, cache, counters, expected):
@@ -887,7 +1065,6 @@ def phase_serving_int8(dev, cache, requests):
     from lseg_tpu_torch import fast_serving, get_config
     from lseg_tpu_torch.models.layers import random_init_
     from lseg_tpu_torch.models.lseg import LSegNet
-    from lseg_tpu_torch.ops.quant import calibrate_act_scales, quantize_tree
 
     print("[3b] serving fast_serving(clip_vitl16_384, 'static_cal'), int8")
     cfg = fast_serving(get_config("clip_vitl16_384"), "static_cal")
@@ -905,14 +1082,60 @@ def phase_serving_int8(dev, cache, requests):
                                       attn_scores_dtype="float32",
                                       patch_fused=False))
     g = torch.Generator(device=dev).manual_seed(SEED)
-    t0 = time.perf_counter()
     ref32 = random_init_(LSegNet(ref_cfg, torch.float32, dev), g).eval()
-    state = quantize_tree(ref32.state_dict(), decoder=True, act_scale=True)
+    model, plain = _quantized(cfg, dev, ref32, g)
+
+    blocks = vit.hooks[-1] + 1
+    _, launches = _serve_requests(
+        "int8", _argmax_call(model), requests, cache, _kernel_counters(),
+        {"patch_embed": 1, "ln_quantize_rows": blocks,
+         "flash_attention_ln_qkv_fused_q8": blocks,
+         "head1_correlate_fused": 1})
+
+    _int8_logits_gate("int8 half-res", model, plain, ref32, requests[1],
+                      cache, return_halfres=True)
+    return model, plain, ref32, launches
+
+
+def _int8_logits_gate(tag, model, plain, ref32, request, cache, **kw):
+    """Logits of `model(images, txt, **kw)` on the kernel path vs the plain
+    path vs the fp32 model: d_kernel <= 2 d_ref + floor."""
+    _, labels, images = request
+    txt = cache(labels)
+    with torch.inference_mode():
+        lk = model(images, txt, **kw).float()
+        lp = plain(images, txt, **kw).float()
+        lr = ref32(images, txt, **kw).float()
+    for name, t in (("kernel", lk), ("plain", lp), ("fp32", lr)):
+        if not torch.isfinite(t).all():
+            fail(f"{tag} logits of the {name} path are not finite")
+    d_kernel = float((lk - lp).abs().max())
+    d_ref = float((lp - lr).abs().max())
+    agree = _agree(lk.argmax(-1), lp.argmax(-1))
+    agree_ref = _agree(lp.argmax(-1), lr.argmax(-1))
+    print(f"  {tag} logits {tuple(lk.shape)}: |kernel - plain| max "
+          f"{d_kernel:.6g}, |plain int8 - fp32| max {d_ref:.6g}, max "
+          f"|logit| {float(lr.abs().max()):.4g}; label agreement kernel vs "
+          f"plain {agree:.4f}, plain vs fp32 {agree_ref:.4f} (not gated)")
+    if d_kernel > SERVE_RATIO * d_ref + SERVE_FLOOR:
+        fail(f"{tag}: kernel path deviates {d_kernel} > {SERVE_RATIO} * "
+             f"{d_ref} + {SERVE_FLOOR}")
+
+
+def _quantized(cfg, dev, ref32, g, mlp_act_scale=True):
+    """`cfg`'s int8 model from the fp32 model's weights (`quantize_tree`),
+    calibrated on one seeded batch of 8 without text, as the reference's
+    bench.py does; and its plain twin."""
+    from lseg_tpu_torch.models.lseg import LSegNet
+    from lseg_tpu_torch.ops.quant import calibrate_act_scales, quantize_tree
+
+    t0 = time.perf_counter()
+    state = quantize_tree(ref32.state_dict(), decoder=True, act_scale=True,
+                          mlp_act_scale=mlp_act_scale)
     model = LSegNet(cfg, torch.bfloat16, dev).eval()
     model.load_state_dict(state)
     del state
-    cal = _images(g, dev, 8, 480, 480)
-    calibrate_act_scales(model, cal, None)
+    calibrate_act_scales(model, _images(g, dev, 8, 480, 480), None)
     plain = LSegNet(cfg, torch.bfloat16, dev, plain=True).eval()
     plain.load_state_dict(model.state_dict())
     torch.cuda.synchronize()
@@ -925,36 +1148,111 @@ def phase_serving_int8(dev, cache, requests):
           f"{time.perf_counter() - t0:.2f} s, {len(scales)} act scales in "
           f"[{min(float(v) for v in scales):.4g}, "
           f"{max(float(v) for v in scales):.4g}]")
+    return model, plain
 
+
+def phase_serving_flashq(dev, ref32, cache, requests):
+    from lseg_tpu_torch import fast_serving, get_config
+
+    print("[3e] serving bench.py's fast_flashq rung: fast_serving("
+          "clip_vitl16_384, 'static_cal') with attn flashq, no LN-fused "
+          "kernels, no MLP-hidden calibration; kernel B8")
+    base = fast_serving(get_config("clip_vitl16_384"), "static_cal")
+    cfg = dataclasses.replace(base, vit=dataclasses.replace(
+        base.vit, attn_impl="flashq", ln_quant_fused=False,
+        mlp_act_cal=False))
+    vit = cfg.vit
+    print(f"  attn {vit.attn_impl}, ln_quant_fused {vit.ln_quant_fused}, "
+          f"mlp_act_cal {vit.mlp_act_cal}; head_fused {cfg.head_fused}")
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    model, plain = _quantized(cfg, dev, ref32, g, mlp_act_scale=False)
+    if any(k.startswith("vit.") and k.endswith("act_scale")
+           for k in model.state_dict()):
+        fail("fast_flashq: the ViT has a calibrated site")
     blocks = vit.hooks[-1] + 1
     _, launches = _serve_requests(
-        "int8", _argmax_call(model), requests, cache, _kernel_counters(),
+        "flashq", _argmax_call(model), requests, cache, _kernel_counters(),
+        {"patch_embed": 1, "flash_attention_qkv_fused": blocks,
+         "head1_correlate_fused": 1})
+    _int8_logits_gate("fast_flashq half-res", model, plain, ref32,
+                      requests[1], cache, return_halfres=True)
+    return model, plain, launches
+
+
+def _logits_call(model):
+    """(images, txt) -> (N, H, W, K) fp32 logits through `model(x, txt)`,
+    the call of `make_logits_fn` and the TTA evaluator."""
+    def call(images, txt):
+        with torch.inference_mode():
+            return model(images, txt)
+    return call
+
+
+def phase_serving_wup(dev, model_q, ref32, cache, requests):
+    from lseg_tpu_torch.models.lseg import LSegNet
+    from lseg_tpu_torch.ops.head1_correlate import (
+        head1_correlate_upsample_argmax,
+        head1_correlate_upsample_argmax_plain,
+    )
+
+    print("[3f] the 'wup' logits head: the static_cal tree with "
+          "head_fused='wup', model(x, txt), kernel B14; kernel B13 on the "
+          "served path1")
+    cfg = dataclasses.replace(model_q.cfg, head_fused="wup")
+    model = LSegNet(cfg, torch.bfloat16, dev).eval()
+    model.load_state_dict(model_q.state_dict())
+    plain = LSegNet(cfg, torch.bfloat16, dev, plain=True).eval()
+    plain.load_state_dict(model_q.state_dict())
+    h1 = model.head1
+    served = []
+
+    def call(images, txt):
+        """The logits, then B13's labels of the same path1: the request's
+        answer is B13's label map."""
+        seen = {}
+        hook = model.refinenet1.register_forward_hook(
+            lambda mod, args, out: seen.__setitem__("path1", out))
+        try:
+            logits = _logits_call(model)(images, txt)
+        finally:
+            hook.remove()
+        with torch.inference_mode():
+            xq, sx = model._head1_codes(seen["path1"])
+            labels = head1_correlate_upsample_argmax(
+                xq.contiguous(), sx, h1.weight_q, h1.scale, h1.bias, txt,
+                cfg.logit_scale)
+        served.append((logits, xq, sx))
+        return labels
+
+    blocks = cfg.vit.hooks[-1] + 1
+    preds, launches = _serve_requests(
+        "wup", call, requests, cache, _kernel_counters(),
         {"patch_embed": 1, "ln_quantize_rows": blocks,
          "flash_attention_ln_qkv_fused_q8": blocks,
-         "head1_correlate_fused": 1})
-
-    # half-res logits: kernel path vs plain path vs the fp32 model
-    _, labels, images = requests[1]
-    txt = cache(labels)
-    with torch.inference_mode():
-        lk = model(images, txt, return_halfres=True).float()
-        lp = plain(images, txt, return_halfres=True).float()
-        lr = ref32(images, txt, return_halfres=True).float()
-    for name, t in (("kernel", lk), ("plain", lp), ("fp32", lr)):
-        if not torch.isfinite(t).all():
-            fail(f"int8 half-res logits of the {name} path are not finite")
-    d_kernel = float((lk - lp).abs().max())
-    d_ref = float((lp - lr).abs().max())
-    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
-    agree_ref = float((lp.argmax(-1) == lr.argmax(-1)).float().mean())
-    print(f"  int8 half-res logits {tuple(lk.shape)}: |kernel - plain| max "
-          f"{d_kernel:.6g}, |plain int8 - fp32| max {d_ref:.6g}, max "
-          f"|logit| {float(lr.abs().max()):.4g}; label agreement kernel vs "
-          f"plain {agree:.4f}, plain vs fp32 {agree_ref:.4f} (not gated)")
-    if d_kernel > SERVE_RATIO * d_ref + SERVE_FLOOR:
-        fail(f"int8 kernel path deviates {d_kernel} > {SERVE_RATIO} * "
-             f"{d_ref} + {SERVE_FLOOR}")
-    del ref32
+         "head1_correlate_wup_fused": 1,
+         "head1_correlate_upsample_argmax": 1})
+    for (name, labels, images), pred, (logits, xq, sx) in zip(
+            requests, preds, served):
+        txt = cache(labels)
+        n, h, w, _ = images.shape
+        if (logits.shape != (n, h, w, len(labels))
+                or logits.dtype != torch.float32
+                or not torch.isfinite(logits).all()):
+            fail(f"wup {name}: logits {tuple(logits.shape)} {logits.dtype}")
+        with torch.inference_mode():
+            twin = head1_correlate_upsample_argmax_plain(
+                xq.contiguous(), sx, h1.weight_q, h1.scale, h1.bias, txt,
+                cfg.logit_scale)
+        head_eq = _agree(pred, twin)
+        print(f"  {name}: logits {tuple(logits.shape)} fp32; B13 labels vs "
+              f"its plain twin on the same codes {head_eq:.6f} (gate >= "
+              f"{HEAD_SERVE_MIN_EQUAL}); vs the argmax of the 'wup' logits "
+              f"{_agree(pred, logits.argmax(-1)):.4f} (not gated)")
+        if head_eq < HEAD_SERVE_MIN_EQUAL:
+            fail(f"wup {name}: B13 labels disagree with its plain twin")
+    del served
+    _int8_logits_gate("'wup' full-resolution", model, plain, ref32,
+                      requests[0], cache)
     return model, plain, launches
 
 
@@ -969,10 +1267,12 @@ def _measure(name, fn):
           f"ade20k150_zeroshot={8e3 / ms:.2f}, peak memory "
           f"{peak / 2**30:.3f} GiB ({resident / 2**30:.3f} GiB resident "
           f"before the call)")
+    return peak - resident
 
 
 def phase_numbers(dev, plain, predict, cache, ade, model_q, plain_q,
-                  streamed, model_hf, plain_hf):
+                  streamed, model_hf, plain_hf, model_fq, plain_fq,
+                  model_wup, plain_wup):
     from lseg_tpu_torch.engine.serve import make_predictor
 
     print("[4] numbers: batch 8, 480x480, K=150")
@@ -994,6 +1294,16 @@ def phase_numbers(dev, plain, predict, cache, ade, model_q, plain_q,
              lambda: _argmax_call(model_hf)(images, txt))
     _measure("static_cal head_fused=True plain path",
              lambda: _argmax_call(plain_hf)(images, txt))
+    _measure("fast_flashq kernel path",
+             lambda: _argmax_call(model_fq)(images, txt))
+    _measure("fast_flashq plain path",
+             lambda: _argmax_call(plain_fq)(images, txt))
+    out_gib = 8 * 480 * 480 * len(ade) * 4 / 2**30
+    for name, m in (("kernel", model_wup), ("plain", plain_wup)):
+        inc = _measure(f"static_cal head_fused='wup' logits call, {name} "
+                       f"path", lambda: _logits_call(m)(images, txt))
+        print(f"    increment over resident {inc / 2**30:.3f} GiB, of which "
+              f"the fp32 (8,480,480,{len(ade)}) output is {out_gib:.3f} GiB")
 
 
 def _vit_grad_deviation(a, b, blocks):
@@ -1182,20 +1492,31 @@ def main() -> int:
     model, plain, predict, cache, ade, requests, launches = phase_serving(dev)
     *streamed, launches_s = phase_serving_streamed(dev, model, predict, cache,
                                                    requests)
-    model_q, plain_q, launches_q = phase_serving_int8(dev, cache, requests)
+    model_q, plain_q, ref32, launches_q = phase_serving_int8(dev, cache,
+                                                            requests)
     model_hf, plain_hf, launches_hf = phase_serving_head_fused(
         dev, model_q, cache, requests)
+    model_fq, plain_fq, launches_fq = phase_serving_flashq(dev, ref32, cache,
+                                                           requests)
+    model_w, plain_w, launches_w = phase_serving_wup(dev, model_q, ref32,
+                                                     cache, requests)
+    del ref32
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_numbers(dev, plain, predict, cache, ade, model_q, plain_q,
-                  streamed, model_hf, plain_hf)
+                  streamed, model_hf, plain_hf, model_fq, plain_fq, model_w,
+                  plain_w)
     del model, plain, predict, streamed, model_q, plain_q, model_hf, plain_hf
+    del model_fq, plain_fq, model_w, plain_w
     gc.collect()
     torch.cuda.empty_cache()
     launches_t = phase_training(dev, cache, ade)
     # each kernel's launches on the path that runs it: B1 and B6 on the
     # bf16 path (phase 3), B10 and B11 on the streamed head (phase 3c),
     # B2, B3 and B4 on the int8 path (phase 3b, which also checked B1 per
-    # request), B5 on the fused argmax head (phase 3d), B7 on the training
-    # path (phase 5a, the first fit)
+    # request), B5 on the fused argmax head (phase 3d), B8 on the
+    # fast_flashq path (phase 3e), B14 and B13 on the 'wup' head (phase 3f),
+    # B7 on the training path (phase 5a, the first fit)
     launches.update({k: launches_s[k] for k in (
         "fused_correlate", "upsample2x_argmax")})
     launches.update({k: launches_q[k] for k in (
@@ -1203,6 +1524,10 @@ def main() -> int:
         "head1_correlate_fused")})
     launches["head1_correlate_argmax_fused"] = launches_hf[
         "head1_correlate_argmax_fused"]
+    launches["flash_attention_qkv_fused"] = launches_fq[
+        "flash_attention_qkv_fused"]
+    launches.update({k: launches_w[k] for k in (
+        "head1_correlate_wup_fused", "head1_correlate_upsample_argmax")})
     launches["flash_attention_flat_bwd"] = launches_t[
         "flash_attention_flat_bwd"]
     sources = {
@@ -1227,13 +1552,22 @@ def main() -> int:
         "head1_correlate_argmax_fused": (
             "lseg_tpu_torch/csrc/head1_correlate_argmax.cu",
             "lseg_tpu/ops/pallas_correlation.py:564"),
+        "flash_attention_qkv_fused": (
+            "lseg_tpu_torch/csrc/flash_attention_qkv_fused.cu",
+            "lseg_tpu/ops/pallas_attention.py:344"),
+        "head1_correlate_wup_fused": (
+            "lseg_tpu_torch/csrc/head1_correlate_wup.cu",
+            "lseg_tpu/ops/pallas_correlation.py:357"),
+        "head1_correlate_upsample_argmax": (
+            "lseg_tpu_torch/csrc/head1_correlate_upsample_argmax.cu",
+            "lseg_tpu/ops/pallas_correlation.py:237"),
     }
     rows = []
     for k, res in kernels.items():
         if launches[k] == 0:
             fail(f"kernel {k} was not launched on the main path")
         src, rep = sources[k]
-        # max_abs_err of the label kernels (B11, B5): the fraction of
+        # max_abs_err of the label kernels (B11, B5, B13): the fraction of
         # labels that differ from the plain version's
         rows.append({"name": k, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches[k], **res})

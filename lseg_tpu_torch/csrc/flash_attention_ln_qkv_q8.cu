@@ -35,7 +35,8 @@
 //   (a) LN + row quantize (B3's routine) -> xq (N*T, D) int8, sx (N*T,);
 //   (b) a tiled int8 GEMM on mma.sync m16n8k32 (128 x 128 block tile,
 //       k slices of 64 bytes staged in shared memory) with the fp32
-//       dequant + bias epilogue -> bf16 qkv (N, T, 3D);
+//       dequant + bias epilogue -> bf16 qkv (N, T, 3D) (qkv_int8_gemm.cuh,
+//       shared with kernel B8);
 //   (c) flash attention with B6's online-softmax core: one block owns a
 //       64-query tile of one image across all heads, two groups of four
 //       warps walking the heads in turn, and keeps the bf16 (64, D) output
@@ -47,108 +48,11 @@
 // first lead for a fused redesign.
 
 #include "ln_quantize.cuh"
+#include "qkv_int8_gemm.cuh"
 
 namespace {
 
 using lseg::ld_u32;
-
-// ---- (b) int8 qkv GEMM with the dequant epilogue ----
-constexpr int GBM = 128;          // rows per block
-constexpr int GBN = 128;          // output channels per block
-constexpr int GBK = 64;           // k bytes per step
-constexpr int GLD = GBK + 16;     // smem row stride in bytes (conflict-free)
-constexpr int GTHREADS = 256;     // 8 warps: 2 (rows) x 4 (columns)
-
-__global__ void __launch_bounds__(GTHREADS) qkv_int8_gemm_kernel(
-    const int8_t* __restrict__ a, const float* __restrict__ sa,
-    const int8_t* __restrict__ w, const float* __restrict__ sw,
-    const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int M,
-    int N, int K) {
-  __shared__ __align__(16) int8_t As[GBM * GLD];
-  __shared__ __align__(16) int8_t Bs[GBN * GLD];
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;
-  const int t4 = lane % 4;
-  const int m0 = blockIdx.y * GBM;
-  const int n0 = blockIdx.x * GBN;
-  const int wm = (warp % 2) * 64;  // this warp's 64 rows
-  const int wn = (warp / 2) * 32;  // and 32 columns
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += GBK) {
-    for (int i = tid; i < GBM * (GBK / 16); i += GTHREADS) {
-      const int r = i / (GBK / 16);
-      const int c = (i % (GBK / 16)) * 16;
-      uint4 va = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < M) {
-        va = *reinterpret_cast<const uint4*>(
-            a + static_cast<long long>(m0 + r) * K + k0 + c);
-      }
-      *reinterpret_cast<uint4*>(As + r * GLD + c) = va;
-      *reinterpret_cast<uint4*>(Bs + r * GLD + c) =
-          *reinterpret_cast<const uint4*>(
-              w + static_cast<long long>(n0 + r) * K + k0 + c);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GBK; kk += 32) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int8_t* p = As + (wm + mt * 16 + g) * GLD + kk + t4 * 4;
-        af[mt][0] = ld_u32(p);
-        af[mt][1] = ld_u32(p + 8 * GLD);
-        af[mt][2] = ld_u32(p + 16);
-        af[mt][3] = ld_u32(p + 8 * GLD + 16);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int8_t* p = Bs + (wn + nt * 8 + g) * GLD + kk + t4 * 4;
-        const uint32_t b0 = ld_u32(p);
-        const uint32_t b1 = ld_u32(p + 16);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) lseg::mma_s8_16832(acc[mt][nt], af[mt],
-                                                          b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int c = n0 + wn + nt * 8 + 2 * t4;
-    const float s0 = sw[c], s1 = sw[c + 1];
-    const float b0 = bias[c], b1 = bias[c + 1];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = m0 + wm + mt * 16 + g + 8 * half;
-        if (r >= M) continue;
-        const float sr = sa[r];
-        const float v0 = __fadd_rn(
-            __fmul_rn(__fmul_rn(__int2float_rn(acc[mt][nt][2 * half]), sr),
-                      s0), b0);
-        const float v1 = __fadd_rn(
-            __fmul_rn(__fmul_rn(__int2float_rn(acc[mt][nt][2 * half + 1]),
-                                sr), s1), b1);
-        *reinterpret_cast<__nv_bfloat162*>(
-            out + static_cast<long long>(r) * N + c) =
-            __floats2bfloat162_rn(v0, v1);
-      }
-    }
-  }
-}
 
 // ---- (c) flash attention over all heads + per-row int8 output ----
 constexpr int HD = 64;            // head_dim (the kernel is specialised)
@@ -367,13 +271,8 @@ extern "C" int lseg_flash_attention_ln_qkv_q8(
                                          eps, st);
   if (rc != 0) return rc;
 
-  const dim3 ggrid(3 * dim / GBN, (rows + GBM - 1) / GBM);
-  qkv_int8_gemm_kernel<<<ggrid, GTHREADS, 0, st>>>(
-      static_cast<const int8_t*>(xq), static_cast<const float*>(sx),
-      static_cast<const int8_t*>(wq), static_cast<const float*>(sw),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(qkv), rows,
-      3 * dim, dim);
-  rc = static_cast<int>(cudaGetLastError());
+  rc = lseg::qkv_gemm::launch(xq, sx, wq, sw, bias, qkv, rows, 3 * dim, dim,
+                              st);
   if (rc != 0) return rc;
 
   const size_t smem = attention_smem_bytes(dim);

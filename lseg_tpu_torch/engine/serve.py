@@ -19,6 +19,14 @@ kernel B10 (`ops.fused_correlate`) normalises and correlates in fp32, and
 kernel B11 (`ops.upsample_argmax`) upsamples and takes the argmax in one
 pass, so only the (N, H, W) labels leave it. A `plain=True` model runs
 both kernels' plain twins.
+
+`make_logits_fn` returns the (N, H, W, K) fp32 logits of the full
+`LSegNet.forward`, the TTA evaluator's crop forward: on an int8 config
+with `head_fused='wup'` that call runs kernel B14 (head1, the correlation
+and the x2 W-interp in one kernel, the H-interp after it), otherwise B4 or
+the unfused head. Kernel B13 (`ops.head1_correlate.
+head1_correlate_upsample_argmax`) serves neither function, as the
+reference's predictors do not call it.
 """
 
 from __future__ import annotations

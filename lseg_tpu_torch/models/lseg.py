@@ -20,7 +20,15 @@ argmax; otherwise B4 correlates at H/2 with the norm. With
 `head_fused=True` (or 'lowres' without `decoder_conv_first`) the argmax
 mode runs kernel B5 instead: head1, the correlation and the argmax over K
 in one kernel at H/2, which takes the bf16 path1 of a calibrated model and
-quantizes it itself; only the label map leaves it. Without text features
+quantizes it itself; only the label map leaves it. With `head_fused='wup'`
+the logits call (no `return_argmax`, no `return_halfres`) runs kernel B14
+(`ops.head1_correlate.head1_correlate_wup_fused`): head1, the correlation
+with the norm and the x2 W-interp at H/2 in one kernel, leaving only the
+bf16 H-interp outside it, as `make_logits_fn` and the TTA evaluator call
+it; its argmax and half-res calls take B5 and B4 as above. Kernel B13
+(`head1_correlate_upsample_argmax`, the labels of the x2-upsampled logits
+in one kernel) serves no call of the model, as in the reference, where
+only a script drives it on path1. Without text features
 head1 runs unfused (`StaticQuantConv`), as `make_predictor` and the
 calibration forward use it.
 
@@ -50,9 +58,11 @@ from lseg_tpu_torch.ops.head1_correlate import (
     head1_correlate_argmax_fused_plain,
     head1_correlate_fused,
     head1_correlate_fused_plain,
+    head1_correlate_wup_fused,
+    head1_correlate_wup_fused_plain,
 )
 from lseg_tpu_torch.ops.quant import quantize_tensor
-from lseg_tpu_torch.ops.resize import upsample2x
+from lseg_tpu_torch.ops.resize import resize_bilinear, upsample2x
 
 
 def head_dtype(cfg: LSegConfig) -> torch.dtype:
@@ -74,9 +84,7 @@ def _check_supported(cfg: LSegConfig) -> None:
         "arch_option (head blocks 1/2)": cfg.arch_option not in (0,),
         "decoder_fused_rcu (kernel B18)": cfg.decoder_fused_rcu,
         "decoder_fused_tail (kernel B19)": cfg.decoder_fused_tail,
-        "head_fused='wup' (kernel B14)": cfg.head_fused == "wup",
         "vit.mlp_fused (kernel B16)": vit.mlp_fused,
-        "vit.attn_impl='flashq' (kernel B8)": vit.attn_impl == "flashq",
         "vit.attn_impl='flashqp' (kernel B15)": vit.attn_impl == "flashqp",
         "vit.quant_int8 dynamic": vit.quant_int8 in (True, "dynamic"),
     }
@@ -157,6 +165,15 @@ class LSegNet(nn.Module):
         return op(xq.contiguous(), sx, h1.weight_q, h1.scale, h1.bias,
                   text_features, self.cfg.logit_scale, normalize)
 
+    def _fused_wup_head(self, path1, text_features):
+        """B14: (N, H/2, W, K) bf16 logits, upsampled x2 along W only."""
+        h1 = self.head1
+        xq, sx = self._head1_codes(path1)
+        op = head1_correlate_wup_fused_plain if self.plain else \
+            head1_correlate_wup_fused
+        return op(xq.contiguous(), sx, h1.weight_q, h1.scale, h1.bias,
+                  text_features, self.cfg.logit_scale)
+
     def _fused_argmax_head(self, path1, text_features):
         """B5: (N, H/2, W/2) int32 labels from path1."""
         h1 = self.head1
@@ -198,6 +215,12 @@ class LSegNet(nn.Module):
         if use_head_fused and return_argmax:
             pred = self._fused_argmax_head(path1, text_features)
             return pred if return_halfres else _nearest2x(pred)
+        if use_head_fused and cfg.head_fused == "wup" and not return_halfres:
+            # only the H-interp is left outside the kernel
+            out = self._fused_wup_head(path1, text_features)
+            n, h, w2, _ = out.shape
+            return resize_bilinear(out, 2 * h, w2, align_corners=True,
+                                   compute_dtype=torch.bfloat16).float()
         if use_head_fused:
             out = self._fused_head(path1, text_features, normalize=True)
             if return_halfres:

@@ -14,7 +14,13 @@ Attention `impl`:
   per-row int8 quantize of its output run in kernel B2
   (`ops.flash_attention.flash_attention_ln_qkv_fused_q8`), whose codes
   feed the int8 output projection directly;
-- 'flashflat' (or 'flashlnq' unquantized): the fused qkv projection's
+- 'flashq' with `quant_int8='static'` (bench.py's `fast_flashq` rung): the
+  LayerNorm-1 output is row-quantized (`ops.quant.quantize_rows`), and the
+  int8 qkv projection of those codes and attention run in kernel B8
+  (`ops.flash_attention.flash_attention_qkv_fused`), whose bf16 output
+  goes through the int8 output projection (`StaticQuantDense`);
+- 'flashflat' (or 'flashlnq' / 'flashq' unquantized): the fused qkv
+  projection's
   flat (N, T, 3D) output goes straight into the flash kernel B6, which
   emits the flat (N, T, D) input of the output projection; where grad is
   enabled it goes through `flash_attention_flat_fn`, whose backward is
@@ -53,6 +59,8 @@ from lseg_tpu_torch.ops.flash_attention import (
     flash_attention_flat_plain,
     flash_attention_ln_qkv_fused_q8,
     flash_attention_ln_qkv_fused_q8_plain,
+    flash_attention_qkv_fused,
+    flash_attention_qkv_fused_plain,
 )
 from lseg_tpu_torch.ops.ln_quant import (
     ln_quantize_rows,
@@ -65,6 +73,7 @@ from lseg_tpu_torch.ops.quant import (
     int8_matmul_preact,
     int8_matmul_prequant,
     int8_matmul_prequant_act,
+    quantize_rows,
     record_amax,
 )
 from lseg_tpu_torch.ops.resize import resize_bilinear
@@ -100,7 +109,10 @@ class Attention(nn.Module):
         flat_ok = flat_flash_eligible(dim, num_heads, False)
         # LN1 inside kernel B2 (the reference's flashlnq branch)
         self.ln_fused = impl == "flashlnq" and flat_ok and quant == "static"
-        self.flat = impl in ("flashflat", "flashlnq") and flat_ok
+        # int8 qkv of row-quantized inputs inside kernel B8 (flashq)
+        self.qkv_fused = impl == "flashq" and flat_ok and quant == "static"
+        self.flat = (impl in ("flashflat", "flashq", "flashlnq") and flat_ok
+                     and not self.qkv_fused)
         self.qkv = dense(dim, 3 * dim, dtype, quant, device)
         self.proj = dense(dim, dim, dtype, quant, device)
 
@@ -125,6 +137,13 @@ class Attention(nn.Module):
         h = self.num_heads
         hd = d // h
         scale = hd ** -0.5
+        if self.qkv_fused:
+            op = flash_attention_qkv_fused_plain if self.plain else \
+                flash_attention_qkv_fused
+            xq, sx = quantize_rows(x)
+            qkv = self.qkv
+            return self.proj(op(xq, sx, qkv.weight_q, qkv.scale, qkv.bias, h,
+                                scale))
         qkv = self.qkv(x)
         if self.flat:
             if torch.is_grad_enabled():

@@ -60,6 +60,13 @@ SIGNATURES = {
     "lseg_upsample2x_argmax": (_P,) * 2 + (_I,) * 5 + (_P,),
     # x, sx, w, sc, b1, tn, out, m, c, e, k, x_bf16, stream
     "lseg_head1_correlate_argmax": (_P,) * 7 + (_I,) * 5 + (_P,),
+    # xq, sx, wq, sw, bias, qkv (scratch), out, n, t, dim, valid_len,
+    # scale, stream
+    "lseg_flash_attention_qkv_fused": (_P,) * 7 + (_I,) * 4 + (
+        ctypes.c_float, _P),
+    # xq, w, sc, b1, tn, out, n, h, w, c, e, k, stream
+    "lseg_head1_correlate_wup": (_P,) * 6 + (_I,) * 6 + (_P,),
+    "lseg_head1_correlate_upsample_argmax": (_P,) * 6 + (_I,) * 6 + (_P,),
 }
 
 

@@ -1,4 +1,4 @@
-"""Flash attention kernels of the ViT blocks: B6 and B2.
+"""Flash attention kernels of the ViT blocks: B6, B2, B8 and B7.
 
 B6 replaces `lseg_tpu/ops/pallas_attention.py` · `flash_attention_flat`
 (reached in the reference through `flash_attention_flat_vjp`): flash
@@ -13,6 +13,13 @@ per-row int8 quantize of the output, the int8 fast path's attention. The
 CUDA source is `lseg_tpu_torch/csrc/flash_attention_ln_qkv_q8.cu`, a
 chain of three launches behind one op; its header says which tensors now
 pass through device memory that the TPU kept on chip.
+
+B8 replaces `pallas_attention.py` · `flash_attention_qkv_fused`: the int8
+qkv projection of rows quantized beforehand (`quantize_rows` of the
+LayerNorm-1 output) + attention, bf16 out, the `attn_impl='flashq'` path.
+The CUDA source is `lseg_tpu_torch/csrc/flash_attention_qkv_fused.cu`, a
+chain of two launches (B2's int8 GEMM, then B6's flash interior) behind
+one op.
 
 B7 replaces `pallas_attention.py` · `_flash_flat_bwd_impl`, the Pallas
 backward of `flash_attention_flat_vjp`: (qkv, O, dO) -> dqkv in the same
@@ -219,19 +226,34 @@ def flash_attention_flat_fn(qkv: torch.Tensor, num_heads: int, scale: float,
 
 
 def _check_q8(x, wq, sw, bias, num_heads, valid_len):
+    """Shapes of the int8 qkv attention ops (B2, B8)."""
     n, t, d = x.shape
     if wq.shape != (3 * d, d) or sw.shape != (3 * d,) or bias.shape != (
             3 * d,):
         raise ValueError(
-            f"ln_qkv_q8: qkv weight {tuple(wq.shape)}, scales "
+            f"int8 qkv attention: qkv weight {tuple(wq.shape)}, scales "
             f"{tuple(sw.shape)}, bias {tuple(bias.shape)} for width {d}")
     if d % num_heads or d // num_heads != HEAD_DIM or num_heads % 2:
-        raise ValueError(f"ln_qkv_q8 needs head_dim {HEAD_DIM} and an even "
-                         f"head count: width {d} with {num_heads} heads")
+        raise ValueError(f"int8 qkv attention needs head_dim {HEAD_DIM} and "
+                         f"an even head count: width {d} with {num_heads} "
+                         f"heads")
     vl = t if valid_len is None else int(valid_len)
     if not 1 <= vl <= t:
         raise ValueError(f"valid_len {vl} outside [1, {t}]")
     return n, t, d, vl
+
+
+def _qkv_attention_plain(xq, sx, wq, sw, bias, num_heads, scale,
+                         valid_len):
+    """The exact int32 qkv product of int8 rows, dequantized as
+    ((acc * sx) * sw) + b in fp32 and cast to bf16, then the attention of
+    `flash_attention_flat_plain`: (N, T, D) bf16."""
+    n, t, d = xq.shape
+    acc = int8_mm(xq.reshape(n * t, d), wq)
+    qkv = (acc.float() * sx.reshape(-1, 1) * sw.reshape(1, -1)
+           + bias.reshape(1, -1)).to(torch.bfloat16)
+    return flash_attention_flat_plain(qkv.reshape(n, t, 3 * d), num_heads,
+                                      scale, valid_len)
 
 
 def flash_attention_ln_qkv_fused_q8_plain(
@@ -240,19 +262,14 @@ def flash_attention_ln_qkv_fused_q8_plain(
         num_heads: int, scale: float, valid_len: int = None,
         eps: float = 1e-6):
     """(N, T, D) raw residual stream -> (int8 (N, T, D), fp32 (N, T, 1)):
-    fp32 LN + row quantize, the exact int32 qkv product dequantized as
-    ((acc * sx) * sw) + b in fp32 and cast to bf16, the attention of
-    `flash_attention_flat_plain`, and `quantize_rows` of its bf16 output.
-    `wq` is the (3D, D) int8 weight, `sw` and `bias` its (3D,) fp32
-    scales and bias."""
-    n, t, d, _ = _check_q8(x, wq, sw, bias, num_heads, valid_len)
+    fp32 LN + row quantize, the qkv product and attention of
+    `flash_attention_qkv_fused_plain`, and `quantize_rows` of its bf16
+    output. `wq` is the (3D, D) int8 weight, `sw` and `bias` its (3D,)
+    fp32 scales and bias."""
+    _check_q8(x, wq, sw, bias, num_heads, valid_len)
     xq, sx = ln_quantize_rows_plain(x, ln_scale, ln_bias, eps)
-    acc = int8_mm(xq.reshape(n * t, d), wq)
-    qkv = (acc.float() * sx.reshape(-1, 1) * sw.reshape(1, -1)
-           + bias.reshape(1, -1)).to(torch.bfloat16)
-    out = flash_attention_flat_plain(qkv.reshape(n, t, 3 * d), num_heads,
-                                     scale, valid_len)
-    return quantize_rows(out)
+    return quantize_rows(_qkv_attention_plain(xq, sx, wq, sw, bias,
+                                              num_heads, scale, valid_len))
 
 
 def flash_attention_ln_qkv_fused_q8(
@@ -309,3 +326,75 @@ def flash_attention_ln_qkv_fused_q8(
 
 
 flash_attention_ln_qkv_fused_q8.launches = 0
+
+
+def _check_qkv_fused(xq, sx, wq, sw, bias, num_heads, valid_len):
+    dims = _check_q8(xq, wq, sw, bias, num_heads, valid_len)
+    n, t, _, _ = dims
+    if tuple(sx.shape) != (n, t, 1):
+        raise ValueError(f"flash_attention_qkv_fused: row scales "
+                         f"{tuple(sx.shape)} for codes {tuple(xq.shape)}")
+    return dims
+
+
+def flash_attention_qkv_fused_plain(
+        xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
+        sw: torch.Tensor, bias: torch.Tensor, num_heads: int, scale: float,
+        valid_len: int = None) -> torch.Tensor:
+    """(N, T, D) int8 row codes, (N, T, 1) fp32 row scales -> (N, T, D)
+    bf16: the exact int32 qkv product dequantized as ((acc * sx) * sw) + b
+    in fp32 and cast to bf16, then the attention of
+    `flash_attention_flat_plain`. `wq` is the (3D, D) int8 weight, `sw`
+    and `bias` its (3D,) fp32 scales and bias."""
+    check_no_grad("flash_attention_qkv_fused_plain", sx, sw, bias)
+    _check_qkv_fused(xq, sx, wq, sw, bias, num_heads, valid_len)
+    return _qkv_attention_plain(xq, sx, wq, sw, bias, num_heads, scale,
+                                valid_len)
+
+
+def flash_attention_qkv_fused(
+        xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
+        sw: torch.Tensor, bias: torch.Tensor, num_heads: int, scale: float,
+        valid_len: int = None) -> torch.Tensor:
+    """Kernel wrapper (B8): (N, T, D) int8 row codes, (N, T, 1) fp32 row
+    scales, int8 (3D, D) weight, fp32 (3D,) scales and bias -> (N, T, D)
+    bf16. head_dim 64, even head count, D % 128 == 0, any T."""
+    check_no_grad("flash_attention_qkv_fused", sx, sw, bias)
+    n, t, d, vl = _check_qkv_fused(xq, sx, wq, sw, bias, num_heads,
+                                   valid_len)
+    if xq.device.type == "cpu":
+        return flash_attention_qkv_fused_plain(xq, sx, wq, sw, bias,
+                                               num_heads, scale, valid_len)
+    if xq.device.type != "cuda":
+        raise ValueError(f"flash_attention_qkv_fused: unsupported device "
+                         f"{xq.device}")
+    want = {"xq": torch.int8, "sx": torch.float32, "wq": torch.int8,
+            "sw": torch.float32, "bias": torch.float32}
+    args = {"xq": xq, "sx": sx, "wq": wq, "sw": sw, "bias": bias}
+    for name, v in args.items():
+        if v.dtype != want[name]:
+            raise TypeError(f"flash_attention_qkv_fused: {name} must be "
+                            f"{want[name]}, got {v.dtype}")
+        if not v.is_contiguous() or v.data_ptr() % 16 or v.device != xq.device:
+            raise ValueError(f"flash_attention_qkv_fused: {name} must be "
+                             f"contiguous, 16-byte aligned and on "
+                             f"{xq.device}")
+    if d % 128:
+        raise ValueError(f"flash_attention_qkv_fused kernel needs "
+                         f"D % 128 == 0, got {d}")
+    lib = load_kernels()
+    dev = xq.device
+    qkv = torch.empty((n * t, 3 * d), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((n, t, d), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.lseg_flash_attention_qkv_fused(
+            xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), sw.data_ptr(),
+            bias.data_ptr(), qkv.data_ptr(), out.data_ptr(), n, t, d, vl,
+            float(scale), stream)
+    check_launch(lib, "lseg_flash_attention_qkv_fused", rc)
+    flash_attention_qkv_fused.launches += 1
+    return out
+
+
+flash_attention_qkv_fused.launches = 0
