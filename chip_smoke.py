@@ -47,9 +47,17 @@ the result line is printed:
    the full-resolution fp32 logits are held as in 3b, B13's labels
    against its plain twin on the same codes (agreement with the argmax of
    the logits is printed);
+3g. the fused int8 block: `fast_serving(clip_vitl16_384, 'static_cal')`
+   with `attn_impl='flashqp'`, `mlp_fused=True` and `mlp_act_cal=False`,
+   quantized from the fp32 weights of phase 3b without the MLP-hidden
+   scale and calibrated on one batch (the ViT must keep no act_scale),
+   answers them through `model(x, txt, return_argmax=True)`; per request
+   B1 = 1, B15 = B16 = blocks, B4 = 1, B2 = B3 = B6 = B8 = 0, and the
+   half-res logits are held as in 3b;
 4. numbers: img/s at batch 8, 480x480, K=150 and peak device memory,
-   for the bf16, the static_cal, the streamed-head, the fused-argmax, the
-   fast_flashq and the 'wup' logits paths, kernels and plain twins;
+   for the bf16, the static_cal, the fused-block, the streamed-head, the
+   fused-argmax, the fast_flashq and the 'wup' logits paths, kernels and
+   plain twins;
 5. training, after the serving models are freed: the full-width
    `get_config(clip_vitl16_384)` model with `attn_impl='flashflat'`,
    bf16 compute, fp32 master weights from a seeded random init and remat
@@ -73,9 +81,11 @@ the result line is printed:
 Phase 2 also times, for each kernel, the PyTorch library call that
 computes the same function where there is one, and computes its bound
 from the inputs and the card's published peaks. The line before the last
-is a JSON object with each kernel's launches, error, times and bound; the
-last line is the result object. Needs one GPU and no network; imports no
-JAX and nothing of the JAX package.
+is a JSON object with each kernel's launches (on the path of phases 3-5
+that runs it; B9, which no model path of the reference calls, reports
+its phase-2 launches), error, times and bound; the last line is the
+result object. Needs one GPU and no network; imports no JAX and nothing
+of the JAX package.
 """
 
 from __future__ import annotations
@@ -110,8 +120,12 @@ LNQ_MAX_CODE_DIFF, LNQ_MIN_EQUAL, LNQ_SCALE_RTOL = 1, 0.999, 1e-5
 # flash_attention_ln_qkv_fused_q8 (B2): dequantized outputs within 2e-2 of
 # the largest |plain| value, the bound of the reference's own variant
 # check (tests/test_pallas_ops.py:1001-1002): the LN codes, the online
-# softmax and the output codes each may round one step apart.
+# softmax and the output codes each may round one step apart. The same
+# bound holds B8 and B9, and B15 and B16 with a zero residual; with a real
+# residual B15 and B16 may add one rounding step of the bf16 sum, one bf16
+# ulp (2^-7 relative at most) of |plain|.
 LNQKV_REL = 2e-2
+RESID_RTOL = 2.0 ** -7
 # head1_correlate_fused (B4): the same bf16 operands and fp32 sums taken
 # in another order: one bf16 ulp (2^-7 relative at most) plus 1e-3
 # absolute where the sum cancels. head1_correlate_wup_fused (B14) blends
@@ -156,6 +170,8 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 # most twice what the plain bf16 path strays from the fp32 model, plus a
 # floor of one bf16 ulp at the logit scale (|logit| <= 1/0.07).
 SERVE_RATIO, SERVE_FLOOR = 2.0, 0.0625
+# kernel B9's counter: the one kernel without a main path (see `main`)
+B9 = "flash_attention_ln_qkv_fused"
 
 
 def fail(msg: str) -> None:
@@ -348,6 +364,7 @@ def phase_kernels(dev):
     results.update(_int8_kernels(dev, g))
     results.update(_head_kernels(dev, g))
     results.update(_upsampled_head_kernels(dev, g))
+    results.update(_fused_block_kernels(dev, g))
     return results
 
 
@@ -805,6 +822,116 @@ def _upsampled_head_kernels(dev, g):
     return results
 
 
+def _residual_checks(name, fn, plain, make_args):
+    """`fn` against `plain` with a zero residual (2e-2 of max|plain|: the
+    fused work alone) and a real one (that plus one bf16 ulp of |plain|);
+    returns the real-residual error and arguments."""
+    for kind in ("zero", "real"):
+        args = make_args(kind)
+        got, ref = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        atol = LNQKV_REL * float(ref.float().abs().max())
+        err = check_close(f"{name} {kind} residual", got, ref,
+                          RESID_RTOL if kind == "real" else 0.0, atol)
+    return err, args
+
+
+def _fused_block_kernels(dev, g):
+    """B16, B15 and B9 at the flagship (8, 901, 1024), 16 heads."""
+    from lseg_tpu_torch.ops.flash_attention import (
+        flash_attention_ln_qkv_fused,
+        flash_attention_ln_qkv_fused_plain,
+        flash_attention_qkvp_fused,
+        flash_attention_qkvp_fused_plain,
+    )
+    from lseg_tpu_torch.ops.mlp import mlp_fused, mlp_fused_plain
+    from lseg_tpu_torch.ops.quant import quantize_rows
+
+    results = {}
+    n, t, d, h, heads = 8, 901, 1024, 4096, 16
+    m = n * t
+    scale = 64 ** -0.5
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, device=dev, generator=g,
+                             dtype=torch.int8)
+
+    def resid(kind):
+        x = 2.0 * torch.randn(n, t, d, device=dev, generator=g)
+        return (x if kind == "real" else 0.0 * x).to(torch.bfloat16)
+
+    # the row codes of a LayerNorm output
+    xq, sx = quantize_rows(torch.randn(n, t, d, device=dev, generator=g))
+
+    # B16: int8 fc1 -> tanh GELU -> per-row requantize -> int8 fc2. Eight
+    # outlier hidden channels of graded size, one in each eighth of H, as
+    # transformer MLPs have them: they set each row's requantize scale, so
+    # a scale taken over part of the row clips them
+    w1, w2 = codes(h, d), codes(d, h)
+    s1 = 2e-3 / d ** 0.5 * torch.rand(h, device=dev, generator=g)
+    b1 = 0.5 * torch.randn(h, device=dev, generator=g)
+    b1[h // 16::h // 8] += torch.arange(1.0, 9.0, device=dev)
+    s2 = 2e-2 / h ** 0.5 * torch.rand(d, device=dev, generator=g)
+    b2 = 0.05 * torch.randn(d, device=dev, generator=g)
+    err, args = _residual_checks(
+        "mlp_fused (8,901,1024) H=4096", mlp_fused, mlp_fused_plain,
+        lambda kind: (xq, sx, resid(kind), w1, s1, b1, w2, s2, b2))
+    ms, plain_ms = _timed("mlp_fused", "(8,901,1024) H=4096",
+                          lambda: mlp_fused(*args),
+                          lambda: mlp_fused_plain(*args))
+    # two int8 products; fp32 per hidden value: dequant 3, GELU ~9
+    # (tanh counted as one), amax 1, quantize 2. No single PyTorch call
+    # computes the function: library call none
+    results["mlp_fused"] = result(
+        err, ms, plain_ms, nbytes(*args) + m * d * 2,
+        {"int8": 2 * 2 * m * d * h, "fp32": 15 * m * h})
+    del w1, w2, args
+
+    # B15: int8 qkv -> attention -> per-(row, pair) requantize -> int8
+    # proj summed pair by pair -> bias -> residual
+    wq, wp = codes(3 * d, d), codes(d, d)
+    sw = 1e-3 * torch.rand(3 * d, device=dev, generator=g)
+    bias = 0.05 * torch.randn(3 * d, device=dev, generator=g)
+    sp = 2e-2 / d ** 0.5 * torch.rand(d, device=dev, generator=g)
+    bp = 0.05 * torch.randn(d, device=dev, generator=g)
+    err, args = _residual_checks(
+        "flash_attention_qkvp_fused (8,901,1024) 16 heads",
+        flash_attention_qkvp_fused, flash_attention_qkvp_fused_plain,
+        lambda kind: (xq, sx, wq, sw, bias, wp, sp, bp, resid(kind), heads,
+                      scale))
+    ms, plain_ms = _timed("flash_attention_qkvp_fused",
+                          "(8,901,1024) 16 heads",
+                          lambda: flash_attention_qkvp_fused(*args),
+                          lambda: flash_attention_qkvp_fused_plain(*args))
+    # no single PyTorch call computes it: library call none
+    results["flash_attention_qkvp_fused"] = result(
+        err, ms, plain_ms, nbytes(*args[:9]) + m * d * 2,
+        {"int8": 2 * m * d * 3 * d + 2 * m * d * d,
+         "bf16": 4 * n * heads * t * t * 64})
+
+    # B9: LN + row quantize + int8 qkv + attention, bf16 out
+    x = torch.randn(n, t, d, device=dev, generator=g).to(torch.bfloat16)
+    ln_g = 1.0 + 0.1 * torch.randn(d, device=dev, generator=g)
+    ln_b = 0.1 * torch.randn(d, device=dev, generator=g)
+    args = (x, ln_g, ln_b, wq, sw, bias, heads, scale)
+    out = flash_attention_ln_qkv_fused(*args)
+    ref = flash_attention_ln_qkv_fused_plain(*args)
+    err = check_close("flash_attention_ln_qkv_fused (8,901,1024) 16 heads",
+                      out, ref, 0.0,
+                      LNQKV_REL * float(ref.float().abs().max()))
+    ms, plain_ms = _timed("flash_attention_ln_qkv_fused",
+                          "(8,901,1024) 16 heads",
+                          lambda: flash_attention_ln_qkv_fused(*args),
+                          lambda: flash_attention_ln_qkv_fused_plain(*args))
+    # no single PyTorch call computes it: library call none; fp32 work of
+    # the LN and quantize ~8 operations per element, as B3's row
+    results["flash_attention_ln_qkv_fused"] = result(
+        err, ms, plain_ms, nbytes(*args[:6], out),
+        {"int8": 2 * m * d * 3 * d, "bf16": 4 * n * heads * t * t * 64,
+         "fp32": 8 * m * d})
+    return results
+
+
 def _images(g, dev, n, h, w, pad_rows=0):
     x = torch.randn(n, h - 2 * pad_rows, w, 3, device=dev, generator=g)
     if pad_rows:  # the demo pads a 360x480 frame to 384x480 with -1
@@ -900,8 +1027,10 @@ def _kernel_counters():
     from lseg_tpu_torch.ops.flash_attention import (
         flash_attention_flat,
         flash_attention_flat_bwd,
+        flash_attention_ln_qkv_fused,
         flash_attention_ln_qkv_fused_q8,
         flash_attention_qkv_fused,
+        flash_attention_qkvp_fused,
     )
     from lseg_tpu_torch.ops.fused_correlate import fused_correlate
     from lseg_tpu_torch.ops.head1_correlate import (
@@ -911,6 +1040,7 @@ def _kernel_counters():
         head1_correlate_wup_fused,
     )
     from lseg_tpu_torch.ops.ln_quant import ln_quantize_rows
+    from lseg_tpu_torch.ops.mlp import mlp_fused
     from lseg_tpu_torch.ops.patch_embed import patch_embed
     from lseg_tpu_torch.ops.upsample_argmax import upsample2x_argmax
 
@@ -926,7 +1056,10 @@ def _kernel_counters():
             "flash_attention_qkv_fused": flash_attention_qkv_fused,
             "head1_correlate_wup_fused": head1_correlate_wup_fused,
             "head1_correlate_upsample_argmax":
-                head1_correlate_upsample_argmax}
+                head1_correlate_upsample_argmax,
+            "mlp_fused": mlp_fused,
+            "flash_attention_qkvp_fused": flash_attention_qkvp_fused,
+            "flash_attention_ln_qkv_fused": flash_attention_ln_qkv_fused}
 
 
 def _serve_requests(tag, call, requests, cache, counters, expected):
@@ -1179,6 +1312,35 @@ def phase_serving_flashq(dev, ref32, cache, requests):
     return model, plain, launches
 
 
+def phase_serving_fused_block(dev, ref32, cache, requests):
+    from lseg_tpu_torch import fast_serving, get_config
+
+    print("[3g] the fused int8 block: fast_serving(clip_vitl16_384, "
+          "'static_cal') with attn flashqp and mlp_fused, no MLP-hidden "
+          "calibration; kernels B15 + B16")
+    base = fast_serving(get_config("clip_vitl16_384"), "static_cal")
+    cfg = dataclasses.replace(base, vit=dataclasses.replace(
+        base.vit, attn_impl="flashqp", mlp_fused=True, mlp_act_cal=False))
+    vit = cfg.vit
+    print(f"  attn {vit.attn_impl}, mlp_fused {vit.mlp_fused}, mlp_gelu "
+          f"{vit.mlp_gelu}, ln_quant_fused {vit.ln_quant_fused}, mlp_act_cal "
+          f"{vit.mlp_act_cal}; head_fused {cfg.head_fused}")
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    model, plain = _quantized(cfg, dev, ref32, g, mlp_act_scale=False)
+    if any(k.startswith("vit.") and k.endswith("act_scale")
+           for k in model.state_dict()):
+        fail("fused block: the ViT has a calibrated site")
+    blocks = vit.hooks[-1] + 1
+    _, launches = _serve_requests(
+        "fused block", _argmax_call(model), requests, cache,
+        _kernel_counters(),
+        {"patch_embed": 1, "flash_attention_qkvp_fused": blocks,
+         "mlp_fused": blocks, "head1_correlate_fused": 1})
+    _int8_logits_gate("fused block half-res", model, plain, ref32,
+                      requests[1], cache, return_halfres=True)
+    return model, plain, launches
+
+
 def _logits_call(model):
     """(images, txt) -> (N, H, W, K) fp32 logits through `model(x, txt)`,
     the call of `make_logits_fn` and the TTA evaluator."""
@@ -1272,7 +1434,7 @@ def _measure(name, fn):
 
 def phase_numbers(dev, plain, predict, cache, ade, model_q, plain_q,
                   streamed, model_hf, plain_hf, model_fq, plain_fq,
-                  model_wup, plain_wup):
+                  model_wup, plain_wup, model_fb, plain_fb):
     from lseg_tpu_torch.engine.serve import make_predictor
 
     print("[4] numbers: batch 8, 480x480, K=150")
@@ -1286,6 +1448,10 @@ def phase_numbers(dev, plain, predict, cache, ade, model_q, plain_q,
              lambda: _argmax_call(model_q)(images, txt))
     _measure("static_cal plain path",
              lambda: _argmax_call(plain_q)(images, txt))
+    _measure("fused block kernel path",
+             lambda: _argmax_call(model_fb)(images, txt))
+    _measure("fused block plain path",
+             lambda: _argmax_call(plain_fb)(images, txt))
     _measure("streamed head (use_pallas) kernel path",
              lambda: streamed[0](images, txt))
     _measure("streamed head (use_pallas) plain path",
@@ -1489,6 +1655,7 @@ def main() -> int:
     t_start = time.perf_counter()
     name = phase_device_and_build()
     kernels = phase_kernels(dev)
+    b9_launches = _kernel_counters()[B9].launches
     model, plain, predict, cache, ade, requests, launches = phase_serving(dev)
     *streamed, launches_s = phase_serving_streamed(dev, model, predict, cache,
                                                    requests)
@@ -1500,14 +1667,16 @@ def main() -> int:
                                                            requests)
     model_w, plain_w, launches_w = phase_serving_wup(dev, model_q, ref32,
                                                      cache, requests)
+    model_fb, plain_fb, launches_fb = phase_serving_fused_block(
+        dev, ref32, cache, requests)
     del ref32
     gc.collect()
     torch.cuda.empty_cache()
     phase_numbers(dev, plain, predict, cache, ade, model_q, plain_q,
                   streamed, model_hf, plain_hf, model_fq, plain_fq, model_w,
-                  plain_w)
+                  plain_w, model_fb, plain_fb)
     del model, plain, predict, streamed, model_q, plain_q, model_hf, plain_hf
-    del model_fq, plain_fq, model_w, plain_w
+    del model_fq, plain_fq, model_w, plain_w, model_fb, plain_fb
     gc.collect()
     torch.cuda.empty_cache()
     launches_t = phase_training(dev, cache, ade)
@@ -1516,7 +1685,8 @@ def main() -> int:
     # B2, B3 and B4 on the int8 path (phase 3b, which also checked B1 per
     # request), B5 on the fused argmax head (phase 3d), B8 on the
     # fast_flashq path (phase 3e), B14 and B13 on the 'wup' head (phase 3f),
-    # B7 on the training path (phase 5a, the first fit)
+    # B15 and B16 on the fused block (phase 3g), B7 on the training path
+    # (phase 5a, the first fit)
     launches.update({k: launches_s[k] for k in (
         "fused_correlate", "upsample2x_argmax")})
     launches.update({k: launches_q[k] for k in (
@@ -1528,6 +1698,8 @@ def main() -> int:
         "flash_attention_qkv_fused"]
     launches.update({k: launches_w[k] for k in (
         "head1_correlate_wup_fused", "head1_correlate_upsample_argmax")})
+    launches.update({k: launches_fb[k] for k in (
+        "flash_attention_qkvp_fused", "mlp_fused")})
     launches["flash_attention_flat_bwd"] = launches_t[
         "flash_attention_flat_bwd"]
     sources = {
@@ -1561,10 +1733,22 @@ def main() -> int:
         "head1_correlate_upsample_argmax": (
             "lseg_tpu_torch/csrc/head1_correlate_upsample_argmax.cu",
             "lseg_tpu/ops/pallas_correlation.py:237"),
+        "mlp_fused": ("lseg_tpu_torch/csrc/mlp_fused.cu",
+                      "lseg_tpu/ops/pallas_mlp.py:57"),
+        "flash_attention_qkvp_fused": (
+            "lseg_tpu_torch/csrc/flash_attention_qkvp_fused.cu",
+            "lseg_tpu/ops/pallas_attention.py:476"),
+        B9: ("lseg_tpu_torch/csrc/flash_attention_ln_qkv_fused.cu",
+             "lseg_tpu/ops/pallas_attention.py:909"),
     }
+    # B9 alone is exempt from the main-path check, by name: no model path
+    # of the JAX package calls it (only scripts/kernel_census.py and its
+    # tests do), so its row reports the launches of its phase-2 check, and
+    # every serving phase holds it at 0 launches per request
+    launches[B9] = b9_launches
     rows = []
     for k, res in kernels.items():
-        if launches[k] == 0:
+        if k != B9 and launches[k] == 0:
             fail(f"kernel {k} was not launched on the main path")
         src, rep = sources[k]
         # max_abs_err of the label kernels (B11, B5, B13): the fraction of

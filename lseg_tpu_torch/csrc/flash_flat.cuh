@@ -1,5 +1,6 @@
 // The flat flash-attention interior shared by kernels B6
-// (flash_attention_flat.cu) and B8 (flash_attention_qkv_fused.cu).
+// (flash_attention_flat.cu), B8 (flash_attention_qkv_fused.cu) and B9
+// (flash_attention_ln_qkv_fused.cu).
 //
 // Input: qkv (N, T, 3D) bf16; head h reads q, k and v at column offsets
 // h*64, D + h*64 and 2D + h*64 of each row. Output: flat (N, T, D) bf16,

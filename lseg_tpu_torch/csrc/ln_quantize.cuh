@@ -1,7 +1,8 @@
 // LayerNorm in fp32 + per-row symmetric int8 quantize, one warp per row.
 // B3 (`ln_quantize_rows.cu`) launches it on its own; B2
-// (`flash_attention_ln_qkv_q8.cu`) launches it as the first step of its
-// chain, so the two kernels share one copy of the rounding.
+// (`flash_attention_ln_qkv_q8.cu`) and B9 (`flash_attention_ln_qkv_fused.cu`)
+// launch it as the first step of their chains, so the kernels share one
+// copy of the rounding.
 //
 // Rounding follows the TPU kernel (lseg_tpu/ops/pallas_ln.py:30-39):
 //   mu = sum(x) / D; var = sum((x - mu)^2) / D;

@@ -1,15 +1,24 @@
-// The int8 qkv projection with its dequant epilogue, shared by kernels B2
-// (flash_attention_ln_qkv_q8.cu) and B8 (flash_attention_qkv_fused.cu):
+// The int8 GEMM tile of the port and the qkv projection built on it.
+//
+// `mainloop` accumulates one 128 x 128 output tile of
+//
+//   acc (M, N) int32 = a (M, K) int8 . w (N, K)^T int8, exact
+//
+// over a range of K: a 256-thread block walks K in slices of 64 bytes
+// staged in shared memory (rows padded by 16 bytes against bank
+// conflicts); eight warps as 2 (rows) x 4 (columns) run mma.sync m16n8k32
+// s8 into int32. w is the port's (out, in) weight storage, the
+// column-major B operand. Kernels B2 (flash_attention_ln_qkv_q8.cu), B8
+// (flash_attention_qkv_fused.cu), B9 (flash_attention_ln_qkv_fused.cu),
+// B15 (flash_attention_qkvp_fused.cu) and B16 (mlp_fused.cu) put their
+// own epilogue behind it.
+//
+// `qkv_int8_gemm_kernel` is the qkv projection with its dequant epilogue:
 //
 //   out (M, N) bf16 = bf16(((acc * sa[row]) * sw[col]) + bias[col])
-//   acc = a (M, K) int8 . w (N, K)^T int8, exact in int32
 //
-// w is the port's (out, in) weight storage, the column-major B operand.
 // Products and sums are rounded one by one (no FMA contraction), as the
-// TPU kernels' `_dequant_qkv_parts` computes them. A 256-thread block owns
-// a 128 x 128 output tile and walks K in slices of 64 bytes staged in
-// shared memory (rows padded by 16 bytes against bank conflicts); eight
-// warps as 2 (rows) x 4 (columns) run mma.sync m16n8k32 s8 into int32.
+// TPU kernels' `_dequant_qkv_parts` computes them.
 // Requires N % 128 == 0, K % 64 == 0 and 16-byte aligned rows.
 
 #pragma once
@@ -26,33 +35,38 @@ constexpr int BK = 64;           // k bytes per step
 constexpr int LD = BK + 16;      // smem row stride in bytes (conflict-free)
 constexpr int THREADS = 256;     // 8 warps: 2 (rows) x 4 (columns)
 
-__global__ void __launch_bounds__(THREADS) qkv_int8_gemm_kernel(
-    const int8_t* __restrict__ a, const float* __restrict__ sa,
-    const int8_t* __restrict__ w, const float* __restrict__ sw,
-    const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int M,
-    int N, int K) {
-  __shared__ __align__(16) int8_t As[BM * LD];
-  __shared__ __align__(16) int8_t Bs[BN * LD];
+// Per-thread accumulator of the block tile: warp (warp % 2, warp / 2) owns
+// rows wm .. wm + 63 and columns wn .. wn + 31; element [mt][nt][e] is row
+// wm + mt*16 + g + 8*(e/2), column wn + nt*8 + 2*t4 + (e%2) (mma.sync's C
+// layout, g = lane / 4, t4 = lane % 4).
+using Acc = int[4][4][4];
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;
-  const int t4 = lane % 4;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int wm = (warp % 2) * 64;  // this warp's 64 rows
-  const int wn = (warp / 2) * 32;  // and 32 columns
-
-  int acc[4][4][4];
+__device__ __forceinline__ void zero(Acc& acc) {
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
+}
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
+// acc += a[m0 : m0+128, k_begin : k_end] . w[n0 : n0+128, k_begin : k_end]^T
+// with rows of a at or past M read as zero. As and Bs are BM * LD and
+// BN * LD bytes of shared memory; every thread of the block must call it.
+__device__ __forceinline__ void mainloop(const int8_t* __restrict__ a,
+                                         const int8_t* __restrict__ w,
+                                         int M, int K, int m0, int n0,
+                                         int k_begin, int k_end, int8_t* As,
+                                         int8_t* Bs, Acc& acc) {
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int wm = (warp % 2) * 64;  // this warp's 64 rows
+  const int wn = (warp / 2) * 32;  // and 32 columns
+
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     for (int i = tid; i < BM * (BK / 16); i += THREADS) {
       const int r = i / (BK / 16);
       const int c = (i % (BK / 16)) * 16;
@@ -90,6 +104,28 @@ __global__ void __launch_bounds__(THREADS) qkv_int8_gemm_kernel(
     }
     __syncthreads();
   }
+}
+
+__global__ void __launch_bounds__(THREADS) qkv_int8_gemm_kernel(
+    const int8_t* __restrict__ a, const float* __restrict__ sa,
+    const int8_t* __restrict__ w, const float* __restrict__ sw,
+    const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int M,
+    int N, int K) {
+  __shared__ __align__(16) int8_t As[BM * LD];
+  __shared__ __align__(16) int8_t Bs[BN * LD];
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  const int wm = (warp % 2) * 64;
+  const int wn = (warp / 2) * 32;
+
+  Acc acc;
+  zero(acc);
+  mainloop(a, w, M, K, m0, n0, 0, K, As, Bs, acc);
 
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt) {

@@ -84,8 +84,6 @@ def _check_supported(cfg: LSegConfig) -> None:
         "arch_option (head blocks 1/2)": cfg.arch_option not in (0,),
         "decoder_fused_rcu (kernel B18)": cfg.decoder_fused_rcu,
         "decoder_fused_tail (kernel B19)": cfg.decoder_fused_tail,
-        "vit.mlp_fused (kernel B16)": vit.mlp_fused,
-        "vit.attn_impl='flashqp' (kernel B15)": vit.attn_impl == "flashqp",
         "vit.quant_int8 dynamic": vit.quant_int8 in (True, "dynamic"),
     }
     bad = [k for k, v in unported.items() if v]

@@ -19,8 +19,14 @@ Attention `impl`:
   int8 qkv projection of those codes and attention run in kernel B8
   (`ops.flash_attention.flash_attention_qkv_fused`), whose bf16 output
   goes through the int8 output projection (`StaticQuantDense`);
-- 'flashflat' (or 'flashlnq' / 'flashq' unquantized): the fused qkv
-  projection's
+- 'flashqp' with `quant_int8='static'` (the fused block): the LayerNorm-1
+  output is row-quantized, and the int8 qkv projection, attention, the
+  per-(row, head pair) requantize, the int8 output projection, its bias
+  and the residual run in kernel B15
+  (`ops.flash_attention.flash_attention_qkvp_fused`), which returns the
+  block's residual stream after attention;
+- 'flashflat' (or 'flashlnq' / 'flashq' / 'flashqp' unquantized): the
+  fused qkv projection's
   flat (N, T, 3D) output goes straight into the flash kernel B6, which
   emits the flat (N, T, D) input of the output projection; where grad is
   enabled it goes through `flash_attention_flat_fn`, whose backward is
@@ -28,13 +34,20 @@ Attention `impl`:
 - anything else: einsum attention with fp32 softmax (the reference's
   'xla' path), scores in `scores_dtype`.
 
-With `quant_int8='static'` the projections are `StaticQuantDense`, and
-with `ln_quant_fused` the MLP takes LayerNorm 2 + the row quantize from
-kernel B3 (`ops.ln_quant.ln_quantize_rows`); `mlp_act_cal` adds the
-calibrated per-tensor scale of the GELU output (the block's `act_scale`).
-The reference takes that MLP branch only where its padded T is a multiple
-of 8, which holds wherever its flash path pads; the port takes it under
-the same condition, computed from the reference's padded T.
+With `quant_int8='static'` the projections are `StaticQuantDense`. With
+`mlp_fused` and tanh GELU the LayerNorm-2 output is row-quantized and the
+whole MLP with its residual runs in kernel B16 (`ops.mlp.mlp_fused`);
+otherwise, with `ln_quant_fused`, the MLP takes LayerNorm 2 + the row
+quantize from kernel B3 (`ops.ln_quant.ln_quantize_rows`), and
+`mlp_act_cal` adds the calibrated per-tensor scale of the GELU output (the
+block's `act_scale`). The reference takes that B3 branch only where its
+padded T is a multiple of 8, which holds wherever its flash path pads; the
+port takes it under the same condition, computed from the reference's
+padded T. The reference declares `act_scale` inside that branch, so a
+tree made at a T that skips it has no such leaf: the port's block drops
+the parameter when a loaded state_dict lacks it, and calibration drops it
+where the calibration forward skipped the branch (running the branch
+without it then raises).
 
 `plain=True` swaps every kernel for its plain PyTorch twin (the
 comparison path of `chip_smoke.py`); nothing picks it automatically.
@@ -61,11 +74,14 @@ from lseg_tpu_torch.ops.flash_attention import (
     flash_attention_ln_qkv_fused_q8_plain,
     flash_attention_qkv_fused,
     flash_attention_qkv_fused_plain,
+    flash_attention_qkvp_fused,
+    flash_attention_qkvp_fused_plain,
 )
 from lseg_tpu_torch.ops.ln_quant import (
     ln_quantize_rows,
     ln_quantize_rows_plain,
 )
+from lseg_tpu_torch.ops.mlp import mlp_fused, mlp_fused_plain
 from lseg_tpu_torch.ops.patch_embed import patch_embed, patch_embed_plain
 from lseg_tpu_torch.ops.quant import (
     EPS,
@@ -111,10 +127,28 @@ class Attention(nn.Module):
         self.ln_fused = impl == "flashlnq" and flat_ok and quant == "static"
         # int8 qkv of row-quantized inputs inside kernel B8 (flashq)
         self.qkv_fused = impl == "flashq" and flat_ok and quant == "static"
-        self.flat = (impl in ("flashflat", "flashq", "flashlnq") and flat_ok
-                     and not self.qkv_fused)
+        # the whole half-block with its residual inside kernel B15
+        self.qkvp_fused = (impl == "flashqp" and flat_ok
+                           and quant == "static")
+        self.flat = (impl in ("flashflat", "flashq", "flashqp", "flashlnq")
+                     and flat_ok and not self.qkv_fused
+                     and not self.qkvp_fused)
         self.qkv = dense(dim, 3 * dim, dtype, quant, device)
         self.proj = dense(dim, dim, dtype, quant, device)
+
+    def forward_qkvp(self, x: torch.Tensor,
+                     resid: torch.Tensor) -> torch.Tensor:
+        """resid + attn(x) for the `qkvp_fused` path: `x` is the LayerNorm-1
+        output, row-quantized here; B15 adds the projection's bias and the
+        residual stream `resid` itself."""
+        op = (flash_attention_qkvp_fused_plain if self.plain
+              else flash_attention_qkvp_fused)
+        xq, sx = quantize_rows(x)
+        qkv, p = self.qkv, self.proj
+        out = op(xq, sx, qkv.weight_q, qkv.scale, qkv.bias, p.weight_q,
+                 p.scale, p.bias, resid.to(torch.bfloat16).contiguous(),
+                 self.num_heads, (x.shape[-1] // self.num_heads) ** -0.5)
+        return out.to(self.dtype)
 
     def forward_ln(self, x: torch.Tensor, norm: LayerNorm) -> torch.Tensor:
         """attn(norm(x)) for the `ln_fused` path: `x` is the RAW residual
@@ -192,18 +226,38 @@ class Block(nn.Module):
         self.norm2 = LayerNorm(d, 1e-6, dtype, device)
         self.mlp = Mlp(d, int(d * cfg.mlp_ratio), dtype, cfg.mlp_gelu,
                        quant, device)
+        # the whole int8 MLP with its residual inside kernel B16
+        self.mlp_fused = (cfg.mlp_fused and quant == "static"
+                          and cfg.mlp_gelu == "tanh")
         # the static part of the reference's LN2 + quantize gate; the
         # T % 8 part comes with each call
         self.ln_quant = (cfg.ln_quant_fused and quant == "static"
                          and not cfg.mlp_fused and d % 128 == 0)
         if self.ln_quant and cfg.mlp_act_cal:
-            self.act_scale = nn.Parameter(torch.empty(
-                (), dtype=torch.float32, device=device), requires_grad=False)
+            self.act_scale = self._scale_param(device)
+            # calibration drops the site where its forward skipped the
+            # branch (`ops.quant.calibrate_act_scales`)
+            self.act_scale_lazy = True
             self.calibrating = False
             self.cal_amax = None
 
+    @staticmethod
+    def _scale_param(device) -> nn.Parameter:
+        return nn.Parameter(torch.empty((), dtype=torch.float32,
+                                        device=device), requires_grad=False)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # the reference declares the MLP-hidden act_scale only where its
+        # branch runs, so a tree may lack it: the site follows the tree
+        if hasattr(self, "act_scale_lazy"):
+            if prefix + "act_scale" not in state_dict:
+                self.act_scale = None
+            elif self.act_scale is None:
+                self.act_scale = self._scale_param(self.norm2.weight.device)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
     def reset_parameters(self, generator=None):
-        if hasattr(self, "act_scale"):
+        if getattr(self, "act_scale", None) is not None:
             self.act_scale.fill_(1.0)
 
     def _mlp_ln_quant(self, x: torch.Tensor) -> torch.Tensor:
@@ -220,6 +274,11 @@ class Block(nn.Module):
              + fc1.bias.to(dt))
         h = F.gelu(h, approximate=self.mlp.approximate)
         if hasattr(self, "act_scale") and not self.calibrating:
+            if self.act_scale is None:
+                raise RuntimeError(
+                    "this block's MLP-hidden act_scale was never loaded or "
+                    "calibrated (the calibration input's token count "
+                    "skipped the LN2 + quantize branch that reads it)")
             # calibrated per-tensor scale of the GELU output
             sh = torch.clamp(self.act_scale, min=EPS) / 127.0
             hq = torch.clamp(torch.round(h.float() / sh), -127, 127).to(
@@ -234,12 +293,26 @@ class Block(nn.Module):
             y = int8_matmul_prequant(h, fc2.weight_q, fc2.scale, dt)
         return (y + fc2.bias.to(dt)).reshape(n, t, d)
 
+    def _mlp_fused(self, x: torch.Tensor) -> torch.Tensor:
+        """x + mlp(norm2(x)) in kernel B16 from the row-quantized LN2
+        output (the reference's `mlp_fused` branch)."""
+        op = mlp_fused_plain if self.plain else mlp_fused
+        yq, sy = quantize_rows(self.norm2(x))
+        fc1, fc2 = self.mlp.fc1, self.mlp.fc2
+        return op(yq, sy, x.to(torch.bfloat16).contiguous(), fc1.weight_q,
+                  fc1.scale, fc1.bias, fc2.weight_q, fc2.scale,
+                  fc2.bias).to(self.dtype)
+
     def forward(self, x: torch.Tensor, ln_quant_ok: bool = False
                 ) -> torch.Tensor:
         if self.attn.ln_fused:
             x = x + self.attn.forward_ln(x, self.norm1)
+        elif self.attn.qkvp_fused:
+            x = self.attn.forward_qkvp(self.norm1(x), x)
         else:
             x = x + self.attn(self.norm1(x))
+        if self.mlp_fused:
+            return self._mlp_fused(x)
         if self.ln_quant and ln_quant_ok:
             return x + self._mlp_ln_quant(x)
         return x + self.mlp(self.norm2(x))

@@ -67,6 +67,17 @@ SIGNATURES = {
     # xq, w, sc, b1, tn, out, n, h, w, c, e, k, stream
     "lseg_head1_correlate_wup": (_P,) * 6 + (_I,) * 6 + (_P,),
     "lseg_head1_correlate_upsample_argmax": (_P,) * 6 + (_I,) * 6 + (_P,),
+    # xq, sx, resid, w1, s1, b1, w2, s2, b2, pm, hq, sh (scratch), out,
+    # m, dim, hidden, stream
+    "lseg_mlp_fused": (_P,) * 13 + (_I,) * 3 + (_P,),
+    # xq, sx, wq, sw, bias, wp, sp, bp, resid, qkv, aq, sa (scratch), out,
+    # n, t, dim, valid_len, scale, stream
+    "lseg_flash_attention_qkvp_fused": (_P,) * 13 + (_I,) * 4 + (
+        ctypes.c_float, _P),
+    # x, ln_g, ln_b, wq, sw, bias, xq, sx, qkv (scratch), out,
+    # n, t, dim, valid_len, scale, eps, stream
+    "lseg_flash_attention_ln_qkv_fused": (_P,) * 10 + (_I,) * 4 + (
+        ctypes.c_float, ctypes.c_float, _P),
 }
 
 
@@ -163,6 +174,20 @@ def check_no_grad(name: str, *tensors) -> None:
             f"{name}: an input requires grad, but the kernel launch has no "
             f"autograd; call it under torch.no_grad() or through its "
             f"autograd.Function")
+
+
+def check_operands(name: str, operands: dict) -> None:
+    """{arg: (tensor, dtype)} of a kernel wrapper: TypeError for a wrong
+    dtype on any device; on the card, ValueError unless each tensor is
+    contiguous, 16-byte aligned and on the first one's device."""
+    dev = next(iter(operands.values()))[0].device
+    for arg, (v, dt) in operands.items():
+        if v.dtype != dt:
+            raise TypeError(f"{name}: {arg} must be {dt}, got {v.dtype}")
+        if dev.type == "cuda" and (not v.is_contiguous() or v.data_ptr() % 16
+                                   or v.device != dev):
+            raise ValueError(f"{name}: {arg} must be contiguous, 16-byte "
+                             f"aligned and on {dev}")
 
 
 def check_launch(lib: ctypes.CDLL, name: str, rc: int) -> None:

@@ -1,4 +1,4 @@
-"""Flash attention kernels of the ViT blocks: B6, B2, B8 and B7.
+"""Flash attention kernels of the ViT blocks: B6, B2, B8, B15, B9 and B7.
 
 B6 replaces `lseg_tpu/ops/pallas_attention.py` · `flash_attention_flat`
 (reached in the reference through `flash_attention_flat_vjp`): flash
@@ -20,6 +20,19 @@ LayerNorm-1 output) + attention, bf16 out, the `attn_impl='flashq'` path.
 The CUDA source is `lseg_tpu_torch/csrc/flash_attention_qkv_fused.cu`, a
 chain of two launches (B2's int8 GEMM, then B6's flash interior) behind
 one op.
+
+B15 replaces `pallas_attention.py` · `flash_attention_qkvp_fused`: the
+whole int8 attention half-block, B8's work plus the per-(row, head pair)
+int8 requantize of the fp32 attention output, the int8 output projection
+summed pair by pair, its bias and the residual, the `attn_impl='flashqp'`
+path. The CUDA source is `lseg_tpu_torch/csrc/flash_attention_qkvp_fused.cu`,
+a chain of three launches behind one op.
+
+B9 replaces `pallas_attention.py` · `flash_attention_ln_qkv_fused`: B2
+without the quantize of its output, bf16 out. No model path of the
+reference calls it. The CUDA source is
+`lseg_tpu_torch/csrc/flash_attention_ln_qkv_fused.cu` (B3's LN routine,
+then B8's two stages).
 
 B7 replaces `pallas_attention.py` · `_flash_flat_bwd_impl`, the Pallas
 backward of `flash_attention_flat_vjp`: (qkv, O, dO) -> dqkv in the same
@@ -48,6 +61,7 @@ import torch
 from lseg_tpu_torch.ops._build import (
     check_launch,
     check_no_grad,
+    check_operands,
     load_kernels,
 )
 from lseg_tpu_torch.ops.ln_quant import ln_quantize_rows_plain
@@ -72,12 +86,10 @@ def _check(qkv: torch.Tensor, num_heads: int, valid_len):
     return n, t, d, vl
 
 
-def flash_attention_flat_plain(qkv: torch.Tensor, num_heads: int,
-                               scale: float,
-                               valid_len: int = None) -> torch.Tensor:
-    """(N, T, 3D) -> (N, T, D): per-head einsum attention with the
-    kernel's rounding points; keys >= valid_len are masked."""
-    check_no_grad("flash_attention_flat_plain", qkv)
+def _flat_attention_f32(qkv: torch.Tensor, num_heads: int, scale: float,
+                        valid_len: int) -> torch.Tensor:
+    """(N, T, 3D) -> (N, T, D) fp32 per-head attention, o / l left in
+    fp32."""
     n, t, d, vl = _check(qkv, num_heads, valid_len)
     r = qkv.reshape(n, t, 3, num_heads, HEAD_DIM)
     q, k, v = r[:, :, 0].float(), r[:, :, 1].float(), r[:, :, 2]
@@ -88,7 +100,17 @@ def flash_attention_flat_plain(qkv: torch.Tensor, num_heads: int,
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("nhqk,nkhd->nhqd", p.to(qkv.dtype).float(), v.float())
     o = o / l
-    return o.permute(0, 2, 1, 3).reshape(n, t, d).to(qkv.dtype)
+    return o.permute(0, 2, 1, 3).reshape(n, t, d)
+
+
+def flash_attention_flat_plain(qkv: torch.Tensor, num_heads: int,
+                               scale: float,
+                               valid_len: int = None) -> torch.Tensor:
+    """(N, T, 3D) -> (N, T, D): per-head einsum attention with the
+    kernel's rounding points; keys >= valid_len are masked."""
+    check_no_grad("flash_attention_flat_plain", qkv)
+    return _flat_attention_f32(qkv, num_heads, scale, valid_len).to(
+        qkv.dtype)
 
 
 def flash_attention_flat(qkv: torch.Tensor, num_heads: int, scale: float,
@@ -243,17 +265,22 @@ def _check_q8(x, wq, sw, bias, num_heads, valid_len):
     return n, t, d, vl
 
 
-def _qkv_attention_plain(xq, sx, wq, sw, bias, num_heads, scale,
-                         valid_len):
+def _qkv_plain(xq, sx, wq, sw, bias):
     """The exact int32 qkv product of int8 rows, dequantized as
-    ((acc * sx) * sw) + b in fp32 and cast to bf16, then the attention of
-    `flash_attention_flat_plain`: (N, T, D) bf16."""
+    ((acc * sx) * sw) + b in fp32 and cast to bf16: (N, T, 3D)."""
     n, t, d = xq.shape
     acc = int8_mm(xq.reshape(n * t, d), wq)
     qkv = (acc.float() * sx.reshape(-1, 1) * sw.reshape(1, -1)
            + bias.reshape(1, -1)).to(torch.bfloat16)
-    return flash_attention_flat_plain(qkv.reshape(n, t, 3 * d), num_heads,
-                                      scale, valid_len)
+    return qkv.reshape(n, t, 3 * d)
+
+
+def _qkv_attention_plain(xq, sx, wq, sw, bias, num_heads, scale,
+                         valid_len):
+    """`_qkv_plain`, then the attention of `flash_attention_flat_plain`:
+    (N, T, D) bf16."""
+    return flash_attention_flat_plain(_qkv_plain(xq, sx, wq, sw, bias),
+                                      num_heads, scale, valid_len)
 
 
 def flash_attention_ln_qkv_fused_q8_plain(
@@ -290,19 +317,10 @@ def flash_attention_ln_qkv_fused_q8(
     if x.device.type != "cuda":
         raise ValueError(f"flash_attention_ln_qkv_fused_q8: unsupported "
                          f"device {x.device}")
-    want = {"x": torch.bfloat16, "ln_scale": torch.float32,
-            "ln_bias": torch.float32, "wq": torch.int8, "sw": torch.float32,
-            "bias": torch.float32}
-    args = {"x": x, "ln_scale": ln_scale, "ln_bias": ln_bias, "wq": wq,
-            "sw": sw, "bias": bias}
-    for name, v in args.items():
-        if v.dtype != want[name]:
-            raise TypeError(f"flash_attention_ln_qkv_fused_q8: {name} must "
-                            f"be {want[name]}, got {v.dtype}")
-        if not v.is_contiguous() or v.data_ptr() % 16 or v.device != x.device:
-            raise ValueError(f"flash_attention_ln_qkv_fused_q8: {name} must "
-                             f"be contiguous, 16-byte aligned and on "
-                             f"{x.device}")
+    check_operands("flash_attention_ln_qkv_fused_q8", {
+        "x": (x, torch.bfloat16), "ln_scale": (ln_scale, torch.float32),
+        "ln_bias": (ln_bias, torch.float32), "wq": (wq, torch.int8),
+        "sw": (sw, torch.float32), "bias": (bias, torch.float32)})
     if d % 256:
         raise ValueError(f"flash_attention_ln_qkv_fused_q8 kernel needs "
                          f"D % 256 == 0, got {d}")
@@ -368,17 +386,10 @@ def flash_attention_qkv_fused(
     if xq.device.type != "cuda":
         raise ValueError(f"flash_attention_qkv_fused: unsupported device "
                          f"{xq.device}")
-    want = {"xq": torch.int8, "sx": torch.float32, "wq": torch.int8,
-            "sw": torch.float32, "bias": torch.float32}
-    args = {"xq": xq, "sx": sx, "wq": wq, "sw": sw, "bias": bias}
-    for name, v in args.items():
-        if v.dtype != want[name]:
-            raise TypeError(f"flash_attention_qkv_fused: {name} must be "
-                            f"{want[name]}, got {v.dtype}")
-        if not v.is_contiguous() or v.data_ptr() % 16 or v.device != xq.device:
-            raise ValueError(f"flash_attention_qkv_fused: {name} must be "
-                             f"contiguous, 16-byte aligned and on "
-                             f"{xq.device}")
+    check_operands("flash_attention_qkv_fused", {
+        "xq": (xq, torch.int8), "sx": (sx, torch.float32),
+        "wq": (wq, torch.int8), "sw": (sw, torch.float32),
+        "bias": (bias, torch.float32)})
     if d % 128:
         raise ValueError(f"flash_attention_qkv_fused kernel needs "
                          f"D % 128 == 0, got {d}")
@@ -398,3 +409,166 @@ def flash_attention_qkv_fused(
 
 
 flash_attention_qkv_fused.launches = 0
+
+
+def _check_qkvp(xq, sx, wq, sw, bias, wp, sp, bp, resid, num_heads,
+                valid_len):
+    dims = _check_qkv_fused(xq, sx, wq, sw, bias, num_heads, valid_len)
+    n, t, d, _ = dims
+    want = {"wp": (d, d), "sp": (d,), "bp": (d,), "resid": (n, t, d)}
+    for arg, v in (("wp", wp), ("sp", sp), ("bp", bp), ("resid", resid)):
+        if tuple(v.shape) != want[arg]:
+            raise ValueError(f"flash_attention_qkvp_fused: {arg} "
+                             f"{tuple(v.shape)}, expected {want[arg]}")
+    check_operands("flash_attention_qkvp_fused", {
+        "xq": (xq, torch.int8), "sx": (sx, torch.float32),
+        "wq": (wq, torch.int8), "sw": (sw, torch.float32),
+        "bias": (bias, torch.float32), "wp": (wp, torch.int8),
+        "sp": (sp, torch.float32), "bp": (bp, torch.float32),
+        "resid": (resid, torch.bfloat16)})
+    return dims
+
+
+def flash_attention_qkvp_fused_plain(
+        xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
+        sw: torch.Tensor, bias: torch.Tensor, wp: torch.Tensor,
+        sp: torch.Tensor, bp: torch.Tensor, resid: torch.Tensor,
+        num_heads: int, scale: float, valid_len: int = None) -> torch.Tensor:
+    """resid + proj(attn(qkv(x))) with the TPU kernel's rounding points
+    (`pallas_attention.py` · `_kernel_qkvp`): the bf16 qkv of
+    `_qkv_plain`; per head pair, the two heads' attention left in fp32 and
+    quantized per row over the pair's 128 columns; each pair's partial
+    projection (int32 . sa) . sp in fp32, summed in pair order onto
+    (part_0 + bp) + resid; one cast to bf16. `wp` is the (D, D) int8
+    proj weight (out, in), `sp` and `bp` its (D,) fp32 scales and bias:
+    (N, T, D) bf16."""
+    check_no_grad("flash_attention_qkvp_fused_plain", sx, sw, bias, sp, bp,
+                  resid)
+    n, t, d, _ = _check_qkvp(xq, sx, wq, sw, bias, wp, sp, bp, resid,
+                             num_heads, valid_len)
+    att = _flat_attention_f32(_qkv_plain(xq, sx, wq, sw, bias), num_heads,
+                              scale, valid_len).reshape(n * t, d)
+    acc = None
+    for lo in range(0, d, 2 * HEAD_DIM):
+        hi = lo + 2 * HEAD_DIM
+        aq, sa = quantize_rows(att[:, lo:hi])
+        part = (int8_mm(aq, wp[:, lo:hi].contiguous()).float() * sa
+                * sp.reshape(1, -1))
+        acc = (part + bp.reshape(1, -1) + resid.reshape(n * t, d).float()
+               if acc is None else acc + part)
+    return acc.to(torch.bfloat16).reshape(n, t, d)
+
+
+def flash_attention_qkvp_fused(
+        xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
+        sw: torch.Tensor, bias: torch.Tensor, wp: torch.Tensor,
+        sp: torch.Tensor, bp: torch.Tensor, resid: torch.Tensor,
+        num_heads: int, scale: float, valid_len: int = None) -> torch.Tensor:
+    """Kernel wrapper (B15): (N, T, D) int8 row codes, (N, T, 1) fp32 row
+    scales, int8 (3D, D) qkv and (D, D) proj weights with fp32 scales and
+    biases, bf16 (N, T, D) residual -> (N, T, D) bf16. head_dim 64, even
+    head count, any T."""
+    check_no_grad("flash_attention_qkvp_fused", sx, sw, bias, sp, bp, resid)
+    n, t, d, vl = _check_qkvp(xq, sx, wq, sw, bias, wp, sp, bp, resid,
+                              num_heads, valid_len)
+    if xq.device.type == "cpu":
+        return flash_attention_qkvp_fused_plain(
+            xq, sx, wq, sw, bias, wp, sp, bp, resid, num_heads, scale,
+            valid_len)
+    if xq.device.type != "cuda":
+        raise ValueError(f"flash_attention_qkvp_fused: unsupported device "
+                         f"{xq.device}")
+    lib = load_kernels()
+    dev = xq.device
+    qkv = torch.empty((n * t, 3 * d), dtype=torch.bfloat16, device=dev)
+    aq = torch.empty((n * t, d), dtype=torch.int8, device=dev)
+    sa = torch.empty((n * t, d // (2 * HEAD_DIM)), dtype=torch.float32,
+                     device=dev)
+    out = torch.empty((n, t, d), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.lseg_flash_attention_qkvp_fused(
+            xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), sw.data_ptr(),
+            bias.data_ptr(), wp.data_ptr(), sp.data_ptr(), bp.data_ptr(),
+            resid.data_ptr(), qkv.data_ptr(), aq.data_ptr(), sa.data_ptr(),
+            out.data_ptr(), n, t, d, vl, float(scale), stream)
+    check_launch(lib, "lseg_flash_attention_qkvp_fused", rc)
+    flash_attention_qkvp_fused.launches += 1
+    return out
+
+
+flash_attention_qkvp_fused.launches = 0
+
+
+def _check_ln_qkv(x, ln_scale, ln_bias, wq, sw, bias, num_heads, valid_len):
+    dims = _check_q8(x, wq, sw, bias, num_heads, valid_len)
+    d = dims[2]
+    if tuple(ln_scale.shape) != (d,) or tuple(ln_bias.shape) != (d,):
+        raise ValueError(f"flash_attention_ln_qkv_fused: LayerNorm params "
+                         f"{tuple(ln_scale.shape)}, {tuple(ln_bias.shape)} "
+                         f"for width {d}")
+    check_operands("flash_attention_ln_qkv_fused", {
+        "x": (x, torch.bfloat16), "ln_scale": (ln_scale, torch.float32),
+        "ln_bias": (ln_bias, torch.float32), "wq": (wq, torch.int8),
+        "sw": (sw, torch.float32), "bias": (bias, torch.float32)})
+    return dims
+
+
+def flash_attention_ln_qkv_fused_plain(
+        x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+        wq: torch.Tensor, sw: torch.Tensor, bias: torch.Tensor,
+        num_heads: int, scale: float, valid_len: int = None,
+        eps: float = 1e-6) -> torch.Tensor:
+    """(N, T, D) bf16 raw residual stream -> (N, T, D) bf16: fp32 LN + row
+    quantize (`ln_quantize_rows_plain`), then the qkv product and attention
+    of `flash_attention_qkv_fused_plain`; B2's plain twin without the
+    quantize of its output."""
+    check_no_grad("flash_attention_ln_qkv_fused_plain", x, ln_scale, ln_bias,
+                  sw, bias)
+    _check_ln_qkv(x, ln_scale, ln_bias, wq, sw, bias, num_heads, valid_len)
+    xq, sx = ln_quantize_rows_plain(x, ln_scale, ln_bias, eps)
+    return _qkv_attention_plain(xq, sx, wq, sw, bias, num_heads, scale,
+                                valid_len)
+
+
+def flash_attention_ln_qkv_fused(
+        x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+        wq: torch.Tensor, sw: torch.Tensor, bias: torch.Tensor,
+        num_heads: int, scale: float, valid_len: int = None,
+        eps: float = 1e-6) -> torch.Tensor:
+    """Kernel wrapper (B9): (N, T, D) bf16, fp32 LN params (D,), int8
+    (3D, D) weight, fp32 (3D,) scales and bias -> (N, T, D) bf16.
+    head_dim 64, D % 256 == 0, D <= 2048, any T."""
+    check_no_grad("flash_attention_ln_qkv_fused", x, ln_scale, ln_bias, sw,
+                  bias)
+    n, t, d, vl = _check_ln_qkv(x, ln_scale, ln_bias, wq, sw, bias,
+                                num_heads, valid_len)
+    if x.device.type == "cpu":
+        return flash_attention_ln_qkv_fused_plain(
+            x, ln_scale, ln_bias, wq, sw, bias, num_heads, scale, valid_len,
+            eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"flash_attention_ln_qkv_fused: unsupported device "
+                         f"{x.device}")
+    if d % 256 or d > 2048:
+        raise ValueError(f"flash_attention_ln_qkv_fused kernel needs "
+                         f"D % 256 == 0 and D <= 2048, got {d}")
+    lib = load_kernels()
+    dev = x.device
+    xq = torch.empty((n * t, d), dtype=torch.int8, device=dev)
+    sx = torch.empty((n * t,), dtype=torch.float32, device=dev)
+    qkv = torch.empty((n * t, 3 * d), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((n, t, d), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.lseg_flash_attention_ln_qkv_fused(
+            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+            wq.data_ptr(), sw.data_ptr(), bias.data_ptr(), xq.data_ptr(),
+            sx.data_ptr(), qkv.data_ptr(), out.data_ptr(), n, t, d, vl,
+            float(scale), float(eps), stream)
+    check_launch(lib, "lseg_flash_attention_ln_qkv_fused", rc)
+    flash_attention_ln_qkv_fused.launches += 1
+    return out
+
+
+flash_attention_ln_qkv_fused.launches = 0

@@ -292,7 +292,10 @@ def calibrate_act_scales(model: nn.Module, *args, **kwargs) -> nn.Module:
     Every module with a `calibrating` flag runs its calibration branch
     (the sites keep the dynamic math and record max|x|; the LSeg head
     takes its unfused path so head1 records its input). Sites the forward
-    did not reach keep their scales."""
+    did not reach keep their scales, except the ViT block's MLP-hidden
+    site (`act_scale_lazy`): the reference declares that scale only where
+    its branch runs, so an unreached one is dropped (set to None, out of
+    the state_dict) and a reached one is created if it was dropped."""
     flagged = [m for m in model.modules() if hasattr(m, "calibrating")]
     sites = [m for m in flagged if hasattr(m, "cal_amax")]
     for m in sites:
@@ -306,6 +309,10 @@ def calibrate_act_scales(model: nn.Module, *args, **kwargs) -> nn.Module:
             m.calibrating = False
     for m in sites:
         if m.cal_amax is not None:
+            if m.act_scale is None:
+                m.act_scale = _param((), torch.float32, m.cal_amax.device)
             m.act_scale.copy_(torch.clamp(m.cal_amax.float(), min=EPS))
             m.cal_amax = None
+        elif getattr(m, "act_scale_lazy", False):
+            m.act_scale = None
     return model

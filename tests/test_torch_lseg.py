@@ -128,9 +128,6 @@ def _option_cases():
         "ResNet": tiny_rn_config(),
         "decoder_fused_rcu": rep(fast, decoder_fused_rcu=True),        # B18
         "decoder_fused_tail": rep(fast, decoder_fused_tail=True),      # B19
-        "vit.mlp_fused": rep(fast, vit=rep(fast.vit, mlp_fused=True)),  # B16
-        "vit.attn_impl='flashqp'": rep(                                 # B15
-            fast, vit=rep(fast.vit, attn_impl="flashqp")),
     }
 
 
