@@ -54,10 +54,26 @@ the result line is printed:
    answers them through `model(x, txt, return_argmax=True)`; per request
    B1 = 1, B15 = B16 = blocks, B4 = 1, B2 = B3 = B6 = B8 = 0, and the
    half-res logits are held as in 3b;
+3h. the fused int8 decoder: the static_cal tree of phase 3b under
+   `decoder_fused_rcu` and `decoder_fused_tail` answers them through
+   `model(x, txt, return_argmax=True)`; per request B1 = 1, B2 = B3 =
+   blocks, B18 = 7 (refinenet4's rcu2, both RCUs of refinenets 3-1),
+   B19 = 1 (refinenet2 only: refinenet4's and refinenet3's upsampled
+   widths 30 and 60 are no multiples of 8, refinenet1 takes
+   `decoder_conv_first`), B4 = 1; the half-res logits are held as in 3b,
+   and the label agreement with phase 3b's unfused model is printed;
+3i. refinenet1's int8 hand-off: the same fp32 weights under the fused
+   decoder with `head_fused=True` and no `decoder_conv_first`, quantized
+   and calibrated on their own batch, answer them through `model(x, txt,
+   return_argmax=True)`; per request B1 = 1, B2 = B3 = blocks, B18 = 7,
+   B19 = 2 (refinenet1's emits int8 codes on head1's grid), B5 = 1 on
+   that int8 path1, B4 = 0; the labels must agree with B5's plain twin on
+   the same codes, and a half-res logits call (B4 on the codes) is held as
+   in 3b;
 4. numbers: img/s at batch 8, 480x480, K=150 and peak device memory,
-   for the bf16, the static_cal, the fused-block, the streamed-head, the
-   fused-argmax, the fast_flashq and the 'wup' logits paths, kernels and
-   plain twins;
+   for the bf16, the static_cal, the fused-block, the fused-decoder, the
+   int8 hand-off, the streamed-head, the fused-argmax, the fast_flashq and
+   the 'wup' logits paths, kernels and plain twins;
 5. training, after the serving models are freed: the full-width
    `get_config(clip_vitl16_384)` model with `attn_impl='flashflat'`,
    bf16 compute, fp32 master weights from a seeded random init and remat
@@ -159,6 +175,14 @@ UPARGMAX_MIN_EQUAL, HEAD_ARGMAX_MIN_EQUAL = 1.0, 0.999
 # Served labels of the two streamed heads against their plain twins on the
 # same head inputs (the embeddings, path1).
 HEAD_SERVE_MIN_EQUAL = 0.999
+# fused_rcu (B18) and fused_upsample_outconv (B19) against their plain
+# twins: bit for bit. Both int32 sums are exact, every blend is one fp32
+# sum of two exact bf16 products, and every other step is an `_rn`
+# intrinsic at the plain twin's rounding point (no FMA contraction), so no
+# output may differ. B19 is also held, bit for bit, against the same
+# function through the dense bf16 interp operators of `ops.resize` (fp32
+# products, TF32 off), which does not read the kernel's tap tables.
+DECODER_RTOL, DECODER_ATOL = 0.0, 0.0
 # The card's published peaks (H100 SXM data sheet, dense): the least time
 # a kernel's work could take is the larger of its bytes over the memory
 # rate and the sum, over the types of its operations, of each count over
@@ -365,6 +389,7 @@ def phase_kernels(dev):
     results.update(_head_kernels(dev, g))
     results.update(_upsampled_head_kernels(dev, g))
     results.update(_fused_block_kernels(dev, g))
+    results.update(_decoder_kernels(dev, g))
     return results
 
 
@@ -932,6 +957,132 @@ def _fused_block_kernels(dev, g):
     return results
 
 
+def _rcu_operands(dev, g, c):
+    """B18's operands: int8 (C, 9C) kernels and the BatchNorm folded with
+    the dequant scales, whose positive shift makes conv1 of the zero-padded
+    border non-zero, so conv2's edge padding counts."""
+    from lseg_tpu_torch.ops.qconv import fold_bn_affine
+
+    ops = []
+    for a in (4.0, 16.0):
+        wq = torch.randint(-127, 128, (c, 9 * c), device=dev, generator=g,
+                           dtype=torch.int8)
+        sw = 2e-3 * torch.rand(c, device=dev, generator=g) + 1e-4
+        bn = (torch.rand(c, device=dev, generator=g) + 0.5,
+              0.5 * torch.rand(c, device=dev, generator=g) + 0.1,
+              0.1 * torch.randn(c, device=dev, generator=g),
+              torch.rand(c, device=dev, generator=g) + 0.5)
+        act = torch.tensor(a, device=dev)
+        d, e = fold_bn_affine(act / 127.0, sw, *bn)
+        ops += [wq, d, e, 127.0 / act]
+    return ops
+
+
+def _tail_dense(x, wq, sw, b, s_in, out_scale=None):
+    """B19's function through the dense bf16 x2 interp operators of
+    `ops.resize` (fp32 products of bf16 values, TF32 off: each output is
+    one exact product pair summed and rounded once), independent of
+    `ops.decoder.interp_taps`."""
+    from lseg_tpu_torch.ops.quant import int8_mm
+    from lseg_tpu_torch.ops.resize import interp_matrix
+
+    n, h, w, c = x.shape
+    ah = interp_matrix(h, 2 * h, True, torch.bfloat16, x.device).float()
+    aw = interp_matrix(w, 2 * w, True, torch.bfloat16, x.device).float()
+    hb = torch.einsum("oh,nhwc->nowc", ah, x.float()).to(torch.bfloat16)
+    ub = torch.einsum("ow,nhwc->nhoc", aw, hb.float()).to(torch.bfloat16)
+    del hb
+    q = torch.clamp(torch.round(ub.float() * (1.0 / s_in)), -127, 127
+                    ).to(torch.int8)
+    y = int8_mm(q.reshape(-1, c), wq).float() * (s_in * sw) + b
+    y = y.reshape(n, 2 * h, 2 * w, -1)
+    if out_scale is None:
+        return y.to(torch.bfloat16)
+    return torch.clamp(torch.round(y * (1.0 / out_scale)), -127, 127
+                       ).to(torch.int8)
+
+
+def _decoder_kernels(dev, g):
+    """B18 at refinenet1's (8, 120, 120, 256) and refinenet4's odd
+    (8, 15, 15, 256); B19 at refinenet2's (8, 60, 60, 256) with bf16 out
+    and at refinenet1's hand-off (8, 120, 120, 256) with int8 out."""
+    from lseg_tpu_torch.ops.decoder import (
+        fused_upsample_outconv,
+        fused_upsample_outconv_plain,
+    )
+    from lseg_tpu_torch.ops.qconv import fused_rcu, fused_rcu_plain
+
+    results = {}
+    c = 256
+    ops = _rcu_operands(dev, g, c)
+    for shape in ((8, 120, 120, c), (8, 15, 15, c)):
+        x = (torch.randn(shape, device=dev, generator=g)
+             * (1.0 + torch.arange(c, device=dev) / c)).to(torch.bfloat16)
+        out = fused_rcu(x, *ops)
+        ref = fused_rcu_plain(x, *ops)
+        err = check_close(f"fused_rcu {shape}", out, ref, DECODER_RTOL,
+                          DECODER_ATOL)
+        # the input makes conv2's edge padding count: conv1 of the
+        # zero-padded border (the twin on the padded image, cropped) moves
+        # outputs on the outermost ring
+        wrong = fused_rcu_plain(torch.nn.functional.pad(
+            x, (0, 0, 1, 1, 1, 1)), *ops)[:, 1:-1, 1:-1]
+        ring = (out != wrong).any(dim=-1)
+        n_ring = int(ring.sum())
+        inner = int(ring[:, 1:-1, 1:-1].sum())
+        print(f"    conv1 of the padded border instead of conv2's zero "
+              f"padding would move {n_ring} pixels, {inner} inside the "
+              f"outermost ring")
+        if n_ring == 0 or inner:
+            fail("fused_rcu: the check input does not isolate conv2's edge "
+                 "padding")
+        del wrong, ring, ref
+        if shape[1] == 120:
+            ms, plain_ms = _timed("fused_rcu", f"{shape}",
+                                  lambda: fused_rcu(x, *ops),
+                                  lambda: fused_rcu_plain(x, *ops))
+            px = x.numel() // c
+            # two 3x3 int8 convolutions; fp32 per element: quantize 3,
+            # affine + relu 3, requantize 2, affine 2, residual 1. No
+            # single PyTorch call computes the unit: library call none
+            results["fused_rcu"] = result(
+                err, ms, plain_ms, nbytes(x, out, *ops),
+                {"int8": 2 * 2 * 9 * c * c * px, "fp32": 11 * px * c})
+        del x, out
+
+    wq = torch.randint(-127, 128, (c, c), device=dev, generator=g,
+                       dtype=torch.int8)
+    sw = 0.01 * torch.rand(c, device=dev, generator=g) + 1e-3
+    b = 0.1 * torch.randn(c, device=dev, generator=g)
+    for shape, out_scale in (((8, 60, 60, c), None),
+                             ((8, 120, 120, c), torch.tensor(0.05,
+                                                             device=dev))):
+        x = torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+        s_in = x.float().abs().amax() / 127.0
+        args = (x, wq, sw, b, s_in, out_scale)
+        kind = "bf16" if out_scale is None else "int8"
+        out = fused_upsample_outconv(*args)
+        err = check_close(f"fused_upsample_outconv {shape} -> {kind}", out,
+                          fused_upsample_outconv_plain(*args),
+                          DECODER_RTOL, DECODER_ATOL)
+        check_close(f"fused_upsample_outconv {shape} -> {kind} vs the dense "
+                    f"interp operators", out, _tail_dense(*args),
+                    DECODER_RTOL, DECODER_ATOL)
+        ms, plain_ms = _timed("fused_upsample_outconv", f"{shape} -> {kind}",
+                              lambda: fused_upsample_outconv(*args),
+                              lambda: fused_upsample_outconv_plain(*args))
+        up = out.numel()
+        # the 1x1 int8 product; fp32 per upsampled value: two H-blends and
+        # the W-blend (3 each), quantize 2, epilogue 2 (+ 2 for int8). No
+        # single PyTorch call computes it: library call none
+        res = result(err, ms, plain_ms, nbytes(x, wq, sw, b, out),
+                     {"int8": 2 * up * c, "fp32": 13 * up})
+        if out_scale is None:
+            results["fused_upsample_outconv"] = res
+        del x, out
+    return results
+
+
 def _images(g, dev, n, h, w, pad_rows=0):
     x = torch.randn(n, h - 2 * pad_rows, w, 3, device=dev, generator=g)
     if pad_rows:  # the demo pads a 360x480 frame to 384x480 with -1
@@ -1032,6 +1183,7 @@ def _kernel_counters():
         flash_attention_qkv_fused,
         flash_attention_qkvp_fused,
     )
+    from lseg_tpu_torch.ops.decoder import fused_upsample_outconv
     from lseg_tpu_torch.ops.fused_correlate import fused_correlate
     from lseg_tpu_torch.ops.head1_correlate import (
         head1_correlate_argmax_fused,
@@ -1042,6 +1194,7 @@ def _kernel_counters():
     from lseg_tpu_torch.ops.ln_quant import ln_quantize_rows
     from lseg_tpu_torch.ops.mlp import mlp_fused
     from lseg_tpu_torch.ops.patch_embed import patch_embed
+    from lseg_tpu_torch.ops.qconv import fused_rcu
     from lseg_tpu_torch.ops.upsample_argmax import upsample2x_argmax
 
     return {"patch_embed": patch_embed,
@@ -1059,7 +1212,9 @@ def _kernel_counters():
                 head1_correlate_upsample_argmax,
             "mlp_fused": mlp_fused,
             "flash_attention_qkvp_fused": flash_attention_qkvp_fused,
-            "flash_attention_ln_qkv_fused": flash_attention_ln_qkv_fused}
+            "flash_attention_ln_qkv_fused": flash_attention_ln_qkv_fused,
+            "fused_rcu": fused_rcu,
+            "fused_upsample_outconv": fused_upsample_outconv}
 
 
 def _serve_requests(tag, call, requests, cache, counters, expected):
@@ -1341,6 +1496,100 @@ def phase_serving_fused_block(dev, ref32, cache, requests):
     return model, plain, launches
 
 
+FUSED_DECODER = {"decoder_fused_rcu": True, "decoder_fused_tail": True}
+
+
+def phase_serving_fused_decoder(dev, model_q, ref32, cache, requests):
+    from lseg_tpu_torch.models.lseg import LSegNet
+
+    print("[3h] the fused int8 decoder: the static_cal tree with "
+          "decoder_fused_rcu and decoder_fused_tail, model(x, txt, "
+          "return_argmax=True); kernels B18 + B19")
+    cfg = dataclasses.replace(model_q.cfg, **FUSED_DECODER)
+    print(f"  head_fused {cfg.head_fused}, decoder_conv_first "
+          f"{cfg.decoder_conv_first}, decoder_fused_rcu "
+          f"{cfg.decoder_fused_rcu}, decoder_fused_tail "
+          f"{cfg.decoder_fused_tail}")
+    model = LSegNet(cfg, torch.bfloat16, dev).eval()
+    model.load_state_dict(model_q.state_dict())
+    plain = LSegNet(cfg, torch.bfloat16, dev, plain=True).eval()
+    plain.load_state_dict(model_q.state_dict())
+    blocks = cfg.vit.hooks[-1] + 1
+    preds, launches = _serve_requests(
+        "fused decoder", _argmax_call(model), requests, cache,
+        _kernel_counters(),
+        {"patch_embed": 1, "ln_quantize_rows": blocks,
+         "flash_attention_ln_qkv_fused_q8": blocks, "fused_rcu": 7,
+         "fused_upsample_outconv": 1, "head1_correlate_fused": 1})
+    for (name, labels, images), pred in zip(requests, preds):
+        unfused = _argmax_call(model_q)(images, cache(labels))
+        print(f"  {name}: labels vs phase 3b's unfused decoder "
+              f"{_agree(pred, unfused):.4f} (not gated)")
+    _int8_logits_gate("fused decoder half-res", model, plain, ref32,
+                      requests[1], cache, return_halfres=True)
+    return model, plain, launches
+
+
+def phase_serving_handoff(dev, ref32, cache, requests):
+    from lseg_tpu_torch import fast_serving, get_config
+    from lseg_tpu_torch.ops.head1_correlate import (
+        head1_correlate_argmax_fused_plain,
+    )
+
+    print("[3i] refinenet1's int8 hand-off: the fused decoder with "
+          "head_fused=True and no decoder_conv_first; kernels B18 + B19, "
+          "B19's int8 codes into B5")
+    base = fast_serving(get_config("clip_vitl16_384"), "static_cal")
+    cfg = dataclasses.replace(base, head_fused=True, decoder_conv_first=False,
+                              **FUSED_DECODER)
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    model, plain = _quantized(cfg, dev, ref32, g)
+    blocks = cfg.vit.hooks[-1] + 1
+    counters = _kernel_counters()
+    seen = []
+    hook = model.refinenet1.register_forward_hook(
+        lambda mod, args, out: seen.append(out))
+    try:
+        preds, launches = _serve_requests(
+            "int8 hand-off", _argmax_call(model), requests, cache, counters,
+            {"patch_embed": 1, "ln_quantize_rows": blocks,
+             "flash_attention_ln_qkv_fused_q8": blocks, "fused_rcu": 7,
+             "fused_upsample_outconv": 2, "head1_correlate_argmax_fused": 1})
+    finally:
+        hook.remove()
+    h1 = model.head1
+    for (name, labels, images), pred, path1 in zip(requests, preds, seen):
+        n, h, w, _ = images.shape
+        if path1.dtype != torch.int8 or path1.shape != (n, h // 2, w // 2,
+                                                        cfg.features):
+            fail(f"int8 hand-off {name}: path1 {tuple(path1.shape)} "
+                 f"{path1.dtype}, expected int8 codes at H/2")
+        with torch.inference_mode():
+            twin = head1_correlate_argmax_fused_plain(
+                path1, h1.act_scale / 127.0, h1.weight_q, h1.scale, h1.bias,
+                cache(labels))
+        head_eq = _agree(pred[:, ::2, ::2], twin)
+        print(f"  {name}: path1 int8 {tuple(path1.shape)}; labels vs B5's "
+              f"plain twin on the same codes {head_eq:.6f} (gate >= "
+              f"{HEAD_SERVE_MIN_EQUAL}); vs the whole plain path "
+              f"{_agree(pred, _argmax_call(plain)(images, cache(labels))):.4f}"
+              f" (not gated)")
+        if head_eq < HEAD_SERVE_MIN_EQUAL:
+            fail(f"int8 hand-off {name}: labels disagree with B5's plain "
+                 f"twin")
+    del seen
+    # the logits call: B4 on the same int8 path1
+    before = {k: counters[k].launches for k in (
+        "head1_correlate_fused", "fused_upsample_outconv")}
+    _int8_logits_gate("int8 hand-off half-res", model, plain, ref32,
+                      requests[1], cache, return_halfres=True)
+    got = {k: counters[k].launches - v for k, v in before.items()}
+    print(f"  half-res logits call launches {got}")
+    if got != {"head1_correlate_fused": 1, "fused_upsample_outconv": 2}:
+        fail(f"int8 hand-off half-res: launches {got}")
+    return model, plain, launches
+
+
 def _logits_call(model):
     """(images, txt) -> (N, H, W, K) fp32 logits through `model(x, txt)`,
     the call of `make_logits_fn` and the TTA evaluator."""
@@ -1434,7 +1683,7 @@ def _measure(name, fn):
 
 def phase_numbers(dev, plain, predict, cache, ade, model_q, plain_q,
                   streamed, model_hf, plain_hf, model_fq, plain_fq,
-                  model_wup, plain_wup, model_fb, plain_fb):
+                  model_wup, plain_wup, model_fb, plain_fb, decoder_paths):
     from lseg_tpu_torch.engine.serve import make_predictor
 
     print("[4] numbers: batch 8, 480x480, K=150")
@@ -1452,6 +1701,8 @@ def phase_numbers(dev, plain, predict, cache, ade, model_q, plain_q,
              lambda: _argmax_call(model_fb)(images, txt))
     _measure("fused block plain path",
              lambda: _argmax_call(plain_fb)(images, txt))
+    for name, m in decoder_paths.items():
+        _measure(name, lambda: _argmax_call(m)(images, txt))
     _measure("streamed head (use_pallas) kernel path",
              lambda: streamed[0](images, txt))
     _measure("streamed head (use_pallas) plain path",
@@ -1669,14 +1920,23 @@ def main() -> int:
                                                      cache, requests)
     model_fb, plain_fb, launches_fb = phase_serving_fused_block(
         dev, ref32, cache, requests)
+    model_fd, plain_fd, launches_fd = phase_serving_fused_decoder(
+        dev, model_q, ref32, cache, requests)
+    model_ho, plain_ho, launches_ho = phase_serving_handoff(dev, ref32, cache,
+                                                            requests)
     del ref32
     gc.collect()
     torch.cuda.empty_cache()
+    decoder_paths = {"fused decoder kernel path": model_fd,
+                     "fused decoder plain path": plain_fd,
+                     "int8 hand-off kernel path": model_ho,
+                     "int8 hand-off plain path": plain_ho}
     phase_numbers(dev, plain, predict, cache, ade, model_q, plain_q,
                   streamed, model_hf, plain_hf, model_fq, plain_fq, model_w,
-                  plain_w, model_fb, plain_fb)
+                  plain_w, model_fb, plain_fb, decoder_paths)
     del model, plain, predict, streamed, model_q, plain_q, model_hf, plain_hf
     del model_fq, plain_fq, model_w, plain_w, model_fb, plain_fb
+    del model_fd, plain_fd, model_ho, plain_ho, decoder_paths
     gc.collect()
     torch.cuda.empty_cache()
     launches_t = phase_training(dev, cache, ade)
@@ -1685,8 +1945,9 @@ def main() -> int:
     # B2, B3 and B4 on the int8 path (phase 3b, which also checked B1 per
     # request), B5 on the fused argmax head (phase 3d), B8 on the
     # fast_flashq path (phase 3e), B14 and B13 on the 'wup' head (phase 3f),
-    # B15 and B16 on the fused block (phase 3g), B7 on the training path
-    # (phase 5a, the first fit)
+    # B15 and B16 on the fused block (phase 3g), B18 on the fused decoder
+    # (phase 3h), B19 on the int8 hand-off (phase 3i, which also ran B18),
+    # B7 on the training path (phase 5a, the first fit)
     launches.update({k: launches_s[k] for k in (
         "fused_correlate", "upsample2x_argmax")})
     launches.update({k: launches_q[k] for k in (
@@ -1700,6 +1961,8 @@ def main() -> int:
         "head1_correlate_wup_fused", "head1_correlate_upsample_argmax")})
     launches.update({k: launches_fb[k] for k in (
         "flash_attention_qkvp_fused", "mlp_fused")})
+    launches["fused_rcu"] = launches_fd["fused_rcu"]
+    launches["fused_upsample_outconv"] = launches_ho["fused_upsample_outconv"]
     launches["flash_attention_flat_bwd"] = launches_t[
         "flash_attention_flat_bwd"]
     sources = {
@@ -1740,6 +2003,11 @@ def main() -> int:
             "lseg_tpu/ops/pallas_attention.py:476"),
         B9: ("lseg_tpu_torch/csrc/flash_attention_ln_qkv_fused.cu",
              "lseg_tpu/ops/pallas_attention.py:909"),
+        "fused_rcu": ("lseg_tpu_torch/csrc/fused_rcu.cu",
+                      "lseg_tpu/ops/pallas_qconv.py:137"),
+        "fused_upsample_outconv": (
+            "lseg_tpu_torch/csrc/fused_upsample_outconv.cu",
+            "lseg_tpu/ops/pallas_decoder.py:122"),
     }
     # B9 alone is exempt from the main-path check, by name: no model path
     # of the JAX package calls it (only scripts/kernel_census.py and its

@@ -11,9 +11,13 @@ CUDA events, at batch 8, 480x480 and K = 150 (`bench.py`'s shape), and
 profiles three calls with `torch.profiler`. It prints the call's ms, the
 encoder's ms, the device busy share (the sum of kernel times over the
 profiled wall time) and the largest kernels by device time per call.
-Paths: `fast_bf16`, `fast_cal`, `fast_flashq` and `fused_block`
+Paths: `fast_bf16`, `fast_cal`, `fast_flashq`, `fused_block`
 (`fast_cal` with `attn_impl='flashqp'`, `mlp_fused` and no MLP-hidden
-calibration). Needs a CUDA device: without one it exits with an error.
+calibration), `fused_decoder` (`fast_cal` with `decoder_fused_rcu` and
+`decoder_fused_tail`: kernels B18 and B19) and `int8_handoff` (that, with
+`head_fused=True` and no `decoder_conv_first`, so that refinenet1's B19
+hands int8 codes to the B5 head). Needs a CUDA device: without one it
+exits with an error.
 """
 
 from __future__ import annotations
@@ -29,13 +33,18 @@ from lseg_tpu_torch.models.layers import random_init_
 from lseg_tpu_torch.models.lseg import LSegNet
 from lseg_tpu_torch.ops.quant import calibrate_act_scales, quantize_tree
 
-# ViT overrides of each int8 path on `fast_serving(cfg, 'static_cal')`
+# ViT and config overrides of each int8 path on
+# `fast_serving(cfg, 'static_cal')`
+FUSED_DECODER = {"decoder_fused_rcu": True, "decoder_fused_tail": True}
 INT8_PATHS = {
-    "fast_cal": {},
-    "fast_flashq": {"attn_impl": "flashq", "ln_quant_fused": False,
-                    "mlp_act_cal": False},
-    "fused_block": {"attn_impl": "flashqp", "mlp_fused": True,
-                    "mlp_act_cal": False},
+    "fast_cal": ({}, {}),
+    "fast_flashq": ({"attn_impl": "flashq", "ln_quant_fused": False,
+                     "mlp_act_cal": False}, {}),
+    "fused_block": ({"attn_impl": "flashqp", "mlp_fused": True,
+                     "mlp_act_cal": False}, {}),
+    "fused_decoder": ({}, FUSED_DECODER),
+    "int8_handoff": ({}, {**FUSED_DECODER, "head_fused": True,
+                          "decoder_conv_first": False}),
 }
 PATHS = ("fast_bf16", *INT8_PATHS)
 BATCH, SIZE, LABELS = 8, 480, 150
@@ -50,8 +59,9 @@ def build_model(path: str, device):
     if path == "fast_bf16":
         return random_init_(LSegNet(fast, torch.bfloat16, device), g)
     cfg = fast_serving(base, "static_cal")
-    cfg = dataclasses.replace(cfg, vit=dataclasses.replace(
-        cfg.vit, **INT8_PATHS[path]))
+    vit_kw, cfg_kw = INT8_PATHS[path]
+    cfg = dataclasses.replace(cfg, vit=dataclasses.replace(cfg.vit, **vit_kw),
+                              **cfg_kw)
     # the same function unquantized in fp32 is the source of the int8 tree
     ref_cfg = dataclasses.replace(fast, head_dtype="float32",
                                   vit=dataclasses.replace(

@@ -7,8 +7,22 @@ NCHW views of the channels-last tensors.
 readout dense and the reassemble, scratch, RCU and out_conv convolutions
 for their pre-quantized int8 twins (`ops.quant`), with dynamic or
 calibrated activation scales, and run the fusion x2 upsample in the model
-dtype. The spatial-regularisation head blocks (`arch_option` 1/2) and the
-fused RCU / fused tail kernels (B18, B19) are not ported yet.
+dtype. The spatial-regularisation head blocks (`arch_option` 1/2) are not
+ported yet.
+
+The fused int8 decoder of the serving config (`quant='static_cal'`, bf16):
+`decoder_fused_rcu` runs a whole ResidualConvUnit as kernel B18
+(`ops.qconv.fused_rcu`) and `decoder_fused_tail` the fusion block's x2
+upsample + quantize + out_conv as kernel B19
+(`ops.decoder.fused_upsample_outconv`), which at refinenet1 can emit int8
+codes on the fused head's grid. Each routes by the reference's own gate
+(config, mode and shape; `lseg_tpu/models/blocks.py:222-230` and
+`:346-353`): calibration takes the unfused path so the convs record their
+input ranges, and so does training for the RCU. The fused paths read the
+same `conv1/conv2/bn1/bn2/out_conv` modules, so the state dict does not
+change; the kernels' operands (weights in their layout, the folded
+BatchNorm affines, the inverse scales) are prepared once per module state,
+not per call.
 """
 
 from __future__ import annotations
@@ -24,6 +38,18 @@ from lseg_tpu_torch.models.layers import (
     Conv2d,
     Dense,
     lecun_normal_,
+)
+from lseg_tpu_torch.ops.decoder import (
+    fused_upsample_outconv,
+    fused_upsample_outconv_plain,
+    tail_fusable,
+)
+from lseg_tpu_torch.ops.qconv import (
+    fold_bn_affine,
+    fused_rcu,
+    fused_rcu_plain,
+    rcu_fusable,
+    rcu_weight,
 )
 from lseg_tpu_torch.ops.quant import StaticQuantConv, StaticQuantDense
 from lseg_tpu_torch.ops.resize import upsample2x
@@ -142,14 +168,33 @@ class Reassemble(nn.Module):
         return self.resample(self.proj(x))
 
 
+def _prepared(module: nn.Module, tensors, make):
+    """`make()`, kept on `module` until one of `tensors` is replaced or
+    modified in place (`load_state_dict`, `.to()`): a fused kernel's
+    operands are prepared once per module state, not per call."""
+    key = tuple((t.data_ptr(), t._version) for t in tensors if t is not None)
+    hit = module.__dict__.get("_prepared_ops")
+    if hit is None or hit[0] != key:
+        hit = (key, make())
+        module.__dict__["_prepared_ops"] = hit
+    return hit[1]
+
+
 class ResidualConvUnit(nn.Module):
     """relu -> 3x3 conv -> [BN] -> relu -> 3x3 conv -> [BN] + residual.
-    Conv bias only without BN."""
+    Conv bias only without BN. `fused` runs the unit as kernel B18 where
+    the reference's gate lets it (see the module docstring); `plain` takes
+    the kernel's plain twin instead."""
 
     def __init__(self, features: int, use_bn: bool = True,
-                 dtype=torch.float32, quant=False, device=None):
+                 dtype=torch.float32, quant=False, device=None,
+                 fused: bool = False, plain: bool = False):
         super().__init__()
+        self.features = features
         self.use_bn = use_bn
+        self.quant = quant
+        self.fused = fused
+        self.plain = plain
         kw = dict(quant=quant, dtype=dtype, padding=1, bias=not use_bn,
                   device=device)
         self.conv1 = conv(features, features, 3, **kw)
@@ -158,7 +203,43 @@ class ResidualConvUnit(nn.Module):
             self.bn1 = BatchNorm(features, 1e-5, dtype, device)
             self.bn2 = BatchNorm(features, 1e-5, dtype, device)
 
+    def _takes_kernel(self, x: torch.Tensor) -> bool:
+        """The reference's gate (`blocks.py:222-230`)."""
+        _, h, w, c = x.shape
+        return (self.fused and self.quant == "static_cal"
+                and not self.training
+                and not (self.conv1.calibrating or self.conv2.calibrating)
+                and rcu_fusable(h, w, c) and c == self.features)
+
+    def _kernel_operands(self):
+        """(w1 (C, 9C), d1, e1, 127 / a1, w2, d2, e2, 127 / a2): the int8
+        kernels in the kernel's layout and the BatchNorm (or bias) folded
+        with the dequant scales a_i / 127, as `blocks.py:246-251`."""
+        convs = (self.conv1, self.conv2)
+        bns = (self.bn1, self.bn2) if self.use_bn else (None, None)
+        tensors = [t for cv in convs for t in (cv.weight_q, cv.scale,
+                                               cv.bias, cv.act_scale)]
+        tensors += [t for bn in bns if bn is not None
+                    for t in (bn.weight, bn.bias, bn.running_mean,
+                              bn.running_var)]
+
+        def make():
+            ops = []
+            for cv, bn in zip(convs, bns):
+                stats = ((bn.weight, bn.bias, bn.running_mean,
+                          bn.running_var) if bn is not None else (None,) * 4)
+                d, e = fold_bn_affine(cv.act_scale / 127.0, cv.scale, *stats,
+                                      conv_bias=cv.bias)
+                ops += [rcu_weight(cv.weight_q), d.contiguous(),
+                        e.contiguous(), 127.0 / cv.act_scale]
+            return tuple(ops)
+
+        return _prepared(self, tensors, make)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._takes_kernel(x):
+            op = fused_rcu_plain if self.plain else fused_rcu
+            return op(x.contiguous(), *self._kernel_operands())
         out = self.conv1(torch.relu(x))
         if self.use_bn:
             out = self.bn1(out)
@@ -174,24 +255,51 @@ class FeatureFusionBlock(nn.Module):
     the model dtype under `quant`. `conv_first` runs out_conv BEFORE the
     upsample (they commute exactly: a channel-only conv, a spatial-only
     interpolation whose rows sum to 1); `skip_out_upsample` then returns
-    the low-resolution conv output (the lowres serving head)."""
+    the low-resolution conv output (the lowres serving head).
+
+    `tail_fused` runs the upsample + quantize + out_conv tail as kernel
+    B19 where the reference's gate lets it, after the `conv_first` branch;
+    with `out_int8_scale` (the consumer's calibrated grid) it then returns
+    int8 codes on that grid instead of bf16. `rcu_fused` makes both RCUs
+    take kernel B18; `plain` takes the kernels' plain twins."""
 
     def __init__(self, features: int, use_bn: bool = True,
                  dtype=torch.float32, with_skip: bool = True, quant=False,
-                 conv_first: bool = False, device=None):
+                 conv_first: bool = False, device=None,
+                 tail_fused: bool = False, rcu_fused: bool = False,
+                 plain: bool = False):
         super().__init__()
+        self.features = features
         self.quant = quant
         self.conv_first = conv_first
+        self.tail_fused = tail_fused
+        self.plain = plain
         self.up_dtype = dtype if quant in QUANT_MODES else torch.float32
+        kw = dict(device=device, fused=rcu_fused, plain=plain)
         if with_skip:
-            self.rcu1 = ResidualConvUnit(features, use_bn, dtype, quant,
-                                         device)
-        self.rcu2 = ResidualConvUnit(features, use_bn, dtype, quant, device)
+            self.rcu1 = ResidualConvUnit(features, use_bn, dtype, quant, **kw)
+        self.rcu2 = ResidualConvUnit(features, use_bn, dtype, quant, **kw)
         self.out_conv = conv(features, features, 1, quant, dtype,
                              device=device)
 
+    def _tail_takes_kernel(self, x: torch.Tensor) -> bool:
+        """The reference's gate (`blocks.py:346-353`): no training term."""
+        _, h, w, c = x.shape
+        return (self.tail_fused and self.quant == "static_cal"
+                and not self.out_conv.calibrating
+                and tail_fusable(h, w, c, self.features))
+
+    def _fused_tail(self, x: torch.Tensor, out_scale) -> torch.Tensor:
+        oc = self.out_conv
+        op = (fused_upsample_outconv_plain if self.plain
+              else fused_upsample_outconv)
+        wq = oc.weight_q.reshape(oc.weight_q.shape[0], -1)   # (Co, C) view
+        return op(x.contiguous(), wq, oc.scale, oc.bias, oc.act_scale / 127.0,
+                  out_scale)
+
     def forward(self, x: torch.Tensor, skip: torch.Tensor = None,
-                skip_out_upsample: bool = False) -> torch.Tensor:
+                skip_out_upsample: bool = False,
+                out_int8_scale: torch.Tensor = None) -> torch.Tensor:
         if skip is not None:
             x = x + self.rcu1(skip)
         x = self.rcu2(x)
@@ -201,6 +309,8 @@ class FeatureFusionBlock(nn.Module):
                 return x
             return upsample2x(x, align_corners=True,
                               compute_dtype=self.up_dtype)
+        if self._tail_takes_kernel(x):
+            return self._fused_tail(x, out_int8_scale)
         x = upsample2x(x, align_corners=True, compute_dtype=self.up_dtype)
         return self.out_conv(x)
 

@@ -32,6 +32,13 @@ only a script drives it on path1. Without text features
 head1 runs unfused (`StaticQuantConv`), as `make_predictor` and the
 calibration forward use it.
 
+The fused int8 decoder (`decoder_fused_rcu`, `decoder_fused_tail`; see
+`models.blocks`) runs the refinenets' RCUs as kernel B18 and their tails
+as kernel B19. Where the fused head runs on a calibrated model, refinenet1
+is handed head1's grid (`act_scale / 127`): if its tail takes B19 (no
+`decoder_conv_first`) it returns int8 codes on that grid, and B4, B5 and
+B14 take them as they are, with no quantize pass of their own.
+
 Text features come precomputed (`text.cache.TextFeatureCache`), so a
 label-set swap never re-encodes. Inputs and outputs are NHWC, as in the
 reference.
@@ -82,8 +89,6 @@ def _check_supported(cfg: LSegConfig) -> None:
     vit = cfg.vit
     unported = {
         "arch_option (head blocks 1/2)": cfg.arch_option not in (0,),
-        "decoder_fused_rcu (kernel B18)": cfg.decoder_fused_rcu,
-        "decoder_fused_tail (kernel B19)": cfg.decoder_fused_tail,
         "vit.quant_int8 dynamic": vit.quant_int8 in (True, "dynamic"),
     }
     bad = [k for k, v in unported.items() if v]
@@ -134,7 +139,8 @@ class LSegNet(nn.Module):
             self.add_module(f"refinenet{i}", FeatureFusionBlock(
                 cfg.features, cfg.use_bn, dtype, with_skip=i != 4, quant=q,
                 conv_first=cfg.decoder_conv_first and i == 1,
-                device=device))
+                device=device, tail_fused=cfg.decoder_fused_tail,
+                rcu_fused=cfg.decoder_fused_rcu, plain=plain))
         self.head1 = conv(cfg.features, cfg.out_c, 1, q, dtype,
                           device=device)
         if param_dtype is not None:
@@ -142,10 +148,13 @@ class LSegNet(nn.Module):
         self.eval()
 
     def _head1_codes(self, path1, keep_bf16=False):
-        """path1 on head1's per-tensor grid: (codes, sx). With `keep_bf16`
-        a bf16 path1 on the calibrated grid stays bf16 for B5 to quantize
-        in the kernel (the same codes)."""
+        """path1 on head1's per-tensor grid: (codes, sx). An int8 path1
+        is refinenet1's B19 output, already on head1's calibrated grid.
+        With `keep_bf16` a bf16 path1 on the calibrated grid stays bf16 for
+        B5 to quantize in the kernel (the same codes)."""
         h1 = self.head1
+        if path1.dtype == torch.int8:
+            return path1, h1.act_scale / 127.0
         if not h1.static_act:
             return quantize_tensor(path1)
         sx = h1.act_scale / 127.0
@@ -198,8 +207,14 @@ class LSegNet(nn.Module):
             and text_features is not None and not self.calibrating)
         use_lowres_head = (use_head_fused and cfg.head_fused == "lowres"
                            and cfg.decoder_conv_first and return_argmax)
+        # head1's grid for refinenet1's fused tail to emit int8 on
+        # (reference `lseg.py:168-176`)
+        head_scale = (self.head1.act_scale / 127.0
+                      if use_head_fused and cfg.decoder_quant == "static_cal"
+                      else None)
         path1 = self.refinenet1(path, rn[0],
-                                skip_out_upsample=use_lowres_head)
+                                skip_out_upsample=use_lowres_head,
+                                out_int8_scale=head_scale)
 
         hd = head_dtype(cfg)
         if use_lowres_head:

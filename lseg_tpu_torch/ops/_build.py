@@ -78,6 +78,11 @@ SIGNATURES = {
     # n, t, dim, valid_len, scale, eps, stream
     "lseg_flash_attention_ln_qkv_fused": (_P,) * 10 + (_I,) * 4 + (
         ctypes.c_float, ctypes.c_float, _P),
+    # x, w1, d1, e1, s1_inv, w2, d2, e2, s2_inv, out, n, h, w, c, stream
+    "lseg_fused_rcu": (_P,) * 10 + (_I,) * 4 + (_P,),
+    # x, th, tw, wq, sc, bias, inv_in, inv_out, out, n, h, w, c, co,
+    # out_int8, stream
+    "lseg_fused_upsample_outconv": (_P,) * 9 + (_I,) * 6 + (_P,),
 }
 
 

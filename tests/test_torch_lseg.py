@@ -117,17 +117,13 @@ def _option_cases():
     (or a module) the port does not have yet."""
     import dataclasses
 
-    from lseg_tpu.config import fast_serving
     from lseg_tpu.testing import tiny_rn_config
 
-    rep = dataclasses.replace
     base = tiny_parity_config()
-    fast = fast_serving(base, quant="static")
     return {
-        "arch_option": rep(base, arch_option=1, block_depth=1),
+        "arch_option": dataclasses.replace(base, arch_option=1,
+                                           block_depth=1),
         "ResNet": tiny_rn_config(),
-        "decoder_fused_rcu": rep(fast, decoder_fused_rcu=True),        # B18
-        "decoder_fused_tail": rep(fast, decoder_fused_tail=True),      # B19
     }
 
 
