@@ -9,7 +9,11 @@ the result line is printed:
 1. device and build: the card, its power limit, and the nvcc build of
    the hand-written kernels (`lseg_tpu_torch/csrc`);
 2. each kernel against its plain PyTorch version on the card, at the
-   shapes of the serving path, with its time beside the plain version's;
+   shapes of the serving path, with its time beside the plain version's
+   (B10 in both of its modes, fp32 and compute_dtype=bfloat16; B17 at
+   ViT-L/16's fc2 and proj shapes and the reference test's fp32 shape,
+   with and without a residual; B20 at the reference probe's shape in
+   both scale block shapes);
 3. serving: the full-width `fast_serving(clip_vitl16_384, quant=False)`
    model (ViT-L/16, bf16) with seeded random weights answers three
    requests through `TextFeatureCache` + `make_predictor`; the kernels'
@@ -92,16 +96,22 @@ the result line is printed:
        losses;
    (c) ms/step, img/s and peak memory at batch 8, kernel and plain
        paths (CUDA events, 5 steps after 2 warm-ups), with per-step
-       launch counts B6 = 48 (forward + remat recompute), B7 = 24.
+       launch counts B6 = 48 (forward + remat recompute), B7 = 24;
+6. the probe path: `lseg_tpu_torch.probe` compiles B20's source alone
+   (`--sources`), then runs its cases in process: the four B20 variants
+   (each from the probe's own one-source library), `dense` (B17 at fc2)
+   and `ln_qkv` (B9), each against its plain twin; the launch counters
+   must show exactly B9, B17 and B20, the kernels that no model path of
+   the reference runs.
 
 Phase 2 also times, for each kernel, the PyTorch library call that
 computes the same function where there is one, and computes its bound
 from the inputs and the card's published peaks. The line before the last
-is a JSON object with each kernel's launches (on the path of phases 3-5
-that runs it; B9, which no model path of the reference calls, reports
-its phase-2 launches), error, times and bound; the last line is the
-result object. Needs one GPU and no network; imports no JAX and nothing
-of the JAX package.
+is a JSON object with each kernel's launches (on the path of phases 3-6
+that runs it: every kernel runs on a serving path, the training path or
+the probe path), error, times and bound (B10's row also holds its bf16
+mode's under "bf16"); the last line is the result object. Needs one
+GPU and no network; imports no JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -109,7 +119,6 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
-import re
 import subprocess
 import sys
 import tempfile
@@ -165,6 +174,15 @@ GRAD_RATIO, GRAD_FLOOR = 2.0, 2.0 ** -8
 # products in another order than the plain version's cuBLAS SGEMM (TF32
 # off): a few fp32 ulps of the logit scale (|logit| <= 1/0.07).
 CORR_RTOL, CORR_ATOL = 1e-5, 1e-4
+# fused_correlate (B10) with compute_dtype=bfloat16: fp32 sums in another
+# order and one rounding to bf16, one bf16 ulp (2^-7 of |plain| at most)
+# plus 1e-3; and where the kernel's fp32 norm of a row and the plain
+# version's differ in the last bit, a normalised operand may round to bf16
+# one ulp (at most 2^-7 of it) apart, which moves the logit by at most
+# 2^-7 * scale * max|xn| * max|tn| of its pixel and label (`_corr_bf16_
+# magnitude`). On an H100, 7 of the 69,120,000 logits of the flagship
+# shape needed that term.
+CORR_BF16_RTOL, CORR_BF16_ATOL = 2.0 ** -7, 1e-3
 # upsample2x_argmax (B11) rounds at the plain version's points, op by op:
 # the labels must agree everywhere, as must those of
 # head1_correlate_upsample_argmax (B13) with the plain tail of kernel B4's
@@ -194,8 +212,11 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 # most twice what the plain bf16 path strays from the fp32 model, plus a
 # floor of one bf16 ulp at the logit scale (|logit| <= 1/0.07).
 SERVE_RATIO, SERVE_FLOOR = 2.0, 0.0625
-# kernel B9's counter: the one kernel without a main path (see `main`)
-B9 = "flash_attention_ln_qkv_fused"
+# The kernels that no model path of the reference runs: B9, B17 and B20.
+# The probe path (phase 6) launches them, and exactly them; every other
+# kernel must run on a serving path or the training path.
+PROBE_KERNELS = {"flash_attention_ln_qkv_fused", "dense_residual",
+                 "int8_matmul_sliced_scale"}
 
 
 def fail(msg: str) -> None:
@@ -278,36 +299,8 @@ def card_line() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def _kernel_name(mangled: str) -> str:
-    """The `..._kernel` identifier (and template arguments) of a mangled
-    entry point: the length-prefixed name whose prefix matches."""
-    for m in re.finditer(r"(?=(\d{1,3})([a-z]\w*?_kernel)(I\w*?E)?)",
-                         mangled):
-        if int(m.group(1)) == len(m.group(2)):
-            return m.group(2) + (m.group(3) or "")
-    return mangled
-
-
-def ptxas_summary(log: str):
-    """One line per compiled kernel: registers, shared memory, spills."""
-    name = None
-    for line in log.splitlines():
-        hit = re.search(r"Compiling entry function '(\w+)'", line)
-        if hit:
-            name = _kernel_name(hit.group(1))
-        elif "spill stores" in line and name:
-            spill = re.search(r"(\d+) bytes spill stores", line).group(1)
-        elif "Used" in line and "registers" in line and name:
-            regs = re.search(r"Used (\d+) registers", line).group(1)
-            smem = re.search(r"(\d+) bytes smem", line)
-            yield (f"{name}: {regs} registers, "
-                   f"{smem.group(1) if smem else 0} B static smem, "
-                   f"{spill} B spilled")
-            name = None
-
-
 def phase_device_and_build():
-    from lseg_tpu_torch.ops._build import load_kernels
+    from lseg_tpu_torch.ops._build import load_kernels, ptxas_summary
 
     name = torch.cuda.get_device_name(0)
     print(f"[1] device: {name} (count {torch.cuda.device_count()}), "
@@ -390,6 +383,7 @@ def phase_kernels(dev):
     results.update(_upsampled_head_kernels(dev, g))
     results.update(_fused_block_kernels(dev, g))
     results.update(_decoder_kernels(dev, g))
+    results.update(_probe_path_kernels(dev, g))
     return results
 
 
@@ -639,10 +633,35 @@ def _head_kernels(dev, g):
     xn = torch.nn.functional.normalize(emb.float().reshape(-1, 512), dim=-1)
     tn_t = torch.nn.functional.normalize(txt, dim=-1).t().contiguous()
     lib_ms = cuda_time_ms(lambda: torch.matmul(xn, tn_t))
-    del xn
     results["fused_correlate"] = result(
         err, ms, plain_ms, nbytes(emb, txt, logits),
         {"fp32": 2 * emb.numel() * 150}, lib_ms)
+    # B10's compute_dtype=bfloat16 mode: bf16 operands on the tensor
+    # cores, bf16 logits; fp32 pixels and a zero label at a ragged shape
+    bf = torch.bfloat16
+    x = torch.randn(2, 7, 9, 64, device=dev, generator=g)
+    t = torch.randn(21, 64, device=dev, generator=g)
+    t[0] = 0.0
+    errs = []
+    for name, a, b in (("(8,240,240,512) bf16 -> K=150", emb, txt),
+                       ("(2,7,9,64) fp32 -> K=21", x, t)):
+        ref = fused_correlate_plain(a, b, scale, bf)
+        errs.append(check_close(
+            f"fused_correlate {name}, compute bf16",
+            fused_correlate(a, b, scale, bf), ref, CORR_BF16_RTOL,
+            CORR_BF16_ATOL, _corr_bf16_magnitude(a, b, ref, scale)))
+        del ref
+    ms, plain_ms = _timed("fused_correlate", "(8,240,240,512) bf16 -> K=150, "
+                          "compute bf16",
+                          lambda: fused_correlate(emb, txt, scale, bf),
+                          lambda: fused_correlate_plain(emb, txt, scale, bf))
+    # the library call: one bf16 matmul of the normalised, rounded operands
+    xn, tn_t = xn.to(bf), tn_t.to(bf)
+    lib_ms = cuda_time_ms(lambda: torch.matmul(xn, tn_t))
+    del xn
+    results["fused_correlate"]["bf16"] = result(
+        errs[0], ms, plain_ms, nbytes(emb, txt) + emb.numel() // 512 * 150 * 2,
+        {"bf16": 2 * emb.numel() * 150}, lib_ms)
 
     # B11: the fp32 logits of B10, then bf16; all-negative logits, where a
     # K padding that leaked into the argmax would win
@@ -723,6 +742,16 @@ def _head_kernels(dev, g):
         ms, plain_ms, nbytes(path1, w1q, s1, b1, txt, got["bf16"]),
         {"int8": 2 * m * 256 * 512, "bf16": 2 * m * 512 * 150})
     return results
+
+
+def _corr_bf16_magnitude(x, t, ref, scale):
+    """|plain| plus scale * max_c |xn| * max_c |tn| for each (pixel, label):
+    the magnitude of one bf16 ulp of the logit and of one operand's bf16
+    rounding (CORR_BF16_RTOL)."""
+    xm = torch.nn.functional.normalize(x.float(), dim=-1).abs().amax(
+        -1, keepdim=True)
+    tm = torch.nn.functional.normalize(t.float(), dim=-1).abs().amax(-1)
+    return ref.float().abs() + scale * xm * tm
 
 
 def _labels_equal(name, lab, ref, k):
@@ -1083,6 +1112,74 @@ def _decoder_kernels(dev, g):
     return results
 
 
+def _probe_path_kernels(dev, g):
+    """B17 at ViT-L/16's fc2 and proj shapes (bf16) and at the reference
+    test's fp32 shape, with and without a residual; B20 at the reference
+    probe's shape in both scale block shapes."""
+    from lseg_tpu_torch import probe
+    from lseg_tpu_torch.ops.dense import (
+        dense_residual,
+        dense_residual_plain,
+    )
+    from lseg_tpu_torch.ops.scaled_int8 import (
+        int8_matmul_sliced_scale,
+        int8_matmul_sliced_scale_plain,
+    )
+
+    results = {}
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = (("fc2", (7208, 4096, 1024), bf, bf),
+             ("fc2", (7208, 4096, 1024), bf, None),
+             ("proj", (7208, 1024, 1024), bf, bf),
+             ("proj", (7208, 1024, 1024), bf, None),
+             ("reference test", (70, 128, 96), f32, f32),
+             ("reference test", (70, 128, 96), f32, None))
+    for name, shape, dt, resid in cases:
+        args = probe.dense_inputs(dev, g, *shape, dtype=dt, residual=resid)
+        tol = ((probe.DENSE_RTOL, probe.DENSE_ATOL) if dt == bf else
+               (probe.DENSE_FP32_RTOL, probe.DENSE_FP32_ATOL))
+        out = dense_residual(*args, out_dtype=dt)
+        err = check_close(
+            f"dense_residual {name} {shape} {dt} residual {resid}", out,
+            dense_residual_plain(*args, out_dtype=dt), *tol)
+        if name != "fc2" or resid is None:
+            continue
+        ms, plain_ms = _timed("dense_residual", "fc2 (7208,4096).(4096,1024) "
+                              "bf16 + bf16 residual",
+                              lambda: dense_residual(*args),
+                              lambda: dense_residual_plain(*args))
+        # the library call: addmm with the residual plus the broadcast bias
+        # as its input, that sum made outside the timed region
+        x, w, b, r = args
+        c = (r.float() + b).to(bf)
+        lib_ms = cuda_time_ms(lambda: torch.addmm(c, x, w))
+        m, k = x.shape
+        results["dense_residual"] = result(
+            err, ms, plain_ms, nbytes(x, w, b, r, out),
+            {"bf16": 2 * m * k * w.shape[1]}, lib_ms)
+        del c
+    del args, out
+
+    for variant in ("sliced", "rows"):
+        args = probe.b20_inputs(variant, dev, g)
+        out = int8_matmul_sliced_scale(*args)
+        err = check_close(f"int8_matmul_sliced_scale (2,904,1024) scales "
+                          f"{tuple(args[2].shape)}", out,
+                          int8_matmul_sliced_scale_plain(*args),
+                          probe.B20_RTOL, probe.B20_ATOL)
+    ms, plain_ms = _timed("int8_matmul_sliced_scale",
+                          "(2,904,1024).(1024,128)",
+                          lambda: int8_matmul_sliced_scale(*args),
+                          lambda: int8_matmul_sliced_scale_plain(*args))
+    # the int8 product; fp32 per output: three products and three sums. No
+    # single PyTorch call computes it: library call none
+    m = args[0].numel() // 1024
+    results["int8_matmul_sliced_scale"] = result(
+        err, ms, plain_ms, nbytes(*args, out),
+        {"int8": 2 * m * 1024 * 128, "fp32": 6 * m * 128})
+    return results
+
+
 def _images(g, dev, n, h, w, pad_rows=0):
     x = torch.randn(n, h - 2 * pad_rows, w, 3, device=dev, generator=g)
     if pad_rows:  # the demo pads a 360x480 frame to 384x480 with -1
@@ -1184,6 +1281,7 @@ def _kernel_counters():
         flash_attention_qkvp_fused,
     )
     from lseg_tpu_torch.ops.decoder import fused_upsample_outconv
+    from lseg_tpu_torch.ops.dense import dense_residual
     from lseg_tpu_torch.ops.fused_correlate import fused_correlate
     from lseg_tpu_torch.ops.head1_correlate import (
         head1_correlate_argmax_fused,
@@ -1195,6 +1293,7 @@ def _kernel_counters():
     from lseg_tpu_torch.ops.mlp import mlp_fused
     from lseg_tpu_torch.ops.patch_embed import patch_embed
     from lseg_tpu_torch.ops.qconv import fused_rcu
+    from lseg_tpu_torch.ops.scaled_int8 import int8_matmul_sliced_scale
     from lseg_tpu_torch.ops.upsample_argmax import upsample2x_argmax
 
     return {"patch_embed": patch_embed,
@@ -1214,7 +1313,9 @@ def _kernel_counters():
             "flash_attention_qkvp_fused": flash_attention_qkvp_fused,
             "flash_attention_ln_qkv_fused": flash_attention_ln_qkv_fused,
             "fused_rcu": fused_rcu,
-            "fused_upsample_outconv": fused_upsample_outconv}
+            "fused_upsample_outconv": fused_upsample_outconv,
+            "dense_residual": dense_residual,
+            "int8_matmul_sliced_scale": int8_matmul_sliced_scale}
 
 
 def _serve_requests(tag, call, requests, cache, counters, expected):
@@ -1898,6 +1999,28 @@ def phase_training(dev, cache, ade):
     return launches
 
 
+def phase_probe(dev):
+    """The probe path: `lseg_tpu_torch.probe`'s cases in process, each
+    kernel once against its plain twin, with the launch counters set to 0
+    just before and read just after; B20's source also compiled alone
+    through the probe's `--sources` step."""
+    from lseg_tpu_torch import probe
+
+    print("[6] probe path: the kernels no model path runs")
+    if probe.probe_sources([probe.B20_SOURCE]):
+        fail(f"probe: {probe.B20_SOURCE} does not compile alone")
+    counters = _kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    for case in probe.CASES:
+        if not probe.run_case(case, dev)["ok"]:
+            fail(f"probe {case}: kernel disagrees with its plain twin")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"  probe path launches: "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is False)")
@@ -1906,7 +2029,6 @@ def main() -> int:
     t_start = time.perf_counter()
     name = phase_device_and_build()
     kernels = phase_kernels(dev)
-    b9_launches = _kernel_counters()[B9].launches
     model, plain, predict, cache, ade, requests, launches = phase_serving(dev)
     *streamed, launches_s = phase_serving_streamed(dev, model, predict, cache,
                                                    requests)
@@ -1940,6 +2062,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches_t = phase_training(dev, cache, ade)
+    launches_p = phase_probe(dev)
     # each kernel's launches on the path that runs it: B1 and B6 on the
     # bf16 path (phase 3), B10 and B11 on the streamed head (phase 3c),
     # B2, B3 and B4 on the int8 path (phase 3b, which also checked B1 per
@@ -1947,7 +2070,8 @@ def main() -> int:
     # fast_flashq path (phase 3e), B14 and B13 on the 'wup' head (phase 3f),
     # B15 and B16 on the fused block (phase 3g), B18 on the fused decoder
     # (phase 3h), B19 on the int8 hand-off (phase 3i, which also ran B18),
-    # B7 on the training path (phase 5a, the first fit)
+    # B7 on the training path (phase 5a, the first fit); B9, B17 and B20 on
+    # the probe path (phase 6)
     launches.update({k: launches_s[k] for k in (
         "fused_correlate", "upsample2x_argmax")})
     launches.update({k: launches_q[k] for k in (
@@ -2001,23 +2125,34 @@ def main() -> int:
         "flash_attention_qkvp_fused": (
             "lseg_tpu_torch/csrc/flash_attention_qkvp_fused.cu",
             "lseg_tpu/ops/pallas_attention.py:476"),
-        B9: ("lseg_tpu_torch/csrc/flash_attention_ln_qkv_fused.cu",
-             "lseg_tpu/ops/pallas_attention.py:909"),
+        "flash_attention_ln_qkv_fused": (
+            "lseg_tpu_torch/csrc/flash_attention_ln_qkv_fused.cu",
+            "lseg_tpu/ops/pallas_attention.py:909"),
         "fused_rcu": ("lseg_tpu_torch/csrc/fused_rcu.cu",
                       "lseg_tpu/ops/pallas_qconv.py:137"),
         "fused_upsample_outconv": (
             "lseg_tpu_torch/csrc/fused_upsample_outconv.cu",
             "lseg_tpu/ops/pallas_decoder.py:122"),
+        "dense_residual": ("lseg_tpu_torch/csrc/dense_residual.cu",
+                           "lseg_tpu/ops/pallas_dense.py:43"),
+        "int8_matmul_sliced_scale": (
+            "lseg_tpu_torch/csrc/int8_sliced_scale.cu",
+            "scripts/mosaic_probe.py:49"),
     }
-    # B9 alone is exempt from the main-path check, by name: no model path
-    # of the JAX package calls it (only scripts/kernel_census.py and its
-    # tests do), so its row reports the launches of its phase-2 check, and
-    # every serving phase holds it at 0 launches per request
-    launches[B9] = b9_launches
+    # every kernel runs on a model path, on the training path or on the
+    # probe path; the probe path runs exactly the kernels without a model
+    # path (every serving phase held them at 0 launches per request)
+    probed = {k for k, v in launches_p.items() if v}
+    if probed != PROBE_KERNELS:
+        fail(f"the probe path launched {sorted(probed)}, expected "
+             f"{sorted(PROBE_KERNELS)}")
     rows = []
     for k, res in kernels.items():
-        if k != B9 and launches[k] == 0:
-            fail(f"kernel {k} was not launched on the main path")
+        if k in PROBE_KERNELS:
+            launches[k] = launches_p[k]
+        elif launches[k] == 0:
+            fail(f"kernel {k} was not launched on a model path or the "
+                 f"training path")
         src, rep = sources[k]
         # max_abs_err of the label kernels (B11, B5, B13): the fraction of
         # labels that differ from the plain version's

@@ -3,7 +3,9 @@
 Replaces `lseg_tpu/ops/pallas_correlation.py` · `fused_correlate`, the
 correlation of the `use_pallas=True` serving head. The CUDA kernel is
 `lseg_tpu_torch/csrc/fused_correlate.cu`; its header says what bounds it
-on the card and how the normalised pixel map stays out of device memory.
+on the card, in each of the reference's two modes (`compute_dtype`
+float32 and bfloat16), and how the normalised pixel map stays out of
+device memory.
 
 `fused_correlate` is the wrapper: on a CUDA tensor it launches the kernel
 (or raises), on a CPU tensor it runs `fused_correlate_plain`.
@@ -48,9 +50,9 @@ def fused_correlate(image_features: torch.Tensor,
                     compute_dtype: torch.dtype = torch.float32
                     ) -> torch.Tensor:
     """Kernel wrapper: (N, H, W, C) bf16 or fp32 pixel embeddings, (K, C)
-    text features -> (N, H, W, K) fp32 logits. C % 32 == 0. The kernel
-    takes `compute_dtype=float32` only (the reference's default on the
-    serving head)."""
+    text features -> (N, H, W, K) logits in `compute_dtype`, float32 (the
+    serving head's product on the FMA units) or bfloat16 (bf16 operands
+    on the tensor cores, bf16 logits). C % 32 == 0."""
     check_no_grad("fused_correlate", image_features, text_features)
     if image_features.device.type == "cpu":
         return fused_correlate_plain(image_features, text_features,
@@ -58,10 +60,9 @@ def fused_correlate(image_features: torch.Tensor,
     x = image_features
     if x.device.type != "cuda":
         raise ValueError(f"fused_correlate: unsupported device {x.device}")
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(
-            "fused_correlate kernel: compute_dtype=bfloat16 is not written "
-            "(ROADMAP); the serving head runs fp32")
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_correlate kernel computes in float32 or "
+                        f"bfloat16, got {compute_dtype}")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"fused_correlate kernel takes bf16 or fp32 pixels, "
                         f"got {x.dtype}")
@@ -78,16 +79,20 @@ def fused_correlate(image_features: torch.Tensor,
             raise ValueError(f"fused_correlate: {name} must be contiguous, "
                              f"16-byte aligned and on {x.device}")
     kp = -(-k // _BN) * _BN
+    bf16 = compute_dtype == torch.bfloat16
     lib = load_kernels()
-    tn_t = torch.empty((c, kp), dtype=torch.float32, device=x.device)
-    out = torch.empty((n, h, w, k), dtype=torch.float32, device=x.device)
+    # the normalised text: (kp, C) bf16 rows for the tensor cores, or
+    # (C, kp) fp32 columns for the FMA tile
+    tn = (torch.empty((kp, c), dtype=torch.bfloat16, device=x.device) if bf16
+          else torch.empty((c, kp), dtype=torch.float32, device=x.device))
+    out = torch.empty((n, h, w, k), dtype=compute_dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lseg_fused_correlate(x.data_ptr(), t.data_ptr(),
-                                      tn_t.data_ptr(), out.data_ptr(),
+                                      tn.data_ptr(), out.data_ptr(),
                                       n * h * w, c, k, kp,
                                       int(x.dtype == torch.bfloat16),
-                                      float(logit_scale), stream)
+                                      int(bf16), float(logit_scale), stream)
     check_launch(lib, "lseg_fused_correlate", rc)
     fused_correlate.launches += 1
     return out
