@@ -7,13 +7,19 @@ Phases, each printing its own lines; any failure exits non-zero before
 the result line is printed:
 
 1. device and build: the card, its power limit, and the nvcc build of
-   the hand-written kernels (`lseg_tpu_torch/csrc`);
+   the hand-written kernels (`lseg_tpu_torch/csrc`), with `ptxas -v`'s
+   registers and spills; the SASS of the built library (`cuobjdump
+   --dump-sass`) must hold warpgroup products (HGMMA) and TMA loads
+   (UTMALDG) in B6's kernel (in every object that compiles it) and in
+   both of B7's;
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the serving path, with its time beside the plain version's
    (B10 in both of its modes, fp32 and compute_dtype=bfloat16; B17 at
    ViT-L/16's fc2 and proj shapes and the reference test's fp32 shape,
    with and without a residual; B20 at the reference probe's shape in
-   both scale block shapes);
+   both scale block shapes; B6's per-row log-sum-exp against the plain
+   one; at its end B6, B7, B8 and B9 timed again, one after another,
+   beside SDPA and SDPA's backward);
 3. serving: the full-width `fast_serving(clip_vitl16_384, quant=False)`
    model (ViT-L/16, bf16) with seeded random weights answers three
    requests through `TextFeatureCache` + `make_predictor`; the kernels'
@@ -138,6 +144,13 @@ PATCH_RTOL, PATCH_ATOL = 2.0 ** -7, 1e-4
 # relative to the running row maximum, the plain version relative to the
 # row maximum, so single P entries differ by up to one bf16 ulp.
 FLASH_RTOL, FLASH_ATOL = 2e-2, 2e-2
+# B6's lse against the plain lse: fp32 sums of <= 904 terms in another
+# order, and exp2 of one FMA against exp of the scaled score.
+LSE_ATOL = 1e-4
+# Kernels whose SASS must hold warpgroup products and TMA loads: B6's
+# interior and both passes of B7.
+SASS_KERNELS = ("flash_flat_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel")
+SASS_OPS = ("HGMMA", "UTMALDG")
 # ln_quantize_rows (B3): the kernel and the plain version sum the row in
 # another order, so a code may sit one level off at a bin edge; the row
 # scales agree to fp32 rounding.
@@ -313,7 +326,40 @@ def phase_device_and_build():
     print(f"  kernel build: {load_kernels.build_seconds:.2f} s")
     for line in ptxas_summary(load_kernels.build_log):
         print(f"  ptxas: {line}")
+    for line in ptxas_summary(load_kernels.build_log):
+        if line.startswith(SASS_KERNELS):
+            print(f"  wgmma kernel spills (expect 0): {line}")
+    sass_check()
     return name
+
+
+def sass_check():
+    """Fail unless every compiled copy of the SASS_KERNELS holds each of
+    SASS_OPS, read from the built library by `cuobjdump --dump-sass`."""
+    from pathlib import Path
+
+    from lseg_tpu_torch.ops._build import (
+        _kernel_name,
+        find_nvcc,
+        library_path,
+    )
+
+    tool = Path(find_nvcc()).with_name("cuobjdump")
+    proc = subprocess.run([str(tool), "--dump-sass", str(library_path())],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"cuobjdump: {proc.stderr.strip()[:500]}")
+    copies = {k: [] for k in SASS_KERNELS}
+    for sec in proc.stdout.split("Function : ")[1:]:
+        name = _kernel_name(sec.split(None, 1)[0])
+        if name in copies:
+            copies[name].append({op: op in sec for op in SASS_OPS})
+    for name, found in copies.items():
+        print(f"  sass {name}: {len(found)} compiled copies, "
+              + ", ".join(f"{op} in {sum(f[op] for f in found)}"
+                          for op in SASS_OPS))
+        if not found or not all(all(f.values()) for f in found):
+            fail(f"sass: {name} lacks {'/'.join(SASS_OPS)} in a copy")
 
 
 def phase_kernels(dev):
@@ -359,11 +405,15 @@ def phase_kernels(dev):
     for n, t, vl in ((8, 901, None), (8, 904, 901), (2, 721, None)):
         qkv = torch.randn(n, t, 3 * 1024, device=dev, generator=g
                           ).to(torch.bfloat16)
+        out, lse = flash_attention_flat(qkv, 16, scale, vl, return_lse=True)
+        ref, ref_lse = flash_attention_flat_plain(qkv, 16, scale, vl,
+                                                  return_lse=True)
         err = check_close(
-            f"flash_attention_flat ({n},{t},3072) valid_len={vl}",
-            flash_attention_flat(qkv, 16, scale, vl),
-            flash_attention_flat_plain(qkv, 16, scale, vl),
+            f"flash_attention_flat ({n},{t},3072) valid_len={vl}", out, ref,
             FLASH_RTOL, FLASH_ATOL)
+        check_close(f"flash_attention_flat lse ({n},16,{t})", lse, ref_lse,
+                    0.0, LSE_ATOL)
+        del out, ref, lse, ref_lse
         if (n, t, vl) == (8, 901, None):
             ms = cuda_time_ms(lambda: flash_attention_flat(qkv, 16, scale))
             plain_ms = cuda_time_ms(
@@ -371,9 +421,12 @@ def phase_kernels(dev):
             print(f"  flash_attention_flat (8,901,3072) 16 heads: "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
             q, k, v = qkv.view(n, t, 3, 16, 64).permute(2, 0, 3, 1, 4)
-            lib_ms = cuda_time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, scale=scale))
+            sdpa = (lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, scale=scale))
+            lib_ms = cuda_time_ms(sdpa)
+            ATTN_RETIME["B6 flash_attention_flat"] = (
+                lambda x=qkv: flash_attention_flat(x, 16, scale))
+            ATTN_RETIME["SDPA"] = sdpa
             results["flash_attention_flat"] = result(
                 err, ms, plain_ms, nbytes(qkv) + nbytes(qkv) // 3,
                 {"bf16": 4 * n * 16 * t * t * 64}, lib_ms)
@@ -384,7 +437,20 @@ def phase_kernels(dev):
     results.update(_fused_block_kernels(dev, g))
     results.update(_decoder_kernels(dev, g))
     results.update(_probe_path_kernels(dev, g))
+    _retime_attention()
     return results
+
+
+# The attention kernels' calls (and SDPA's), kept by phase 2's checks for
+# one more timing at its end, in one stretch.
+ATTN_RETIME = {}
+
+
+def _retime_attention():
+    print("  attention re-timed, one after another (ms):")
+    for name, fn in ATTN_RETIME.items():
+        print(f"    {name}: {cuda_time_ms(fn):.4f}")
+    ATTN_RETIME.clear()
 
 
 def _flash_bwd(dev, g, scale):
@@ -399,8 +465,8 @@ def _flash_bwd(dev, g, scale):
         qkv = torch.randn(8, t, 3 * d, device=dev, generator=g
                           ).to(torch.bfloat16)
         do = torch.randn(8, t, d, device=dev, generator=g).to(torch.bfloat16)
-        out = flash_attention_flat(qkv, 16, scale, vl)
-        args = (qkv, out, do, 16, scale, vl)
+        out, lse = flash_attention_flat(qkv, 16, scale, vl, return_lse=True)
+        args = (qkv, out, do, lse, 16, scale, vl)
         got = flash_attention_flat_bwd(*args)
         ref = flash_attention_flat_bwd_plain(*args)
         torch.cuda.synchronize()
@@ -432,10 +498,15 @@ def _flash_bwd(dev, g, scale):
             so = torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, scale=scale)
             dso = do.view(8, t, 16, 64).transpose(1, 2)
-            lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
+            sdpa_bwd = (lambda: torch.autograd.grad(
                 so, (q, k, v), dso, retain_graph=True))
-            # qkv, out, dout read, dqkv written; s recomputed: 10 T^2 hd
-            # per head (s, dp, dv, dq, dk)
+            lib_ms = cuda_time_ms(sdpa_bwd)
+            ATTN_RETIME["B7 flash_attention_flat_bwd"] = (
+                lambda a=args: flash_attention_flat_bwd(*a))
+            ATTN_RETIME["SDPA backward"] = sdpa_bwd
+            # qkv, out, dout read, dqkv written (lse read: 0.5 MB, left
+            # out as in earlier runs); the least work is five products
+            # (s, dp, dv, dq, dk): 10 T^2 hd per head
             res = result(err, ms, plain_ms, nbytes(qkv, out, do, got),
                          {"bf16": 10 * 8 * 16 * t * t * 64}, lib_ms)
     return res
@@ -553,6 +624,9 @@ def _int8_kernels(dev, g):
                 "flash_attention_qkv_fused", "(8,901,1024) 16 heads",
                 lambda: flash_attention_qkv_fused(*args),
                 lambda: flash_attention_qkv_fused_plain(*args))
+            b8_args = args
+            ATTN_RETIME["B8 flash_attention_qkv_fused"] = (
+                lambda: flash_attention_qkv_fused(*b8_args))
             # no single PyTorch call computes the int8 qkv product of the
             # codes together with the attention: library call none
             results["flash_attention_qkv_fused"] = result(
@@ -977,6 +1051,8 @@ def _fused_block_kernels(dev, g):
                           "(8,901,1024) 16 heads",
                           lambda: flash_attention_ln_qkv_fused(*args),
                           lambda: flash_attention_ln_qkv_fused_plain(*args))
+    ATTN_RETIME["B9 flash_attention_ln_qkv_fused"] = (
+        lambda: flash_attention_ln_qkv_fused(*args))
     # no single PyTorch call computes it: library call none; fp32 work of
     # the LN and quantize ~8 operations per element, as B3's row
     results["flash_attention_ln_qkv_fused"] = result(

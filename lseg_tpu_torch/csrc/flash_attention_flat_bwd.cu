@@ -4,148 +4,143 @@
 // Replaces: lseg_tpu/ops/pallas_attention.py · _flash_flat_bwd_impl
 // (kernel body _bwd_kernel; the custom VJP of flash_attention_flat_vjp).
 //
-// Inputs: the forward's qkv (N, T, 3D) bf16, its output O (N, T, D) bf16
-// and the cotangent dO (N, T, D) bf16. Output: dqkv (N, T, 3D) bf16 in
-// the same flat layout, dq in the q columns, dk in the k columns and dv
-// in the v columns of each head, so the qkv projection's backward takes
-// it as it is. Keys at or past `valid_len` are masked.
+// Inputs: the forward's qkv (N, T, 3D) bf16, its output O (N, T, D) bf16,
+// its per-row log-sum-exp lse (N, H, T) fp32 (kernel B6's statistics
+// output) and the cotangent dO (N, T, D) bf16. Output: dqkv (N, T, 3D)
+// bf16 in the same flat layout, dq in the q columns, dk in the k columns
+// and dv in the v columns of each head, so the qkv projection's backward
+// takes it as it is. Keys at or past `valid_len` are masked.
 //
 // Rounding points follow the TPU kernel (pallas_attention.py:557-609):
 //   s  = (q . k^T) * scale in fp32;
-//   pn = exp(s - rowmax) / rowsum in fp32, normalized BEFORE any cast;
+//   pn = exp(s - lse) in fp32, normalized BEFORE any cast;
 //   dv = bf16(pn)^T . dO, fp32 accumulation;
 //   dp = dO . v^T in fp32;
 //   Dr = rowsum(dO * O) in fp32 from the bf16 values;
 //   ds = bf16(pn * (dp - Dr));
 //   dq = (ds . k) * scale, dk = (ds^T . q) * scale, fp32 accumulation,
 //   cast to bf16.
-// One difference: the row sum is accumulated online (rescaled when the
-// running maximum grows), where the TPU kernel sums exp(s - rowmax)
-// after taking the whole row's maximum; the two differ at fp32 rounding.
+// One difference: pn comes from the forward's lse (as exp2 of
+// s * scale * log2 e - lse * log2 e, one FMA, by the ex2.approx.ftz
+// instruction), where the TPU kernel recomputes the row maximum and sum;
+// the two differ at fp32 rounding.
 //
 // What bounds it on the card: the products. Each (image, head) needs
-// five T x T x 64 products (s, dv, dp, dq, dk); this design recomputes s
-// in all three passes and dp in two, eight in all: 2*T*T*64*8 FLOP per
-// head, 106 GFLOP at the flagship (8, 901, 3072) with 16 heads. Inputs
-// and outputs are 132 MB, so it is compute-bound at any sensible rate.
+// five T x T x 64 products (s, dv, dp, dq, dk); the two passes below
+// recompute s and dp once each, seven in all: 2*T*T*64*7 FLOP per head,
+// 93 GFLOP at the flagship (8, 901, 3072) with 16 heads. Inputs and
+// outputs are 132 MB, so it is compute-bound at any sensible rate.
 //
-// Design. The TPU kernel holds a whole (T, T) fp32 block per head pair
-// in VMEM (3.3 MB at T = 904); a Hopper block cannot. No (T, T) tensor
-// touches device memory and nothing is summed with atomics, so the
-// result is deterministic:
-//   1. statistics: one block per (64-query tile, head, image) sweeps all
-//      keys for each row's max and sum of exp (as the forward does) and
-//      takes Dr; they go to an fp32 (3, N, H, T) scratch;
-//   2. dK/dV: one block per (64-key tile, head, image); each warp owns 16
-//      keys, keeps their k and v fragments and its dk, dv accumulators in
-//      registers, and walks the query tiles (q, dO, stats staged in
-//      shared memory), forming s^T and dp^T directly;
-//   3. dQ: one block per (64-query tile, head, image); each warp owns 16
-//      queries, keeps q, dO, dq in registers and walks the key tiles.
-// Products run as bf16 mma.sync m16n8k16 with fp32 accumulators; a
-// score fragment's register layout is the A-operand layout of the next
-// product, so pn and ds never leave registers. Any T works: the ragged
-// tiles are zero-filled and masked.
+// Design, on the wgmma + TMA engine of wgmma.cuh. The TPU kernel holds a
+// whole (T, T) fp32 block per head pair in VMEM (3.3 MB at T = 904); a
+// Hopper block cannot, and the row statistics are not recomputed: B6
+// hands its lse over. No (T, T) tensor touches device memory and nothing
+// is summed with atomics, so the result is deterministic. Two passes, one
+// warpgroup of 64 rows per block:
+//   1. dQ, one block per (64-query tile, head, image): Dr of its rows from
+//      O and dO (written to an fp32 (N, H, T) scratch for pass 2); Q and
+//      dO loaded once by TMA; K and V tiles through a three-stage TMA ring
+//      on mbarriers; S = Q.K^T and dP = dO.V^T as SS wgmma, ds in
+//      registers, dQ += ds.K as RS wgmma with K through the B-transpose
+//      flag (3 products a tile);
+//   2. dK/dV, one block per (64-key tile, head, image): K and V loaded
+//      once by TMA; Q and dO tiles through the ring, each query tile's
+//      lse and Dr staged in shared memory; S^T = K.Q^T and dP^T = V.dO^T
+//      as SS wgmma issued together, so pn^T and ds^T come out of the
+//      accumulators in the A-operand layout; dV += bf16(pn^T).dO and
+//      dK += ds^T.Q as RS wgmma, also issued together (4 products a
+//      tile, two waits).
+// Any T works: TMA zero-fills rows past T, and those rows' lse is staged
+// as +inf, so their pn is 0.
 
 #include "lseg_common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-using lseg::ld_u32;
-using lseg::mma_bf16_16816;
-using lseg::pack_bf16;
-using lseg::pack_f32;
+namespace wg = lseg::wg;
+using wg::TILE;
+using wg::TILE_BYTES;
 
-constexpr int HD = 64;       // head_dim (the kernel is specialised)
-constexpr int BT = 64;       // rows per block tile and per inner tile
-constexpr int LDS = HD + 8;  // smem row stride in bf16 (144 bytes)
+constexpr int HD = 64;  // head_dim (the kernel is specialised)
+constexpr int BT = 64;  // rows per block tile and per inner tile
+constexpr int STAGES = 3;  // ring depth
 constexpr int THREADS = 128;
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Args {
-  const __nv_bfloat16* qkv;
   const __nv_bfloat16* out;
   const __nv_bfloat16* dout;
+  const float* lse;
   __nv_bfloat16* dqkv;
-  float* stats;  // (3, N, H, T): row max, row sum, Dr
-  int T, D, H, valid_len;
+  float* dr;  // (N, H, T): rowsum(dO * O), written by pass 1
+  int T, D, valid_len;
   float scale;
 };
 
-__device__ __forceinline__ float neg_inf() {
-  return -__int_as_float(0x7f800000);
+// A block's two resident tiles, the ring of two tiles a stage, each
+// query tile's lse * log2 e and Dr (pass 2, double-buffered), barriers.
+struct Smem {
+  __nv_bfloat16 a[TILE * TILE];
+  __nv_bfloat16 b[TILE * TILE];
+  __nv_bfloat16 ra[STAGES][TILE * TILE];
+  __nv_bfloat16 rb[STAGES][TILE * TILE];
+  float lse2[2][BT];
+  float dr[2][BT];
+  uint64_t own_bar;
+  uint64_t full[STAGES];
+};
+constexpr int SMEM_BYTES = sizeof(Smem) + 1024;  // + alignment slack
+
+__device__ __forceinline__ Smem& smem() {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  return *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
 }
 
-// A-operand fragments of 16 rows x 64 dims read from global memory
-// (row stride `ld` elements); rows at or past `limit` read as zero.
-__device__ __forceinline__ void load_a_frags(uint32_t (&a)[4][4],
-                                             const __nv_bfloat16* base,
-                                             long long ld, int row0,
-                                             int limit, int g, int t4) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c = kk * 16 + 2 * t4 + 8 * half;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = row0 + g + 8 * r;
-        a[kk][2 * half + r] = row < limit ? ld_u32(base + row * ld + c) : 0u;
-      }
+__device__ __forceinline__ float pos_inf() {
+  return __int_as_float(0x7f800000);
+}
+
+// Barriers, the two resident tiles (from maps ma, mb at columns ca, cb,
+// rows row0) and the first ring stages (columns cra, crb).
+__device__ __forceinline__ void prologue(Smem& sm, const CUtensorMap* ma,
+                                         int ca, const CUtensorMap* mb,
+                                         int cb, int row0,
+                                         const CUtensorMap* mra, int cra,
+                                         const CUtensorMap* mrb, int crb,
+                                         int n_tiles, int img) {
+  if (threadIdx.x == 0) {
+    wg::bar_init(&sm.own_bar, 1);
+    for (int s = 0; s < STAGES; ++s) wg::bar_init(&sm.full[s], 1);
+    wg::bar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    wg::bar_expect_tx(&sm.own_bar, 2 * TILE_BYTES);
+    wg::tma_load(sm.a, ma, &sm.own_bar, ca, row0, img);
+    wg::tma_load(sm.b, mb, &sm.own_bar, cb, row0, img);
+    for (int s = 0; s < STAGES && s < n_tiles; ++s) {
+      wg::bar_expect_tx(&sm.full[s], 2 * TILE_BYTES);
+      wg::tma_load(sm.ra[s], mra, &sm.full[s], cra, s * BT, img);
+      wg::tma_load(sm.rb[s], mrb, &sm.full[s], crb, s * BT, img);
     }
   }
 }
 
-// Stage a 64 x 64 bf16 tile (rows at or past `limit` zero) into smem.
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* s,
-                                           const __nv_bfloat16* base,
-                                           long long ld, int row0,
-                                           int limit, int tid) {
-  for (int i = tid; i < BT * (HD / 8); i += THREADS) {
-    const int r = i / (HD / 8);
-    const int cv = (i % (HD / 8)) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit)
-      v = *reinterpret_cast<const uint4*>(base + (row0 + r) * ld + cv);
-    *reinterpret_cast<uint4*>(s + r * LDS + cv) = v;
-  }
-}
-
-// c[nt] += a (16 x 64) . b^T, where b is a 64-row smem tile whose rows are
-// the 64 output columns (row-major, contiguous along the reduced dim).
-__device__ __forceinline__ void mma_abt(float (&c)[8][4],
-                                        const uint32_t (&a)[4][4],
-                                        const __nv_bfloat16* b, int g,
-                                        int t4) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const __nv_bfloat16* p = b + (nt * 8 + g) * LDS + kk * 16 + 2 * t4;
-      mma_bf16_16816(c[nt], a[kk], ld_u32(p), ld_u32(p + 8));
-    }
-  }
-}
-
-// c[dt] += p (16 x 64, given as C fragments, cast to bf16) . b, where b
-// is a 64 x 64 smem tile indexed [reduced row][output column].
-__device__ __forceinline__ void mma_pb(float (&c)[8][4],
-                                       const float (&p)[8][4],
-                                       const __nv_bfloat16* b, int g,
-                                       int t4) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t a[4] = {
-        pack_f32(p[2 * kk][0], p[2 * kk][1]),
-        pack_f32(p[2 * kk][2], p[2 * kk][3]),
-        pack_f32(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-        pack_f32(p[2 * kk + 1][2], p[2 * kk + 1][3]),
-    };
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      const __nv_bfloat16* bp = b + (kk * 16 + 2 * t4) * LDS + dt * 8 + g;
-      mma_bf16_16816(c[dt], a, pack_bf16(bp[0], bp[LDS]),
-                     pack_bf16(bp[8 * LDS], bp[9 * LDS]));
-    }
+// Every thread is done with ring stage s of tile j: refill it with tile
+// j + STAGES.
+__device__ __forceinline__ void refill(Smem& sm, int j, int n_tiles,
+                                       const CUtensorMap* mra, int cra,
+                                       const CUtensorMap* mrb, int crb,
+                                       int img) {
+  wg::named_sync(1, THREADS);
+  if (threadIdx.x == 0 && j + STAGES < n_tiles) {
+    const int s = j % STAGES;
+    const int r = (j + STAGES) * BT;
+    wg::bar_expect_tx(&sm.full[s], 2 * TILE_BYTES);
+    wg::tma_load(sm.ra[s], mra, &sm.full[s], cra, r, img);
+    wg::tma_load(sm.rb[s], mrb, &sm.full[s], crb, r, img);
   }
 }
 
@@ -156,16 +151,16 @@ __device__ __forceinline__ void zero(float (&c)[8][4]) {
     for (int e = 0; e < 4; ++e) c[i][e] = 0.0f;
 }
 
-// Store 16 rows x 64 columns of fp32 accumulators * mult as bf16 at
-// column `col` of a row-major (rows, ld) array; rows >= limit skipped.
+// Store a warpgroup's 64 rows x 64 columns of fp32 accumulators * mult as
+// bf16 at column `col` of the (T, 3D) rows of one image; rows >= T skipped.
 __device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long ld,
-                                           int col, int row0, int limit,
+                                           int col, int row0, int T,
                                            const float (&c)[8][4], float mult,
                                            int g, int t4) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + g + 8 * r;
-    if (row >= limit) continue;
+    if (row >= T) continue;
     __nv_bfloat16* p = base + row * ld + col + 2 * t4;
 #pragma unroll
     for (int dt = 0; dt < 8; ++dt) {
@@ -175,253 +170,212 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long ld,
   }
 }
 
-// ---- pass 1: row max, row sum of exp, Dr = rowsum(dO * O) ------------
-__global__ void __launch_bounds__(THREADS) bwd_stats_kernel(Args a) {
-  __shared__ __align__(16) __nv_bfloat16 Ks[BT * LDS];
-  const int head = blockIdx.y, img = blockIdx.z;
+// ---- pass 1: Dr and dQ, one block per 64 queries -----------------------
+__global__ void __launch_bounds__(THREADS) bwd_dq_kernel(
+    const __grid_constant__ CUtensorMap mqkv,
+    const __grid_constant__ CUtensorMap mdo, Args a) {
+  Smem& sm = smem();
+  const int head = blockIdx.y, img = blockIdx.z, H = gridDim.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4;
-  const int T = a.T, D = a.D;
-  const long long ld3 = 3LL * D;
-  const __nv_bfloat16* base = a.qkv + static_cast<long long>(img) * T * ld3;
-  const int q0 = blockIdx.x * BT + warp * 16;
+  const int T = a.T, D = a.D, vl = a.valid_len;
+  const int q0 = blockIdx.x * BT;
+  const int n_kt = (vl + BT - 1) / BT;
+  const int k_col = D + head * HD, v_col = 2 * D + head * HD;
+  // sm.a = Q, sm.b = dO; ring: ra = K, rb = V
+  prologue(sm, &mqkv, head * HD, &mdo, head * HD, q0, &mqkv, k_col, &mqkv,
+           v_col, n_kt, img);
 
-  uint32_t qa[4][4];
-  load_a_frags(qa, base + head * HD, ld3, q0, T, g, t4);
-
-  float m_run[2] = {neg_inf(), neg_inf()};
-  float l_run[2] = {0.0f, 0.0f};
-  for (int k0 = 0; k0 < a.valid_len; k0 += BT) {
-    stage_tile(Ks, base + D + head * HD, ld3, k0, a.valid_len, tid);
-    __syncthreads();
-    float s[8][4];
-    zero(s);
-    mma_abt(s, qa, Ks, g, t4);
-    float mx[2] = {neg_inf(), neg_inf()};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + nt * 8 + 2 * t4 + (e & 1);
-        const float v = key < a.valid_len ? s[nt][e] * a.scale : neg_inf();
-        s[nt][e] = v;
-        mx[e / 2] = fmaxf(mx[e / 2], v);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      alpha[r] = expf(m_run[r] - m_new);  // 0 on the first tile
-      m_run[r] = m_new;
-    }
-    float rs[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) rs[e / 2] += expf(s[nt][e] - m_run[e / 2]);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
-    __syncthreads();
-  }
-
-  // Dr over the 64 dims of each row: 16 per thread, then the quad
-  const __nv_bfloat16* ob = a.out + static_cast<long long>(img) * T * D;
-  const __nv_bfloat16* db = a.dout + static_cast<long long>(img) * T * D;
-  float dr[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + g + 8 * r;
+  // Dr = rowsum(dO * O) of this block's rows: two threads a row
+  const long long plane = (static_cast<long long>(img) * H + head) * T;
+  {
+    const int row = tid / 2, half = tid % 2, grow = q0 + row;
     float acc = 0.0f;
-    if (row < T) {
+    if (grow < T) {
+      const long long off =
+          (static_cast<long long>(img) * T + grow) * D + head * HD + half * 32;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = head * HD + j * 8 + 2 * t4;
-        const float2 o = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(ob + row * D + c));
-        const float2 d = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(db + row * D + c));
-        acc += d.x * o.x + d.y * o.y;
+      for (int i = 0; i < 4; ++i) {
+        float o[8], d[8];
+        lseg::unpack8(*reinterpret_cast<const uint4*>(a.out + off + 8 * i), o);
+        lseg::unpack8(*reinterpret_cast<const uint4*>(a.dout + off + 8 * i), d);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc += d[e] * o[e];
       }
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    dr[r] = acc;
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-  }
-  if (t4 == 0) {
-    const long long plane = static_cast<long long>(gridDim.z) * a.H * T;
-    float* st = a.stats + (static_cast<long long>(img) * a.H + head) * T;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = q0 + g + 8 * r;
-      if (row >= T) continue;
-      st[row] = m_run[r];
-      st[plane + row] = l_run[r];
-      st[2 * plane + row] = dr[r];
+    if (half == 0) {
+      sm.dr[0][row] = acc;
+      if (grow < T) a.dr[plane + grow] = acc;
     }
   }
-}
-
-// ---- pass 2: dK and dV, one block per 64 keys -------------------------
-__global__ void __launch_bounds__(THREADS) bwd_dkdv_kernel(Args a) {
-  __shared__ __align__(16) __nv_bfloat16 Qs[BT * LDS];
-  __shared__ __align__(16) __nv_bfloat16 dOs[BT * LDS];
-  __shared__ float Ms[BT], Ls[BT], Ds[BT];
-  const int head = blockIdx.y, img = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int T = a.T, D = a.D, vl = a.valid_len;
-  const long long ld3 = 3LL * D;
-  const __nv_bfloat16* base = a.qkv + static_cast<long long>(img) * T * ld3;
-  const __nv_bfloat16* db = a.dout + static_cast<long long>(img) * T * D;
-  const long long plane = static_cast<long long>(gridDim.z) * a.H * T;
-  const float* st = a.stats + (static_cast<long long>(img) * a.H + head) * T;
-  const int k0 = blockIdx.x * BT + warp * 16;  // this warp's 16 keys
-
-  // keys at or past valid_len read as zero: their pn is 0 anyway
-  uint32_t ka[4][4], va[4][4];
-  load_a_frags(ka, base + D + head * HD, ld3, k0, vl, g, t4);
-  load_a_frags(va, base + 2 * D + head * HD, ld3, k0, vl, g, t4);
-  float dk[8][4], dv[8][4];
-  zero(dk);
-  zero(dv);
-
-  for (int q0 = 0; q0 < T; q0 += BT) {
-    stage_tile(Qs, base + head * HD, ld3, q0, T, tid);
-    stage_tile(dOs, db + head * HD, D, q0, T, tid);
-    if (tid < BT) {
-      const bool in = q0 + tid < T;
-      Ms[tid] = in ? st[q0 + tid] : 0.0f;
-      Ls[tid] = in ? st[plane + q0 + tid] : 1.0f;
-      Ds[tid] = in ? st[2 * plane + q0 + tid] : 0.0f;
-    }
-    __syncthreads();
-
-    // s^T (16 keys x 64 queries) and pn^T in place
-    float p[8][4];
-    zero(p);
-    mma_abt(p, ka, Qs, g, t4);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + g + 8 * (e / 2);
-        const int qi = nt * 8 + 2 * t4 + (e & 1);
-        p[nt][e] = (key < vl && q0 + qi < T)
-                       ? expf(p[nt][e] * a.scale - Ms[qi]) / Ls[qi]
-                       : 0.0f;
-      }
-    // dv += bf16(pn)^T . dO
-    mma_pb(dv, p, dOs, g, t4);
-    // dp^T = v . dO^T; ds^T = bf16(pn * (dp - Dr)) in place
-    float ds[8][4];
-    zero(ds);
-    mma_abt(ds, va, dOs, g, t4);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = nt * 8 + 2 * t4 + (e & 1);
-        ds[nt][e] = p[nt][e] * (ds[nt][e] - Ds[qi]);
-      }
-    // dk += ds^T . q (mma_pb rounds ds to bf16 as it packs)
-    mma_pb(dk, ds, Qs, g, t4);
-    __syncthreads();
-  }
-  __nv_bfloat16* ob = a.dqkv + static_cast<long long>(img) * T * ld3;
-  store_rows(ob, ld3, D + head * HD, k0, T, dk, a.scale, g, t4);
-  store_rows(ob, ld3, 2 * D + head * HD, k0, T, dv, 1.0f, g, t4);
-}
-
-// ---- pass 3: dQ, one block per 64 queries -----------------------------
-__global__ void __launch_bounds__(THREADS) bwd_dq_kernel(Args a) {
-  __shared__ __align__(16) __nv_bfloat16 Ks[BT * LDS];
-  __shared__ __align__(16) __nv_bfloat16 Vs[BT * LDS];
-  const int head = blockIdx.y, img = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int T = a.T, D = a.D, vl = a.valid_len;
-  const long long ld3 = 3LL * D;
-  const __nv_bfloat16* base = a.qkv + static_cast<long long>(img) * T * ld3;
-  const __nv_bfloat16* db = a.dout + static_cast<long long>(img) * T * D;
-  const long long plane = static_cast<long long>(gridDim.z) * a.H * T;
-  const float* st = a.stats + (static_cast<long long>(img) * a.H + head) * T;
-  const int q0 = blockIdx.x * BT + warp * 16;  // this warp's 16 queries
-
-  uint32_t qa[4][4], da[4][4];
-  load_a_frags(qa, base + head * HD, ld3, q0, T, g, t4);
-  load_a_frags(da, db + head * HD, D, q0, T, g, t4);
-  float m[2], l[2], dr[2];
+  wg::named_sync(1, THREADS);
+  float lse2[2], dr[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + g + 8 * r;
-    const bool in = row < T;
-    m[r] = in ? st[row] : 0.0f;
-    l[r] = in ? st[plane + row] : 1.0f;
-    dr[r] = in ? st[2 * plane + row] : 0.0f;
+    const int row = warp * 16 + g + 8 * r;
+    lse2[r] = q0 + row < T ? a.lse[plane + q0 + row] * LOG2E : pos_inf();
+    dr[r] = sm.dr[0][row];
   }
-  float dq[8][4];
+
+  const float c = a.scale * LOG2E;
+  float sc[8][4], dp[8][4], dq[8][4];
+  zero(sc);
+  zero(dp);
   zero(dq);
+  wg::bar_wait(&sm.own_bar, 0);
+  const uint64_t d_q = wg::desc(sm.a), d_do = wg::desc(sm.b);
 
-  for (int k0 = 0; k0 < vl; k0 += BT) {
-    stage_tile(Ks, base + D + head * HD, ld3, k0, vl, tid);
-    stage_tile(Vs, base + 2 * D + head * HD, ld3, k0, vl, tid);
-    __syncthreads();
-
-    float p[8][4];
-    zero(p);
-    mma_abt(p, qa, Ks, g, t4);
-    float ds[8][4];
-    zero(ds);
-    mma_abt(ds, da, Vs, g, t4);  // dp = dO . v^T
+  for (int j = 0; j < n_kt; ++j) {
+    const int s = j % STAGES;
+    wg::bar_wait(&sm.full[s], (j / STAGES) & 1);
+    const uint64_t d_k = wg::desc(sm.ra[s]);
+    wg::product_abt(sc, d_q, d_k);  // S = Q . K^T
+    wg::product_abt(dp, d_do, wg::desc(sm.rb[s]));  // dP = dO . V^T
+    wg::wait<0>();
+    wg::fence_acc(sc);
+    wg::fence_acc(dp);
+    const int k0 = j * BT;
+    const bool edge = k0 + BT > vl;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = k0 + nt * 8 + 2 * t4 + (e & 1);
         const int r = e / 2;
-        const float pn = (key < vl && q0 + g + 8 * r < T)
-                             ? expf(p[nt][e] * a.scale - m[r]) / l[r]
-                             : 0.0f;
-        ds[nt][e] = pn * (ds[nt][e] - dr[r]);
+        float pn = lseg::exp2_approx(fmaf(sc[nt][e], c, -lse2[r]));
+        if (edge && k0 + nt * 8 + 2 * t4 + (e & 1) >= vl) pn = 0.0f;
+        dp[nt][e] = pn * (dp[nt][e] - dr[r]);
       }
-    // dq += bf16(ds) . k
-    mma_pb(dq, ds, Ks, g, t4);
-    __syncthreads();
+    uint32_t da[4][4];
+    wg::pack_a(da, dp);  // ds = bf16(pn * (dP - Dr))
+    wg::product_pb(dq, da, d_k);  // dQ += ds . K
+    wg::wait<0>();
+    wg::fence_acc(dq);
+    refill(sm, j, n_kt, &mqkv, k_col, &mqkv, v_col, img);
   }
-  __nv_bfloat16* ob = a.dqkv + static_cast<long long>(img) * T * ld3;
-  store_rows(ob, ld3, head * HD, q0, T, dq, a.scale, g, t4);
+  __nv_bfloat16* ob = a.dqkv + static_cast<long long>(img) * T * 3 * D;
+  store_rows(ob, 3LL * D, head * HD, q0 + warp * 16, T, dq, a.scale, g, t4);
+}
+
+// ---- pass 2: dK and dV, one block per 64 keys -----------------------------
+// Capped at 168 registers so that three blocks share an SM; uncapped it
+// takes 172 registers, two blocks an SM, and ran slower on an H100.
+__global__ void __launch_bounds__(THREADS, 3) bwd_dkdv_kernel(
+    const __grid_constant__ CUtensorMap mqkv,
+    const __grid_constant__ CUtensorMap mdo, Args a) {
+  Smem& sm = smem();
+  const int head = blockIdx.y, img = blockIdx.z, H = gridDim.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int T = a.T, D = a.D, vl = a.valid_len;
+  const int k0 = blockIdx.x * BT;
+  const int n_qt = (T + BT - 1) / BT;
+  const int q_col = head * HD;
+  // sm.a = K, sm.b = V; ring: ra = Q, rb = dO
+  prologue(sm, &mqkv, D + head * HD, &mqkv, 2 * D + head * HD, k0, &mqkv,
+           q_col, &mdo, head * HD, n_qt, img);
+
+  // lse * log2 e and Dr of one query tile into staging buffer `buf`
+  const long long plane = (static_cast<long long>(img) * H + head) * T;
+  float st_l = 0.0f, st_d = 0.0f;
+  auto fetch = [&](int qt) {
+    const int q = qt * BT + tid;
+    const bool in = q < T;
+    st_l = in ? a.lse[plane + q] * LOG2E : pos_inf();
+    st_d = in ? a.dr[plane + q] : 0.0f;
+  };
+  if (tid < BT) {
+    fetch(0);
+    sm.lse2[0][tid] = st_l;
+    sm.dr[0][tid] = st_d;
+  }
+  wg::named_sync(1, THREADS);
+
+  const float c = a.scale * LOG2E;
+  float sc[8][4], dp[8][4], dk[8][4], dv[8][4];
+  zero(sc);
+  zero(dp);
+  zero(dk);
+  zero(dv);
+  wg::bar_wait(&sm.own_bar, 0);
+  const uint64_t d_k = wg::desc(sm.a), d_v = wg::desc(sm.b);
+  // this thread's keys: rows g and g + 8 of its warp's 16
+  const bool key_edge = k0 + BT > vl;
+  const bool key_in[2] = {k0 + warp * 16 + g < vl, k0 + warp * 16 + g + 8 < vl};
+
+  for (int j = 0; j < n_qt; ++j) {
+    const int s = j % STAGES, buf = j & 1;
+    wg::bar_wait(&sm.full[s], (j / STAGES) & 1);
+    const uint64_t d_q = wg::desc(sm.ra[s]), d_do = wg::desc(sm.rb[s]);
+    wg::product_abt(sc, d_k, d_q);  // S^T = K . Q^T
+    wg::product_abt(dp, d_v, d_do);  // dP^T = V . dO^T
+    wg::wait<0>();
+    wg::fence_acc(sc);
+    wg::fence_acc(dp);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = nt * 8 + 2 * t4 + (e & 1);
+        float pn =
+            lseg::exp2_approx(fmaf(sc[nt][e], c, -sm.lse2[buf][qi]));
+        if (key_edge && !key_in[e / 2]) pn = 0.0f;
+        sc[nt][e] = pn;
+        dp[nt][e] = pn * (dp[nt][e] - sm.dr[buf][qi]);
+      }
+    uint32_t pa[4][4], pb[4][4];
+    wg::pack_a(pa, sc);  // bf16(pn^T)
+    wg::pack_a(pb, dp);  // ds^T = bf16(pn^T (dP^T - Dr))
+    wg::product_pb(dv, pa, d_do);  // dV += bf16(pn^T) . dO
+    wg::product_pb(dk, pb, d_q);  // dK += ds^T . Q
+    // the next query tile's lse and Dr load under these two products
+    if (tid < BT && j + 1 < n_qt) fetch(j + 1);
+    wg::wait<0>();
+    wg::fence_acc(dv);
+    wg::fence_acc(dk);
+    if (tid < BT && j + 1 < n_qt) {
+      sm.lse2[buf ^ 1][tid] = st_l;
+      sm.dr[buf ^ 1][tid] = st_d;
+    }
+    refill(sm, j, n_qt, &mqkv, q_col, &mdo, head * HD, img);
+  }
+  __nv_bfloat16* ob = a.dqkv + static_cast<long long>(img) * T * 3 * D;
+  const int row0 = k0 + warp * 16;
+  store_rows(ob, 3LL * D, D + head * HD, row0, T, dk, a.scale, g, t4);
+  store_rows(ob, 3LL * D, 2 * D + head * HD, row0, T, dv, 1.0f, g, t4);
 }
 
 }  // namespace
 
-// Launch the three passes on `stream`; returns the first
-// cudaGetLastError() that is not 0 (0 on success). `stats` is fp32
-// scratch of 3 * n * (dim / 64) * t floats. Requires dim % 64 == 0,
-// 1 <= valid_len <= t and 16-byte aligned qkv, out, dout and dqkv
+// Launch the two passes on `stream`; returns the first error code that is
+// not 0 (0 on success). `dr` is fp32 scratch of n * (dim / 64) * t floats;
+// `lse` is B6's statistics output for the same qkv. Requires dim % 64 ==
+// 0, 1 <= valid_len <= t and 16-byte aligned qkv, out, dout and dqkv
 // (checked by the wrapper).
-extern "C" int lseg_flash_attention_flat_bwd(const void* qkv, const void* out,
-                                             const void* dout, void* dqkv,
-                                             void* stats, int n, int t,
-                                             int dim, int valid_len,
-                                             float scale, void* stream) {
-  Args a{static_cast<const __nv_bfloat16*>(qkv),
-         static_cast<const __nv_bfloat16*>(out),
+extern "C" int lseg_flash_attention_flat_bwd(
+    const void* qkv, const void* out, const void* dout, const void* lse,
+    void* dqkv, void* dr, int n, int t, int dim, int valid_len, float scale,
+    void* stream) {
+  static const int attr_dq = wg::allow_smem(bwd_dq_kernel, SMEM_BYTES);
+  static const int attr_kv = wg::allow_smem(bwd_dkdv_kernel, SMEM_BYTES);
+  if (attr_dq != 0) return attr_dq;
+  if (attr_kv != 0) return attr_kv;
+  CUtensorMap mqkv, mdo;
+  int rc = wg::make_map(&mqkv, qkv, 3 * dim, t, n);
+  if (rc != 0) return rc;
+  rc = wg::make_map(&mdo, dout, dim, t, n);
+  if (rc != 0) return rc;
+  Args a{static_cast<const __nv_bfloat16*>(out),
          static_cast<const __nv_bfloat16*>(dout),
+         static_cast<const float*>(lse),
          static_cast<__nv_bfloat16*>(dqkv),
-         static_cast<float*>(stats),
-         t, dim, dim / HD, valid_len, scale};
+         static_cast<float*>(dr),
+         t, dim, valid_len, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((t + BT - 1) / BT, dim / HD, n);
-  bwd_stats_kernel<<<grid, THREADS, 0, s>>>(a);
-  int rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  bwd_dkdv_kernel<<<grid, THREADS, 0, s>>>(a);
+  bwd_dq_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(mqkv, mdo, a);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  bwd_dq_kernel<<<grid, THREADS, 0, s>>>(a);
+  bwd_dkdv_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(mqkv, mdo, a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -56,5 +56,6 @@ extern "C" int lseg_flash_attention_ln_qkv_fused(
   rc = lseg::qkv_gemm::launch(xq, sx, wq, sw, bias, qkv, rows, 3 * dim, dim,
                               st);
   if (rc != 0) return rc;
-  return lseg::flash_flat::launch(qkv, out, n, t, dim, valid_len, scale, st);
+  return lseg::flash_flat::launch(qkv, out, nullptr, n, t, dim, valid_len,
+                                  scale, st);
 }

@@ -1,6 +1,6 @@
 // Shared device helpers of the kernels: warp reductions, the (value,
-// index) argmax order of jnp.argmax, fragment packing, the mma.sync
-// wrappers (bf16 m16n8k16 and s8 m16n8k32, both with 32-bit
+// index) argmax order of jnp.argmax, the hardware exp2, fragment packing,
+// the mma.sync wrappers (bf16 m16n8k16 and s8 m16n8k32, both with 32-bit
 // accumulators) and the int8 quantize of one value (round half to even,
 // clip to +-127, true IEEE division).
 
@@ -46,6 +46,15 @@ __device__ __forceinline__ void argmax_xor(float& v, int& i, int o) {
     v = ov;
     i = oi;
   }
+}
+
+// 2^x by the ex2.approx.ftz instruction (about 2 ulp; a result below
+// 2^-126 flushes to zero, 2^-inf is 0). exp2f without -ftz wraps the same
+// instruction in a rescale for subnormal results.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t ld_u32(const void* p) {

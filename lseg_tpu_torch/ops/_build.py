@@ -47,9 +47,9 @@ _I = ctypes.c_int
 SIGNATURES = {
     # x, w, bias, out, n, h, w, c, patch, dim, stream
     "lseg_patch_embed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # qkv, out, n, t, dim, valid_len, scale, stream
-    "lseg_flash_attention_flat": (_P, _P, _I, _I, _I, _I, ctypes.c_float,
-                                  _P),
+    # qkv, out, lse (or null), n, t, dim, valid_len, scale, stream
+    "lseg_flash_attention_flat": (_P,) * 3 + (_I,) * 4 + (ctypes.c_float,
+                                                         _P),
     # x, ln_g, ln_b, q, s, rows, dim, eps, stream
     "lseg_ln_quantize_rows": (_P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P),
     # x, ln_g, ln_b, wq, sw, bias, xq, sx, qkv (scratch), oq, os,
@@ -58,8 +58,9 @@ SIGNATURES = {
         _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _P),
     # xq, w, sc, b1, tn, out, m, c, e, k, normalize, stream
     "lseg_head1_correlate": (_P,) * 6 + (_I,) * 5 + (_P,),
-    # qkv, out, dout, dqkv, stats, n, t, dim, valid_len, scale, stream
-    "lseg_flash_attention_flat_bwd": (_P,) * 5 + (_I,) * 4 + (
+    # qkv, out, dout, lse, dqkv, dr (scratch), n, t, dim, valid_len,
+    # scale, stream
+    "lseg_flash_attention_flat_bwd": (_P,) * 6 + (_I,) * 4 + (
         ctypes.c_float, _P),
     # x, t, tn (scratch), out, m, c, k, kp, x_bf16, out_bf16, scale, stream
     "lseg_fused_correlate": (_P,) * 4 + (_I,) * 6 + (ctypes.c_float, _P),

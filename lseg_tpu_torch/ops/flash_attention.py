@@ -3,9 +3,11 @@
 B6 replaces `lseg_tpu/ops/pallas_attention.py` · `flash_attention_flat`
 (reached in the reference through `flash_attention_flat_vjp`): flash
 attention over the flat fused-qkv layout. The CUDA kernel is
-`lseg_tpu_torch/csrc/flash_attention_flat.cu`; its header says what bounds
-it on the card (2*T*T*64 FLOP per head for each of q.k^T and P.V, plus one
-exp per score) and how the design keeps scores out of device memory.
+`lseg_tpu_torch/csrc/flash_attention_flat.cu` on the wgmma + TMA engine of
+`csrc/wgmma.cuh`; its header says what bounds it on the card (2*T*T*64
+FLOP per head for each of q.k^T and P.V, plus one exp per score) and how
+the design keeps scores out of device memory. With `return_lse` it also
+returns each row's log-sum-exp, the statistics the backward reads.
 
 B2 replaces `pallas_attention.py` · `flash_attention_ln_qkv_fused_q8`:
 LayerNorm 1 + per-row int8 quantize + int8 qkv projection + attention +
@@ -37,8 +39,9 @@ then B8's two stages).
 B7 replaces `pallas_attention.py` · `_flash_flat_bwd_impl`, the Pallas
 backward of `flash_attention_flat_vjp`: (qkv, O, dO) -> dqkv in the same
 flat layout. The CUDA source is
-`lseg_tpu_torch/csrc/flash_attention_flat_bwd.cu` (three passes: row
-statistics, dK/dV per key tile, dQ per query tile).
+`lseg_tpu_torch/csrc/flash_attention_flat_bwd.cu` (two passes: Dr and dQ
+per query tile, then dK/dV per key tile); it reads B6's lse instead of
+recomputing the row statistics.
 
 `flash_attention_flat` and `flash_attention_flat_bwd` are the wrappers:
 on a CUDA tensor they launch the kernel (or raise), on a CPU tensor they
@@ -51,7 +54,8 @@ the end; in the backward, P normalized in fp32 before its cast.
 Neither the wrappers nor the plain versions are differentiable: a tensor
 that requires grad makes them raise. Gradients go through
 `flash_attention_flat_fn` (the `FlashAttentionFlat` autograd.Function),
-whose forward is B6 and whose backward is B7, or their plain versions.
+whose forward is B6 and whose backward is B7, or their plain versions;
+its residuals are qkv, O and B6's lse.
 """
 
 from __future__ import annotations
@@ -87,39 +91,46 @@ def _check(qkv: torch.Tensor, num_heads: int, valid_len):
 
 
 def _flat_attention_f32(qkv: torch.Tensor, num_heads: int, scale: float,
-                        valid_len: int) -> torch.Tensor:
-    """(N, T, 3D) -> (N, T, D) fp32 per-head attention, o / l left in
-    fp32."""
+                        valid_len: int):
+    """(N, T, 3D) -> ((N, T, D) fp32 per-head attention, o / l left in
+    fp32; (N, H, T) fp32 lse = m + log(l))."""
     n, t, d, vl = _check(qkv, num_heads, valid_len)
     r = qkv.reshape(n, t, 3, num_heads, HEAD_DIM)
     q, k, v = r[:, :, 0].float(), r[:, :, 1].float(), r[:, :, 2]
     s = torch.einsum("nqhd,nkhd->nhqk", q, k) * scale
     if vl != t:
         s[..., vl:] = float("-inf")
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("nhqk,nkhd->nhqd", p.to(qkv.dtype).float(), v.float())
     o = o / l
-    return o.permute(0, 2, 1, 3).reshape(n, t, d)
+    lse = (m + torch.log(l)).squeeze(-1)
+    return o.permute(0, 2, 1, 3).reshape(n, t, d), lse
 
 
 def flash_attention_flat_plain(qkv: torch.Tensor, num_heads: int,
-                               scale: float,
-                               valid_len: int = None) -> torch.Tensor:
+                               scale: float, valid_len: int = None,
+                               return_lse: bool = False):
     """(N, T, 3D) -> (N, T, D): per-head einsum attention with the
-    kernel's rounding points; keys >= valid_len are masked."""
+    kernel's rounding points; keys >= valid_len are masked. With
+    `return_lse`, also each row's log-sum-exp of the scaled, masked scores,
+    fp32 (N, H, T), from its own scores."""
     check_no_grad("flash_attention_flat_plain", qkv)
-    return _flat_attention_f32(qkv, num_heads, scale, valid_len).to(
-        qkv.dtype)
+    o, lse = _flat_attention_f32(qkv, num_heads, scale, valid_len)
+    o = o.to(qkv.dtype)
+    return (o, lse) if return_lse else o
 
 
 def flash_attention_flat(qkv: torch.Tensor, num_heads: int, scale: float,
-                         valid_len: int = None) -> torch.Tensor:
-    """Kernel wrapper: (N, T, 3D) bf16 contiguous -> (N, T, D) bf16."""
+                         valid_len: int = None, return_lse: bool = False):
+    """Kernel wrapper: (N, T, 3D) bf16 contiguous -> (N, T, D) bf16; with
+    `return_lse`, also the (N, H, T) fp32 log-sum-exp of each row."""
     check_no_grad("flash_attention_flat", qkv)
     n, t, d, vl = _check(qkv, num_heads, valid_len)
     if qkv.device.type == "cpu":
-        return flash_attention_flat_plain(qkv, num_heads, scale, valid_len)
+        return flash_attention_flat_plain(qkv, num_heads, scale, valid_len,
+                                          return_lse)
     if qkv.device.type != "cuda":
         raise ValueError(f"flash_attention_flat: unsupported device "
                          f"{qkv.device}")
@@ -131,25 +142,32 @@ def flash_attention_flat(qkv: torch.Tensor, num_heads: int, scale: float,
                          "and 16-byte aligned")
     lib = load_kernels()
     out = torch.empty((n, t, d), dtype=qkv.dtype, device=qkv.device)
+    lse = (torch.empty((n, num_heads, t), dtype=torch.float32,
+                       device=qkv.device) if return_lse else None)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lseg_flash_attention_flat(qkv.data_ptr(), out.data_ptr(),
-                                           n, t, d, vl, float(scale), stream)
+        rc = lib.lseg_flash_attention_flat(
+            qkv.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), n, t, d, vl,
+            float(scale), stream)
     check_launch(lib, "lseg_flash_attention_flat", rc)
     flash_attention_flat.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_flat.launches = 0
 
 
 def flash_attention_flat_bwd_plain(qkv: torch.Tensor, out: torch.Tensor,
-                                   do: torch.Tensor, num_heads: int,
+                                   do: torch.Tensor, lse, num_heads: int,
                                    scale: float,
                                    valid_len: int = None) -> torch.Tensor:
     """(qkv (N, T, 3D), O (N, T, D), dO (N, T, D)) -> dqkv (N, T, 3D) in
     the qkv dtype, per-head einsums with the TPU kernel's rounding
-    points; keys >= valid_len are masked."""
+    points; keys >= valid_len are masked. `lse` is accepted for the
+    kernel's signature and not used: the row statistics are recomputed
+    from the scores, as the TPU kernel does, so this stays the yardstick
+    that the kernel (which reads lse) is held against."""
     check_no_grad("flash_attention_flat_bwd_plain", qkv, out, do)
     n, t, d, vl = _check(qkv, num_heads, valid_len)
     dt = qkv.dtype
@@ -173,10 +191,12 @@ def flash_attention_flat_bwd_plain(qkv: torch.Tensor, out: torch.Tensor,
 
 
 def flash_attention_flat_bwd(qkv: torch.Tensor, out: torch.Tensor,
-                             do: torch.Tensor, num_heads: int, scale: float,
+                             do: torch.Tensor, lse, num_heads: int,
+                             scale: float,
                              valid_len: int = None) -> torch.Tensor:
     """Kernel wrapper (B7): bf16 contiguous qkv (N, T, 3D), O and dO
-    (N, T, D) -> dqkv (N, T, 3D) bf16."""
+    (N, T, D), B6's fp32 lse (N, H, T) -> dqkv (N, T, 3D) bf16. Off the
+    CPU `lse` is required: the kernel does not recompute it."""
     check_no_grad("flash_attention_flat_bwd", qkv, out, do)
     n, t, d, vl = _check(qkv, num_heads, valid_len)
     if out.shape != (n, t, d) or do.shape != (n, t, d):
@@ -184,8 +204,12 @@ def flash_attention_flat_bwd(qkv: torch.Tensor, out: torch.Tensor,
                          f" and dO {tuple(do.shape)} for qkv "
                          f"{tuple(qkv.shape)}")
     if qkv.device.type == "cpu":
-        return flash_attention_flat_bwd_plain(qkv, out, do, num_heads, scale,
-                                              valid_len)
+        return flash_attention_flat_bwd_plain(qkv, out, do, lse, num_heads,
+                                              scale, valid_len)
+    if lse is None:
+        raise ValueError("flash_attention_flat_bwd: the kernel needs the "
+                         "forward's lse (flash_attention_flat(..., "
+                         "return_lse=True))")
     if qkv.device.type != "cuda":
         raise ValueError(f"flash_attention_flat_bwd: unsupported device "
                          f"{qkv.device}")
@@ -198,15 +222,21 @@ def flash_attention_flat_bwd(qkv: torch.Tensor, out: torch.Tensor,
             raise ValueError(f"flash_attention_flat_bwd: {name} must be "
                              f"contiguous, 16-byte aligned and on "
                              f"{qkv.device}")
+    if (lse.dtype != torch.float32 or lse.shape != (n, num_heads, t)
+            or not lse.is_contiguous() or lse.device != qkv.device):
+        raise ValueError(f"flash_attention_flat_bwd: lse must be contiguous "
+                         f"fp32 {(n, num_heads, t)} on {qkv.device}, got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
     lib = load_kernels()
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty((3, n, num_heads, t), dtype=torch.float32,
-                        device=qkv.device)
+    dr = torch.empty((n, num_heads, t), dtype=torch.float32,
+                     device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lseg_flash_attention_flat_bwd(
-            qkv.data_ptr(), out.data_ptr(), do.data_ptr(), dqkv.data_ptr(),
-            stats.data_ptr(), n, t, d, vl, float(scale), stream)
+            qkv.data_ptr(), out.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            dqkv.data_ptr(), dr.data_ptr(), n, t, d, vl, float(scale),
+            stream)
     check_launch(lib, "lseg_flash_attention_flat_bwd", rc)
     flash_attention_flat_bwd.launches += 1
     return dqkv
@@ -219,24 +249,26 @@ class FlashAttentionFlat(torch.autograd.Function):
     """Flat flash attention with a gradient: forward B6, backward B7 (the
     reference's `flash_attention_flat_vjp`); with `plain`, or on the CPU,
     their plain versions. The residuals are qkv and O, as in the
-    reference; the cotangent is cast to the qkv dtype first."""
+    reference, and the forward's per-row lse, which B7 reads instead of
+    recomputing the row statistics; the cotangent is cast to the qkv dtype
+    first."""
 
     @staticmethod
     def forward(ctx, qkv, num_heads, scale, valid_len, plain):
         fwd = flash_attention_flat_plain if plain else flash_attention_flat
-        out = fwd(qkv, num_heads, scale, valid_len)
-        ctx.save_for_backward(qkv, out)
+        out, lse = fwd(qkv, num_heads, scale, valid_len, return_lse=True)
+        ctx.save_for_backward(qkv, out, lse)
         ctx.args = (num_heads, scale, valid_len, plain)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        qkv, out = ctx.saved_tensors
+        qkv, out, lse = ctx.saved_tensors
         num_heads, scale, valid_len, plain = ctx.args
         bwd = (flash_attention_flat_bwd_plain if plain
                else flash_attention_flat_bwd)
-        dqkv = bwd(qkv, out, do.to(qkv.dtype).contiguous(), num_heads, scale,
-                   valid_len)
+        dqkv = bwd(qkv, out, do.to(qkv.dtype).contiguous(), lse, num_heads,
+                   scale, valid_len)
         return dqkv, None, None, None, None
 
 
@@ -447,7 +479,7 @@ def flash_attention_qkvp_fused_plain(
     n, t, d, _ = _check_qkvp(xq, sx, wq, sw, bias, wp, sp, bp, resid,
                              num_heads, valid_len)
     att = _flat_attention_f32(_qkv_plain(xq, sx, wq, sw, bias), num_heads,
-                              scale, valid_len).reshape(n * t, d)
+                              scale, valid_len)[0].reshape(n * t, d)
     acc = None
     for lo in range(0, d, 2 * HEAD_DIM):
         hi = lo + 2 * HEAD_DIM

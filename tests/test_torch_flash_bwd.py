@@ -50,8 +50,9 @@ def test_bwd_plain_matches_pallas_interpret(dtype, valid_len):
     q_t = torch.from_numpy(qkv).to(tdt)
     d_t = torch.from_numpy(do).to(tdt)
     with torch.no_grad():
-        o_t = flash_attention_flat_plain(q_t, 2, SCALE, valid_len)
-    got = f32(flash_attention_flat_bwd_plain(q_t, o_t, d_t, 2, SCALE,
+        o_t, lse = flash_attention_flat_plain(q_t, 2, SCALE, valid_len,
+                                              return_lse=True)
+    got = f32(flash_attention_flat_bwd_plain(q_t, o_t, d_t, lse, 2, SCALE,
                                              valid_len).float())
     jdt = jnp.dtype(dtype)
     ref = f32(_flash_flat_bwd_impl(
@@ -82,10 +83,18 @@ def _softmax_attention(qkv, heads, valid_len):
 @pytest.mark.parametrize("valid_len", [40, 33])
 def test_function_grad_matches_autograd(valid_len):
     """fp32 through `flash_attention_flat_fn` against autograd of softmax
-    attention in fp64."""
+    attention in fp64. Its residuals are (qkv, O, lse), O and lse the
+    plain forward's own."""
     qkv, do = _inputs(1)
     x = torch.from_numpy(qkv).requires_grad_()
     out = flash_attention_flat_fn(x, 2, SCALE, valid_len)
+    saved = out.grad_fn.saved_tensors
+    with torch.no_grad():
+        o_ref, lse_ref = flash_attention_flat_plain(
+            torch.from_numpy(qkv), 2, SCALE, valid_len, return_lse=True)
+    assert len(saved) == 3 and saved[2].shape == (2, 2, 40)
+    torch.testing.assert_close(saved[1], o_ref, rtol=0, atol=0)
+    torch.testing.assert_close(saved[2], lse_ref, rtol=0, atol=0)
     out.backward(torch.from_numpy(do))
     x64 = torch.from_numpy(qkv).double().requires_grad_()
     ref = _softmax_attention(x64, 2, valid_len)
@@ -93,6 +102,24 @@ def test_function_grad_matches_autograd(valid_len):
     torch.testing.assert_close(out.double(), ref, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(x.grad.double(), x64.grad, rtol=1e-5,
                                atol=1e-5)
+
+
+def test_bwd_wrapper_needs_lse_off_the_cpu():
+    """Off the CPU the backward kernel reads the forward's lse and has no
+    route that recomputes it: a call without lse raises before any device
+    dispatch (checked on the meta device, which the sandbox has); on the
+    CPU the plain version runs without it."""
+    qkv = torch.zeros(1, 8, 384, device="meta")
+    o = torch.zeros(1, 8, 128, device="meta")
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_flat_bwd(qkv, o, o, None, 2, SCALE)
+    q, d = _inputs(2, n=1, t=8)
+    qt, dt = torch.from_numpy(q), torch.from_numpy(d)
+    ot = flash_attention_flat_plain(qt, 2, SCALE)
+    torch.testing.assert_close(
+        flash_attention_flat_bwd(qt, ot, dt, None, 2, SCALE),
+        flash_attention_flat_bwd_plain(qt, ot, dt, None, 2, SCALE), rtol=0,
+        atol=0)
 
 
 def test_raw_calls_refuse_tensors_that_require_grad():
@@ -104,7 +131,7 @@ def test_raw_calls_refuse_tensors_that_require_grad():
             fn(qkv, 2, SCALE)
     o = torch.randn(1, 8, 128)
     with pytest.raises(RuntimeError, match="requires grad"):
-        flash_attention_flat_bwd(qkv, o, o, 2, SCALE)
+        flash_attention_flat_bwd(qkv, o, o, None, 2, SCALE)
     with torch.no_grad():
         assert flash_attention_flat(qkv, 2, SCALE).shape == (1, 8, 128)
 
@@ -167,13 +194,77 @@ def test_bwd_kernel_matches_plain_on_card(cuda_device, n, t, heads,
         torch.bfloat16)
     do = torch.randn(n, t, d, device=cuda_device, generator=g).to(
         torch.bfloat16)
-    o = flash_attention_flat(qkv, heads, SCALE, valid_len)
-    got = flash_attention_flat_bwd(qkv, o, do, heads, SCALE, valid_len)
-    ref = flash_attention_flat_bwd_plain(qkv, o, do, heads, SCALE, valid_len)
+    o, lse = flash_attention_flat(qkv, heads, SCALE, valid_len,
+                                  return_lse=True)
+    got = flash_attention_flat_bwd(qkv, o, do, lse, heads, SCALE, valid_len)
+    ref = flash_attention_flat_bwd_plain(qkv, o, do, lse, heads, SCALE,
+                                         valid_len)
     torch.cuda.synchronize()
     for sl in (slice(0, d), slice(d, 2 * d), slice(2 * d, 3 * d)):
         err = (got[..., sl].float() - ref[..., sl].float()).abs().max()
         assert err <= 2e-2 * ref[..., sl].float().abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,valid_len", [(40, None), (130, 100), (197, None),
+                                         (901, None)])
+def test_bwd_kernel_with_lse_at_tma_edges(cuda_device, t, valid_len):
+    """B7 fed B6's lse, at the edges TMA zero-fills: T below one tile, a
+    ragged last tile with masked keys, ViT-B/16's 197, the flagship 901.
+    Each of dq, dk and dv within 2e-2 of max|plain| (chip_smoke.py's
+    FLASH_BWD_REL); keys past valid_len get no gradient."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    heads = 4
+    d = heads * 64
+    qkv = torch.randn(2, t, 3 * d, device=cuda_device, generator=g).to(
+        torch.bfloat16)
+    do = torch.randn(2, t, d, device=cuda_device, generator=g).to(
+        torch.bfloat16)
+    o, lse = flash_attention_flat(qkv, heads, SCALE, valid_len,
+                                  return_lse=True)
+    got = flash_attention_flat_bwd(qkv, o, do, lse, heads, SCALE, valid_len)
+    ref = flash_attention_flat_bwd_plain(qkv, o, do, None, heads, SCALE,
+                                         valid_len)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    for sl in (slice(0, d), slice(d, 2 * d), slice(2 * d, 3 * d)):
+        err = (got[..., sl].float() - ref[..., sl].float()).abs().max()
+        assert err <= 2e-2 * ref[..., sl].float().abs().max()
+    if valid_len is not None:
+        assert not got[:, valid_len:, d:].float().any()
+
+
+@pytest.mark.gpu
+def test_kernels_launch_from_a_fresh_thread(cuda_device):
+    """B6 and B7 encode their TMA tensor maps on the calling host thread.
+    A fresh thread of the caller's (as autograd's device worker can be)
+    may have no current CUDA context yet: the launch must bind one and
+    give the same results as from the main thread."""
+    import threading
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    qkv = torch.randn(2, 197, 3 * 256, device=cuda_device, generator=g).to(
+        torch.bfloat16)
+    do = torch.randn(2, 197, 256, device=cuda_device, generator=g).to(
+        torch.bfloat16)
+    o, lse = flash_attention_flat(qkv, 4, SCALE, return_lse=True)
+    ref = flash_attention_flat_bwd(qkv, o, do, lse, 4, SCALE)
+    got = {}
+
+    def work():
+        try:
+            got["o"] = flash_attention_flat(qkv, 4, SCALE)
+            got["d"] = flash_attention_flat_bwd(qkv, o, do, lse, 4, SCALE)
+        except Exception as e:  # noqa: BLE001 (reported below)
+            got["error"] = e
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join()
+    assert "error" not in got, got.get("error")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got["o"], o, rtol=0, atol=0)
+    torch.testing.assert_close(got["d"], ref, rtol=0, atol=0)
 
 
 @pytest.mark.gpu

@@ -111,6 +111,35 @@ def test_flash_attention_flat_plain_matches_pallas(case):
         np.testing.assert_allclose(got.numpy(), r, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("t,valid_len", [(97, None), (130, 100), (37, None)],
+                         ids=["ragged", "valid_len", "short"])
+def test_flash_attention_flat_plain_lse(t, valid_len):
+    """`return_lse=True`: the lse against a float64 logsumexp of the scaled,
+    masked scores (both fp32 sums of <= T terms, so 1e-5), and the output
+    against JAX's `flash_attention_flat` in interpret mode (the bound of
+    the fp32 case above). A ragged T (97: one full tile and 33 rows), keys
+    masked past valid_len, and T below one 64-row tile."""
+    rng = np.random.RandomState(5)
+    n, h, hd = 2, 4, 64
+    d = h * hd
+    qkv = rng.randn(n, t, 3 * d).astype(np.float32)
+    scale = hd ** -0.5
+    out, lse = flash_attention_flat_plain(_t(qkv), h, scale, valid_len,
+                                          return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (n, h, t)
+    vl = t if valid_len is None else valid_len
+    r = qkv.astype(np.float64).reshape(n, t, 3, h, hd)
+    s = np.einsum("nqhd,nkhd->nhqk", r[:, :, 0], r[:, :, 1]) * scale
+    s = s[..., :vl]
+    m = s.max(-1, keepdims=True)
+    ref_lse = (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+    np.testing.assert_allclose(lse.numpy(), ref_lse, rtol=1e-5, atol=1e-5)
+    ref = j_flash(jnp.asarray(qkv), h, scale, block_q=16, interpret=True,
+                  valid_len=valid_len)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-5)
+
+
 def test_wrappers_run_plain_on_cpu_and_count_no_launch():
     rng = np.random.RandomState(4)
     x = _t(rng.randn(1, 32, 32, 3).astype(np.float32))
@@ -124,6 +153,10 @@ def test_wrappers_run_plain_on_cpu_and_count_no_launch():
     torch.testing.assert_close(flash_attention_flat(qkv, 2, 0.125),
                                flash_attention_flat_plain(qkv, 2, 0.125),
                                rtol=0, atol=0)
+    torch.testing.assert_close(
+        flash_attention_flat(qkv, 2, 0.125, return_lse=True),
+        flash_attention_flat_plain(qkv, 2, 0.125, return_lse=True), rtol=0,
+        atol=0)
     assert (patch_embed.launches, flash_attention_flat.launches) == n0
 
 
@@ -169,4 +202,24 @@ def test_flash_kernel_matches_plain_on_gpu(cuda_device, t, valid_len):
     got = flash_attention_flat(qkv, 16, 0.125, valid_len)
     ref = flash_attention_flat_plain(qkv, 16, 0.125, valid_len)
     torch.testing.assert_close(got.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,valid_len", [(901, None), (904, 901),
+                                         (721, None), (37, None)])
+def test_flash_kernel_lse_matches_plain_on_gpu(cuda_device, t, valid_len):
+    """B6's lse output against the plain lse: fp32 sums of <= 904 terms
+    taken in another order, and exp2 of an FMA against exp, so 1e-4
+    absolute; the output keeps its 2e-2 bound."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    qkv = torch.randn(2, t, 3 * 1024, device=cuda_device, generator=g
+                      ).to(torch.bfloat16)
+    out, lse = flash_attention_flat(qkv, 16, 0.125, valid_len,
+                                    return_lse=True)
+    ref_out, ref_lse = flash_attention_flat_plain(qkv, 16, 0.125, valid_len,
+                                                  return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (2, 16, t)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=2e-2,
                                atol=2e-2)
