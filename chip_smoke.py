@@ -10,16 +10,19 @@ the result line is printed:
    the hand-written kernels (`lseg_tpu_torch/csrc`), with `ptxas -v`'s
    registers and spills; the SASS of the built library (`cuobjdump
    --dump-sass`) must hold warpgroup products (HGMMA) and TMA loads
-   (UTMALDG) in B6's kernel (in every object that compiles it) and in
-   both of B7's;
+   (UTMALDG) in B6's kernel (in every object that compiles it), in both
+   of B7's, and in the kernels of B17's bf16 mode and B10's bf16 mode
+   (the GEMM engine of `csrc/wgmma_gemm.cuh`);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the serving path, with its time beside the plain version's
    (B10 in both of its modes, fp32 and compute_dtype=bfloat16; B17 at
-   ViT-L/16's fc2 and proj shapes and the reference test's fp32 shape,
-   with and without a residual; B20 at the reference probe's shape in
-   both scale block shapes; B6's per-row log-sum-exp against the plain
-   one; at its end B6, B7, B8 and B9 timed again, one after another,
-   beside SDPA and SDPA's backward);
+   ViT-L/16's fc2 shape in bf16 and fp32 and its proj shape, and at the
+   reference test's fp32 shape, with and without a residual; B20 at the
+   reference probe's shape in both scale block shapes; B6's per-row
+   log-sum-exp against the plain one; the fp32 modes of B6 and B7, an
+   fp32 model's route, at the flagship shape and a masked ragged one,
+   beside SDPA in fp32; at its end B6, B7, B8 and B9 timed again, one
+   after another, beside SDPA and SDPA's backward);
 3. serving: the full-width `fast_serving(clip_vitl16_384, quant=False)`
    model (ViT-L/16, bf16) with seeded random weights answers three
    requests through `TextFeatureCache` + `make_predictor`; the kernels'
@@ -100,6 +103,11 @@ the result line is printed:
        relative deviation, kernel vs plain, must stay within 2x that of
        plain bf16 vs fp32 plus a floor (printed per block); finite
        losses;
+  (b2) one `--dtype float32` train step of a tiny flashflat config (ViT
+       width 128, two heads of 64, depth 4) through the fp32 modes of B6
+       and B7: launches B6 = 8 and B7 = 4 (counters set to 0 just before,
+       read just after), ViT gradients within TRAIN_FP32_GRAD_REL of the
+       plain path's;
    (c) ms/step, img/s and peak memory at batch 8, kernel and plain
        paths (CUDA events, 5 steps after 2 warm-ups), with per-step
        launch counts B6 = 48 (forward + remat recompute), B7 = 24;
@@ -116,7 +124,9 @@ from the inputs and the card's published peaks. The line before the last
 is a JSON object with each kernel's launches (on the path of phases 3-6
 that runs it: every kernel runs on a serving path, the training path or
 the probe path), error, times and bound (B10's row also holds its bf16
-mode's under "bf16"); the last line is the result object. Needs one
+mode's under "bf16", B17's its fp32 mode's under "fp32"; the fp32 modes
+of B6 and B7 have rows of their own, with the launches of phase 5b2); the
+last line is the result object. Needs one
 GPU and no network; imports no JAX and nothing of the JAX package.
 """
 
@@ -147,9 +157,26 @@ FLASH_RTOL, FLASH_ATOL = 2e-2, 2e-2
 # B6's lse against the plain lse: fp32 sums of <= 904 terms in another
 # order, and exp2 of one FMA against exp of the scaled score.
 LSE_ATOL = 1e-4
+# The fp32 modes of B6 and B7 against their plain versions: every step in
+# fp32 on both sides, summed in another order, the forward's softmax
+# rescaled by the running row maximum and the backward reading the
+# forward's lse. Scores of 64 fp32 products (|s| ~ 1 for randn inputs)
+# agree to ~2e-6, so each P to ~2e-6 relative, and a weighted average of
+# values to 2e-6 of max|v| (< 5 for randn): O within 2e-5 + 1e-4 |plain|;
+# the lse within 1e-5 (an fp32 ulp at |lse| ~ 8 is 1e-6); each of dq, dk
+# and dv within 1e-4 of max|plain|.
+FLASH_FP32_RTOL, FLASH_FP32_ATOL = 1e-4, 2e-5
+LSE_FP32_ATOL = 1e-5
+FLASH_BWD_FP32_REL = 1e-4
+# One fp32 train step of a tiny flashflat config on the fp32 kernels
+# against the same step on the plain path: fp32 on both sides, so the ViT
+# gradients' global relative deviation stays at fp32 rounding, 1e-4.
+TRAIN_FP32_GRAD_REL = 1e-4
 # Kernels whose SASS must hold warpgroup products and TMA loads: B6's
-# interior and both passes of B7.
-SASS_KERNELS = ("flash_flat_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel")
+# interior, both passes of B7, B17's bf16 kernel and B10's bf16-mode
+# kernel (the GEMM engine of wgmma_gemm.cuh).
+SASS_KERNELS = ("flash_flat_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel",
+                "dense_wgmma_kernel", "fused_correlate_wgmma_kernel")
 SASS_OPS = ("HGMMA", "UTMALDG")
 # ln_quantize_rows (B3): the kernel and the plain version sum the row in
 # another order, so a code may sit one level off at a bin edge; the row
@@ -431,6 +458,7 @@ def phase_kernels(dev):
                 err, ms, plain_ms, nbytes(qkv) + nbytes(qkv) // 3,
                 {"bf16": 4 * n * 16 * t * t * 64}, lib_ms)
     results["flash_attention_flat_bwd"] = _flash_bwd(dev, g, scale)
+    results.update(_flash_fp32(dev, g, scale))
     results.update(_int8_kernels(dev, g))
     results.update(_head_kernels(dev, g))
     results.update(_upsampled_head_kernels(dev, g))
@@ -510,6 +538,80 @@ def _flash_bwd(dev, g, scale):
             res = result(err, ms, plain_ms, nbytes(qkv, out, do, got),
                          {"bf16": 10 * 8 * 16 * t * t * 64}, lib_ms)
     return res
+
+
+def _flash_fp32(dev, g, scale):
+    """The fp32 modes of B6 and B7 (an fp32 model's route) against their
+    plain versions at the flagship shape and a masked ragged one, each
+    timed at the flagship beside SDPA in fp32."""
+    from lseg_tpu_torch.ops.flash_attention import (
+        flash_attention_flat,
+        flash_attention_flat_bwd,
+        flash_attention_flat_bwd_plain,
+        flash_attention_flat_plain,
+    )
+
+    results = {}
+    d = 1024
+    for t, vl in ((901, None), (904, 901)):
+        qkv = torch.randn(8, t, 3 * d, device=dev, generator=g)
+        do = torch.randn(8, t, d, device=dev, generator=g)
+        out, lse = flash_attention_flat(qkv, 16, scale, vl, return_lse=True)
+        ref, ref_lse = flash_attention_flat_plain(qkv, 16, scale, vl,
+                                                  return_lse=True)
+        err_f = check_close(f"flash_attention_flat fp32 (8,{t},3072) "
+                            f"valid_len={vl}", out, ref, FLASH_FP32_RTOL,
+                            FLASH_FP32_ATOL)
+        check_close(f"flash_attention_flat fp32 lse (8,16,{t})", lse,
+                    ref_lse, 0.0, LSE_FP32_ATOL)
+        args = (qkv, out, do, lse, 16, scale, vl)
+        got = flash_attention_flat_bwd(*args)
+        bref = flash_attention_flat_bwd_plain(*args)
+        torch.cuda.synchronize()
+        if got.dtype != torch.float32 or not torch.isfinite(got).all():
+            fail(f"flash_attention_flat_bwd fp32: {got.dtype}, finite "
+                 f"{bool(torch.isfinite(got).all())}")
+        errs = []
+        for name, lo in (("dq", 0), ("dk", d), ("dv", 2 * d)):
+            a, b = got[..., lo:lo + d], bref[..., lo:lo + d]
+            err = float((a - b).abs().max())
+            rel = err / float(b.abs().max())
+            errs.append(err)
+            print(f"  flash_attention_flat_bwd fp32 (8,{t},3072) valid_len="
+                  f"{vl} {name}: max_abs {err:.6g} = {rel:.4g} of max|plain| "
+                  f"(tol {FLASH_BWD_FP32_REL:g})")
+            if rel > FLASH_BWD_FP32_REL:
+                fail(f"flash_attention_flat_bwd fp32 {name}: kernel "
+                     f"disagrees with its plain version")
+        del ref, ref_lse, bref
+        if vl is not None:
+            continue
+        ms, plain_ms = _timed(
+            "flash_attention_flat fp32", "(8,901,3072) 16 heads",
+            lambda: flash_attention_flat(qkv, 16, scale),
+            lambda: flash_attention_flat_plain(qkv, 16, scale))
+        q, k, v = (qkv.view(8, t, 3, 16, 64).permute(2, 0, 3, 1, 4)
+                   .detach().clone().requires_grad_())
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_ms = cuda_time_ms(lambda: sdpa(q, k, v, scale=scale))
+        # fp32 FMAs: q.k^T and P.V, 2 T^2 hd each per head
+        results["flash_attention_flat_fp32"] = result(
+            err_f, ms, plain_ms, nbytes(qkv) + nbytes(qkv) // 3,
+            {"fp32": 4 * 8 * 16 * t * t * 64}, lib_ms)
+        ms, plain_ms = _timed(
+            "flash_attention_flat_bwd fp32", "(8,901,3072) 16 heads",
+            lambda: flash_attention_flat_bwd(*args),
+            lambda: flash_attention_flat_bwd_plain(*args))
+        so = sdpa(q, k, v, scale=scale)
+        dso = do.view(8, t, 16, 64).transpose(1, 2)
+        lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
+            so, (q, k, v), dso, retain_graph=True))
+        # the least work, five products (s, dp, dv, dq, dk), in fp32 FMAs
+        results["flash_attention_flat_bwd_fp32"] = result(
+            max(errs), ms, plain_ms, nbytes(qkv, out, do, got),
+            {"fp32": 10 * 8 * 16 * t * t * 64}, lib_ms)
+        del q, k, v, so, dso
+    return results
 
 
 def _timed(name, shape, kernel, plain):
@@ -1206,6 +1308,7 @@ def _probe_path_kernels(dev, g):
     bf, f32 = torch.bfloat16, torch.float32
     cases = (("fc2", (7208, 4096, 1024), bf, bf),
              ("fc2", (7208, 4096, 1024), bf, None),
+             ("fc2", (7208, 4096, 1024), f32, f32),
              ("proj", (7208, 1024, 1024), bf, bf),
              ("proj", (7208, 1024, 1024), bf, None),
              ("reference test", (70, 128, 96), f32, f32),
@@ -1220,19 +1323,25 @@ def _probe_path_kernels(dev, g):
             dense_residual_plain(*args, out_dtype=dt), *tol)
         if name != "fc2" or resid is None:
             continue
-        ms, plain_ms = _timed("dense_residual", "fc2 (7208,4096).(4096,1024) "
-                              "bf16 + bf16 residual",
-                              lambda: dense_residual(*args),
-                              lambda: dense_residual_plain(*args))
+        dname = "bf16" if dt == bf else "fp32"
+        ms, plain_ms = _timed("dense_residual", f"fc2 (7208,4096).(4096,1024) "
+                              f"{dname} + {dname} residual",
+                              lambda: dense_residual(*args, out_dtype=dt),
+                              lambda: dense_residual_plain(*args,
+                                                           out_dtype=dt))
         # the library call: addmm with the residual plus the broadcast bias
         # as its input, that sum made outside the timed region
         x, w, b, r = args
-        c = (r.float() + b).to(bf)
+        c = (r.float() + b).to(dt)
         lib_ms = cuda_time_ms(lambda: torch.addmm(c, x, w))
         m, k = x.shape
-        results["dense_residual"] = result(
-            err, ms, plain_ms, nbytes(x, w, b, r, out),
-            {"bf16": 2 * m * k * w.shape[1]}, lib_ms)
+        res = result(err, ms, plain_ms, nbytes(x, w, b, r, out),
+                     {"bf16" if dt == bf else "fp32": 2 * m * k * w.shape[1]},
+                     lib_ms)
+        if dt == bf:
+            results["dense_residual"] = res
+        else:  # the fp32 mode's numbers beside the bf16 row's
+            results["dense_residual"]["fp32"] = res
         del c
     del args, out
 
@@ -2064,6 +2173,8 @@ def phase_training(dev, cache, ade):
     gc.collect()
     torch.cuda.empty_cache()
 
+    launches_fp32 = _fp32_train_step(dev, counters)
+
     # (c) numbers at batch 8
     _train_timing("kernel path", states["kernel"], step, batch8, txt,
                   {key: counters[key] for key in fit_expect},
@@ -2072,7 +2183,69 @@ def phase_training(dev, cache, ade):
     _train_timing("plain path", states["plain"], step, batch8, txt,
                   {key: counters[key] for key in fit_expect},
                   {"flash_attention_flat": 0, "flash_attention_flat_bwd": 0})
-    return launches
+    return launches, launches_fp32
+
+
+def _fp32_train_step(dev, counters):
+    """(b2) One `--dtype float32` train step of a tiny flashflat config
+    (ViT width 128, two heads of 64, depth 4; 64 x 64 synthetic batch of
+    2) on the kernel path, which takes the fp32 modes of B6 and B7, and on
+    the plain path from the same weights; the counters are set to 0 just
+    before the kernel step and read just after (B6 = 2 x depth with
+    remat, B7 = depth), and the ViT gradients must agree within
+    TRAIN_FP32_GRAD_REL. Returns the kernel step's launches."""
+    from lseg_tpu_torch.config import ViTConfig
+    from lseg_tpu_torch.data.loader import DataLoader
+    from lseg_tpu_torch.data.synthetic import SyntheticSegDataset
+    from lseg_tpu_torch.models.layers import random_init_
+    from lseg_tpu_torch.models.lseg import LSegNet
+    from lseg_tpu_torch.testing import tiny_vit_config
+    from lseg_tpu_torch.train.optim import make_optimizer
+    from lseg_tpu_torch.train.step import (
+        TrainState,
+        enable_grads,
+        make_train_step,
+    )
+
+    cfg = tiny_vit_config(vit=ViTConfig(
+        embed_dim=128, num_heads=2, depth=4, hooks=(0, 1, 2, 3),
+        post_channels=(16, 32, 64, 64), pretrain_grid=4,
+        attn_impl="flashflat"))
+    depth = cfg.vit.depth
+    batch = next(iter(DataLoader(SyntheticSegDataset(n=2, size=64,
+                                                     num_classes=4), 2,
+                                 shuffle=False, device=dev)))
+    txt = torch.randn(4, cfg.out_c, device=dev,
+                      generator=torch.Generator(dev).manual_seed(SEED))
+    step = make_train_step()
+    models, losses, launched = {}, {}, {}
+    for name, plain in (("kernel", False), ("plain", True)):
+        m = LSegNet(cfg, torch.float32, dev, plain=plain, remat=True,
+                    param_dtype=torch.float32)
+        random_init_(m, torch.Generator(dev).manual_seed(SEED))
+        enable_grads(m)
+        state = TrainState(m, make_optimizer(m, 0.004, 10, batch_size=2))
+        for fn in counters.values():
+            fn.launches = 0
+        _, metrics = step(state, batch, txt)
+        torch.cuda.synchronize()
+        launched[name] = {k: fn.launches for k, fn in counters.items()
+                          if fn.launches}
+        models[name], losses[name] = m, float(metrics["loss"])
+    d, _ = _vit_grad_deviation(models["kernel"], models["plain"], depth)
+    print(f"  (b2) fp32 train step, tiny flashflat config: losses {losses}, "
+          f"launches {launched['kernel']}, ViT gradients |kernel - plain| / "
+          f"|plain| {d:.6g} (bound {TRAIN_FP32_GRAD_REL:g})")
+    expect = {"flash_attention_flat": 2 * depth,
+              "flash_attention_flat_bwd": depth}
+    if launched["kernel"] != expect or launched["plain"]:
+        fail(f"fp32 train step: launches {launched}, expected {expect} on "
+             f"the kernel path and none on the plain path")
+    if not (losses["kernel"] == losses["kernel"]
+            and d <= TRAIN_FP32_GRAD_REL):
+        fail(f"fp32 train step: loss {losses['kernel']}, gradient deviation "
+             f"{d} > {TRAIN_FP32_GRAD_REL}")
+    return launched["kernel"]
 
 
 def phase_probe(dev):
@@ -2137,7 +2310,7 @@ def main() -> int:
     del model_fd, plain_fd, model_ho, plain_ho, decoder_paths
     gc.collect()
     torch.cuda.empty_cache()
-    launches_t = phase_training(dev, cache, ade)
+    launches_t, launches_t32 = phase_training(dev, cache, ade)
     launches_p = phase_probe(dev)
     # each kernel's launches on the path that runs it: B1 and B6 on the
     # bf16 path (phase 3), B10 and B11 on the streamed head (phase 3c),
@@ -2165,6 +2338,11 @@ def main() -> int:
     launches["fused_upsample_outconv"] = launches_ho["fused_upsample_outconv"]
     launches["flash_attention_flat_bwd"] = launches_t[
         "flash_attention_flat_bwd"]
+    # the fp32 modes of B6 and B7 on the fp32 train step (phase 5b2)
+    launches["flash_attention_flat_fp32"] = launches_t32[
+        "flash_attention_flat"]
+    launches["flash_attention_flat_bwd_fp32"] = launches_t32[
+        "flash_attention_flat_bwd"]
     sources = {
         "patch_embed": ("lseg_tpu_torch/csrc/patch_embed.cu",
                         "lseg_tpu/ops/pallas_patch.py:59"),
@@ -2172,6 +2350,12 @@ def main() -> int:
                                  "lseg_tpu/ops/pallas_attention.py:110"),
         "flash_attention_flat_bwd": (
             "lseg_tpu_torch/csrc/flash_attention_flat_bwd.cu",
+            "lseg_tpu/ops/pallas_attention.py:612"),
+        "flash_attention_flat_fp32": (
+            "lseg_tpu_torch/csrc/flash_attention_flat_fp32.cu",
+            "lseg_tpu/ops/pallas_attention.py:110"),
+        "flash_attention_flat_bwd_fp32": (
+            "lseg_tpu_torch/csrc/flash_attention_flat_bwd_fp32.cu",
             "lseg_tpu/ops/pallas_attention.py:612"),
         "ln_quantize_rows": ("lseg_tpu_torch/csrc/ln_quantize_rows.cu",
                              "lseg_tpu/ops/pallas_ln.py:43"),

@@ -1,0 +1,131 @@
+"""Time kernels B17 (`dense_residual`) and B10 (`fused_correlate`) in each
+of their modes, and the fp32 modes of B6 and B7, at the flagship shapes on
+one card, beside the PyTorch call that computes the same function.
+
+    python lseg_tpu_torch/engine/time_gemm.py [--root DIR] [--tag T]
+        [--library]
+
+Shapes: B17 at ViT-L/16's fc2, (7208, 4096) . (4096, 1024) with a
+residual, bf16 and fp32; B10 at the streamed head's (8, 240, 240, 512) bf16
+pixels against K = 150, compute_dtype float32 and bfloat16; B6 and B7 on
+fp32 qkv (8, 901, 3072) with 16 heads. It imports the port from `--root`
+(default: the checkout that holds this file), so the same script times an
+older tree's kernels in the same call as this one's: run them in turns
+(old, new, new, old) and compare only within one call. A mode an older
+tree does not have (fp32 B6 and B7 before they were ported) reads null.
+`--library` adds the PyTorch calls (`torch.addmm`, `torch.matmul`, SDPA in
+fp32). Prints one JSON line: the card's name and power limit and each time
+in ms (CUDA events over 20 calls after 3 warm-ups). Without a card it
+exits 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root",
+                    default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--tag", default="tree")
+    ap.add_argument("--library", action="store_true",
+                    help="also time the PyTorch call of each function")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, args.root)
+    import torch
+
+    from lseg_tpu_torch.ops import dense, flash_attention as fa
+    from lseg_tpu_torch.ops import fused_correlate as fc
+
+    if not torch.cuda.is_available():
+        print("time_gemm: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+    def ms(fn, warmup=3, iters=20):
+        for _ in range(warmup):
+            fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    def mode_ms(fn):
+        """ms of `fn`, or None where this tree's wrapper refuses the mode."""
+        try:
+            fn()
+        except TypeError:
+            return None
+        return ms(fn)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    row = {"tag": args.tag, "card": card}
+    bf, f32 = torch.bfloat16, torch.float32
+
+    m, k, n = 7208, 4096, 1024
+    for name, dt in (("B17_bf16", bf), ("B17_fp32", f32)):
+        x = torch.randn(m, k, device=dev, generator=g).to(dt)
+        w = (torch.randn(k, n, device=dev, generator=g) / k ** 0.5).to(dt)
+        b = torch.randn(n, device=dev, generator=g)
+        r = torch.randn(m, n, device=dev, generator=g).to(dt)
+        row[f"{name}_ms"] = ms(lambda: dense.dense_residual(
+            x, w, b, r, out_dtype=dt))
+        if args.library:
+            c = (r.float() + b).to(dt)
+            row[f"{name}_addmm_ms"] = ms(lambda: torch.addmm(c, x, w))
+        del x, w, r
+
+    emb = torch.randn(8, 240, 240, 512, device=dev, generator=g).to(bf)
+    txt = torch.randn(150, 512, device=dev, generator=g)
+    for name, dt in (("B10_fp32", f32), ("B10_bf16", bf)):
+        row[f"{name}_ms"] = ms(lambda: fc.fused_correlate(
+            emb, txt, compute_dtype=dt))
+        if args.library:
+            xn = torch.nn.functional.normalize(
+                emb.float().reshape(-1, 512), dim=-1).to(dt)
+            tn = torch.nn.functional.normalize(txt, dim=-1).t().contiguous(
+                ).to(dt)
+            row[f"{name}_matmul_ms"] = ms(lambda: torch.matmul(xn, tn))
+            del xn
+    del emb
+
+    t, h, scale = 901, 16, 64 ** -0.5
+    qkv = torch.randn(8, t, 3 * h * 64, device=dev, generator=g)
+    do = torch.randn(8, t, h * 64, device=dev, generator=g)
+    row["B6_fp32_ms"] = mode_ms(lambda: fa.flash_attention_flat(qkv, h,
+                                                                 scale))
+    if row["B6_fp32_ms"] is not None:
+        out, lse = fa.flash_attention_flat(qkv, h, scale, return_lse=True)
+        row["B7_fp32_ms"] = ms(lambda: fa.flash_attention_flat_bwd(
+            qkv, out, do, lse, h, scale))
+    else:
+        row["B7_fp32_ms"] = None
+    if args.library:
+        q, kk, v = (qkv.view(8, t, 3, h, 64).permute(2, 0, 3, 1, 4).detach()
+                    .clone().requires_grad_())
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        row["sdpa_fp32_ms"] = ms(lambda: sdpa(q, kk, v, scale=scale))
+        so = sdpa(q, kk, v, scale=scale)
+        dso = do.view(8, t, h, 64).transpose(1, 2)
+        row["sdpa_bwd_fp32_ms"] = ms(lambda: torch.autograd.grad(
+            so, (q, kk, v), dso, retain_graph=True))
+    print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -90,6 +90,9 @@ def _check_supported(cfg: LSegConfig) -> None:
     unported = {
         "arch_option (head blocks 1/2)": cfg.arch_option not in (0,),
         "vit.quant_int8 dynamic": vit.quant_int8 in (True, "dynamic"),
+        # int8 q.k^T inside the int8 attention (the reference measured it
+        # worse: config.py's note on attn_variant)
+        "vit.attn_variant i8qk": vit.attn_variant == "i8qk",
     }
     bad = [k for k, v in unported.items() if v]
     if bad:

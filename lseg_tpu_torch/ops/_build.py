@@ -50,6 +50,9 @@ SIGNATURES = {
     # qkv, out, lse (or null), n, t, dim, valid_len, scale, stream
     "lseg_flash_attention_flat": (_P,) * 3 + (_I,) * 4 + (ctypes.c_float,
                                                          _P),
+    # the same for fp32 qkv, out and lse
+    "lseg_flash_attention_flat_fp32": (_P,) * 3 + (_I,) * 4 + (
+        ctypes.c_float, _P),
     # x, ln_g, ln_b, q, s, rows, dim, eps, stream
     "lseg_ln_quantize_rows": (_P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P),
     # x, ln_g, ln_b, wq, sw, bias, xq, sx, qkv (scratch), oq, os,
@@ -61,6 +64,9 @@ SIGNATURES = {
     # qkv, out, dout, lse, dqkv, dr (scratch), n, t, dim, valid_len,
     # scale, stream
     "lseg_flash_attention_flat_bwd": (_P,) * 6 + (_I,) * 4 + (
+        ctypes.c_float, _P),
+    # the same for fp32 qkv, out, dout and dqkv
+    "lseg_flash_attention_flat_bwd_fp32": (_P,) * 6 + (_I,) * 4 + (
         ctypes.c_float, _P),
     # x, t, tn (scratch), out, m, c, k, kp, x_bf16, out_bf16, scale, stream
     "lseg_fused_correlate": (_P,) * 4 + (_I,) * 6 + (ctypes.c_float, _P),
@@ -245,12 +251,14 @@ def load_source(name: str):
 
 def _kernel_name(mangled: str) -> str:
     """The `..._kernel` identifier (and template arguments) of a mangled
-    entry point: the length-prefixed name whose prefix matches."""
+    entry point: the last length-prefixed name whose prefix matches (an
+    anonymous namespace's mangled file tag may itself end in `_kernel`)."""
+    name = mangled
     for m in re.finditer(r"(?=(\d{1,3})([a-z]\w*?_kernel)(I\w*?E)?)",
                          mangled):
         if int(m.group(1)) == len(m.group(2)):
-            return m.group(2) + (m.group(3) or "")
-    return mangled
+            name = m.group(2) + (m.group(3) or "")
+    return name
 
 
 def ptxas_summary(log: str):

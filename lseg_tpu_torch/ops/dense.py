@@ -71,9 +71,9 @@ def dense_residual(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                    residual: torch.Tensor | None = None, tile_m: int = 256,
                    out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Kernel wrapper (B17): the function of `dense_residual_plain`. x
-    bf16 runs on the tensor cores, x fp32 in full fp32 FMAs; the kernel
-    needs K % 16 == 0 and N % 8 == 0 and takes any M. `tile_m` is
-    accepted and unused."""
+    bf16 runs on wgmma from a TMA ring (`csrc/wgmma_gemm.cuh`), x fp32 in
+    full fp32 FMAs; the kernel needs K % 16 == 0 and N % 8 == 0 and takes
+    any M. `tile_m` is accepted and unused."""
     check_no_grad("dense_residual", x, w, b, residual)
     m, k, n = _check(x, w, b, residual, out_dtype)
     if x.device.type == "cpu":

@@ -7,7 +7,10 @@ attention over the flat fused-qkv layout. The CUDA kernel is
 `csrc/wgmma.cuh`; its header says what bounds it on the card (2*T*T*64
 FLOP per head for each of q.k^T and P.V, plus one exp per score) and how
 the design keeps scores out of device memory. With `return_lse` it also
-returns each row's log-sum-exp, the statistics the backward reads.
+returns each row's log-sum-exp, the statistics the backward reads. fp32
+qkv (an fp32 model) takes B6's fp32 mode in
+`lseg_tpu_torch/csrc/flash_attention_flat_fp32.cu`, as B7's does: SIMT
+FMAs with every step in fp32, as the TPU kernels compute for fp32 inputs.
 
 B2 replaces `pallas_attention.py` · `flash_attention_ln_qkv_fused_q8`:
 LayerNorm 1 + per-row int8 quantize + int8 qkv projection + attention +
@@ -72,6 +75,12 @@ from lseg_tpu_torch.ops.ln_quant import ln_quantize_rows_plain
 from lseg_tpu_torch.ops.quant import int8_mm, quantize_rows
 
 HEAD_DIM = 64  # the kernel is specialised for head_dim 64
+# B6's and B7's entry points by qkv dtype: the wgmma kernels for bf16,
+# their fp32 modes (csrc/flash_attention_flat_fp32.cu) for fp32
+_FLAT_ENTRY = {torch.bfloat16: "lseg_flash_attention_flat",
+               torch.float32: "lseg_flash_attention_flat_fp32"}
+_FLAT_BWD_ENTRY = {torch.bfloat16: "lseg_flash_attention_flat_bwd",
+                   torch.float32: "lseg_flash_attention_flat_bwd_fp32"}
 
 
 def _check(qkv: torch.Tensor, num_heads: int, valid_len):
@@ -124,8 +133,10 @@ def flash_attention_flat_plain(qkv: torch.Tensor, num_heads: int,
 
 def flash_attention_flat(qkv: torch.Tensor, num_heads: int, scale: float,
                          valid_len: int = None, return_lse: bool = False):
-    """Kernel wrapper: (N, T, 3D) bf16 contiguous -> (N, T, D) bf16; with
-    `return_lse`, also the (N, H, T) fp32 log-sum-exp of each row."""
+    """Kernel wrapper: (N, T, 3D) bf16 or fp32 contiguous -> (N, T, D) in
+    the qkv dtype; with `return_lse`, also the (N, H, T) fp32 log-sum-exp
+    of each row. bf16 runs the wgmma kernel, fp32 its fp32 mode (SIMT
+    FMAs, no operand rounded)."""
     check_no_grad("flash_attention_flat", qkv)
     n, t, d, vl = _check(qkv, num_heads, valid_len)
     if qkv.device.type == "cpu":
@@ -134,9 +145,10 @@ def flash_attention_flat(qkv: torch.Tensor, num_heads: int, scale: float,
     if qkv.device.type != "cuda":
         raise ValueError(f"flash_attention_flat: unsupported device "
                          f"{qkv.device}")
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"flash_attention_flat kernel takes bf16, got "
-                        f"{qkv.dtype}")
+    entry = _FLAT_ENTRY.get(qkv.dtype)
+    if entry is None:
+        raise TypeError(f"flash_attention_flat kernel takes bf16 or fp32, "
+                        f"got {qkv.dtype}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("flash_attention_flat: qkv must be contiguous "
                          "and 16-byte aligned")
@@ -146,11 +158,11 @@ def flash_attention_flat(qkv: torch.Tensor, num_heads: int, scale: float,
                        device=qkv.device) if return_lse else None)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lseg_flash_attention_flat(
+        rc = getattr(lib, entry)(
             qkv.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), n, t, d, vl,
             float(scale), stream)
-    check_launch(lib, "lseg_flash_attention_flat", rc)
+    check_launch(lib, entry, rc)
     flash_attention_flat.launches += 1
     return (out, lse) if return_lse else out
 
@@ -194,9 +206,10 @@ def flash_attention_flat_bwd(qkv: torch.Tensor, out: torch.Tensor,
                              do: torch.Tensor, lse, num_heads: int,
                              scale: float,
                              valid_len: int = None) -> torch.Tensor:
-    """Kernel wrapper (B7): bf16 contiguous qkv (N, T, 3D), O and dO
-    (N, T, D), B6's fp32 lse (N, H, T) -> dqkv (N, T, 3D) bf16. Off the
-    CPU `lse` is required: the kernel does not recompute it."""
+    """Kernel wrapper (B7): contiguous qkv (N, T, 3D), O and dO (N, T, D),
+    all bf16 or all fp32, B6's fp32 lse (N, H, T) -> dqkv (N, T, 3D) in
+    the qkv dtype; fp32 runs B7's fp32 mode. Off the CPU `lse` is
+    required: the kernel does not recompute it."""
     check_no_grad("flash_attention_flat_bwd", qkv, out, do)
     n, t, d, vl = _check(qkv, num_heads, valid_len)
     if out.shape != (n, t, d) or do.shape != (n, t, d):
@@ -213,10 +226,12 @@ def flash_attention_flat_bwd(qkv: torch.Tensor, out: torch.Tensor,
     if qkv.device.type != "cuda":
         raise ValueError(f"flash_attention_flat_bwd: unsupported device "
                          f"{qkv.device}")
+    entry = _FLAT_BWD_ENTRY.get(qkv.dtype)
     for name, x in (("qkv", qkv), ("out", out), ("dO", do)):
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"flash_attention_flat_bwd kernel takes bf16, "
-                            f"got {name} {x.dtype}")
+        if entry is None or x.dtype != qkv.dtype:
+            raise TypeError(f"flash_attention_flat_bwd kernel takes bf16 or "
+                            f"fp32, all alike, got {name} {x.dtype} with "
+                            f"qkv {qkv.dtype}")
         if (not x.is_contiguous() or x.data_ptr() % 16
                 or x.device != qkv.device):
             raise ValueError(f"flash_attention_flat_bwd: {name} must be "
@@ -233,11 +248,11 @@ def flash_attention_flat_bwd(qkv: torch.Tensor, out: torch.Tensor,
                      device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lseg_flash_attention_flat_bwd(
+        rc = getattr(lib, entry)(
             qkv.data_ptr(), out.data_ptr(), do.data_ptr(), lse.data_ptr(),
             dqkv.data_ptr(), dr.data_ptr(), n, t, d, vl, float(scale),
             stream)
-    check_launch(lib, "lseg_flash_attention_flat_bwd", rc)
+    check_launch(lib, entry, rc)
     flash_attention_flat_bwd.launches += 1
     return dqkv
 

@@ -21,7 +21,17 @@ from lseg_tpu_torch.ops._build import (
     load_kernels,
 )
 
-_BN = 160  # labels per block of the kernel; the text scratch pads K to it
+_BN = 160  # labels per block of the SIMT and mma.sync kernels
+_CN = 152  # labels per block of the bf16 mode's wgmma kernel
+
+
+def _text_rows(k: int, c: int, x_dtype, bf16: bool) -> int:
+    """K padded to the labels per block of the kernel that runs: 152 for
+    the bf16 mode's wgmma kernel (bf16 pixels, C % 64 == 0, C <= 512),
+    else 160 (csrc/fused_correlate.cu's launcher)."""
+    tile = (_CN if bf16 and x_dtype == torch.bfloat16 and c % 64 == 0
+            and c <= 512 else _BN)
+    return -(-k // tile) * tile
 
 
 def _normalize(x: torch.Tensor) -> torch.Tensor:
@@ -52,7 +62,8 @@ def fused_correlate(image_features: torch.Tensor,
     """Kernel wrapper: (N, H, W, C) bf16 or fp32 pixel embeddings, (K, C)
     text features -> (N, H, W, K) logits in `compute_dtype`, float32 (the
     serving head's product on the FMA units) or bfloat16 (bf16 operands
-    on the tensor cores, bf16 logits). C % 32 == 0."""
+    on the tensor cores, bf16 logits; wgmma for bf16 pixels with
+    C % 64 == 0 and C <= 512). C % 32 == 0."""
     check_no_grad("fused_correlate", image_features, text_features)
     if image_features.device.type == "cpu":
         return fused_correlate_plain(image_features, text_features,
@@ -78,8 +89,8 @@ def fused_correlate(image_features: torch.Tensor,
         if not v.is_contiguous() or v.data_ptr() % 16 or v.device != x.device:
             raise ValueError(f"fused_correlate: {name} must be contiguous, "
                              f"16-byte aligned and on {x.device}")
-    kp = -(-k // _BN) * _BN
     bf16 = compute_dtype == torch.bfloat16
+    kp = _text_rows(k, c, x.dtype, bf16)
     lib = load_kernels()
     # the normalised text: (kp, C) bf16 rows for the tensor cores, or
     # (C, kp) fp32 columns for the FMA tile

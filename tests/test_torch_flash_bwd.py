@@ -289,3 +289,132 @@ def test_function_kernel_grads_match_plain_on_card(cuda_device):
     torch.cuda.synchronize()
     err = (grads[0] - grads[1]).abs().max()
     assert err <= 2e-2 * grads[1].abs().max()
+
+
+# ---- the fp32 modes of B6 and B7 (an fp32 model's route) ----
+
+# fp32 kernels against their plain versions: every step in fp32 on both
+# sides, summed in another order, the softmax rescaled by the running
+# row maximum and the backward reading the forward's lse: the scores
+# agree to a few fp32 ulps (~2e-6 at |s| ~ 1), so each P to ~2e-6
+# relative, and the weighted averages to 2e-6 of max|v| (< 5 for randn):
+# O within 2e-5 + 1e-4 |plain|, lse within 1e-5, each of dq, dk, dv
+# within 1e-4 of max|plain| (chip_smoke.py's FLASH_FP32_* constants).
+FP32_RTOL, FP32_ATOL, FP32_LSE_ATOL, FP32_BWD_REL = 1e-4, 2e-5, 1e-5, 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,t,heads,valid_len",
+                         [(2, 40, 2, None), (2, 130, 4, 100),
+                          (1, 901, 16, None)])
+def test_fp32_kernels_match_plain_on_card(cuda_device, n, t, heads,
+                                          valid_len):
+    """B6 and B7 on fp32 qkv launch their fp32 modes (the wrappers do not
+    raise, nothing is rounded to bf16) and agree with the plain twins."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    d = heads * 64
+    qkv = torch.randn(n, t, 3 * d, device=cuda_device, generator=g)
+    do = torch.randn(n, t, d, device=cuda_device, generator=g)
+    f0, b0 = flash_attention_flat.launches, flash_attention_flat_bwd.launches
+    o, lse = flash_attention_flat(qkv, heads, SCALE, valid_len,
+                                  return_lse=True)
+    got = flash_attention_flat_bwd(qkv, o, do, lse, heads, SCALE, valid_len)
+    assert (flash_attention_flat.launches - f0,
+            flash_attention_flat_bwd.launches - b0) == (1, 1)
+    ref_o, ref_lse = flash_attention_flat_plain(qkv, heads, SCALE, valid_len,
+                                                return_lse=True)
+    ref = flash_attention_flat_bwd_plain(qkv, ref_o, do, None, heads, SCALE,
+                                         valid_len)
+    torch.cuda.synchronize()
+    assert o.dtype == got.dtype == torch.float32
+    torch.testing.assert_close(o, ref_o, rtol=FP32_RTOL, atol=FP32_ATOL)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=FP32_LSE_ATOL)
+    for sl in (slice(0, d), slice(d, 2 * d), slice(2 * d, 3 * d)):
+        err = (got[..., sl] - ref[..., sl]).abs().max()
+        assert err <= FP32_BWD_REL * ref[..., sl].abs().max()
+    if valid_len is not None:
+        assert not got[:, valid_len:, d:].any()
+
+
+def _fp32_train_step(cfg, dev, plain):
+    """One fp32 train step (`make_train_step`, the `--dtype float32`
+    CLI's step) of `cfg` from seed 0 on a 64 x 64 synthetic batch of 2;
+    returns (model, loss, launches of B6 and B7)."""
+    from lseg_tpu_torch.data.loader import DataLoader
+    from lseg_tpu_torch.data.synthetic import SyntheticSegDataset
+    from lseg_tpu_torch.models.layers import random_init_
+    from lseg_tpu_torch.models.lseg import LSegNet
+    from lseg_tpu_torch.train.optim import make_optimizer
+    from lseg_tpu_torch.train.step import (
+        TrainState,
+        enable_grads,
+        make_train_step,
+    )
+
+    model = LSegNet(cfg, torch.float32, dev, plain=plain, remat=True,
+                    param_dtype=torch.float32)
+    random_init_(model, torch.Generator(dev).manual_seed(0))
+    enable_grads(model)
+    ds = SyntheticSegDataset(n=2, size=64, num_classes=4)
+    batch = next(iter(DataLoader(ds, 2, shuffle=False, device=dev)))
+    txt = torch.randn(4, cfg.out_c, generator=torch.Generator().manual_seed(
+        1)).to(dev)
+    state = TrainState(model, make_optimizer(model, 0.004, 10, batch_size=2))
+    f0, b0 = flash_attention_flat.launches, flash_attention_flat_bwd.launches
+    _, metrics = make_train_step()(state, batch, txt)
+    torch.cuda.synchronize()
+    return model, float(metrics["loss"]), (
+        flash_attention_flat.launches - f0,
+        flash_attention_flat_bwd.launches - b0)
+
+
+@pytest.mark.gpu
+def test_fp32_train_step_runs_the_fp32_kernels(cuda_device):
+    """One `--dtype float32` train step of the tiny flashflat config on
+    the card goes through B6's and B7's fp32 modes (B6 twice a block with
+    remat, B7 once) and its ViT gradients agree with the plain path's
+    within 1e-4 (global relative norm): fp32 on both sides."""
+    from torch_parity import tiny_parity_config
+
+    base = tiny_parity_config()
+    cfg = dataclasses.replace(base, vit=dataclasses.replace(
+        base.vit, attn_impl="flashflat"))
+    depth = cfg.vit.depth
+    kern, loss_k, launched = _fp32_train_step(cfg, cuda_device, False)
+    assert launched == (2 * depth, depth)
+    ref, loss_p, launched = _fp32_train_step(cfg, cuda_device, True)
+    assert launched == (0, 0)
+    assert np.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-4 * abs(loss_p)
+    num = den = 0.0
+    for name, p in kern.vit.named_parameters():
+        gr = ref.vit.get_parameter(name).grad
+        num += float(((p.grad - gr) ** 2).sum())
+        den += float((gr ** 2).sum())
+    assert (num / den) ** 0.5 <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["flashq", "flashqp", "flashlnq"])
+def test_fp32_unquantized_flash_impls_take_fp32_b6(cuda_device, impl):
+    """An fp32 model whose attn_impl is flashq, flashqp or flashlnq but
+    which is not quantized takes the flat branch, as the reference does:
+    B6's fp32 mode, once a block, in an eval forward."""
+    from torch_parity import tiny_parity_config
+
+    from lseg_tpu_torch.models.layers import random_init_
+
+    base = tiny_parity_config()
+    cfg = dataclasses.replace(base.vit, attn_impl=impl)
+    vit = DenseViT(cfg, torch.float32, device=cuda_device)
+    random_init_(vit, torch.Generator(cuda_device).manual_seed(0))
+    x = torch.randn(1, 64, 64, 3, device=cuda_device)
+    f0 = flash_attention_flat.launches
+    with torch.no_grad():
+        taps, _ = vit(x)
+        plain = DenseViT(cfg, torch.float32, plain=True, device=cuda_device)
+        plain.load_state_dict(vit.state_dict())
+        ref, _ = plain(x)
+    torch.cuda.synchronize()
+    assert flash_attention_flat.launches - f0 == cfg.depth
+    for a, b in zip(taps, ref):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

@@ -286,13 +286,122 @@ def test_head_fused_argmax_matches_jitted_batch1(head_fused_tree):
     assert agree >= 0.985, agree
 
 
+# ---- B10's kernel arithmetic, emulated on the CPU ----
+# The CUDA kernels run only on the card; these emulate, in torch fp32,
+# the order in which they sum and where they round, and hold the result
+# against the plain twin within chip_smoke.py's unchanged gates
+# (CORR_RTOL / CORR_ATOL for the fp32 mode; one bf16 ulp of |plain| +
+# scale max|xn| max|tn|, + 1e-3, for the bf16 mode).
+
+SCALE = 1.0 / 0.07
+
+
+def _norm_parts(x, chunk, parts):
+    """The kernels' sum of squares of each pixel row: `parts` threads a
+    row, each summing its share of every `chunk`-channel chunk in chunk
+    order, their partial sums added at the end."""
+    m, c = x.shape
+    share = chunk // parts
+    acc = torch.zeros(m, parts)
+    for c0 in range(0, c, chunk):
+        for p in range(parts):
+            v = x[:, c0 + p * share:c0 + (p + 1) * share]
+            acc[:, p] = acc[:, p] + (v * v).sum(-1)
+    total = acc[:, 0]
+    for p in range(1, parts):
+        total = total + acc[:, p]
+    return torch.rsqrt(torch.clamp(total, min=1e-24))
+
+
+def _chunked_mm(a, b, chunk):
+    """a (M, C) . b (C, K) with fp32 accumulators advanced chunk by chunk
+    of the reduced dim, as the kernels' k-loops."""
+    out = torch.zeros(a.shape[0], b.shape[1])
+    for c0 in range(0, a.shape[1], chunk):
+        out = out + a[:, c0:c0 + chunk] @ b[c0:c0 + chunk]
+    return out
+
+
+def _emulate_b10(x, t, compute_dtype):
+    """(M, C) pixels, (K, C) text -> logits, as the kernels compute them.
+    fp32 mode: the raw pixels times the fp32 normalised text in 32-channel
+    chunks, the pixel norm (two threads a row) applied in the epilogue:
+    scale * (inv * (x . tn)). bf16 mode (the wgmma kernel): the norm of
+    each 64-pixel tile's rows (four threads a row over 64-channel chunks),
+    bf16(x * inv) written back in place, products against bf16(tn) in
+    64-channel chunks, scaled in fp32 and rounded once."""
+    x32 = x.float()
+    t32 = t.float()
+    tn = t32 * torch.rsqrt(torch.clamp((t32 * t32).sum(-1, keepdim=True),
+                                       min=1e-24))
+    if compute_dtype == torch.float32:
+        inv = _norm_parts(x32, 32, 2)
+        return SCALE * (inv[:, None] * _chunked_mm(x32, tn.t(), 32))
+    inv = _norm_parts(x32, 64, 4)
+    xn = (x32 * inv[:, None]).to(torch.bfloat16).float()
+    tb = tn.to(torch.bfloat16).float()
+    return (SCALE * _chunked_mm(xn, tb.t(), 64)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+@pytest.mark.parametrize("pixels", ["fp32", "bf16"])
+def test_b10_kernel_arithmetic_emulated(mode, pixels):
+    """Seeded pixels (one row zero, rows of other scales) and text (one
+    label zero) through the emulation of the kernel's arithmetic and the
+    plain twin: within the unchanged gates."""
+    rng = np.random.RandomState(7)
+    x = rng.randn(3, 11, 13, 512).astype(np.float32)
+    x[0, 0, 0] = 0.0
+    x[1] *= 40.0
+    t = rng.randn(150, 512).astype(np.float32)
+    t[3] = 0.0
+    xt = torch.from_numpy(x).to(DTYPES[pixels][1])
+    tt = torch.from_numpy(t)
+    cdt = DTYPES[mode][1]
+    ref = fused_correlate_plain(xt, tt, SCALE, cdt)
+    got = _emulate_b10(xt.reshape(-1, 512), tt, cdt).reshape(ref.shape)
+    assert got.dtype == ref.dtype
+    d = (got.float() - ref.float()).abs()
+    if mode == "fp32":
+        bound = 1e-4 + 1e-5 * ref.abs()
+    else:
+        xm = torch.nn.functional.normalize(xt.float(), dim=-1).abs().amax(
+            -1, keepdim=True)
+        tm = torch.nn.functional.normalize(tt, dim=-1).abs().amax(-1)
+        bound = 1e-3 + 2.0 ** -7 * (ref.float().abs() + SCALE * xm * tm)
+    assert bool((d <= bound).all()), float(d.max())
+    assert not got[..., 3].float().any() and not got[0, 0, 0].float().any()
+
+
+@pytest.mark.parametrize("k,c,x_dtype,bf16,rows", [
+    (150, 512, torch.bfloat16, True, 152),
+    (150, 512, torch.float32, True, 160),
+    (150, 512, torch.bfloat16, False, 160),
+    (160, 64, torch.bfloat16, True, 304),
+    (21, 96, torch.bfloat16, True, 160)])
+def test_b10_text_rows_follow_the_kernel_route(k, c, x_dtype, bf16, rows):
+    """The text scratch is padded to the labels a block of the kernel that
+    runs takes: 152 for the bf16 mode's wgmma kernel (bf16 pixels,
+    C % 64 == 0, C <= 512), 160 for the others."""
+    from lseg_tpu_torch.ops.fused_correlate import _text_rows
+
+    assert _text_rows(k, c, x_dtype, bf16) == rows
+
+
 # ---- the CUDA kernels against their plain versions (on the card) ----
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,k,dt", [
     ((2, 240, 240, 512), 150, torch.bfloat16),
-    ((1, 7, 9, 64), 21, torch.float32)])
+    ((1, 7, 9, 64), 21, torch.float32),
+    ((8, 240, 240, 512), 150, torch.bfloat16),
+    ((1, 13, 11, 512), 150, torch.bfloat16),
+    ((1, 13, 11, 512), 1, torch.float32),
+    ((1, 13, 11, 512), 1, torch.bfloat16)])
 def test_fused_correlate_kernel_matches_plain(cuda_device, shape, k, dt):
+    """B10's fp32 mode at the flagship shape, at a ragged M (143 pixels,
+    no multiple of the 128-pixel tile) and with K of 150 and 1: fp32 sums
+    in another order, within CORR_RTOL / CORR_ATOL of chip_smoke.py."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
     x = torch.randn(shape, device=cuda_device, generator=g).to(dt)
     t = torch.randn(k, shape[-1], device=cuda_device, generator=g)

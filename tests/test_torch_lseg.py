@@ -124,6 +124,8 @@ def _option_cases():
         "arch_option": dataclasses.replace(base, arch_option=1,
                                            block_depth=1),
         "ResNet": tiny_rn_config(),
+        "attn_variant i8qk": dataclasses.replace(
+            base, vit=dataclasses.replace(base.vit, attn_variant="i8qk")),
     }
 
 

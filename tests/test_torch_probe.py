@@ -283,6 +283,21 @@ def test_every_kernel_source_has_its_entry_point():
     assert entries["lseg_int8_sliced_scale"] == probe.B20_SOURCE
 
 
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN4lseg12_GLOBAL__N_110flash_flat17flash_flat_kernelE14CUtensorMap_st"
+     "P13__nv_bfloat16Pfiiif", "flash_flat_kernel"),
+    ("_ZN57_GLOBAL__N__e1f411_17_dense_residual_cu_a199624f18dense_wgmma_"
+     "kernelE14CUtensorMap_stS0_", "dense_wgmma_kernel"),
+    ("_ZN60_GLOBAL__N__ab12_19_fused_correlate_cu_7f22fused_correlate_kernel"
+     "I13__nv_bfloat16EEv14CUtensorMap_st", "fused_correlate_kernelI13__nv_"
+     "bfloat16E")])
+def test_kernel_names_from_mangled_entry_points(mangled, name):
+    """ptxas_summary and chip_smoke.py's SASS check key kernels by the last
+    length-prefixed `..._kernel` of the mangled name: an anonymous
+    namespace's file tag may itself end in `_kernel`."""
+    assert _build._kernel_name(mangled) == name
+
+
 # ---- the CUDA kernels against their plain versions (on the card) ----
 
 def _close(got, ref, rtol, atol, magnitude=None):
@@ -298,6 +313,9 @@ def _close(got, ref, rtol, atol, magnitude=None):
 @pytest.mark.parametrize("shape,dtype,residual", [
     ((1802, 4096, 1024), torch.bfloat16, torch.bfloat16),
     ((1802, 1024, 1024), torch.bfloat16, None),
+    ((7208, 4096, 1024), torch.bfloat16, torch.bfloat16),
+    ((333, 1040, 264), torch.bfloat16, torch.float32),
+    ((7208, 4096, 1024), torch.float32, torch.float32),
     ((70, 128, 96), torch.float32, torch.float32),
     ((70, 128, 96), torch.float32, None)])
 def test_dense_residual_kernel_matches_plain(cuda_device, shape, dtype,
@@ -327,7 +345,11 @@ def test_int8_sliced_scale_kernel_matches_plain(cuda_device, variant):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,k,dt", [
     ((2, 240, 240, 512), 150, torch.bfloat16),
-    ((1, 7, 9, 64), 21, torch.float32)])
+    ((1, 7, 9, 64), 21, torch.float32),
+    ((8, 240, 240, 512), 150, torch.bfloat16),
+    ((1, 13, 11, 512), 150, torch.bfloat16),
+    ((1, 13, 11, 512), 1, torch.bfloat16),
+    ((1, 13, 11, 64), 160, torch.bfloat16)])
 def test_fused_correlate_bf16_kernel_matches_plain(cuda_device, shape, k,
                                                    dt):
     """bf16 logits within 1e-3 plus one bf16 ulp (2^-7) of |plain| + scale *
@@ -337,7 +359,8 @@ def test_fused_correlate_bf16_kernel_matches_plain(cuda_device, shape, k,
     g = torch.Generator(device=cuda_device).manual_seed(2)
     x = torch.randn(shape, device=cuda_device, generator=g).to(dt)
     t = torch.randn(k, shape[-1], device=cuda_device, generator=g)
-    t[0] = 0.0
+    if k > 1:
+        t[0] = 0.0
     scale = 1.0 / 0.07
     got = fused_correlate(x, t, compute_dtype=torch.bfloat16)
     ref = fused_correlate_plain(x, t, compute_dtype=torch.bfloat16)
@@ -345,4 +368,4 @@ def test_fused_correlate_bf16_kernel_matches_plain(cuda_device, shape, k,
         -1, keepdim=True)
     tm = torch.nn.functional.normalize(t, dim=-1).abs().amax(-1)
     _close(got, ref, BF16_ULP, 1e-3, ref.float().abs() + scale * xm * tm)
-    assert not got[..., 0].float().any()
+    assert bool(got[..., 0].float().any()) == (k == 1)
