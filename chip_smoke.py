@@ -12,7 +12,10 @@ the result line is printed:
    --dump-sass`) must hold warpgroup products (HGMMA) and TMA loads
    (UTMALDG) in B6's kernel (in every object that compiles it), in both
    of B7's, and in the kernels of B17's bf16 mode and B10's bf16 mode
-   (the GEMM engine of `csrc/wgmma_gemm.cuh`);
+   (the GEMM engine of `csrc/wgmma_gemm.cuh`); TF32 warpgroup products
+   and TMA loads in B17's fp32 kernel, and TF32 tensor-core products in
+   both passes of B7's fp32 mode (the split-TF32 products of
+   `csrc/tf32x3.cuh`);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the serving path, with its time beside the plain version's
    (B10 in both of its modes, fp32 and compute_dtype=bfloat16; B17 at
@@ -120,7 +123,9 @@ the result line is printed:
 
 Phase 2 also times, for each kernel, the PyTorch library call that
 computes the same function where there is one, and computes its bound
-from the inputs and the card's published peaks. The line before the last
+from the inputs and the card's published peaks (for B17's and B7's fp32
+modes the smaller of the fp32-FMA bound and the split-TF32 bound, both
+kept under "bounds"). The line before the last
 is a JSON object with each kernel's launches (on the path of phases 3-6
 that runs it: every kernel runs on a serving path, the training path or
 the probe path), error, times and bound (B10's row also holds its bf16
@@ -164,7 +169,9 @@ LSE_ATOL = 1e-4
 # agree to ~2e-6, so each P to ~2e-6 relative, and a weighted average of
 # values to 2e-6 of max|v| (< 5 for randn): O within 2e-5 + 1e-4 |plain|;
 # the lse within 1e-5 (an fp32 ulp at |lse| ~ 8 is 1e-6); each of dq, dk
-# and dv within 1e-4 of max|plain|.
+# and dv within 1e-4 of max|plain|. B7's products are split TF32
+# (csrc/tf32x3.cuh), which keeps ~21 bits of each operand: its scores
+# agree to a few 1e-7 more, well inside the same bound.
 FLASH_FP32_RTOL, FLASH_FP32_ATOL = 1e-4, 2e-5
 LSE_FP32_ATOL = 1e-5
 FLASH_BWD_FP32_REL = 1e-4
@@ -172,12 +179,25 @@ FLASH_BWD_FP32_REL = 1e-4
 # against the same step on the plain path: fp32 on both sides, so the ViT
 # gradients' global relative deviation stays at fp32 rounding, 1e-4.
 TRAIN_FP32_GRAD_REL = 1e-4
-# Kernels whose SASS must hold warpgroup products and TMA loads: B6's
-# interior, both passes of B7, B17's bf16 kernel and B10's bf16-mode
-# kernel (the GEMM engine of wgmma_gemm.cuh).
-SASS_KERNELS = ("flash_flat_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel",
-                "dense_wgmma_kernel", "fused_correlate_wgmma_kernel")
-SASS_OPS = ("HGMMA", "UTMALDG")
+# Kernel -> the SASS opcodes every compiled copy of it must hold (regular
+# expressions over `cuobjdump --dump-sass`): warpgroup products (HGMMA)
+# and TMA loads (UTMALDG) in B6's interior, both passes of B7, B17's
+# bf16 kernel and B10's bf16-mode kernel (the GEMM engine of
+# wgmma_gemm.cuh); TF32 warpgroup products and TMA loads in B17's fp32
+# kernel, TF32 tensor-core products (HMMA or HGMMA with the TF32 suffix)
+# in both passes of B7's fp32 mode, so a SIMT fallback fails the run.
+WGMMA_TMA = (r"\bHGMMA\.", r"\bUTMALDG\b")
+TF32_MMA = r"\bH(?:G)?MMA\.[\w.]*TF32"
+SASS_REQUIRED = {
+    "flash_flat_kernel": WGMMA_TMA,
+    "bwd_dq_kernel": WGMMA_TMA,
+    "bwd_dkdv_kernel": WGMMA_TMA,
+    "dense_wgmma_kernel": WGMMA_TMA,
+    "fused_correlate_wgmma_kernel": WGMMA_TMA,
+    "dense_tf32x3_kernel": (r"\bHGMMA\.[\w.]*TF32", r"\bUTMALDG\b"),
+    "bwd_dq_fp32_kernel": (TF32_MMA,),
+    "bwd_dkdv_fp32_kernel": (TF32_MMA,),
+}
 # ln_quantize_rows (B3): the kernel and the plain version sum the row in
 # another order, so a code may sit one level off at a bin edge; the row
 # scales agree to fp32 rounding.
@@ -246,7 +266,13 @@ DECODER_RTOL, DECODER_ATOL = 0.0, 0.0
 # rate and the sum, over the types of its operations, of each count over
 # that type's rate.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12,
+                  "tf32": 495e12}
+# An fp32 product's bound is the smaller of its fp32 FMAs and three TF32
+# tensor-core products of the split operands (tf32x3.cuh), since the card
+# computes the fp32-accurate function either way; the kernels line keeps
+# both under "bounds".
+TF32_SPLIT_PRODUCTS = 3
 # Serving: the kernel path's half-res logits may stray from the plain
 # path (patch matmul form + einsum attention, same bf16 weights) by at
 # most twice what the plain bf16 path strays from the fp32 model, plus a
@@ -294,15 +320,31 @@ def bound(moved: int, ops: dict):
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
-def result(err, ms, plain_ms, moved, ops, library_ms=None):
-    bound_ms, bound_by = bound(moved, ops)
+def result(err, ms, plain_ms, moved, ops, library_ms=None,
+           split_tf32=False):
+    """A kernel's numbers. With `split_tf32` (a kernel whose "fp32"
+    operations are matrix products), their bound is also taken as
+    TF32_SPLIT_PRODUCTS TF32 products, and the smaller of the two bounds
+    is the row's."""
+    bounds = {"fp32": bound(moved, ops)}
+    if split_tf32:
+        split = {k: n for k, n in ops.items() if k != "fp32"}
+        split["tf32"] = TF32_SPLIT_PRODUCTS * ops["fp32"]
+        bounds["tf32x3"] = bound(moved, split)
+    name = min(bounds, key=lambda k: bounds[k][0])
+    bound_ms, bound_by = bounds[name]
     print(f"    bound {bound_ms:.4f} ms ({bound_by}: {moved / 1e6:.1f} MB, "
           + ", ".join(f"{n / 1e9:.1f} G {k}" for k, n in ops.items())
+          + (f"; fp32 FMAs {bounds['fp32'][0]:.4f} ms, split TF32 "
+             f"{bounds['tf32x3'][0]:.4f} ms" if len(bounds) > 1 else "")
           + f"); library call "
           + ("none" if library_ms is None else f"{library_ms:.4f} ms"))
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms}
+    if len(bounds) > 1:
+        row["bounds"] = {k: v[0] for k, v in bounds.items()}
+    return row
 
 
 def check_close(name, got, ref, rtol, atol, magnitude=None):
@@ -354,15 +396,17 @@ def phase_device_and_build():
     for line in ptxas_summary(load_kernels.build_log):
         print(f"  ptxas: {line}")
     for line in ptxas_summary(load_kernels.build_log):
-        if line.startswith(SASS_KERNELS):
-            print(f"  wgmma kernel spills (expect 0): {line}")
+        if line.startswith(tuple(SASS_REQUIRED)):
+            print(f"  tensor-core kernel spills (expect 0): {line}")
     sass_check()
     return name
 
 
 def sass_check():
-    """Fail unless every compiled copy of the SASS_KERNELS holds each of
-    SASS_OPS, read from the built library by `cuobjdump --dump-sass`."""
+    """Fail unless every compiled copy of each kernel of SASS_REQUIRED
+    holds each of its opcodes, read from the built library by
+    `cuobjdump --dump-sass`."""
+    import re
     from pathlib import Path
 
     from lseg_tpu_torch.ops._build import (
@@ -376,17 +420,21 @@ def sass_check():
                           capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         fail(f"cuobjdump: {proc.stderr.strip()[:500]}")
-    copies = {k: [] for k in SASS_KERNELS}
+    copies = {k: [] for k in SASS_REQUIRED}
     for sec in proc.stdout.split("Function : ")[1:]:
         name = _kernel_name(sec.split(None, 1)[0])
         if name in copies:
-            copies[name].append({op: op in sec for op in SASS_OPS})
+            copies[name].append([re.search(op, sec)
+                                 for op in SASS_REQUIRED[name]])
     for name, found in copies.items():
+        ops = SASS_REQUIRED[name]
+        seen = sorted({m.group(0) for f in found for m in f if m})
         print(f"  sass {name}: {len(found)} compiled copies, "
-              + ", ".join(f"{op} in {sum(f[op] for f in found)}"
-                          for op in SASS_OPS))
-        if not found or not all(all(f.values()) for f in found):
-            fail(f"sass: {name} lacks {'/'.join(SASS_OPS)} in a copy")
+              + ", ".join(f"{op} in {sum(bool(f[i]) for f in found)}"
+                          for i, op in enumerate(ops))
+              + f" (e.g. {', '.join(seen)})")
+        if not found or not all(all(f) for f in found):
+            fail(f"sass: {name} lacks {' / '.join(ops)} in a copy")
 
 
 def phase_kernels(dev):
@@ -607,9 +655,10 @@ def _flash_fp32(dev, g, scale):
         lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
             so, (q, k, v), dso, retain_graph=True))
         # the least work, five products (s, dp, dv, dq, dk), in fp32 FMAs
+        # or as split-TF32 products
         results["flash_attention_flat_bwd_fp32"] = result(
             max(errs), ms, plain_ms, nbytes(qkv, out, do, got),
-            {"fp32": 10 * 8 * 16 * t * t * 64}, lib_ms)
+            {"fp32": 10 * 8 * 16 * t * t * 64}, lib_ms, split_tf32=True)
         del q, k, v, so, dso
     return results
 
@@ -1335,9 +1384,10 @@ def _probe_path_kernels(dev, g):
         c = (r.float() + b).to(dt)
         lib_ms = cuda_time_ms(lambda: torch.addmm(c, x, w))
         m, k = x.shape
+        # fp32: the product in fp32 FMAs or as split-TF32 products
         res = result(err, ms, plain_ms, nbytes(x, w, b, r, out),
                      {"bf16" if dt == bf else "fp32": 2 * m * k * w.shape[1]},
-                     lib_ms)
+                     lib_ms, split_tf32=dt == f32)
         if dt == bf:
             results["dense_residual"] = res
         else:  # the fp32 mode's numbers beside the bf16 row's

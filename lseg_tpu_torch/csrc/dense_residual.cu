@@ -37,44 +37,46 @@
 // clipped: an epilogue that reads the residual from device memory pair by
 // pair after the main loop leaves the latency of every load exposed.
 // Otherwise the epilogue reads the residual and stores pairs from
-// registers. fp32 x: full fp32 products on the FMA units (67 TFLOP/s;
-// TF32 would round the operands to 10 mantissa bits), a register-tiled
-// SGEMM with 128 x 128 tiles and 8 x 8 outputs per thread, as B10's fp32
-// tile. Not yet: a persistent tile order that overlaps one tile's
-// epilogue with the next tile's loads.
+// registers.
+//
+// fp32 x: split-TF32 products on the same engine (tf32x3.cuh: three TF32
+// products of each operand's hi and lo keep ~21 bits of each, well inside
+// the fp32 gate, where one TF32 product would round the operands to 10
+// bits and fail it). At fc2 that is 3 x 60.5 GFLOP at 495 TFLOP/s, 0.367
+// ms, against 0.90 ms of fp32 FMAs at 67 TFLOP/s; ~193 MB move (0.058
+// ms). tf32 wgmma reads only K-major operands and w (K, N) is N-major, so
+// a pre-pass of the same launch sequence (split_transpose_kernel, 32 x 32
+// tiles through shared memory) writes w's split transposed into the
+// wrapper's scratch, w_hi^T and w_lo^T (N, K), 32 MB at fc2. The main
+// kernel keeps the producer warpgroup and the two consumer warpgroups on
+// a 128 x 128 tile (57 x 8 tiles at fc2, 3.5 waves) and a three-stage TMA
+// ring of 32-deep k-chunks (one 128-byte swizzle row of fp32): x's
+// 128 x 32 box, the w_hi^T and w_lo^T 128 x 32 boxes and a buffer for x's
+// lo, 64 KB a stage. Each consumer warpgroup rewrites its 64 rows of x in
+// place to hi and writes lo beside them, fences the generic-proxy writes
+// (fence.proxy.async) before a warpgroup barrier, and issues per k-step
+// of 8 three SS m64n128k8 tf32 products, x_lo . w_hi, x_hi . w_lo,
+// x_hi . w_hi. The tensor cores' accumulation truncates, and 1,536
+// truncating adds an output at K = 4096 drift past the gate: each chunk's
+// products go to a fresh partial sum, folded into the running sum with
+// round-to-nearest adds once complete (64 registers each; at 256 columns
+// the two would need 256 of the 168 registers a thread the kernel
+// compiles to, so the tile is 128 wide). A warpgroup splits the next
+// chunk while the products of the last run, and the other warpgroup's
+// products fill the gap while it folds. The epilogue is the register
+// epilogue above: bias, then residual, each `_rn`, one rounding. TMA
+// zero-fills the ragged row edge, the columns past N and a ragged last
+// k-chunk, and zero splits into zeros. Not yet: a persistent tile order
+// that overlaps one tile's epilogue with the next tile's loads (for both
+// modes).
 
 #include "lseg_common.cuh"
+#include "tf32x3.cuh"
 #include "wgmma_gemm.cuh"
 
 namespace {
 
 namespace wg = lseg::wg;
-
-constexpr int THREADS = 256;
-
-// the bias, then the residual (resid_kind 0 none, 1 bf16, 2 fp32), each
-// added in fp32 and rounded on its own
-__device__ __forceinline__ float epilogue(float acc, const float* b,
-                                          const void* r, int resid_kind,
-                                          long long idx, int col) {
-  float v = __fadd_rn(acc, b[col]);
-  if (resid_kind == 1) {
-    v = __fadd_rn(v, __bfloat162float(
-                         static_cast<const __nv_bfloat16*>(r)[idx]));
-  } else if (resid_kind == 2) {
-    v = __fadd_rn(v, static_cast<const float*>(r)[idx]);
-  }
-  return v;
-}
-
-__device__ __forceinline__ void store(void* out, int out_bf16, long long idx,
-                                      float v) {
-  if (out_bf16) {
-    static_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16_rn(v);
-  } else {
-    static_cast<float*>(out)[idx] = v;
-  }
-}
 
 // ---- bf16 x: wgmma from a TMA ring (wgmma_gemm.cuh) ----
 
@@ -117,6 +119,42 @@ __device__ __forceinline__ float2 add_pair(float a0, float a1, float b0,
     v1 = __fadd_rn(v1, rv.y);
   }
   return make_float2(v0, v1);
+}
+
+// The register epilogue of one consumer warpgroup's 64 rows from row0:
+// bias and residual on each pair of accumulators (add_pair), one rounding
+// to the output dtype; rows past M and columns past N are not stored.
+template <int NT>
+__device__ __forceinline__ void store_pairs(const float (&acc)[NT][4],
+                                            const float* bias, const void* r,
+                                            void* out, int row0, int n0,
+                                            int M, int N, int resid_kind,
+                                            int out_bf16) {
+  const int tid = threadIdx.x % WG_THREADS;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + warp * 16 + g + 8 * half;
+    if (row >= M) continue;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int cl = nt * 8 + 2 * t4;
+      const int col = n0 + cl;
+      if (col >= N) continue;  // N % 8 == 0: col + 1 < N as well
+      const long long idx = static_cast<long long>(row) * N + col;
+      const float2 v =
+          add_pair(acc[nt][2 * half], acc[nt][2 * half + 1], bias[cl],
+                   bias[cl + 1], r, resid_kind, idx);
+      if (out_bf16) {
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) +
+                                           idx) =
+            __floats2bfloat162_rn(v.x, v.y);
+      } else {
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + idx) = v;
+      }
+    }
+  }
 }
 
 // One 128 x 256 output tile a block: warpgroup 0 is the producer (one
@@ -240,110 +278,142 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1) dense_wgmma_kernel(
     }
     return;
   }
+  store_pairs(acc, sm.bias[c], r, out, m0 + c * 64, n0, M, N, resid_kind,
+              out_bf16);
+}
+
+// ---- fp32 x: split-TF32 wgmma from a TMA ring (tf32x3.cuh) ----
+
+constexpr int TN = 128;                // columns per block
+constexpr int TK = 32;                 // fp32 k per stage: one swizzle row
+constexpr int TSTAGES = 3;
+constexpr int TA_BYTES = BM * TK * 4;  // 16 KB: x
+constexpr int TB_BYTES = TN * TK * 4;  // 16 KB: each of w_hi^T, w_lo^T
+
+struct Tf32Smem {
+  float a[TSTAGES][BM * TK];     // x, rewritten in place to its hi
+  float a_lo[TSTAGES][BM * TK];  // x's lo, the same swizzled layout
+  float b_hi[TSTAGES][TN * TK];
+  float b_lo[TSTAGES][TN * TK];
+  float bias[2][TN];
+  lseg::gemm::Ring<TSTAGES> ring;
+};
+constexpr int TF32_SMEM = sizeof(Tf32Smem) + 1024;  // + alignment slack
+
+// The pre-pass: w (K, N) -> its split transposed, hi and lo (N, K), the
+// K-major operands of tf32 wgmma; one 32 x 32 tile a block through
+// shared memory (rows padded to 33 floats), coalesced on both sides.
+__global__ void __launch_bounds__(256) split_transpose_kernel(
+    const float* __restrict__ w, float* __restrict__ hi,
+    float* __restrict__ lo, int K, int N) {
+  __shared__ float tile[32][33];
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const int n0 = blockIdx.x * 32, k0 = blockIdx.y * 32;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = m0 + c * 64 + warp * 16 + g + 8 * half;
-    if (row >= M) continue;
+  for (int j = 0; j < 32; j += 8) {
+    const int k = k0 + ty + j, n = n0 + tx;
+    tile[ty + j][tx] =
+        k < K && n < N ? w[static_cast<long long>(k) * N + n] : 0.0f;
+  }
+  __syncthreads();
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      const int cl = nt * 8 + 2 * t4;
-      const int col = n0 + cl;
-      if (col >= N) continue;  // N % 8 == 0: col + 1 < N as well
-      const long long idx = static_cast<long long>(row) * N + col;
-      const float2 v =
-          add_pair(acc[nt][2 * half], acc[nt][2 * half + 1],
-                   sm.bias[c][cl], sm.bias[c][cl + 1], r, resid_kind, idx);
-      if (out_bf16) {
-        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) +
-                                           idx) =
-            __floats2bfloat162_rn(v.x, v.y);
-      } else {
-        *reinterpret_cast<float2*>(static_cast<float*>(out) + idx) = v;
-      }
+  for (int j = 0; j < 32; j += 8) {
+    const int n = n0 + ty + j, k = k0 + tx;
+    if (n < N && k < K) {
+      uint32_t h, l;
+      lseg::tf32x3::split(tile[tx][ty + j], h, l);
+      const long long i = static_cast<long long>(n) * K + k;
+      hi[i] = __uint_as_float(h);
+      lo[i] = __uint_as_float(l);
     }
   }
 }
 
-// ---- fp32 x: SIMT FMAs ----
+// One 128 x 128 output tile a block: warpgroup 0 the producer (x, w_hi^T
+// and w_lo^T boxes a stage), warpgroups 1 and 2 the consumers of 64 rows
+// each. The tensor cores' fp32 accumulation truncates, and over K = 4096
+// (1,536 products an output) that drifts past the fp32 gate, so each
+// chunk's products go to a fresh partial sum, folded into the running sum
+// with round-to-nearest adds once complete. A warpgroup splits chunk kc
+// while chunk kc - 1's products run, then waits for them, folds, and
+// issues kc; the other warpgroup's products keep the tensor cores busy
+// across that gap.
+__global__ void __launch_bounds__(GEMM_THREADS, 1) dense_tf32x3_kernel(
+    const __grid_constant__ CUtensorMap map_x,
+    const __grid_constant__ CUtensorMap map_wh,
+    const __grid_constant__ CUtensorMap map_wl, const float* __restrict__ b,
+    const void* __restrict__ r, void* __restrict__ out, int M, int K, int N,
+    int resid_kind, int out_bf16) {
+  namespace gm = lseg::gemm;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  Tf32Smem& sm = *reinterpret_cast<Tf32Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int wg_id = threadIdx.x / WG_THREADS;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * TN;
+  const int n_k = (K + TK - 1) / TK;  // TMA zero-fills a ragged last chunk
 
-constexpr int FM = 128;  // rows per block
-constexpr int FN = 128;  // columns per block
-constexpr int FK = 16;   // k per staged slice
-constexpr int PAD = 4;   // keeps the transposed stores off one bank
+  if (threadIdx.x == 0) sm.ring.init(2);
+  __syncthreads();
 
-__global__ void __launch_bounds__(THREADS) dense_fp32_kernel(
-    const float* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ b, const void* __restrict__ r,
-    void* __restrict__ out, int M, int K, int N, int resid_kind,
-    int out_bf16) {
-  __shared__ __align__(16) float As[FK][FM + PAD];  // x^T
-  __shared__ __align__(16) float Bs[FK][FN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // column group: columns tx + 16 j
-  const int ty = tid / 16;  // row group: rows ty + 16 i
-  const int m0 = blockIdx.y * FM;
-  const int n0 = blockIdx.x * FN;
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += FK) {
-    // x: thread -> (row, 4 k); consecutive threads take consecutive rows
-    // so the transposed shared stores do not conflict
-    for (int i = tid; i < FM * (FK / 4); i += THREADS) {
-      const int rr = i % FM;
-      const int c = (i / FM) * 4;
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (m0 + rr < M && k0 + c < K)
-        v = *reinterpret_cast<const float4*>(
-            x + static_cast<long long>(m0 + rr) * K + k0 + c);
-      As[c][rr] = v.x;
-      As[c + 1][rr] = v.y;
-      As[c + 2][rr] = v.z;
-      As[c + 3][rr] = v.w;
+  if (wg_id == 0) {
+    gm::regs_dec<40>();
+    if (threadIdx.x == 0) {
+      for (int kc = 0; kc < n_k; ++kc) {
+        const int s = sm.ring.acquire(kc, TA_BYTES + 2 * TB_BYTES);
+        gm::tma_load_2d(sm.a[s], &map_x, &sm.ring.full[s], kc * TK, m0);
+        gm::tma_load_2d(sm.b_hi[s], &map_wh, &sm.ring.full[s], kc * TK, n0);
+        gm::tma_load_2d(sm.b_lo[s], &map_wl, &sm.ring.full[s], kc * TK, n0);
+      }
     }
-    for (int i = tid; i < FK * (FN / 4); i += THREADS) {
-      const int rr = i / (FN / 4);
-      const int c = (i % (FN / 4)) * 4;
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (k0 + rr < K && n0 + c < N)
-        v = *reinterpret_cast<const float4*>(
-            w + static_cast<long long>(k0 + rr) * N + n0 + c);
-      *reinterpret_cast<float4*>(&Bs[rr][c]) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < FK; ++kk) {
-      float a[8], bv[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) bv[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+    return;
   }
 
+  gm::regs_inc<232>();
+  namespace t3 = lseg::tf32x3;
+  const int c = wg_id - 1;  // this warpgroup's 64 rows
+  const int tid = threadIdx.x % WG_THREADS;
+  for (int i = tid; i < TN; i += WG_THREADS)
+    sm.bias[c][i] = n0 + i < N ? b[n0 + i] : 0.0f;
+  float acc[TN / 8][4], part[TN / 8][4];
+  gm::zero(acc);
+  for (int kc = 0; kc < n_k; ++kc) {
+    const int s = sm.ring.wait(kc);
+    float* xh = sm.a[s] + c * 64 * TK;
+    float* xl = sm.a_lo[s] + c * 64 * TK;
+    // the split is elementwise, so the swizzled layout needs no index
+    // arithmetic: lo lands at the offset of its hi
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + ty + 16 * i;
-    if (row >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + tx + 16 * j;
-      if (col >= N) continue;
-      const long long idx = static_cast<long long>(row) * N + col;
-      store(out, out_bf16, idx,
-            epilogue(acc[i][j], b, r, resid_kind, idx, col));
+    for (int i = 0; i < 64 * TK / 4 / WG_THREADS; ++i) {
+      const int j = tid + i * WG_THREADS;
+      t3::split4(reinterpret_cast<float4*>(xh) + j,
+                 reinterpret_cast<float4*>(xl) + j);
     }
+    gm::fence_proxy_async();  // the split's writes before wgmma reads
+    wg::named_sync(2 + c, WG_THREADS);
+    if (kc > 0) {
+      wg::wait<0>();  // the previous chunk's products are complete
+      gm::fence_acc(part);
+      if (tid == 0) sm.ring.release(kc - 1);
+      t3::fold(acc, part);
+    }
+    gm::fence_acc(part);
+    wg::fence();
+    const uint64_t ah = wg::desc(xh), al = wg::desc(xl);
+    const uint64_t bh = wg::desc(sm.b_hi[s]), bl = wg::desc(sm.b_lo[s]);
+#pragma unroll
+    for (int kk = 0; kk < TK / 8; ++kk)
+      t3::wgmma3_128(part, wg::desc_kstep(ah, kk), wg::desc_kstep(al, kk),
+                     wg::desc_kstep(bh, kk), wg::desc_kstep(bl, kk),
+                     kk > 0);
+    wg::commit();
   }
+  wg::wait<0>();
+  gm::fence_acc(part);
+  t3::fold(acc, part);
+  wg::named_sync(2 + c, WG_THREADS);  // the bias is in shared memory
+  store_pairs(acc, sm.bias[c], r, out, m0 + c * 64, n0, M, N, resid_kind,
+              out_bf16);
 }
 
 }  // namespace
@@ -351,18 +421,20 @@ __global__ void __launch_bounds__(THREADS) dense_fp32_kernel(
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
 // x_bf16 selects x's and w's dtype (1 bf16, 0 fp32), resid_kind the
 // residual (0 none, 1 bf16, 2 fp32), out_bf16 the output dtype (1 bf16,
-// 0 fp32). Requires k % 16 == 0, n % 8 == 0 and 16-byte aligned tensors
-// (checked by the wrapper; TMA needs rows of a multiple of 16 bytes).
+// 0 fp32). fp32 x also takes `w_split`, fp32 scratch of 2 * n * k floats
+// for w's split transposed (unused for bf16 x). Requires k % 16 == 0,
+// n % 8 == 0 and 16-byte aligned tensors (checked by the wrapper; TMA
+// needs rows of a multiple of 16 bytes).
 extern "C" int lseg_dense_residual(const void* x, const void* w,
-                                   const void* b, const void* r, void* out,
-                                   int m, int k, int n, int x_bf16,
-                                   int resid_kind, int out_bf16,
-                                   void* stream) {
+                                   const void* b, const void* r,
+                                   void* w_split, void* out, int m, int k,
+                                   int n, int x_bf16, int resid_kind,
+                                   int out_bf16, void* stream) {
+  namespace gm = lseg::gemm;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16) {
     static const int attr = wg::allow_smem(dense_wgmma_kernel, GEMM_SMEM);
     if (attr != 0) return attr;
-    namespace gm = lseg::gemm;
     const int staged = out_bf16 && resid_kind != 2;
     CUtensorMap map_x, map_w, map_r, map_o;
     int rc = gm::make_map_2d(&map_x, x, 2, k, m, BK, BM, true);
@@ -378,10 +450,24 @@ extern "C" int lseg_dense_residual(const void* x, const void* w,
         map_x, map_w, map_r, map_o, static_cast<const float*>(b), r, out, m,
         k, n, resid_kind, out_bf16, staged);
   } else {
-    const dim3 grid((n + FN - 1) / FN, (m + FM - 1) / FM);
-    dense_fp32_kernel<<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<const float*>(b), r, out, m, k, n, resid_kind, out_bf16);
+    static const int attr =
+        wg::allow_smem(dense_tf32x3_kernel, TF32_SMEM);
+    if (attr != 0) return attr;
+    float* hi = static_cast<float*>(w_split);
+    float* lo = hi + static_cast<long long>(n) * k;
+    split_transpose_kernel<<<dim3((n + 31) / 32, (k + 31) / 32), 256, 0,
+                             s>>>(static_cast<const float*>(w), hi, lo, k,
+                                  n);
+    int rc = static_cast<int>(cudaGetLastError());
+    CUtensorMap map_x, map_wh, map_wl;
+    if (rc == 0) rc = gm::make_map_2d(&map_x, x, 4, k, m, TK, BM, true);
+    if (rc == 0) rc = gm::make_map_2d(&map_wh, hi, 4, k, n, TK, TN, true);
+    if (rc == 0) rc = gm::make_map_2d(&map_wl, lo, 4, k, n, TK, TN, true);
+    if (rc != 0) return rc;
+    dense_tf32x3_kernel<<<dim3((n + TN - 1) / TN, (m + BM - 1) / BM),
+                          GEMM_THREADS, TF32_SMEM, s>>>(
+        map_x, map_wh, map_wl, static_cast<const float*>(b), r, out, m, k,
+        n, resid_kind, out_bf16);
   }
   return static_cast<int>(cudaGetLastError());
 }

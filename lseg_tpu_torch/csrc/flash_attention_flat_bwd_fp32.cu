@@ -3,47 +3,198 @@
 // kernel B7 (the backward); the forward, B6's fp32 mode, is
 // flash_attention_flat_fp32.cu.
 //
-// Replaces: lseg_tpu/ops/pallas_attention.py · flash_attention_flat and
-// _flash_flat_bwd_impl (Pallas TPU) for fp32 inputs. The TPU kernels take
-// any qkv dtype; in fp32 `p.astype(v.dtype)` and the casts of pn and ds
-// are no-ops, so every step below is fp32 and no operand is rounded to
-// bf16 or TF32:
-//   forward:  s = (q . k^T) * scale; P = exp(s - m); l = sum P;
-//             O = (P . V) / l; lse = m + log(l)            (all fp32)
-//   backward: pn = exp(s - lse); dv = pn^T . dO; dp = dO . v^T;
-//             Dr = rowsum(dO * O); ds = pn * (dp - Dr);
-//             dq = (ds . k) * scale; dk = (ds^T . q) * scale (all fp32)
-// Keys at or past `valid_len` are masked. The forward's online softmax
-// rescales by the running row maximum (the TPU kernel takes the maximum of
-// the whole row), and the backward reads the forward's lse instead of
-// recomputing the row statistics: both differ from the reference at fp32
-// rounding. Exponentials are expf (full precision).
+// Replaces: lseg_tpu/ops/pallas_attention.py · _flash_flat_bwd_impl
+// (Pallas TPU) for fp32 inputs. The TPU kernel takes any qkv dtype; in
+// fp32 the casts of pn and ds are no-ops, so every step below is fp32:
+//   pn = exp(s - lse); dv = pn^T . dO; dp = dO . v^T;
+//   Dr = rowsum(dO * O); ds = pn * (dp - Dr);
+//   dq = (ds . k) * scale; dk = (ds^T . q) * scale
+// with s = (q . k^T) * scale. Keys at or past `valid_len` are masked. The
+// backward reads the forward's lse instead of recomputing the row
+// statistics: it differs from the reference at fp32 rounding.
+// Exponentials are expf (full precision).
 //
-// What bounds it on the card: the fp32 FMA units (67 TFLOP/s without
-// tensor cores; TF32 would round the operands to 10 mantissa bits). At
-// the flagship (8, 901, 3072) with 16 heads the forward is 2 * 2*T*T*64
-// FLOP per head, 26.6 GFLOP (0.40 ms), the backward's least work five
-// such products, 66.5 GFLOP (0.99 ms); inputs are 89 MB (0.03 ms).
+// What bounds it on the card: the products. At the flagship (8, 901,
+// 3072) with 16 heads the least work is five products of 2*T*T*64 FLOP
+// per head, 66.5 GFLOP: 0.99 ms of fp32 FMAs at 67 TFLOP/s, or 0.403 ms
+// as split-TF32 tensor-core products (tf32x3.cuh: three TF32 products of
+// each operand's hi and lo keep ~21 bits of each, inside the 1e-4 gate,
+// where one TF32 product would round the operands to 10 bits); inputs
+// are 89 MB (0.03 ms).
 //
-// Design, a simple SIMT kernel: one 256-thread block per (64-row tile,
-// head, image); tiles are staged from device memory into shared memory
-// and each thread of a 16 x 16 grid holds a 4 x 4 tile of every product
-// (flash_fp32.cuh).
-//   forward: per key tile, S = Q.K^T into shared memory, the row
-//     statistics by 4 threads a row, O = O * alpha + P.V in registers;
-//   backward pass 1 (one block per query tile): Dr, then per key tile S
-//     and dP, ds into shared memory, dQ += ds.K;
-//   backward pass 2 (one block per key tile): per query tile S^T and
-//     dP^T, pn^T and ds^T into shared memory, dV += pn^T.dO and
-//     dK += ds^T.Q.
-// Nothing is summed with atomics, so the result is deterministic. Not
-// yet: asynchronous staging, register-blocked products above 4 x 4.
+// Design: split TF32 on mma.sync m16n8k8 (tf32 wgmma reads only K-major
+// operands, and three of the backward's products contract over the rows
+// of a staged tile: dV += pn^T . dO, dK += ds^T . Q, dQ += ds . K). One
+// 256-thread block per (64-row tile, head, image); warp w takes rows
+// 16 (w % 4).. of the block's tile against one half, 32 (w / 4).., of
+// the other tile's 64 rows, so each of the two warps of a row group sums
+// its rows' dQ (dK, dV) over half of the keys (queries), and the halves
+// are added once, through shared memory, at the end. Tiles are staged as
+// padded fp32 rows (68 floats, so every fragment load of a warp hits 32
+// distinct banks) by cp.async into a two-stage ring, the next tile's
+// copies in flight under this tile's products; fragments are read from
+// the tiles in either orientation (the transpose is free at the load)
+// and split in registers. A score tile in the C layout feeds the product
+// over its columns from registers: its columns 2t and 2t + 1 of each 8
+// become the A fragment's columns t and t + 4, and the B fragment reads
+// the matching rows of the staged tile. The column halves keep a thread
+// at 128 registers, so two blocks (16 warps) share an SM.
+//   pass 1 (one block per query tile): Dr, then per key tile S and dP,
+//     ds in registers, dQ += ds . K;
+//   pass 2 (one block per key tile): per query tile S^T and dP^T, pn^T
+//     and ds^T in registers, dV += pn^T . dO and dK += ds^T . Q.
+// The tensor cores' accumulation truncates (tf32x3.cuh): a half's sum
+// over T = 901 takes at most 15 tiles x 4 x 3 = 180 truncating adds,
+// ~2e-5 of its magnitude at worst, inside the 1e-4 gate. Nothing is
+// summed with atomics, so the result is deterministic. Seven products per
+// tile pair, against the least five: S and dP are computed in both
+// passes.
 
-#include "flash_fp32.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
-using namespace lseg::flash_fp32;
+namespace t3 = lseg::tf32x3;
+
+constexpr int HD = 64;        // head_dim (the kernel is specialised)
+constexpr int BT = 64;        // rows of every tile
+constexpr int LD = HD + 4;    // padded row stride of a staged tile, floats
+constexpr int THREADS = 256;  // 8 warps: 4 row groups x 2 halves
+constexpr int TILE_FLOATS = BT * LD;
+
+__device__ __forceinline__ float pos_inf() {
+  return __int_as_float(0x7f800000);
+}
+
+// ---- staging by cp.async ----------------------------------------------------
+
+// 16 bytes global -> shared, zero-filled where !valid (nothing is read)
+__device__ __forceinline__ void cp16(float* dst, const float* src,
+                                     bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   lseg::wg::smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start copying 64 rows of 64 fp32 (columns col..col+63 of rows row0.. of
+// one image's (T, ld) rows) into a padded tile; rows >= T are zero.
+__device__ __forceinline__ void stage(float* dst, const float* base,
+                                      long long ld, int col, int row0,
+                                      int T) {
+  for (int i = threadIdx.x; i < BT * (HD / 4); i += THREADS) {
+    const int r = i / (HD / 4);
+    const int c = (i % (HD / 4)) * 4;
+    const bool in = row0 + r < T;
+    cp16(dst + r * LD + c, base + (in ? row0 + r : 0) * ld + col + c, in);
+  }
+}
+
+// ---- split-TF32 products on padded tiles ------------------------------------
+// g = lane / 4, t = lane % 4; a warp owns rows r0..r0+15 of its products
+// and columns c0..c0+31 of the score tiles, accumulator tiles `float
+// c[NJ][4]` in the C layout over NJ column tiles of 8.
+
+// c = A . B^T over the 64 columns of two tiles: A's rows r0.., B's rows
+// c0..c0+8NJ-1 as the columns of c.
+template <int NJ>
+__device__ __forceinline__ void dot_abt(float (&c)[NJ][4], const float* a,
+                                        const float* b, int r0, int c0,
+                                        int g, int t) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) {
+    const float* pa = a + (r0 + g) * LD + kk * 8 + t;
+    t3::Frag<4> fa;
+    fa.set(0, pa[0]);
+    fa.set(1, pa[8 * LD]);
+    fa.set(2, pa[4]);
+    fa.set(3, pa[8 * LD + 4]);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float* pb = b + (c0 + 8 * j + g) * LD + kk * 8 + t;
+      t3::Frag<2> fb;
+      fb.set(0, pb[0]);
+      fb.set(1, pb[4]);
+      t3::mma3(c[j], fa, fb);
+    }
+  }
+}
+
+// c += P . B: P a C-layout tile in registers (16 rows x 8NJ columns), B
+// a staged tile whose rows c0.. run along P's columns, c over B's 64
+// columns. Column 2t (2t + 1) of P's column tile j is the A fragment's
+// column t (t + 4), so the B fragment reads rows c0 + 8j + 2t and
+// c0 + 8j + 2t + 1.
+template <int NJ>
+__device__ __forceinline__ void acc_pb(float (&c)[8][4],
+                                       const float (&p)[NJ][4],
+                                       const float* b, int c0, int g,
+                                       int t) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    t3::Frag<4> fa;
+    fa.set(0, p[j][0]);
+    fa.set(1, p[j][2]);
+    fa.set(2, p[j][1]);
+    fa.set(3, p[j][3]);
+    const float* pb = b + (c0 + 8 * j + 2 * t) * LD + g;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      t3::Frag<2> fb;
+      fb.set(0, pb[8 * n]);
+      fb.set(1, pb[LD + 8 * n]);
+      t3::mma3(c[n], fa, fb);
+    }
+  }
+}
+
+// The two halves of a row group's sum: the warp of the second half (c0 >
+// 0) leaves its tile in `red` (4 x 8 x 4 x 32 floats), the first adds it,
+// round to nearest. Call from every thread, after the last products.
+__device__ __forceinline__ void add_halves(float (&c)[8][4], float* red,
+                                           int r0, int c0, int lane) {
+  float* mine = red + (r0 / 16) * 8 * 4 * 32 + lane;
+  if (c0 > 0)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mine[(n * 4 + e) * 32] = c[n][e];
+  __syncthreads();
+  if (c0 == 0)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        c[n][e] = __fadd_rn(c[n][e], mine[(n * 4 + e) * 32]);
+}
+
+// Store a warp's C-layout tile times `mult` at column `col` of rows
+// row0.. of one image's (T, ld) rows; rows >= T skipped.
+__device__ __forceinline__ void store_tile(float* base, long long ld,
+                                           int col, int row0, int T,
+                                           const float (&c)[8][4],
+                                           float mult, int g, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + g + 8 * h;
+    if (row >= T) continue;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<float2*>(base + row * ld + col + 8 * n + 2 * t) =
+          make_float2(c[n][2 * h] * mult, c[n][2 * h + 1] * mult);
+  }
+}
 
 // ---- backward ---------------------------------------------------------------
 
@@ -61,18 +212,19 @@ struct Args {
 struct DqSmem {
   float q[TILE_FLOATS];
   float dout[TILE_FLOATS];
-  float k[TILE_FLOATS];
-  float v[TILE_FLOATS];
-  float ds[TILE_FLOATS];
+  float k[2][TILE_FLOATS];
+  float v[2][TILE_FLOATS];
   float lse[BT];
   float dr[BT];
 };
 
 // pass 1: Dr and dQ, one block per 64 queries
-__global__ void __launch_bounds__(THREADS) bwd_dq_fp32_kernel(Args a) {
+__global__ void __launch_bounds__(THREADS, 2) bwd_dq_fp32_kernel(Args a) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
   DqSmem& sm = *reinterpret_cast<DqSmem*>(smem_raw);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = (warp % 4) * 16, c0 = (warp / 4) * 32;
   const int head = blockIdx.y, img = blockIdx.z, H = gridDim.y;
   const int T = a.T, D = a.D, vl = a.valid_len;
   const int q0 = blockIdx.x * BT;
@@ -81,9 +233,13 @@ __global__ void __launch_bounds__(THREADS) bwd_dq_fp32_kernel(Args a) {
   const float* dob = a.dout + static_cast<long long>(img) * T * D;
   const float* ob = a.out + static_cast<long long>(img) * T * D;
   const long long plane = (static_cast<long long>(img) * H + head) * T;
+  const int n_kt = (vl + BT - 1) / BT;
 
   stage(sm.q, base, ld, head * HD, q0, T);
   stage(sm.dout, dob, D, head * HD, q0, T);
+  stage(sm.k[0], base, ld, D + head * HD, 0, T);
+  stage(sm.v[0], base, ld, 2 * D + head * HD, 0, T);
+  cp_commit();
   {
     // Dr = rowsum(dO * O): 4 threads a row, 16 columns each
     const int row = tid / 4, part = tid % 4, grow = q0 + row;
@@ -91,8 +247,16 @@ __global__ void __launch_bounds__(THREADS) bwd_dq_fp32_kernel(Args a) {
     if (grow < T) {
       const long long off = static_cast<long long>(grow) * D + head * HD +
                             part * 16;
+      const float4* d4 = reinterpret_cast<const float4*>(dob + off);
+      const float4* o4 = reinterpret_cast<const float4*>(ob + off);
 #pragma unroll
-      for (int c = 0; c < 16; ++c) acc = fmaf(dob[off + c], ob[off + c], acc);
+      for (int c = 0; c < 4; ++c) {
+        const float4 x = d4[c], y = o4[c];
+        acc = fmaf(x.x, y.x, acc);
+        acc = fmaf(x.y, y.y, acc);
+        acc = fmaf(x.z, y.z, acc);
+        acc = fmaf(x.w, y.w, acc);
+      }
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
@@ -102,56 +266,63 @@ __global__ void __launch_bounds__(THREADS) bwd_dq_fp32_kernel(Args a) {
       if (grow < T) a.dr[plane + grow] = acc;
     }
   }
-  float dq[4][4];
+  __syncthreads();
+  const float lse[2] = {sm.lse[r0 + g], sm.lse[r0 + g + 8]};
+  const float dr[2] = {sm.dr[r0 + g], sm.dr[r0 + g + 8]};
+  float dq[8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < 8; ++n)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dq[i][j] = 0.0f;
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.0f;
 
-  const int n_kt = (vl + BT - 1) / BT;
-  for (int t = 0; t < n_kt; ++t) {
-    const int k0 = t * BT;
-    stage(sm.k, base, ld, D + head * HD, k0, T);
-    stage(sm.v, base, ld, 2 * D + head * HD, k0, T);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    dot_abt(s, sm.q, sm.k, ty, tx);
-    dot_abt(dp, sm.dout, sm.v, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const float l = sm.lse[r], d = sm.dr[r];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + tx + 16 * j;
-        const float pn = key < vl ? expf(s[i][j] * a.scale - l) : 0.0f;
-        sm.ds[r * LD + tx + 16 * j] = pn * (dp[i][j] - d);
-      }
+  for (int it = 0; it < n_kt; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_kt) {  // the next key tile, in flight under this one
+      stage(sm.k[st ^ 1], base, ld, D + head * HD, (it + 1) * BT, T);
+      stage(sm.v[st ^ 1], base, ld, 2 * D + head * HD, (it + 1) * BT, T);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
     __syncthreads();
-    acc_pb(dq, sm.ds, sm.k, ty, tx);
-    __syncthreads();  // k, v and ds are restaged next tile
+    float s[4][4], dp[4][4];
+    dot_abt(s, sm.q, sm.k[st], r0, c0, g, t);
+    dot_abt(dp, sm.dout, sm.v[st], r0, c0, g, t);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = it * BT + c0 + 8 * j + 2 * t + (e & 1);
+        const float pn =
+            key < vl ? expf(s[j][e] * a.scale - lse[e >> 1]) : 0.0f;
+        s[j][e] = pn * (dp[j][e] - dr[e >> 1]);  // ds
+      }
+    acc_pb(dq, s, sm.k[st], c0, g, t);
+    __syncthreads();  // this stage is restaged next tile
   }
-  store_tile(a.dqkv + static_cast<long long>(img) * T * ld, ld, head * HD,
-             q0, T, dq, a.scale, ty, tx);
+  add_halves(dq, &sm.k[0][0], r0, c0, lane);
+  if (c0 == 0)
+    store_tile(a.dqkv + static_cast<long long>(img) * T * ld, ld,
+               head * HD, q0 + r0, T, dq, a.scale, g, t);
 }
 
 struct DkvSmem {
   float k[TILE_FLOATS];
   float v[TILE_FLOATS];
-  float q[TILE_FLOATS];
-  float dout[TILE_FLOATS];
-  float pn[TILE_FLOATS];
-  float ds[TILE_FLOATS];
-  float lse[BT];
-  float dr[BT];
+  float q[2][TILE_FLOATS];
+  float dout[2][TILE_FLOATS];
+  float lse[2][BT];
+  float dr[2][BT];
 };
 
 // pass 2: dK and dV, one block per 64 keys
-__global__ void __launch_bounds__(THREADS) bwd_dkdv_fp32_kernel(Args a) {
+__global__ void __launch_bounds__(THREADS, 2) bwd_dkdv_fp32_kernel(Args a) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
   DkvSmem& sm = *reinterpret_cast<DkvSmem*>(smem_raw);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = (warp % 4) * 16, c0 = (warp / 4) * 32;
   const int head = blockIdx.y, img = blockIdx.z, H = gridDim.y;
   const int T = a.T, D = a.D, vl = a.valid_len;
   const int k0 = blockIdx.x * BT;
@@ -159,52 +330,74 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv_fp32_kernel(Args a) {
   const float* base = a.qkv + static_cast<long long>(img) * T * ld;
   const float* dob = a.dout + static_cast<long long>(img) * T * D;
   const long long plane = (static_cast<long long>(img) * H + head) * T;
+  const int n_qt = (T + BT - 1) / BT;
+
+  // a query tile's row statistics: lse (+inf past T) by threads 0..63,
+  // Dr (0 past T) by threads 64..127
+  auto stat = [&](int q0) {
+    const int row = q0 + tid % BT;
+    return tid < BT ? (row < T ? a.lse[plane + row] : pos_inf())
+                    : (row < T ? a.dr[plane + row] : 0.0f);
+  };
+  auto put_stat = [&](int st, float v) {
+    if (tid < BT)
+      sm.lse[st][tid] = v;
+    else if (tid < 2 * BT)
+      sm.dr[st][tid - BT] = v;
+  };
 
   stage(sm.k, base, ld, D + head * HD, k0, T);
   stage(sm.v, base, ld, 2 * D + head * HD, k0, T);
-  float dk[4][4], dv[4][4];
+  stage(sm.q[0], base, ld, head * HD, 0, T);
+  stage(sm.dout[0], dob, D, head * HD, 0, T);
+  cp_commit();
+  if (tid < 2 * BT) put_stat(0, stat(0));
+  const bool key_in[2] = {k0 + r0 + g < vl, k0 + r0 + g + 8 < vl};
+  float dk[8][4], dv[8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < 8; ++n)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dk[i][j] = dv[i][j] = 0.0f;
-  bool key_in[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) key_in[i] = k0 + ty + 16 * i < vl;
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
 
-  const int n_qt = (T + BT - 1) / BT;
-  for (int t = 0; t < n_qt; ++t) {
-    const int q0 = t * BT;
-    stage(sm.q, base, ld, head * HD, q0, T);
-    stage(sm.dout, dob, D, head * HD, q0, T);
-    if (tid < BT) {
-      const bool in = q0 + tid < T;
-      sm.lse[tid] = in ? a.lse[plane + q0 + tid] : pos_inf();
-      sm.dr[tid] = in ? a.dr[plane + q0 + tid] : 0.0f;
+  for (int it = 0; it < n_qt; ++it) {
+    const int st = it & 1;
+    const bool more = it + 1 < n_qt;
+    float next = 0.0f;
+    if (more) {  // the next query tile, in flight under this one
+      stage(sm.q[st ^ 1], base, ld, head * HD, (it + 1) * BT, T);
+      stage(sm.dout[st ^ 1], dob, D, head * HD, (it + 1) * BT, T);
+      cp_commit();
+      if (tid < 2 * BT) next = stat((it + 1) * BT);  // stored below
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
     __syncthreads();
     float s[4][4], dp[4][4];
-    dot_abt(s, sm.k, sm.q, ty, tx);     // S^T: keys x queries
-    dot_abt(dp, sm.v, sm.dout, ty, tx);  // dP^T
+    dot_abt(s, sm.k, sm.q[st], r0, c0, g, t);      // S^T: keys x queries
+    dot_abt(dp, sm.v, sm.dout[st], r0, c0, g, t);  // dP^T
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float pn =
-            key_in[i] ? expf(s[i][j] * a.scale - sm.lse[c]) : 0.0f;
-        sm.pn[r * LD + c] = pn;
-        sm.ds[r * LD + c] = pn * (dp[i][j] - sm.dr[c]);
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + 8 * j + 2 * t + (e & 1);
+        const float pn = key_in[e >> 1]
+                             ? expf(s[j][e] * a.scale - sm.lse[st][c])
+                             : 0.0f;
+        s[j][e] = pn;
+        dp[j][e] = pn * (dp[j][e] - sm.dr[st][c]);  // ds^T
       }
-    }
-    __syncthreads();
-    acc_pb(dv, sm.pn, sm.dout, ty, tx);
-    acc_pb(dk, sm.ds, sm.q, ty, tx);
-    __syncthreads();  // q, dout, pn and ds are restaged next tile
+    acc_pb(dv, s, sm.dout[st], c0, g, t);
+    acc_pb(dk, dp, sm.q[st], c0, g, t);
+    if (more) put_stat(st ^ 1, next);
+    __syncthreads();  // this stage is restaged next tile
   }
-  float* ob = a.dqkv + static_cast<long long>(img) * T * ld;
-  store_tile(ob, ld, D + head * HD, k0, T, dk, a.scale, ty, tx);
-  store_tile(ob, ld, 2 * D + head * HD, k0, T, dv, 1.0f, ty, tx);
+  add_halves(dk, &sm.q[0][0], r0, c0, lane);
+  add_halves(dv, &sm.dout[0][0], r0, c0, lane);
+  if (c0 > 0) return;
+  float* out = a.dqkv + static_cast<long long>(img) * T * ld;
+  store_tile(out, ld, D + head * HD, k0 + r0, T, dk, a.scale, g, t);
+  store_tile(out, ld, 2 * D + head * HD, k0 + r0, T, dv, 1.0f, g, t);
 }
 
 }  // namespace

@@ -1,8 +1,9 @@
-// The fp32 tile helpers shared by the fp32 modes of kernels B6
-// (flash_attention_flat_fp32.cu) and B7 (flash_attention_flat_bwd_fp32.cu):
-// staging a 64 x 64 fp32 tile of the flat (T, 3D) rows into shared memory,
-// rows padded to 65 floats so a column walk hits 32 distinct banks, and
-// the 4 x 4 register tiles of a 16 x 16 thread grid over two such tiles.
+// The fp32 tile helpers of the fp32 mode of kernel B6
+// (flash_attention_flat_fp32.cu): staging a 64 x 64 fp32 tile of the flat
+// (T, 3D) rows into shared memory, rows padded to 65 floats so a column
+// walk hits 32 distinct banks, and the 4 x 4 register tiles of a 16 x 16
+// thread grid over two such tiles. (B7's fp32 mode runs split-TF32
+// products, tf32x3.cuh.)
 
 #pragma once
 
@@ -79,22 +80,6 @@ __device__ __forceinline__ void acc_pb(float (&c)[4][4], const float* p,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) c[i][j] = fmaf(pv[i], bv[j], c[i][j]);
-  }
-}
-
-// Store a 64 x 64 fp32 tile (rows r_i, columns d_j) times `mult` at
-// column `col` of the (T, ld) rows of one image; rows >= T skipped.
-__device__ __forceinline__ void store_tile(float* base, long long ld,
-                                           int col, int row0, int T,
-                                           const float (&c)[4][4],
-                                           float mult, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
-    if (row >= T) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      base[row * ld + col + tx + 16 * j] = c[i][j] * mult;
   }
 }
 

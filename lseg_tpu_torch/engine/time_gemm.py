@@ -14,9 +14,11 @@ older tree's kernels in the same call as this one's: run them in turns
 (old, new, new, old) and compare only within one call. A mode an older
 tree does not have (fp32 B6 and B7 before they were ported) reads null.
 `--library` adds the PyTorch calls (`torch.addmm`, `torch.matmul`, SDPA in
-fp32). Prints one JSON line: the card's name and power limit and each time
-in ms (CUDA events over 20 calls after 3 warm-ups). Without a card it
-exits 1.
+fp32) and the names of the device kernels that one fp32 SDPA call and its
+backward launch (`torch.profiler`), which say which of PyTorch's kernels
+computes them. Prints one JSON line: the card's name and power limit and
+each time in ms (CUDA events over 20 calls after 3 warm-ups). Without a
+card it exits 1.
 """
 
 from __future__ import annotations
@@ -62,6 +64,16 @@ def main(argv=None) -> int:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
+
+    def kernels(fn):
+        """Names of the device kernels one call of `fn` launches."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sorted({e.key for e in prof.key_averages()
+                       if e.device_time_total > 0})
 
     def mode_ms(fn):
         """ms of `fn`, or None where this tree's wrapper refuses the mode."""
@@ -119,10 +131,17 @@ def main(argv=None) -> int:
                     .clone().requires_grad_())
         sdpa = torch.nn.functional.scaled_dot_product_attention
         row["sdpa_fp32_ms"] = ms(lambda: sdpa(q, kk, v, scale=scale))
+        row["sdpa_fp32_kernels"] = kernels(lambda: sdpa(q, kk, v,
+                                                        scale=scale))
         so = sdpa(q, kk, v, scale=scale)
         dso = do.view(8, t, h, 64).transpose(1, 2)
-        row["sdpa_bwd_fp32_ms"] = ms(lambda: torch.autograd.grad(
-            so, (q, kk, v), dso, retain_graph=True))
+
+        def sdpa_bwd():
+            return torch.autograd.grad(so, (q, kk, v), dso,
+                                       retain_graph=True)
+
+        row["sdpa_bwd_fp32_ms"] = ms(sdpa_bwd)
+        row["sdpa_bwd_fp32_kernels"] = kernels(sdpa_bwd)
     print(json.dumps(row), flush=True)
     return 0
 

@@ -97,8 +97,9 @@ SIGNATURES = {
     # x, th, tw, wq, sc, bias, inv_in, inv_out, out, n, h, w, c, co,
     # out_int8, stream
     "lseg_fused_upsample_outconv": (_P,) * 9 + (_I,) * 6 + (_P,),
-    # x, w, b, resid, out, m, k, n, x_bf16, resid_kind, out_bf16, stream
-    "lseg_dense_residual": (_P,) * 5 + (_I,) * 6 + (_P,),
+    # x, w, b, resid, w_split (fp32 scratch), out, m, k, n, x_bf16,
+    # resid_kind, out_bf16, stream
+    "lseg_dense_residual": (_P,) * 6 + (_I,) * 6 + (_P,),
     # x, w_t, sw, out, m, k, stream
     "lseg_int8_sliced_scale": (_P,) * 4 + (_I,) * 2 + (_P,),
 }

@@ -71,9 +71,12 @@ def dense_residual(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                    residual: torch.Tensor | None = None, tile_m: int = 256,
                    out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Kernel wrapper (B17): the function of `dense_residual_plain`. x
-    bf16 runs on wgmma from a TMA ring (`csrc/wgmma_gemm.cuh`), x fp32 in
-    full fp32 FMAs; the kernel needs K % 16 == 0 and N % 8 == 0 and takes
-    any M. `tile_m` is accepted and unused."""
+    bf16 runs on wgmma from a TMA ring (`csrc/wgmma_gemm.cuh`), x fp32 on
+    split-TF32 wgmma products (`csrc/tf32x3.cuh`) after a pre-pass that
+    writes w's split transposed into scratch of 2 * N * K floats; the
+    kernel needs K % 16 == 0 and N % 8 == 0 (which also keeps the
+    scratch's rows 16-byte aligned for TMA) and takes any M. `tile_m` is
+    accepted and unused."""
     check_no_grad("dense_residual", x, w, b, residual)
     m, k, n = _check(x, w, b, residual, out_dtype)
     if x.device.type == "cpu":
@@ -92,11 +95,15 @@ def dense_residual(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     check_operands("dense_residual", operands)
     lib = load_kernels()
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    # fp32: scratch for w's split transposed, w_hi^T and w_lo^T (N, K)
+    w_split = (torch.empty((2, n, k), dtype=torch.float32, device=x.device)
+               if x.dtype == torch.float32 else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lseg_dense_residual(
             x.data_ptr(), wx.data_ptr(), bf.data_ptr(),
-            0 if residual is None else residual.data_ptr(), out.data_ptr(),
+            0 if residual is None else residual.data_ptr(),
+            0 if w_split is None else w_split.data_ptr(), out.data_ptr(),
             m, k, n, int(x.dtype == torch.bfloat16),
             _RESID_KIND[getattr(residual, "dtype", None)],
             int(out_dtype == torch.bfloat16), stream)

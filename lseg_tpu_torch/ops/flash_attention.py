@@ -9,8 +9,10 @@ FLOP per head for each of q.k^T and P.V, plus one exp per score) and how
 the design keeps scores out of device memory. With `return_lse` it also
 returns each row's log-sum-exp, the statistics the backward reads. fp32
 qkv (an fp32 model) takes B6's fp32 mode in
-`lseg_tpu_torch/csrc/flash_attention_flat_fp32.cu`, as B7's does: SIMT
-FMAs with every step in fp32, as the TPU kernels compute for fp32 inputs.
+`lseg_tpu_torch/csrc/flash_attention_flat_fp32.cu` (SIMT FMAs) and B7's
+in `flash_attention_flat_bwd_fp32.cu` (split-TF32 tensor-core products,
+`csrc/tf32x3.cuh`, ~21 bits of each operand): every step fp32-accurate,
+as the TPU kernels compute for fp32 inputs.
 
 B2 replaces `pallas_attention.py` · `flash_attention_ln_qkv_fused_q8`:
 LayerNorm 1 + per-row int8 quantize + int8 qkv projection + attention +

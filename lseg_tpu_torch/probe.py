@@ -67,8 +67,10 @@ B20_RTOL, B20_ATOL = 0.0, 0.0
 # another order, so an output may round one bf16 ulp apart (at most 2^-7
 # of |plain|), plus an absolute floor for sums that cancel to near zero.
 DENSE_RTOL, DENSE_ATOL = 2.0 ** -7, 1e-3
-# B17 with fp32 x: full fp32 products on both sides (TF32 off), summed in
-# another order: a few fp32 ulps, as for B10's fp32 mode.
+# B17 with fp32 x: split-TF32 products in the kernel (csrc/tf32x3.cuh, ~21
+# bits of each operand), full fp32 products in the plain version (TF32
+# off), summed in another order: a few fp32 ulps, as for B10's fp32 mode.
+# One TF32 product (10 bits) fails it (tests/test_torch_probe.py).
 DENSE_FP32_RTOL, DENSE_FP32_ATOL = 1e-5, 1e-4
 # B9: within 2e-2 of max|plain|, the bound of the reference's own variant
 # check: the LN codes and the online softmax may each round a step apart.

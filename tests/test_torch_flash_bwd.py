@@ -306,7 +306,9 @@ FP32_RTOL, FP32_ATOL, FP32_LSE_ATOL, FP32_BWD_REL = 1e-4, 2e-5, 1e-5, 1e-4
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,t,heads,valid_len",
                          [(2, 40, 2, None), (2, 130, 4, 100),
-                          (1, 901, 16, None)])
+                          (1, 901, 16, None), (2, 64, 2, None),
+                          (2, 65, 2, None), (2, 129, 2, 100),
+                          (1, 65, 4, None)])
 def test_fp32_kernels_match_plain_on_card(cuda_device, n, t, heads,
                                           valid_len):
     """B6 and B7 on fp32 qkv launch their fp32 modes (the wrappers do not
@@ -334,6 +336,181 @@ def test_fp32_kernels_match_plain_on_card(cuda_device, n, t, heads,
         assert err <= FP32_BWD_REL * ref[..., sl].abs().max()
     if valid_len is not None:
         assert not got[:, valid_len:, d:].any()
+
+
+# B7's fp32 mode (csrc/flash_attention_flat_bwd_fp32.cu) emulated on the
+# CPU: mma.sync m16n8k8 tf32 on its PTX fragment layout, fed by the
+# kernel's own fragment indices (g = lane / 4, t = lane % 4) for its 8
+# warps (rows 16 (w % 4).., score columns 32 (w / 4)..), every operand
+# split into TF32 hi and lo, the three products issued in the kernel's
+# order into a truncating accumulator, the two halves of each row group
+# added with round to nearest at the end.
+_LANE = np.arange(32)
+_G, _T = _LANE // 4, _LANE % 4
+_A_RC = [(_G, _T), (_G + 8, _T), (_G, _T + 4), (_G + 8, _T + 4)]
+_B_KN = [(_T, _G), (_T + 4, _G)]
+_C_RC = [(_G, 2 * _T), (_G, 2 * _T + 1), (_G + 8, 2 * _T),
+         (_G + 8, 2 * _T + 1)]
+_WARP = np.arange(8)[:, None]
+_R0, _C0 = 16 * (_WARP % 4), 32 * (_WARP // 4)  # (8, 1) each
+
+
+def _split(v):
+    """hi rounded to TF32 to nearest (ties away), lo = v - hi truncated to
+    TF32 as the tensor cores read it."""
+    bits = np.asarray(v, np.float32).view(np.uint32).astype(np.uint64)
+    hi = ((bits + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+    lo = (v - hi).astype(np.float32).view(np.uint32) & np.uint32(0xFFFFE000)
+    return hi, lo.view(np.float32)
+
+
+def _rz(v):
+    """fp64 -> fp32 rounded toward zero (the tensor cores' accumulation)."""
+    f = v.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(v)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def _mma3(c, a, b):
+    """c (8, 32, 4) += a (8, 32, 4) . b (8, 32, 2) per warp, in split
+    TF32: a_lo . b_hi, a_hi . b_lo, a_hi . b_hi, each summed exactly and
+    added to the fp32 accumulator with truncation."""
+
+    def mat(f, layout, shape):
+        m = np.zeros((8,) + shape)
+        for i, (r, k) in enumerate(layout):
+            m[_WARP, r, k] = f[..., i]
+        return m
+
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    cm = mat(c, _C_RC, (16, 8))
+    for fa, fb in ((al, bh), (ah, bl), (ah, bh)):
+        cm = _rz(cm + mat(fa, _A_RC, (16, 8)) @ mat(fb, _B_KN, (8, 8)))
+    return np.stack([cm[_WARP, r, k] for r, k in _C_RC], axis=-1)
+
+
+def _dot_abt(a, b):
+    """The kernel's dot_abt: a, b (64, 64) tiles -> (8, 4, 32, 4), warp
+    w's rows r0.. of a against rows c0.. of b."""
+    c = np.zeros((8, 4, 32, 4), np.float32)
+    for kk in range(8):
+        col = kk * 8 + _T
+        fa = np.stack([a[_R0 + _G, col], a[_R0 + _G + 8, col],
+                       a[_R0 + _G, col + 4], a[_R0 + _G + 8, col + 4]], -1)
+        for j in range(4):
+            row = _C0 + 8 * j + _G
+            fb = np.stack([b[row, col], b[row, col + 4]], -1)
+            c[:, j] = _mma3(c[:, j], fa, fb)
+    return c
+
+
+def _acc_pb(c, p, b):
+    """The kernel's acc_pb: c (8, 8, 32, 4) += P . B, P a (8, 4, 32, 4)
+    score tile, its columns 2t, 2t + 1 of tile j as the A fragment's t,
+    t + 4, against rows c0.. of b."""
+    for j in range(4):
+        fa = p[:, j][..., [0, 2, 1, 3]]
+        row = _C0 + 8 * j + 2 * _T
+        for n in range(8):
+            fb = np.stack([b[row, 8 * n + _G], b[row + 1, 8 * n + _G]], -1)
+            c[:, n] = _mma3(c[:, n], fa, fb)
+    return c
+
+
+def _c_layout(nt, col0):
+    """Row and column of each element of a warp's C-layout tile of nt
+    column tiles (columns from col0 per warp): (8, nt, 32, 4) each."""
+    r = _R0[:, :, None, None] + np.stack([_G, _G, _G + 8, _G + 8], -1)
+    c = (col0[:, :, None, None] + 8 * np.arange(nt)[None, :, None, None]
+         + np.stack([2 * _T, 2 * _T + 1, 2 * _T, 2 * _T + 1], -1))
+    shape = (8, nt, 32, 4)
+    return np.broadcast_to(r, shape), np.broadcast_to(c, shape)
+
+
+def _halves(c):
+    """A block's (64, 64) output: each row group's two halves (warps w and
+    w + 4) added, round to nearest."""
+    out = np.zeros((64, 64), np.float32)
+    r, k = _c_layout(8, 0 * _C0)
+    total = (c[:4] + c[4:]).astype(np.float32)
+    out[r[:4], k[:4]] = total
+    return out
+
+
+def _b7_fp32_emulated(q, k, v, o, do, lse, vl, scale):
+    """One head: (T, 64) fp32 q, k, v, O, dO and lse (T,) -> dq, dk, dv as
+    the two passes compute them, tile by tile."""
+    t = q.shape[0]
+    n_t = -(-t // 64)
+
+    def tile(x, i):
+        out = np.zeros((64, 64), np.float32)
+        rows = x[64 * i:64 * i + 64]
+        out[:len(rows)] = rows
+        return out
+
+    def pad(x, i, fill):
+        out = np.full(64, fill, np.float32)
+        rows = x[64 * i:64 * i + 64]
+        out[:len(rows)] = rows
+        return out
+
+    dr = (do * o).sum(-1, dtype=np.float32)
+    rows, cols = _c_layout(4, _C0)
+    sc = np.float32(scale)
+    dq, dk, dv = (np.zeros((n_t * 64, 64), np.float32) for _ in range(3))
+    for qi in range(n_t):  # pass 1
+        l, d = pad(lse, qi, np.inf)[rows], pad(dr, qi, 0.0)[rows]
+        acc = np.zeros((8, 8, 32, 4), np.float32)
+        for ki in range(-(-vl // 64)):
+            s = _dot_abt(tile(q, qi), tile(k, ki))
+            dp = _dot_abt(tile(do, qi), tile(v, ki))
+            pn = np.where(64 * ki + cols < vl, np.exp(s * sc - l), 0)
+            acc = _acc_pb(acc, (pn * (dp - d)).astype(np.float32),
+                          tile(k, ki))
+        dq[64 * qi:64 * qi + 64] = _halves(acc) * sc
+    for ki in range(n_t):  # pass 2
+        key_in = 64 * ki + rows < vl
+        a_k, a_v = (np.zeros((8, 8, 32, 4), np.float32) for _ in range(2))
+        for qi in range(n_t):
+            s = _dot_abt(tile(k, ki), tile(q, qi))
+            dp = _dot_abt(tile(v, ki), tile(do, qi))
+            pn = np.where(key_in, np.exp(s * sc - pad(lse, qi, np.inf)[cols]),
+                          0).astype(np.float32)
+            a_v = _acc_pb(a_v, pn, tile(do, qi))
+            a_k = _acc_pb(a_k, (pn * (dp - pad(dr, qi, 0.0)[cols])).astype(
+                np.float32), tile(q, qi))
+        dk[64 * ki:64 * ki + 64] = _halves(a_k) * sc
+        dv[64 * ki:64 * ki + 64] = _halves(a_v)
+    return dq[:t], dk[:t], dv[:t]
+
+
+def test_b7_fp32_kernel_arithmetic_emulated():
+    """The fp32 B7 kernel's fragment indices, the C-layout score tile fed
+    to the products over its columns, the masking and the statistics
+    (emulated on the CPU, split TF32 in the kernel's order) agree with
+    the plain twin within the card's gate, 1e-4 of max|plain| for each of
+    dq, dk and dv, on two query and key tiles with a ragged edge and
+    valid_len 100; the keys at or past valid_len get no gradient."""
+    qkv, do = _inputs(5, n=1, t=130, heads=2)
+    vl = 100
+    q_t, d_t = torch.from_numpy(qkv), torch.from_numpy(do)
+    o_t, lse = flash_attention_flat_plain(q_t, 2, SCALE, vl, return_lse=True)
+    ref = flash_attention_flat_bwd_plain(q_t, o_t, d_t, lse, 2, SCALE,
+                                         vl).numpy()[0]
+    o, lse = o_t.numpy()[0], lse.numpy()[0]
+    for h in range(2):
+        cols = slice(64 * h, 64 * h + 64)
+        q, k, v = (qkv[0, :, 128 * i:128 * i + 128][:, cols]
+                   for i in range(3))
+        got = _b7_fp32_emulated(q, k, v, o[:, cols], do[0][:, cols],
+                                lse[h], vl, SCALE)
+        for i, g_ in enumerate(got):
+            want = ref[:, 128 * i:128 * i + 128][:, cols]
+            err = np.abs(g_ - want).max()
+            assert err <= FP32_BWD_REL * np.abs(want).max(), (h, i, err)
+        assert not got[1][vl:].any() and not got[2][vl:].any()
 
 
 def _fp32_train_step(cfg, dev, plain):

@@ -154,6 +154,79 @@ def _pallas_b20(mod, variant, x, w, sw):
     return f32(f(jnp.asarray(x), jnp.asarray(w), jnp.asarray(sw)))
 
 
+def _tf32(a, nearest=True):
+    """fp32 -> TF32: to nearest, ties away from zero, as the kernels round
+    hi (finite inputs); or toward zero, as the tensor cores read lo."""
+    bits = np.asarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    bits = (bits + (0x1000 if nearest else 0)) & 0xFFFFE000
+    return bits.astype(np.uint32).view(np.float32)
+
+
+def _rz(v):
+    """fp64 -> fp32 rounded toward zero: the tensor cores' fp32
+    accumulation, which truncates."""
+    f = v.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(v)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def _tf32_product(x, w, terms, fold):
+    """B17 fp32's product as the tensor cores take it: x and w split into
+    TF32 hi and lo (`csrc/tf32x3.cuh`); per k-step of 8, the products of
+    `terms` (pairs of 'h'/'l' for x and w, in issue order), each summed
+    exactly and added to the accumulator with truncation. With `fold`,
+    as the kernel: each 32-deep k-chunk starts a fresh partial, folded
+    into the running sum with round-to-nearest adds; without, one
+    accumulator takes all K / 8 * len(terms) truncating adds."""
+    parts = {}
+    for name, a in (("x", x), ("w", w)):
+        hi = _tf32(a)
+        parts[name + "h"] = hi.astype(np.float64)
+        parts[name + "l"] = _tf32(a - hi, nearest=False).astype(np.float64)
+    acc = np.zeros((x.shape[0], w.shape[1]), np.float32)
+    part = acc.copy()
+    for k0 in range(0, x.shape[1], 8):
+        if fold and k0 % 32 == 0:
+            acc, part = (acc + part).astype(np.float32), part * 0
+        for xs, ws in terms:
+            step = (parts["x" + xs][:, k0:k0 + 8]
+                    @ parts["w" + ws][k0:k0 + 8])
+            part = _rz(part.astype(np.float64) + step)
+    return (acc + part).astype(np.float32)
+
+
+@pytest.mark.parametrize("terms,fold,passes", [
+    (("lh", "hl", "hh"), True, True),    # the kernel: split, small first
+    (("hh", "hl", "lh"), True, True),    # large first
+    (("lh", "hl", "hh"), False, False),  # the split on one accumulator
+    (("hh",), True, False),              # one TF32 product
+    (("hl", "hh"), True, False)],        # the split without x_lo . w_hi
+    ids=["kernel", "large-first", "one-accumulator", "one-tf32",
+         "no-lo-hi"])
+def test_split_tf32_emulation_against_the_fp32_gate(terms, fold, passes):
+    """B17's fp32 gate (probe.DENSE_FP32_RTOL/ATOL) at K = 4096 on the
+    probe's inputs (x ~ randn, w ~ randn K^-1/2, an fp32 residual),
+    against the plain version: the kernel's arithmetic (three-product
+    split TF32, per-chunk partials folded with round-to-nearest adds)
+    stays within it, in either order of its products; one TF32 product,
+    the split without one of its small terms, or the split on one
+    truncating accumulator fails it. So the gate tells a kernel that
+    dropped its lo terms from one that kept them."""
+    rng = np.random.RandomState(0)
+    m, k, n = 256, 4096, 128
+    x = rng.randn(m, k).astype(np.float32)
+    w = (rng.randn(k, n) * k ** -0.5).astype(np.float32)
+    b = (0.1 * rng.randn(n)).astype(np.float32)
+    r = rng.randn(m, n).astype(np.float32)
+    got = (_tf32_product(x, w, terms, fold) + b) + r  # the epilogue
+    ref = dense_residual_plain(_t(x), _t(w), _t(b), _t(r),
+                               out_dtype=torch.float32).numpy()
+    bad = np.abs(got - ref) > (probe.DENSE_FP32_ATOL
+                               + probe.DENSE_FP32_RTOL * np.abs(ref))
+    assert (not bad.any()) == passes, int(bad.sum())
+
+
 @pytest.mark.parametrize("variant", list(SCALE_SHAPES))
 def test_int8_sliced_scale_plain_matches_pallas(variant):
     """Equal by value (Python's `sum` may turn -0.0 into +0.0; numpy's
@@ -309,26 +382,41 @@ def _close(got, ref, rtol, atol, magnitude=None):
     assert bool((d <= atol + rtol * mag).all()), float(d.max())
 
 
+# fp32 x on the split-TF32 kernel: ragged M (70, 7208), K = 144 (not a
+# multiple of its 32-deep k-chunk), N of 8, 96 and 1000 (ragged against
+# its 256 columns), each without a residual, with an fp32 residual and
+# with an fp32 residual and bf16 output; and a bf16 residual
+_FP32_CASES = [
+    ((m, 144, n), torch.float32, resid, out)
+    for m in (70, 7208) for n in (8, 96, 1000)
+    for resid, out in ((None, torch.float32),
+                       (torch.float32, torch.float32),
+                       (torch.float32, torch.bfloat16))
+] + [((7208, 144, 1000), torch.float32, torch.bfloat16, torch.float32)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,dtype,residual", [
-    ((1802, 4096, 1024), torch.bfloat16, torch.bfloat16),
-    ((1802, 1024, 1024), torch.bfloat16, None),
-    ((7208, 4096, 1024), torch.bfloat16, torch.bfloat16),
-    ((333, 1040, 264), torch.bfloat16, torch.float32),
-    ((7208, 4096, 1024), torch.float32, torch.float32),
-    ((70, 128, 96), torch.float32, torch.float32),
-    ((70, 128, 96), torch.float32, None)])
+@pytest.mark.parametrize("shape,dtype,residual,out_dtype", [
+    ((1802, 4096, 1024), torch.bfloat16, torch.bfloat16, torch.bfloat16),
+    ((1802, 1024, 1024), torch.bfloat16, None, torch.bfloat16),
+    ((7208, 4096, 1024), torch.bfloat16, torch.bfloat16, torch.bfloat16),
+    ((333, 1040, 264), torch.bfloat16, torch.float32, torch.bfloat16),
+    ((7208, 4096, 1024), torch.float32, torch.float32, torch.float32),
+    ((70, 128, 96), torch.float32, torch.float32, torch.float32),
+    ((70, 128, 96), torch.float32, None, torch.float32),
+    *_FP32_CASES])
 def test_dense_residual_kernel_matches_plain(cuda_device, shape, dtype,
-                                             residual):
+                                             residual, out_dtype):
+    """The fp32 gate for fp32 outputs; a bf16 output (of either x dtype)
+    may round one bf16 ulp apart, the bf16 gate."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
     args = probe.dense_inputs(cuda_device, g, *shape, dtype=dtype,
                               residual=residual)
     before = dense_residual.launches
-    out_dtype = dtype
     got = dense_residual(*args, out_dtype=out_dtype)
     assert dense_residual.launches == before + 1
     rtol, atol = ((probe.DENSE_RTOL, probe.DENSE_ATOL)
-                  if dtype == torch.bfloat16 else
+                  if out_dtype == torch.bfloat16 else
                   (probe.DENSE_FP32_RTOL, probe.DENSE_FP32_ATOL))
     _close(got, dense_residual_plain(*args, out_dtype=out_dtype), rtol, atol)
 
