@@ -14,8 +14,9 @@ the result line is printed:
    of B7's, and in the kernels of B17's bf16 mode and B10's bf16 mode
    (the GEMM engine of `csrc/wgmma_gemm.cuh`); TF32 warpgroup products
    and TMA loads in B17's fp32 kernel, and TF32 tensor-core products in
-   both passes of B7's fp32 mode (the split-TF32 products of
-   `csrc/tf32x3.cuh`);
+   B6's fp32 kernel and both passes of B7's fp32 mode (the split-TF32
+   products of `csrc/tf32x3.cuh`); integer warpgroup products (IGMMA)
+   and TMA loads in B16's cluster kernel;
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the serving path, with its time beside the plain version's
    (B10 in both of its modes, fp32 and compute_dtype=bfloat16; B17 at
@@ -24,8 +25,10 @@ the result line is printed:
    reference probe's shape in both scale block shapes; B6's per-row
    log-sum-exp against the plain one; the fp32 modes of B6 and B7, an
    fp32 model's route, at the flagship shape and a masked ragged one,
-   beside SDPA in fp32; at its end B6, B7, B8 and B9 timed again, one
-   after another, beside SDPA and SDPA's backward);
+   beside SDPA in fp32; B16 as one kernel launch a call (counted by
+   `torch.profiler`) with the card's cluster occupancy; at its end B6,
+   B7, B8 and B9 timed again, one after another, beside SDPA and SDPA's
+   backward);
 3. serving: the full-width `fast_serving(clip_vitl16_384, quant=False)`
    model (ViT-L/16, bf16) with seeded random weights answers three
    requests through `TextFeatureCache` + `make_predictor`; the kernels'
@@ -169,9 +172,9 @@ LSE_ATOL = 1e-4
 # agree to ~2e-6, so each P to ~2e-6 relative, and a weighted average of
 # values to 2e-6 of max|v| (< 5 for randn): O within 2e-5 + 1e-4 |plain|;
 # the lse within 1e-5 (an fp32 ulp at |lse| ~ 8 is 1e-6); each of dq, dk
-# and dv within 1e-4 of max|plain|. B7's products are split TF32
-# (csrc/tf32x3.cuh), which keeps ~21 bits of each operand: its scores
-# agree to a few 1e-7 more, well inside the same bound.
+# and dv within 1e-4 of max|plain|. Both kernels' products are split TF32
+# (csrc/tf32x3.cuh), which keeps ~21 bits of each operand: their scores
+# agree to a few 1e-7 more, well inside the same bounds.
 FLASH_FP32_RTOL, FLASH_FP32_ATOL = 1e-4, 2e-5
 LSE_FP32_ATOL = 1e-5
 FLASH_BWD_FP32_REL = 1e-4
@@ -185,7 +188,9 @@ TRAIN_FP32_GRAD_REL = 1e-4
 # bf16 kernel and B10's bf16-mode kernel (the GEMM engine of
 # wgmma_gemm.cuh); TF32 warpgroup products and TMA loads in B17's fp32
 # kernel, TF32 tensor-core products (HMMA or HGMMA with the TF32 suffix)
-# in both passes of B7's fp32 mode, so a SIMT fallback fails the run.
+# in B6's fp32 kernel and both passes of B7's fp32 mode; integer
+# warpgroup products (IGMMA) and TMA loads in B16's cluster kernel; so a
+# SIMT or mma.sync fallback fails the run.
 WGMMA_TMA = (r"\bHGMMA\.", r"\bUTMALDG\b")
 TF32_MMA = r"\bH(?:G)?MMA\.[\w.]*TF32"
 SASS_REQUIRED = {
@@ -195,8 +200,10 @@ SASS_REQUIRED = {
     "dense_wgmma_kernel": WGMMA_TMA,
     "fused_correlate_wgmma_kernel": WGMMA_TMA,
     "dense_tf32x3_kernel": (r"\bHGMMA\.[\w.]*TF32", r"\bUTMALDG\b"),
+    "flash_flat_fp32_kernel": (TF32_MMA,),
     "bwd_dq_fp32_kernel": (TF32_MMA,),
     "bwd_dkdv_fp32_kernel": (TF32_MMA,),
+    "mlp_fused_cluster_kernel": (r"\bIGMMA\.", r"\bUTMALDG\b"),
 }
 # ln_quantize_rows (B3): the kernel and the plain version sum the row in
 # another order, so a code may sit one level off at a bin edge; the row
@@ -642,10 +649,11 @@ def _flash_fp32(dev, g, scale):
                    .detach().clone().requires_grad_())
         sdpa = torch.nn.functional.scaled_dot_product_attention
         lib_ms = cuda_time_ms(lambda: sdpa(q, k, v, scale=scale))
-        # fp32 FMAs: q.k^T and P.V, 2 T^2 hd each per head
+        # q.k^T and P.V, 2 T^2 hd each per head, in fp32 FMAs or as
+        # split-TF32 products
         results["flash_attention_flat_fp32"] = result(
             err_f, ms, plain_ms, nbytes(qkv) + nbytes(qkv) // 3,
-            {"fp32": 4 * 8 * 16 * t * t * 64}, lib_ms)
+            {"fp32": 4 * 8 * 16 * t * t * 64}, lib_ms, split_tf32=True)
         ms, plain_ms = _timed(
             "flash_attention_flat_bwd fp32", "(8,901,3072) 16 heads",
             lambda: flash_attention_flat_bwd(*args),
@@ -661,6 +669,22 @@ def _flash_fp32(dev, g, scale):
             {"fp32": 10 * 8 * 16 * t * t * 64}, lib_ms, split_tf32=True)
         del q, k, v, so, dso
     return results
+
+
+def _device_kernels(fn):
+    """Names of the device kernels one call of `fn` launches, one entry
+    per launch (`torch.profiler`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.device_time_total > 0 and "Memcpy" not in e.name
+            and "Memset" not in e.name]
 
 
 def _timed(name, shape, kernel, plain):
@@ -1123,7 +1147,11 @@ def _fused_block_kernels(dev, g):
         flash_attention_qkvp_fused,
         flash_attention_qkvp_fused_plain,
     )
-    from lseg_tpu_torch.ops.mlp import mlp_fused, mlp_fused_plain
+    from lseg_tpu_torch.ops.mlp import (
+        mlp_fused,
+        mlp_fused_max_clusters,
+        mlp_fused_plain,
+    )
     from lseg_tpu_torch.ops.quant import quantize_rows
 
     results = {}
@@ -1158,6 +1186,17 @@ def _fused_block_kernels(dev, g):
     ms, plain_ms = _timed("mlp_fused", "(8,901,1024) H=4096",
                           lambda: mlp_fused(*args),
                           lambda: mlp_fused_plain(*args))
+    # one launch a call: the device kernels of one call, as the profiler
+    # sees them, and the clusters of 8 CTAs the card holds at once
+    names = _device_kernels(lambda: mlp_fused(*args))
+    tiles = -(-m // 64)
+    clusters = mlp_fused_max_clusters(d, dev)
+    print(f"  mlp_fused: device kernels a call {names}; {tiles} clusters of "
+          f"{d // 128} CTAs, {clusters} resident at once "
+          f"({tiles / clusters:.2f} waves)")
+    if len(names) != 1 or "mlp_fused_cluster_kernel" not in names[0]:
+        fail(f"mlp_fused: one call launched {names}, not the one cluster "
+             f"kernel")
     # two int8 products; fp32 per hidden value: dequant 3, GELU ~9
     # (tanh counted as one), amax 1, quantize 2. No single PyTorch call
     # computes the function: library call none

@@ -50,57 +50,19 @@
 // tile pair, against the least five: S and dP are computed in both
 // passes.
 
-#include "tf32x3.cuh"
+#include "flash_tf32x3.cuh"
 
 namespace {
 
 namespace t3 = lseg::tf32x3;
+using namespace lseg::flash_tf32x3;
 
-constexpr int HD = 64;        // head_dim (the kernel is specialised)
-constexpr int BT = 64;        // rows of every tile
-constexpr int LD = HD + 4;    // padded row stride of a staged tile, floats
 constexpr int THREADS = 256;  // 8 warps: 4 row groups x 2 halves
-constexpr int TILE_FLOATS = BT * LD;
 
-__device__ __forceinline__ float pos_inf() {
-  return __int_as_float(0x7f800000);
-}
-
-// ---- staging by cp.async ----------------------------------------------------
-
-// 16 bytes global -> shared, zero-filled where !valid (nothing is read)
-__device__ __forceinline__ void cp16(float* dst, const float* src,
-                                     bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   lseg::wg::smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Start copying 64 rows of 64 fp32 (columns col..col+63 of rows row0.. of
-// one image's (T, ld) rows) into a padded tile; rows >= T are zero.
-__device__ __forceinline__ void stage(float* dst, const float* base,
-                                      long long ld, int col, int row0,
-                                      int T) {
-  for (int i = threadIdx.x; i < BT * (HD / 4); i += THREADS) {
-    const int r = i / (HD / 4);
-    const int c = (i % (HD / 4)) * 4;
-    const bool in = row0 + r < T;
-    cp16(dst + r * LD + c, base + (in ? row0 + r : 0) * ld + col + c, in);
-  }
-}
-
-// ---- split-TF32 products on padded tiles ------------------------------------
+// ---- a warp's products ------------------------------------------------------
 // g = lane / 4, t = lane % 4; a warp owns rows r0..r0+15 of its products
-// and columns c0..c0+31 of the score tiles, accumulator tiles `float
-// c[NJ][4]` in the C layout over NJ column tiles of 8.
+// and columns c0..c0+31 of the score tiles (flash_tf32x3.cuh's acc_pb
+// takes them over their columns).
 
 // c = A . B^T over the 64 columns of two tiles: A's rows r0.., B's rows
 // c0..c0+8NJ-1 as the columns of c.
@@ -127,34 +89,6 @@ __device__ __forceinline__ void dot_abt(float (&c)[NJ][4], const float* a,
       fb.set(0, pb[0]);
       fb.set(1, pb[4]);
       t3::mma3(c[j], fa, fb);
-    }
-  }
-}
-
-// c += P . B: P a C-layout tile in registers (16 rows x 8NJ columns), B
-// a staged tile whose rows c0.. run along P's columns, c over B's 64
-// columns. Column 2t (2t + 1) of P's column tile j is the A fragment's
-// column t (t + 4), so the B fragment reads rows c0 + 8j + 2t and
-// c0 + 8j + 2t + 1.
-template <int NJ>
-__device__ __forceinline__ void acc_pb(float (&c)[8][4],
-                                       const float (&p)[NJ][4],
-                                       const float* b, int c0, int g,
-                                       int t) {
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    t3::Frag<4> fa;
-    fa.set(0, p[j][0]);
-    fa.set(1, p[j][2]);
-    fa.set(2, p[j][1]);
-    fa.set(3, p[j][3]);
-    const float* pb = b + (c0 + 8 * j + 2 * t) * LD + g;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      t3::Frag<2> fb;
-      fb.set(0, pb[8 * n]);
-      fb.set(1, pb[LD + 8 * n]);
-      t3::mma3(c[n], fa, fb);
     }
   }
 }
@@ -235,10 +169,10 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_dq_fp32_kernel(Args a) {
   const long long plane = (static_cast<long long>(img) * H + head) * T;
   const int n_kt = (vl + BT - 1) / BT;
 
-  stage(sm.q, base, ld, head * HD, q0, T);
-  stage(sm.dout, dob, D, head * HD, q0, T);
-  stage(sm.k[0], base, ld, D + head * HD, 0, T);
-  stage(sm.v[0], base, ld, 2 * D + head * HD, 0, T);
+  stage<THREADS>(sm.q, base, ld, head * HD, q0, T);
+  stage<THREADS>(sm.dout, dob, D, head * HD, q0, T);
+  stage<THREADS>(sm.k[0], base, ld, D + head * HD, 0, T);
+  stage<THREADS>(sm.v[0], base, ld, 2 * D + head * HD, 0, T);
   cp_commit();
   {
     // Dr = rowsum(dO * O): 4 threads a row, 16 columns each
@@ -278,8 +212,9 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_dq_fp32_kernel(Args a) {
   for (int it = 0; it < n_kt; ++it) {
     const int st = it & 1;
     if (it + 1 < n_kt) {  // the next key tile, in flight under this one
-      stage(sm.k[st ^ 1], base, ld, D + head * HD, (it + 1) * BT, T);
-      stage(sm.v[st ^ 1], base, ld, 2 * D + head * HD, (it + 1) * BT, T);
+      const int k0 = (it + 1) * BT;
+      stage<THREADS>(sm.k[st ^ 1], base, ld, D + head * HD, k0, T);
+      stage<THREADS>(sm.v[st ^ 1], base, ld, 2 * D + head * HD, k0, T);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -346,10 +281,10 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_dkdv_fp32_kernel(Args a) {
       sm.dr[st][tid - BT] = v;
   };
 
-  stage(sm.k, base, ld, D + head * HD, k0, T);
-  stage(sm.v, base, ld, 2 * D + head * HD, k0, T);
-  stage(sm.q[0], base, ld, head * HD, 0, T);
-  stage(sm.dout[0], dob, D, head * HD, 0, T);
+  stage<THREADS>(sm.k, base, ld, D + head * HD, k0, T);
+  stage<THREADS>(sm.v, base, ld, 2 * D + head * HD, k0, T);
+  stage<THREADS>(sm.q[0], base, ld, head * HD, 0, T);
+  stage<THREADS>(sm.dout[0], dob, D, head * HD, 0, T);
   cp_commit();
   if (tid < 2 * BT) put_stat(0, stat(0));
   const bool key_in[2] = {k0 + r0 + g < vl, k0 + r0 + g + 8 < vl};
@@ -364,8 +299,9 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_dkdv_fp32_kernel(Args a) {
     const bool more = it + 1 < n_qt;
     float next = 0.0f;
     if (more) {  // the next query tile, in flight under this one
-      stage(sm.q[st ^ 1], base, ld, head * HD, (it + 1) * BT, T);
-      stage(sm.dout[st ^ 1], dob, D, head * HD, (it + 1) * BT, T);
+      const int q0 = (it + 1) * BT;
+      stage<THREADS>(sm.q[st ^ 1], base, ld, head * HD, q0, T);
+      stage<THREADS>(sm.dout[st ^ 1], dob, D, head * HD, q0, T);
       cp_commit();
       if (tid < 2 * BT) next = stat((it + 1) * BT);  // stored below
       cp_wait<1>();

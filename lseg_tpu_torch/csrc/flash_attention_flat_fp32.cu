@@ -6,8 +6,7 @@
 // Replaces: lseg_tpu/ops/pallas_attention.py · flash_attention_flat and
 // _flash_flat_bwd_impl (Pallas TPU) for fp32 inputs. The TPU kernels take
 // any qkv dtype; in fp32 `p.astype(v.dtype)` and the casts of pn and ds
-// are no-ops, so every step below is fp32 and no operand is rounded to
-// bf16 or TF32:
+// are no-ops, so every step below is fp32:
 //   forward:  s = (q . k^T) * scale; P = exp(s - m); l = sum P;
 //             O = (P . V) / l; lse = m + log(l)            (all fp32)
 //   backward: pn = exp(s - lse); dv = pn^T . dO; dp = dO . v^T;
@@ -17,132 +16,191 @@
 // rescales by the running row maximum (the TPU kernel takes the maximum of
 // the whole row), and the backward reads the forward's lse instead of
 // recomputing the row statistics: both differ from the reference at fp32
-// rounding. Exponentials are expf (full precision).
+// rounding.
 //
-// What bounds it on the card: the fp32 FMA units (67 TFLOP/s without
-// tensor cores; TF32 would round the operands to 10 mantissa bits). At
-// the flagship (8, 901, 3072) with 16 heads the forward is 2 * 2*T*T*64
-// FLOP per head, 26.6 GFLOP (0.40 ms), the backward's least work five
-// such products, 66.5 GFLOP (0.99 ms); inputs are 89 MB (0.03 ms).
+// What bounds it on the card: the products. At the flagship (8, 901,
+// 3072) with 16 heads the forward is 2 * 2*T*T*64 FLOP per head, 26.6
+// GFLOP: 0.397 ms of fp32 FMAs at 67 TFLOP/s, or 0.161 ms as split-TF32
+// tensor-core products (tf32x3.cuh: three TF32 products of each operand's
+// hi and lo keep ~21 bits of each, where one TF32 product would round the
+// operands to 10 bits and miss the gate); inputs are 89 MB (0.03 ms).
 //
-// Design, a simple SIMT kernel: one 256-thread block per (64-row tile,
-// head, image); tiles are staged from device memory into shared memory
-// and each thread of a 16 x 16 grid holds a 4 x 4 tile of every product
-// (flash_fp32.cuh).
-//   forward: per key tile, S = Q.K^T into shared memory, the row
-//     statistics by 4 threads a row, O = O * alpha + P.V in registers;
-//   backward pass 1 (one block per query tile): Dr, then per key tile S
-//     and dP, ds into shared memory, dQ += ds.K;
-//   backward pass 2 (one block per key tile): per query tile S^T and
-//     dP^T, pn^T and ds^T into shared memory, dV += pn^T.dO and
-//     dK += ds^T.Q.
-// Nothing is summed with atomics, so the result is deterministic. Not
-// yet: asynchronous staging, register-blocked products above 4 x 4.
+// Design: split TF32 on mma.sync m16n8k8, B7's fp32 engine in the forward
+// direction (flash_tf32x3.cuh). tf32 wgmma reads only K-major operands,
+// and V (keys x head_dim) is MN-major for P . V: wgmma would need V's
+// split transposed into scratch first, mma.sync reads the fragments of
+// either orientation from the staged tile. One 128-thread block per
+// (64-query tile, head, image), two blocks an SM (197 registers a thread,
+// no spills; at three blocks, 168 registers spilled and ran no faster);
+// warp w owns query rows 16w..16w+15 against all 64 keys of a tile. Q's
+// A fragments are split once into hi and lo registers (64 a thread). Key and value tiles of 64 come by cp.async
+// into a two-stage ring of padded tiles (68 floats a row), the next
+// tile's copies in flight under this tile's products. Per key tile:
+//   S = Q . K^T by mma3 into registers (8 column tiles of 8 keys);
+//   the online softmax in registers: each row's maximum over its quad by
+//     two shuffles, P = 2^(s * scale * log2 e - m) by the ex2.approx
+//     instruction (m kept in the base-2 domain), the row sums kept per
+//     thread and added over the quad once at the end;
+//   O = O * alpha + P . V: P stays in registers, split again, and feeds
+//     the A fragments through the C -> A column permutation (acc_pb), V's
+//     rows read to match.
+// lse = (m + log2 l) * ln 2 out, for B7. The exponent: ex2.approx of the
+// prescaled score; expf of the scaled score (`python -m
+// lseg_tpu_torch.engine.variant_tree b6_fp32_expf`) also passes the
+// gate and runs 7% slower on an H100 (PERF.md).
+//
+// The tensor cores' fp32 accumulation truncates (tf32x3.cuh). A score is a
+// fresh sum of 8 k-steps x 3 products = 24 truncating adds; O takes 24 a
+// key tile, rescaled by alpha (a round-to-nearest multiply) every tile,
+// so 360 over T = 901. A numpy emulation of this arithmetic
+// (`tests/test_torch_flash_bwd.py::test_b6_fp32_kernel_arithmetic_
+// emulated`) put the worst O within 8% of the gate (2e-5 + 1e-4 |O|) at
+// (901, 64) with randn inputs, folding every tile's P . V into O with
+// round-to-nearest adds within 3%: the truncation is inside the gate, so
+// O accumulates in place without a second accumulator. Nothing is summed
+// with atomics, so the result is deterministic.
 
-#include "flash_fp32.cuh"
+#include "flash_tf32x3.cuh"
 
 namespace {
 
-using namespace lseg::flash_fp32;
+namespace t3 = lseg::tf32x3;
+using namespace lseg::flash_tf32x3;
 
-// ---- forward ----------------------------------------------------------------
+constexpr int THREADS = 128;  // 4 warps of 16 query rows
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct FwdSmem {
-  float q[TILE_FLOATS];
-  float k[TILE_FLOATS];
-  float v[TILE_FLOATS];
-  float p[TILE_FLOATS];
-  float alpha[BT];
-  float l[BT];
+  float k[2][TILE_FLOATS];  // k[1] holds Q until its fragments are read
+  float v[2][TILE_FLOATS];
 };
 
-__global__ void __launch_bounds__(THREADS) flash_flat_fp32_kernel(
+__global__ void __launch_bounds__(THREADS, 2) flash_flat_fp32_kernel(
     const float* __restrict__ qkv, float* __restrict__ out,
     float* __restrict__ lse, int T, int D, int valid_len, float scale) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
   FwdSmem& sm = *reinterpret_cast<FwdSmem*>(smem_raw);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, r0 = 16 * warp;
   const int head = blockIdx.y, img = blockIdx.z, H = gridDim.y;
   const int q0 = blockIdx.x * BT;
   const long long ld = 3LL * D;
   const float* base = qkv + static_cast<long long>(img) * T * ld;
   const int n_kt = (valid_len + BT - 1) / BT;
+  const float sc = scale * kLog2e;  // scores in the base-2 domain
 
-  stage(sm.q, base, ld, head * HD, q0, T);
-  // row statistics: 4 threads a row, 16 columns each
-  const int srow = tid / 4, spart = tid % 4;
-  float m_run = -pos_inf(), l_run = 0.0f;
-  float o[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) o[i][j] = 0.0f;
-
-  for (int t = 0; t < n_kt; ++t) {
-    const int k0 = t * BT;
-    stage(sm.k, base, ld, D + head * HD, k0, T);
-    stage(sm.v, base, ld, 2 * D + head * HD, k0, T);
-    __syncthreads();
-    float s[4][4];
-    dot_abt(s, sm.q, sm.k, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + tx + 16 * j;
-        sm.p[(ty + 16 * i) * LD + tx + 16 * j] =
-            key < valid_len ? s[i][j] * scale : -pos_inf();
-      }
-    __syncthreads();
-    {
-      float* pr = sm.p + srow * LD + spart * 16;
-      float mx = -pos_inf();
-#pragma unroll
-      for (int c = 0; c < 16; ++c) mx = fmaxf(mx, pr[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run, mx);  // finite: key k0 is valid
-      const float alpha = expf(m_run - m_new);  // 0 on the first tile
-      float rs = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const float e = expf(pr[c] - m_new);
-        pr[c] = e;
-        rs += e;
-      }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      l_run = l_run * alpha + rs;
-      m_run = m_new;
-      if (spart == 0) sm.alpha[srow] = alpha;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = sm.alpha[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) o[i][j] *= a;
-    }
-    acc_pb(o, sm.p, sm.v, ty, tx);
-    __syncthreads();  // k, v and p are restaged next tile
-  }
-  if (spart == 0) {
-    sm.l[srow] = l_run;
-    if (lse != nullptr && q0 + srow < T)
-      lse[(static_cast<long long>(img) * H + head) * T + q0 + srow] =
-          m_run + logf(l_run);
-  }
+  stage<THREADS>(sm.k[1], base, ld, head * HD, q0, T);
+  stage<THREADS>(sm.k[0], base, ld, D + head * HD, 0, T);
+  stage<THREADS>(sm.v[0], base, ld, 2 * D + head * HD, 0, T);
+  cp_commit();
+  cp_wait<0>();
   __syncthreads();
-  float* ob = out + static_cast<long long>(img) * T * D;
+  t3::Frag<4> qf[HD / 8];  // Q's A fragments, split once
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (q0 + r >= T) continue;
-    const float l = sm.l[r];
+  for (int kk = 0; kk < HD / 8; ++kk) {
+    const float* pa = sm.k[1] + (r0 + g) * LD + kk * 8 + t;
+    qf[kk].set(0, pa[0]);
+    qf[kk].set(1, pa[8 * LD]);
+    qf[kk].set(2, pa[4]);
+    qf[kk].set(3, pa[8 * LD + 4]);
+  }
+  __syncthreads();  // k[1] is restaged below
+
+  // rows g and g + 8 of the warp's 16: h = e / 2 of a C-layout element
+  float m_run[2] = {-pos_inf(), -pos_inf()}, l_part[2] = {0.0f, 0.0f};
+  float o[8][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      ob[static_cast<long long>(q0 + r) * D + head * HD + tx + 16 * j] =
-          o[i][j] / l;
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int st = it & 1, k0 = it * BT;
+    if (it + 1 < n_kt) {  // the next key tile, in flight under this one
+      stage<THREADS>(sm.k[st ^ 1], base, ld, D + head * HD, k0 + BT, T);
+      stage<THREADS>(sm.v[st ^ 1], base, ld, 2 * D + head * HD, k0 + BT, T);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float* pb = sm.k[st] + (8 * j + g) * LD + kk * 8 + t;
+        t3::Frag<2> fb;
+        fb.set(0, pb[0]);
+        fb.set(1, pb[4]);
+        t3::mma3(s[j], qf[kk], fb);
+      }
+    }
+    const bool ragged = k0 + BT > valid_len;
+    float mx[2] = {-pos_inf(), -pos_inf()};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * sc;
+        if (ragged && k0 + 8 * j + 2 * t + (e & 1) >= valid_len)
+          x = -pos_inf();
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m_run[h], mx[h]);  // finite: key 0 is valid
+      alpha[h] = lseg::exp2_approx(m_run[h] - m_new);  // 0 on the first tile
+      m_run[h] = m_new;
+    }
+    float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = lseg::exp2_approx(s[j][e] - m_run[e >> 1]);
+        s[j][e] = p;
+        rs[e >> 1] += p;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l_part[h] = l_part[h] * alpha[h] + rs[h];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+    acc_pb(o, s, sm.v[st], 0, g, t);
+    __syncthreads();  // this stage is restaged next tile
+  }
+
+  float l[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] = l_part[h] + __shfl_xor_sync(0xffffffffu, l_part[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  float* ob = out + static_cast<long long>(img) * T * D + head * HD;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + r0 + g + 8 * h;
+    if (row >= T) continue;
+    if (lse != nullptr && t == 0)
+      lse[(static_cast<long long>(img) * H + head) * T + row] =
+          (m_run[h] + log2f(l[h])) * kLn2;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<float2*>(ob + static_cast<long long>(row) * D +
+                                 8 * n + 2 * t) =
+          make_float2(o[n][2 * h] / l[h], o[n][2 * h + 1] / l[h]);
   }
 }
 
@@ -165,4 +223,3 @@ extern "C" int lseg_flash_attention_flat_fp32(const void* qkv, void* out,
       static_cast<float*>(lse), t, dim, valid_len, scale);
   return static_cast<int>(cudaGetLastError());
 }
-

@@ -24,29 +24,92 @@
 // at 1979 TOP/s) against ~45 MB of codes, weights, residual and output
 // (~0.013 ms at 3.35 TB/s): the operations bound it.
 //
-// Design: the per-row requantize needs each row's amax over all 4096
-// hidden values before fc2 can start. The TPU kernel keeps a (256, 4096)
-// fp32 hidden tile in VMEM; on an SM a 64-row fp32 tile is 1 MB and even a
-// 16-row one 256 KB, beyond the 227 KB of shared memory a block can use,
-// and holding it in bf16 would change the rounding. So the op is a chain
-// of three launches on one stream, exact to the TPU kernel:
-//   (a) fc1 on the shared int8 GEMM tile (qkv_int8_gemm.cuh) with the
-//       dequant + bias + GELU epilogue, which reduces each row's amax over
-//       the block's 128 columns into pm (M, H / 128) fp32;
-//   (b) fc1 again with the same epilogue, giving the same fp32 values,
-//       which takes sh from pm and writes the int8 hidden codes hq (M, H)
-//       and sh (M,);
-//   (c) fc2 over the codes with the (acc * sh) * s2 + b2 + resid epilogue.
-// Unlike the TPU kernel, the int8 hidden codes pass through device memory
-// (29.5 MB written and read at the flagship; the fp32 hidden never does),
-// and fc1 is computed twice (a second 60.5 GOP product): keeping the
-// hidden on chip needs <= 8-row tiles or a cluster-wide amax, later work.
+// Design: one launch, a thread-block cluster per 64-row tile, the hidden
+// kept on chip as the TPU kernel keeps it in VMEM. The requantize needs
+// each row's amax over all H hidden values before fc2 can start, and a
+// 64-row fp32 hidden tile (1 MB at H = 4096) fits no SM. So the cluster's
+// C = D / 128 CTAs (8 at ViT-L/16, 6 at ViT-B) each own H / C = 512
+// hidden columns and D / C = 128 output columns, and share the row maxima
+// and the codes through distributed shared memory (DSM):
+//   fc1: a producer warpgroup keeps a three-stage TMA ring of 128-deep
+//     k-chunks full (xq's 64 x 128 box and w1's 512 rows, 72 KB a stage,
+//     128-byte swizzle); two consumer warpgroups each run s8 warpgroup
+//     products m64n256k32 (IGMMA, exact int32) on 256 of the columns, 128
+//     accumulators a thread;
+//   epilogue in registers: ((acc * sx) * s1) + b1 and the GELU in fp32,
+//     each g left in its accumulator register; each CTA reduces its
+//     slice's row maxima and stores them into every peer's shared memory
+//     (st.shared::cluster at mapa addresses), then a cluster barrier
+//     (release / acquire). Each CTA takes the maximum of the C partials:
+//     max is exact and order-free, so sh is bit-identical to one taken
+//     over the whole row;
+//   quantize the CTA's slice from registers into its shared memory (64 x
+//     512 codes, 32 KB, as four 128-byte swizzled k-chunks, in the fc1
+//     ring's last 72 KB), then a second cluster barrier;
+//   fc2: each CTA sums its 64 x 128 outputs over all K = H. The fc2 ring
+//     (six 24 KB stages in the fc1 ring's first 144 KB; its first w2
+//     boxes load under the GELU) takes w2's 128 x 128 box by TMA and the
+//     matching 64 x 128 chunk of codes, copied verbatim (the swizzle is
+//     the same in both CTAs) from the owner's shared memory by the
+//     producer warpgroup (ld.shared::cluster), since wgmma reads only
+//     this CTA's shared memory. Each of its warps copies every fourth
+//     chunk, so four peer round trips are in flight: copied by the whole
+//     warpgroup, chunk after chunk, the chunks arrived a round trip
+//     (~0.6 us) apart. Each CTA starts at its own chunks, so the cluster
+//     reads from different peers at a time. The consumers run m64n64k32
+//     on their 64 output columns. Gathering the codes rather than
+//     splitting K over the slices: both move 7/8 of 256 KB a CTA through DSM, but the gather
+//     reduces nothing across CTAs and feeds a plain ring. Either order of
+//     the int32 sums is exact;
+//   epilogue: ((acc2 * sh) * s2) + b2 + resid, one cast to bf16, stored
+//     from registers; rows past M (TMA zero-fills them) are not stored;
+//   a last cluster barrier keeps every CTA's codes alive until its peers
+//     have read them.
+// The hidden, fp32 or int8, never touches device memory, and fc1 runs
+// once. Where the time goes (PERF.md, from the phase timeline of
+// `engine/variant_tree.py`): a CTA spends about as long on the GELU and
+// the requantize (128 tanhf and 128 IEEE divisions a thread) as on fc1
+// and fc2 together, and the card holds 15 clusters of 8, so 113 row tiles
+// take 7.5 waves. Budgets: 225 KB of shared memory a CTA (one CTA an SM);
+// setmaxnreg gives the producer warpgroup 88 registers and the consumers
+// 208.
 
-#include "qkv_int8_gemm.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
-namespace gemm = lseg::qkv_gemm;
+namespace wg = lseg::wg;
+namespace gm = lseg::gemm;
+
+constexpr int BM = 64;          // rows of a cluster's tile
+constexpr int BK = 128;         // k a stage: one 128-byte swizzle row
+constexpr int HC = 512;         // hidden columns a CTA owns
+constexpr int DC = 128;         // output columns a CTA owns
+constexpr int MAX_CLUSTER = 8;  // the portable cluster size: D <= 1024
+constexpr int WG_THREADS = 128;
+constexpr int THREADS = 3 * WG_THREADS;  // producer + 2 consumers
+constexpr int S1 = 3;                    // fc1 stages
+constexpr int S2 = 6;                    // fc2 stages
+constexpr int A_BYTES = BM * BK;         // 8 KB: 64 rows of codes
+constexpr int W1_BYTES = HC * BK;        // 64 KB: w1's 512 rows
+constexpr int W2_BYTES = DC * BK;        // 16 KB: w2's 128 rows
+constexpr int STAGE1 = A_BYTES + W1_BYTES;
+constexpr int STAGE2 = A_BYTES + W2_BYTES;
+constexpr int CHUNKS = HC / BK;  // fc2 k-chunks a CTA's codes hold
+// fc1's stages, then fc2's stages and this CTA's codes in the same bytes
+constexpr int CODES = S2 * STAGE2;  // offset of the codes in the ring
+constexpr int RING = S1 * STAGE1 > CODES + BM * HC ? S1 * STAGE1
+                                                   : CODES + BM * HC;
+
+struct Smem {
+  uint8_t ring[RING];  // the codes: CHUNKS chunks from ring + CODES
+  float amax[MAX_CLUSTER][BM];  // each CTA's row maxima, by its rank
+  float wmax[2][BM];            // each consumer warpgroup's row maxima
+  float s1[HC], b1[HC], s2[DC], b2[DC], sx[BM];
+  gm::Ring<S1> r1;
+  gm::Ring<S2> r2;
+};
+constexpr int SMEM = sizeof(Smem) + 1024;  // + alignment slack
 
 // tanh GELU as PyTorch writes it, each step rounded on its own
 __device__ __forceinline__ float gelu_tanh(float x) {
@@ -57,190 +120,326 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, tanhf(inner)));
 }
 
-// (a) with kQuantize false, (b) with it true. pm (M, H / 128) holds the
-// per-tile row maxima; in (b) the x == 0 column of blocks also writes sh.
-template <bool kQuantize>
-__global__ void __launch_bounds__(gemm::THREADS) fc1_gelu_kernel(
-    const int8_t* __restrict__ xq, const float* __restrict__ sx,
-    const int8_t* __restrict__ w1, const float* __restrict__ s1,
-    const float* __restrict__ b1, float* __restrict__ pm,
-    int8_t* __restrict__ hq, float* __restrict__ sh_out, int M, int H,
-    int D) {
-  __shared__ __align__(16) int8_t As[gemm::BM * gemm::LD];
-  __shared__ __align__(16) int8_t Bs[gemm::BN * gemm::LD];
-  __shared__ float red[4][gemm::BM];  // (column warp, row) maxima
-  __shared__ float sh_s[gemm::BM];
+// ---- the cluster ------------------------------------------------------------
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;
-  const int t4 = lane % 4;
-  const int m0 = blockIdx.y * gemm::BM;
-  const int n0 = blockIdx.x * gemm::BN;
-  const int wm = (warp % 2) * 64;
-  const int wn = (warp / 2) * 32;
-  const int tiles = H / gemm::BN;
+__device__ __forceinline__ int cluster_rank() {
+  int r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
 
-  if (kQuantize && tid < gemm::BM && m0 + tid < M) {
-    const float* p = pm + static_cast<long long>(m0 + tid) * tiles;
+// Every thread of every CTA of the cluster: this thread's earlier writes
+// (to its own or a peer's shared memory) are visible to every thread of
+// the cluster after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::
+          : "memory");
+}
+
+// The address of `p` (in this CTA's shared memory) in CTA `rank`'s.
+__device__ __forceinline__ uint32_t peer_addr(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(wg::smem_addr(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ void st_peer(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ uint4 ld_peer(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// ---- the kernel -------------------------------------------------------------
+
+// One CTA of the cluster of a 64-row tile: warpgroup 0 the producer (one
+// thread issues every TMA load; all of it copies the peers' codes for
+// fc2), warpgroups 1 and 2 the consumers of 256 hidden and 64 output
+// columns each.
+__global__ void __launch_bounds__(THREADS, 1) mlp_fused_cluster_kernel(
+    const __grid_constant__ CUtensorMap map_x,
+    const __grid_constant__ CUtensorMap map_w1,
+    const __grid_constant__ CUtensorMap map_w2, const float* __restrict__ sx,
+    const float* __restrict__ s1, const float* __restrict__ b1,
+    const float* __restrict__ s2, const float* __restrict__ b2,
+    const __nv_bfloat16* __restrict__ resid,
+    __nv_bfloat16* __restrict__ out, int M, int D) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  // aligned by an offset from the shared array itself, so the compiler
+  // keeps every access of `sm` a shared-memory instruction
+  Smem& sm = *reinterpret_cast<Smem*>(
+      smem_raw + ((1024 - wg::smem_addr(smem_raw) % 1024) % 1024));
+  const int C = D / DC;  // CTAs of the cluster
+  const int rank = cluster_rank();
+  const int m0 = (blockIdx.x / C) * BM;
+  const int h0 = rank * HC, d0 = rank * DC;
+  const int n_k1 = D / BK;        // fc1 k-chunks
+  const int n_k2 = C * CHUNKS;    // fc2 k-chunks over H
+  const int wg_id = threadIdx.x / WG_THREADS;
+  const int tid = threadIdx.x % WG_THREADS;
+  // fc2 iteration it's k-chunk: each CTA starts at its own
+  auto chunk2 = [&](int it) { return (CHUNKS * rank + it) % n_k2; };
+
+  if (threadIdx.x == 0) {
+    sm.r1.init(2);
+    sm.r2.init(2, 2);  // the w2 box's bytes and one copier warp
+  }
+  cluster_sync();  // the barriers are set and every CTA of the cluster runs
+
+  if (wg_id == 0) {
+    gm::regs_dec<88>();
+    if (tid == 0) {
+      for (int kc = 0; kc < n_k1; ++kc) {
+        const int s = sm.r1.acquire(kc, STAGE1);
+        uint8_t* st = sm.ring + s * STAGE1;
+        gm::tma_load_2d(st, &map_x, &sm.r1.full[s], kc * BK, m0);
+        for (int h = 0; h < 2; ++h)
+          gm::tma_load_2d(st + A_BYTES + h * (W1_BYTES / 2), &map_w1,
+                          &sm.r1.full[s], kc * BK, h0 + h * (HC / 2));
+      }
+      // fc2's ring takes fc1's memory once every fc1 stage is free; its
+      // first w2 boxes load under fc1's epilogue
+      for (int i = 0; i < S1; ++i) sm.r1.wait_free(n_k1 + i);
+      for (int it = 0; it < S2 && it < n_k2; ++it) {
+        const int s = sm.r2.acquire(it, W2_BYTES);
+        gm::tma_load_2d(sm.ring + s * STAGE2 + A_BYTES, &map_w2,
+                        &sm.r2.full[s], chunk2(it) * BK, d0);
+      }
+    }
+    __syncwarp();
+    cluster_sync();  // the row maxima are exchanged
+    cluster_sync();  // the codes are written
+    // each warp copies every fourth chunk, so four chunks' peer round
+    // trips are in flight at once; a lane moves 256 bytes a chunk in one
+    // round of sixteen 16-byte loads
+    const int warp = tid / 32, lane = tid % 32;
+    for (int it = warp; it < n_k2; it += WG_THREADS / 32) {
+      const bool tma = lane == 0 && it >= S2;
+      const int s = tma ? sm.r2.acquire(it, W2_BYTES) : sm.r2.wait_free(it);
+      uint4* st = reinterpret_cast<uint4*>(sm.ring + s * STAGE2);
+      const int c = chunk2(it);
+      if (tma)
+        gm::tma_load_2d(st + A_BYTES / 16, &map_w2, &sm.r2.full[s], c * BK,
+                        d0);
+      const uint32_t src =
+          peer_addr(sm.ring + CODES + (c % CHUNKS) * A_BYTES, c / CHUNKS);
+      uint4 v[A_BYTES / 16 / 32];
+#pragma unroll
+      for (int j = 0; j < A_BYTES / 16 / 32; ++j)
+        v[j] = ld_peer(src + 16 * (lane + 32 * j));
+#pragma unroll
+      for (int j = 0; j < A_BYTES / 16 / 32; ++j) st[lane + 32 * j] = v[j];
+      gm::fence_proxy_async();  // the copy's writes before wgmma reads
+      __syncwarp();
+      if (lane == 0) sm.r2.fill(it);
+    }
+    cluster_sync();  // no CTA leaves while a peer may read its codes
+    return;
+  }
+
+  gm::regs_inc<208>();
+  const int c = wg_id - 1;  // this warpgroup's half of the columns
+  for (int i = tid; i < HC / 2; i += WG_THREADS) {
+    sm.s1[c * (HC / 2) + i] = s1[h0 + c * (HC / 2) + i];
+    sm.b1[c * (HC / 2) + i] = b1[h0 + c * (HC / 2) + i];
+  }
+  if (tid < DC / 2) {
+    sm.s2[c * (DC / 2) + tid] = s2[d0 + c * (DC / 2) + tid];
+    sm.b2[c * (DC / 2) + tid] = b2[d0 + c * (DC / 2) + tid];
+  }
+  if (c == 0 && tid < BM) sm.sx[tid] = m0 + tid < M ? sx[m0 + tid] : 0.0f;
+  wg::named_sync(1, 2 * WG_THREADS);  // the parameters are in place
+
+  // ---- fc1: 64 rows x 256 hidden columns a warpgroup ----
+  int acc[HC / 2 / 8][4];
+  gm::zero(acc);
+  for (int kc = 0; kc < n_k1; ++kc) {
+    const int s = sm.r1.wait(kc);
+    const uint8_t* st = sm.ring + s * STAGE1;
+    gm::fence_acc(acc);
+    wg::fence();
+    const uint64_t da = wg::desc(st);
+    const uint64_t db = wg::desc(st + A_BYTES + c * (W1_BYTES / 2));
+#pragma unroll
+    for (int kk = 0; kk < BK / 32; ++kk)
+      gm::MmaS8<HC / 2>::ss(acc, wg::desc_kstep(da, kk),
+                            wg::desc_kstep(db, kk), 1);
+    wg::commit();
+    wg::wait<1>();  // the previous chunk's products are complete
+    gm::fence_acc(acc);
+    if (kc > 0 && tid == 0) sm.r1.release(kc - 1);
+  }
+  wg::wait<0>();
+  gm::fence_acc(acc);
+  if (tid == 0) sm.r1.release(n_k1 - 1);
+
+  // ---- dequant + GELU in registers, the slice's row maxima ----
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int row[2] = {16 * warp + g, 16 * warp + g + 8};  // of the 64
+  float rmax[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float sr = sm.sx[row[h]];
+#pragma unroll
+    for (int nt = 0; nt < HC / 2 / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = c * (HC / 2) + nt * 8 + 2 * t4 + e;
+        const float v = gelu_tanh(__fadd_rn(
+            __fmul_rn(__fmul_rn(__int2float_rn(acc[nt][2 * h + e]), sr),
+                      sm.s1[col]),
+            sm.b1[col]));
+        acc[nt][2 * h + e] = __float_as_int(v);
+        rmax[h] = fmaxf(rmax[h], fabsf(v));
+      }
+    rmax[h] = fmaxf(rmax[h], __shfl_xor_sync(0xffffffffu, rmax[h], 1));
+    rmax[h] = fmaxf(rmax[h], __shfl_xor_sync(0xffffffffu, rmax[h], 2));
+    if (t4 == 0) sm.wmax[c][row[h]] = rmax[h];
+  }
+  wg::named_sync(1, 2 * WG_THREADS);
+  if (c == 0 && tid < BM) {  // the slice's maxima into every CTA's amax
+    const float v = fmaxf(sm.wmax[0][tid], sm.wmax[1][tid]);
+    for (int p = 0; p < C; ++p) st_peer(peer_addr(&sm.amax[rank][tid], p), v);
+  }
+  cluster_sync();  // the row maxima are exchanged
+
+  // ---- requantize into this CTA's codes ----
+  float sh[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
     float mx = 0.0f;
-    for (int j = 0; j < tiles; ++j) mx = fmaxf(mx, p[j]);
-    const float sh = __fdiv_rn(fmaxf(mx, 1e-8f), 127.0f);
-    sh_s[tid] = sh;
-    if (blockIdx.x == 0) sh_out[m0 + tid] = sh;
-  }  // the mainloop's barriers publish sh_s
-
-  gemm::Acc acc;
-  gemm::zero(acc);
-  gemm::mainloop(xq, w1, M, D, m0, n0, 0, D, As, Bs, acc);
-
-  float rmax[4][2];
+    for (int p = 0; p < C; ++p) mx = fmaxf(mx, sm.amax[p][row[h]]);
+    sh[h] = __fdiv_rn(fmaxf(mx, 1e-8f), 127.0f);
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) rmax[mt][0] = rmax[mt][1] = 0.0f;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int c = n0 + wn + nt * 8 + 2 * t4;
-    const float sc0 = s1[c], sc1 = s1[c + 1];
-    const float bb0 = b1[c], bb1 = b1[c + 1];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int lr = wm + mt * 16 + g + 8 * half;
-        const int r = m0 + lr;
-        const float sr = r < M ? sx[r] : 0.0f;
-        const float v0 = gelu_tanh(__fadd_rn(
-            __fmul_rn(__fmul_rn(__int2float_rn(acc[mt][nt][2 * half]), sr),
-                      sc0), bb0));
-        const float v1 = gelu_tanh(__fadd_rn(
-            __fmul_rn(__fmul_rn(__int2float_rn(acc[mt][nt][2 * half + 1]),
-                                sr), sc1), bb1));
-        if (kQuantize) {
-          if (r < M) {
-            const float s = sh_s[lr];
-            const uint16_t codes = static_cast<uint16_t>(
-                (static_cast<uint32_t>(lseg::quantize_code(v0, s)) & 0xffu) |
-                ((static_cast<uint32_t>(lseg::quantize_code(v1, s)) & 0xffu)
-                 << 8));
-            *reinterpret_cast<uint16_t*>(
-                hq + static_cast<long long>(r) * H + c) = codes;
-          }
-        } else {
-          rmax[mt][half] = fmaxf(rmax[mt][half],
-                                 fmaxf(fabsf(v0), fabsf(v1)));
-        }
-      }
+    for (int nt = 0; nt < HC / 2 / 8; ++nt) {
+      const int cc = c * (HC / 2) + nt * 8 + 2 * t4;  // even
+      const int cb = cc % BK, r = row[h];
+      const uint16_t codes = static_cast<uint16_t>(
+          (static_cast<uint32_t>(lseg::quantize_code(
+               __int_as_float(acc[nt][2 * h]), sh[h])) & 0xffu) |
+          ((static_cast<uint32_t>(lseg::quantize_code(
+                __int_as_float(acc[nt][2 * h + 1]), sh[h])) & 0xffu)
+           << 8));
+      *reinterpret_cast<uint16_t*>(
+          sm.ring + CODES + (cc / BK) * A_BYTES + r * BK +
+          (((cb >> 4) ^ (r & 7)) << 4) + (cb & 15)) = codes;
     }
   }
-  if (kQuantize) return;
+  cluster_sync();  // the codes are written
 
-  // row maxima over the block's 128 columns: the 4 lanes of a row, then
-  // the 4 column warps
+  // ---- fc2: 64 rows x 64 output columns a warpgroup over all of H ----
+  int acc2[DC / 2 / 8][4];
+  gm::zero(acc2);
+  for (int it = 0; it < n_k2; ++it) {
+    const int s = sm.r2.wait(it);
+    const uint8_t* st = sm.ring + s * STAGE2;
+    gm::fence_acc(acc2);
+    wg::fence();
+    const uint64_t da = wg::desc(st);
+    const uint64_t db = wg::desc(st + A_BYTES + c * (W2_BYTES / 2));
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
+    for (int kk = 0; kk < BK / 32; ++kk)
+      gm::MmaS8<DC / 2>::ss(acc2, wg::desc_kstep(da, kk),
+                            wg::desc_kstep(db, kk), 1);
+    wg::commit();
+    wg::wait<1>();  // the previous chunk's products are complete
+    gm::fence_acc(acc2);
+    if (it > 0 && tid == 0) sm.r2.release(it - 1);
+  }
+  wg::wait<0>();
+  gm::fence_acc(acc2);
+
+  // ---- ((acc2 * sh) * s2) + b2 + resid, one cast to bf16 ----
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float v = rmax[mt][half];
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-      if (t4 == 0) red[warp / 2][wm + mt * 16 + g + 8 * half] = v;
+  for (int h = 0; h < 2; ++h) {
+    const int r = m0 + row[h];
+    if (r >= M) continue;
+#pragma unroll
+    for (int nt = 0; nt < DC / 2 / 8; ++nt) {
+      const int col = c * (DC / 2) + nt * 8 + 2 * t4;
+      const long long off = static_cast<long long>(r) * D + d0 + col;
+      const float2 res = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(resid + off));
+      const float y0 = __fadd_rn(
+          __fmul_rn(__fmul_rn(__int2float_rn(acc2[nt][2 * h]), sh[h]),
+                    sm.s2[col]),
+          sm.b2[col]);
+      const float y1 = __fadd_rn(
+          __fmul_rn(__fmul_rn(__int2float_rn(acc2[nt][2 * h + 1]), sh[h]),
+                    sm.s2[col + 1]),
+          sm.b2[col + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(out + off) =
+          __floats2bfloat162_rn(__fadd_rn(y0, res.x), __fadd_rn(y1, res.y));
     }
   }
-  __syncthreads();
-  if (tid < gemm::BM && m0 + tid < M) {
-    const float v = fmaxf(fmaxf(red[0][tid], red[1][tid]),
-                          fmaxf(red[2][tid], red[3][tid]));
-    pm[static_cast<long long>(m0 + tid) * tiles + blockIdx.x] = v;
-  }
+  cluster_sync();  // no CTA leaves while a peer may read its codes
 }
 
-// (c) out = bf16(((acc2 * sh) * s2 + b2) + resid)
-__global__ void __launch_bounds__(gemm::THREADS) fc2_residual_kernel(
-    const int8_t* __restrict__ hq, const float* __restrict__ sh,
-    const int8_t* __restrict__ w2, const float* __restrict__ s2,
-    const float* __restrict__ b2, const __nv_bfloat16* __restrict__ resid,
-    __nv_bfloat16* __restrict__ out, int M, int D, int H) {
-  __shared__ __align__(16) int8_t As[gemm::BM * gemm::LD];
-  __shared__ __align__(16) int8_t Bs[gemm::BN * gemm::LD];
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t4 = lane % 4;
-  const int m0 = blockIdx.y * gemm::BM;
-  const int n0 = blockIdx.x * gemm::BN;
-  const int wm = (warp % 2) * 64;
-  const int wn = (warp / 2) * 32;
-
-  gemm::Acc acc;
-  gemm::zero(acc);
-  gemm::mainloop(hq, w2, M, H, m0, n0, 0, H, As, Bs, acc);
-
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int c = n0 + wn + nt * 8 + 2 * t4;
-    const float sc0 = s2[c], sc1 = s2[c + 1];
-    const float bb0 = b2[c], bb1 = b2[c + 1];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = m0 + wm + mt * 16 + g + 8 * half;
-        if (r >= M) continue;
-        const float sr = sh[r];
-        const long long off = static_cast<long long>(r) * D + c;
-        const float2 res = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(resid + off));
-        const float y0 = __fadd_rn(
-            __fmul_rn(__fmul_rn(__int2float_rn(acc[mt][nt][2 * half]), sr),
-                      sc0), bb0);
-        const float y1 = __fadd_rn(
-            __fmul_rn(__fmul_rn(__int2float_rn(acc[mt][nt][2 * half + 1]),
-                                sr), sc1), bb1);
-        *reinterpret_cast<__nv_bfloat162*>(out + off) =
-            __floats2bfloat162_rn(__fadd_rn(y0, res.x), __fadd_rn(y1, res.y));
-      }
-    }
+// The launch configuration of `tiles` row tiles at width `dim`: a cluster
+// of dim / 128 CTAs per tile.
+struct Launch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  Launch(int dim, int tiles, cudaStream_t stream) {
+    const int cluster = dim / DC;
+    cfg.gridDim = dim3(cluster * tiles);
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = SMEM;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
   }
-}
+};
 
 }  // namespace
 
-// Launch the three-step chain on `stream`; returns the first non-zero
-// cudaGetLastError() (0 on success). pm (M, H / 128) fp32, hq (M, H) int8
-// and sh (M,) fp32 are scratch buffers allocated by the wrapper. Requires
-// D % 128 == 0, H % 128 == 0, 16-byte aligned tensors (checked by the
-// wrapper).
+// Launch on `stream`; returns the launch's error code (0 on success): a
+// cluster launch the card refuses returns it, with no other route.
+// Requires hidden == 4 * dim, dim % 128 == 0, dim <= 1024 and 16-byte
+// aligned tensors (checked by the wrapper). With `clusters` not null the
+// call launches nothing and writes there the most clusters of width
+// `dim` the card holds at once (cudaOccupancyMaxActiveClusters).
 extern "C" int lseg_mlp_fused(const void* xq, const void* sx,
                               const void* resid, const void* w1,
                               const void* s1, const void* b1, const void* w2,
-                              const void* s2, const void* b2, void* pm,
-                              void* hq, void* sh, void* out, int m, int dim,
-                              int hidden, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid1(hidden / gemm::BN, (m + gemm::BM - 1) / gemm::BM);
-  const auto* xq8 = static_cast<const int8_t*>(xq);
-  const auto* sxf = static_cast<const float*>(sx);
-  const auto* w18 = static_cast<const int8_t*>(w1);
-  const auto* s1f = static_cast<const float*>(s1);
-  const auto* b1f = static_cast<const float*>(b1);
-  auto* pmf = static_cast<float*>(pm);
-  auto* hq8 = static_cast<int8_t*>(hq);
-  auto* shf = static_cast<float*>(sh);
-  fc1_gelu_kernel<false><<<grid1, gemm::THREADS, 0, st>>>(
-      xq8, sxf, w18, s1f, b1f, pmf, hq8, shf, m, hidden, dim);
-  int rc = static_cast<int>(cudaGetLastError());
+                              const void* s2, const void* b2, void* out,
+                              int m, int dim, int hidden, int* clusters,
+                              void* stream) {
+  static const int attr = wg::allow_smem(mlp_fused_cluster_kernel, SMEM);
+  if (attr != 0) return attr;
+  if (clusters != nullptr) {
+    Launch l(dim, 1, nullptr);
+    return static_cast<int>(cudaOccupancyMaxActiveClusters(
+        clusters, mlp_fused_cluster_kernel, &l.cfg));
+  }
+  CUtensorMap map_x, map_w1, map_w2;
+  int rc = gm::make_map_2d(&map_x, xq, 1, dim, m, BK, BM, true);
+  if (rc == 0)
+    rc = gm::make_map_2d(&map_w1, w1, 1, dim, hidden, BK, HC / 2, true);
+  if (rc == 0) rc = gm::make_map_2d(&map_w2, w2, 1, hidden, dim, BK, DC, true);
   if (rc != 0) return rc;
-  fc1_gelu_kernel<true><<<grid1, gemm::THREADS, 0, st>>>(
-      xq8, sxf, w18, s1f, b1f, pmf, hq8, shf, m, hidden, dim);
-  rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  const dim3 grid2(dim / gemm::BN, (m + gemm::BM - 1) / gemm::BM);
-  fc2_residual_kernel<<<grid2, gemm::THREADS, 0, st>>>(
-      hq8, shf, static_cast<const int8_t*>(w2), static_cast<const float*>(s2),
-      static_cast<const float*>(b2),
-      static_cast<const __nv_bfloat16*>(resid),
-      static_cast<__nv_bfloat16*>(out), m, dim, hidden);
+  Launch l(dim, (m + BM - 1) / BM, static_cast<cudaStream_t>(stream));
+  const cudaError_t e = cudaLaunchKernelEx(
+      &l.cfg, mlp_fused_cluster_kernel, map_x, map_w1, map_w2,
+      static_cast<const float*>(sx), static_cast<const float*>(s1),
+      static_cast<const float*>(b1), static_cast<const float*>(s2),
+      static_cast<const float*>(b2), static_cast<const __nv_bfloat16*>(resid),
+      static_cast<__nv_bfloat16*>(out), m, dim);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

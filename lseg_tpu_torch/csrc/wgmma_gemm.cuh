@@ -1,6 +1,7 @@
-// The Hopper GEMM engine of kernels B17 (dense_residual.cu, bf16 mode) and
-// B10 (fused_correlate.cu, both modes), beside the tile engine of
-// wgmma.cuh, whose descriptors, barriers and tensor-map encoder it uses.
+// The Hopper GEMM engine of kernels B17 (dense_residual.cu, bf16 mode), B10
+// (fused_correlate.cu, both modes) and B16 (mlp_fused.cu), beside the tile
+// engine of wgmma.cuh, whose descriptors, barriers and tensor-map encoder
+// it uses.
 //
 // A GEMM here is a ring of shared-memory stages that TMA fills, each
 // stage completed on its own `full` mbarrier and handed back on its own
@@ -25,6 +26,12 @@
 //     apart (the descriptor's leading byte offset), 8-row groups of K 1024
 //     bytes apart (its stride byte offset), k-step kk 2048 bytes
 //     (desc_mn, wg::desc_rowstep).
+// Integer products: m64nNk32 s8 -> s32 for N = 64 and 256 (MmaS8), both
+// operands K-major from shared memory, as 8-bit wgmma requires: a
+// 128-byte swizzled row holds 128 codes, so a k-step of 32 is the same
+// 32 bytes along the row as a bf16 k-step of 16 (wg::desc_kstep). The
+// accumulator `int acc[N / 8][4]` has the fp32 layout above; its sums are
+// exact.
 
 #pragma once
 
@@ -51,13 +58,20 @@ __device__ __forceinline__ void fence_acc(float (&d)[NT][4]) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
 }
-
 template <int NT>
-__device__ __forceinline__ void zero(float (&d)[NT][4]) {
+__device__ __forceinline__ void fence_acc(int (&d)[NT][4]) {
 #pragma unroll
   for (int i = 0; i < NT; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) d[i][e] = 0.0f;
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(d[i][e])::"memory");
+}
+
+template <typename T, int NT>
+__device__ __forceinline__ void zero(T (&d)[NT][4]) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[i][e] = T(0);
 }
 
 // wgmma.wait_group with a count known only at run time (0..7)
@@ -203,6 +217,90 @@ __device__ __forceinline__ void mma_chunk(float (&d)[N / 8][4], uint64_t da,
                             1);
 }
 
+// ---- integer products: d (+)= A . B, m64nNk32 s8 -> s32, both K-major;
+// scale_d = 0 overwrites d --------------------------------------------------
+
+template <int N>
+struct MmaS8;
+
+template <>
+struct MmaS8<64> {
+  static __device__ __forceinline__ void ss(int (&d)[8][4], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p;\n}\n"
+        : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+          "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+          "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+          "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
+          "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+          "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
+          "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
+          "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct MmaS8<256> {
+  static __device__ __forceinline__ void ss(int (&d)[32][4], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p;\n}\n"
+        : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+          "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+          "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+          "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
+          "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+          "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
+          "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
+          "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3]),
+          "+r"(d[8][0]), "+r"(d[8][1]), "+r"(d[8][2]), "+r"(d[8][3]),
+          "+r"(d[9][0]), "+r"(d[9][1]), "+r"(d[9][2]), "+r"(d[9][3]),
+          "+r"(d[10][0]), "+r"(d[10][1]), "+r"(d[10][2]), "+r"(d[10][3]),
+          "+r"(d[11][0]), "+r"(d[11][1]), "+r"(d[11][2]), "+r"(d[11][3]),
+          "+r"(d[12][0]), "+r"(d[12][1]), "+r"(d[12][2]), "+r"(d[12][3]),
+          "+r"(d[13][0]), "+r"(d[13][1]), "+r"(d[13][2]), "+r"(d[13][3]),
+          "+r"(d[14][0]), "+r"(d[14][1]), "+r"(d[14][2]), "+r"(d[14][3]),
+          "+r"(d[15][0]), "+r"(d[15][1]), "+r"(d[15][2]), "+r"(d[15][3]),
+          "+r"(d[16][0]), "+r"(d[16][1]), "+r"(d[16][2]), "+r"(d[16][3]),
+          "+r"(d[17][0]), "+r"(d[17][1]), "+r"(d[17][2]), "+r"(d[17][3]),
+          "+r"(d[18][0]), "+r"(d[18][1]), "+r"(d[18][2]), "+r"(d[18][3]),
+          "+r"(d[19][0]), "+r"(d[19][1]), "+r"(d[19][2]), "+r"(d[19][3]),
+          "+r"(d[20][0]), "+r"(d[20][1]), "+r"(d[20][2]), "+r"(d[20][3]),
+          "+r"(d[21][0]), "+r"(d[21][1]), "+r"(d[21][2]), "+r"(d[21][3]),
+          "+r"(d[22][0]), "+r"(d[22][1]), "+r"(d[22][2]), "+r"(d[22][3]),
+          "+r"(d[23][0]), "+r"(d[23][1]), "+r"(d[23][2]), "+r"(d[23][3]),
+          "+r"(d[24][0]), "+r"(d[24][1]), "+r"(d[24][2]), "+r"(d[24][3]),
+          "+r"(d[25][0]), "+r"(d[25][1]), "+r"(d[25][2]), "+r"(d[25][3]),
+          "+r"(d[26][0]), "+r"(d[26][1]), "+r"(d[26][2]), "+r"(d[26][3]),
+          "+r"(d[27][0]), "+r"(d[27][1]), "+r"(d[27][2]), "+r"(d[27][3]),
+          "+r"(d[28][0]), "+r"(d[28][1]), "+r"(d[28][2]), "+r"(d[28][3]),
+          "+r"(d[29][0]), "+r"(d[29][1]), "+r"(d[29][2]), "+r"(d[29][3]),
+          "+r"(d[30][0]), "+r"(d[30][1]), "+r"(d[30][2]), "+r"(d[30][3]),
+          "+r"(d[31][0]), "+r"(d[31][1]), "+r"(d[31][2]), "+r"(d[31][3])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
 // ---- the ring ---------------------------------------------------------------
 
 template <int STAGES>
@@ -211,10 +309,11 @@ struct Ring {
   uint64_t empty[STAGES];
 
   // one thread, before the block's first sync: `consumers` arrivals free
-  // a stage
-  __device__ __forceinline__ void init(int consumers) {
+  // a stage; `producers` arrivals (the one that announces the TMA bytes,
+  // and each `fill`) and the bytes complete it
+  __device__ __forceinline__ void init(int consumers, int producers = 1) {
     for (int s = 0; s < STAGES; ++s) {
-      wg::bar_init(&full[s], 1);
+      wg::bar_init(&full[s], producers);
       wg::bar_init(&empty[s], consumers);
     }
     wg::bar_init_fence();
@@ -232,6 +331,14 @@ struct Ring {
     const int s = wait_free(it);
     wg::bar_expect_tx(&full[s], bytes);
     return s;
+  }
+  // producer thread that wrote part of iteration it's stage with generic
+  // stores, then fence_proxy_async: its arrival on the stage's full
+  // barrier
+  __device__ __forceinline__ void fill(uint32_t it) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                     wg::smem_addr(&full[it % STAGES]))
+                 : "memory");
   }
   // consumer: wait until the loads of iteration it have landed
   __device__ __forceinline__ int wait(uint32_t it) {
@@ -306,8 +413,8 @@ __device__ __forceinline__ void regs_inc() {
 
 // ---- host: 2-D tensor maps --------------------------------------------------
 
-// A 2-D map over a row-major (rows, cols) array of 2-byte (bf16) or
-// 4-byte (fp32) elements with (box_cols, box_rows) boxes, the 128-byte
+// A 2-D map over a row-major (rows, cols) array of 1-byte (int8 codes),
+// 2-byte (bf16) or 4-byte (fp32) elements with (box_cols, box_rows) boxes, the 128-byte
 // swizzle or none, zero fill past the edges. Needs a 16-byte aligned base
 // and rows of a multiple of 16 bytes. Returns 0 or a CUDA error code; binds
 // the array's device's primary context where the calling thread has none
@@ -325,8 +432,9 @@ inline int make_map_2d(CUtensorMap* map, const void* base, int elem_bytes,
   const cuuint32_t elem[2] = {1, 1};
   auto encode = [&] {
     return enc(map,
-               elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                               : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+               elem_bytes == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+               : elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                2, const_cast<void*>(base), dims, strides, box, elem,
                CU_TENSOR_MAP_INTERLEAVE_NONE,
                swizzle ? CU_TENSOR_MAP_SWIZZLE_128B

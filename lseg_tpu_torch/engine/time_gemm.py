@@ -1,14 +1,17 @@
 """Time kernels B17 (`dense_residual`) and B10 (`fused_correlate`) in each
-of their modes, and the fp32 modes of B6 and B7, at the flagship shapes on
-one card, beside the PyTorch call that computes the same function.
+of their modes, the fp32 modes of B6 and B7, and B16 (`mlp_fused`), at the
+flagship shapes on one card, beside the PyTorch call that computes the
+same function where there is one.
 
     python lseg_tpu_torch/engine/time_gemm.py [--root DIR] [--tag T]
-        [--library]
+        [--library] [--only B6_fp32,B16,...]
 
 Shapes: B17 at ViT-L/16's fc2, (7208, 4096) . (4096, 1024) with a
 residual, bf16 and fp32; B10 at the streamed head's (8, 240, 240, 512) bf16
 pixels against K = 150, compute_dtype float32 and bfloat16; B6 and B7 on
-fp32 qkv (8, 901, 3072) with 16 heads. It imports the port from `--root`
+fp32 qkv (8, 901, 3072) with 16 heads; B16 at ViT-L/16's MLP, (8, 901,
+1024) codes with H = 4096, a real residual and `chip_smoke.py`'s outlier
+hidden channels. It imports the port from `--root`
 (default: the checkout that holds this file), so the same script times an
 older tree's kernels in the same call as this one's: run them in turns
 (old, new, new, old) and compare only within one call. A mode an older
@@ -16,7 +19,8 @@ tree does not have (fp32 B6 and B7 before they were ported) reads null.
 `--library` adds the PyTorch calls (`torch.addmm`, `torch.matmul`, SDPA in
 fp32) and the names of the device kernels that one fp32 SDPA call and its
 backward launch (`torch.profiler`), which say which of PyTorch's kernels
-computes them. Prints one JSON line: the card's name and power limit and
+computes them. `--only` times the named rows alone (B17, B10, B6_fp32 (with
+B7_fp32), B16). Prints one JSON line: the card's name and power limit and
 each time in ms (CUDA events over 20 calls after 3 warm-ups). Without a
 card it exits 1.
 """
@@ -37,7 +41,10 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", default="tree")
     ap.add_argument("--library", action="store_true",
                     help="also time the PyTorch call of each function")
+    ap.add_argument("--only", default="B17,B10,B6_fp32,B16",
+                    help="comma-separated rows to time")
     args = ap.parse_args(argv)
+    only = set(args.only.split(","))
     sys.path.insert(0, args.root)
     import torch
 
@@ -87,61 +94,83 @@ def main(argv=None) -> int:
     g = torch.Generator(device=dev).manual_seed(0)
     row = {"tag": args.tag, "card": card}
     bf, f32 = torch.bfloat16, torch.float32
+    t = 901  # tokens of ViT-L/16 at 480x480
 
-    m, k, n = 7208, 4096, 1024
-    for name, dt in (("B17_bf16", bf), ("B17_fp32", f32)):
-        x = torch.randn(m, k, device=dev, generator=g).to(dt)
-        w = (torch.randn(k, n, device=dev, generator=g) / k ** 0.5).to(dt)
-        b = torch.randn(n, device=dev, generator=g)
-        r = torch.randn(m, n, device=dev, generator=g).to(dt)
-        row[f"{name}_ms"] = ms(lambda: dense.dense_residual(
-            x, w, b, r, out_dtype=dt))
+    if "B17" in only:
+        m, k, n = 7208, 4096, 1024
+        for name, dt in (("B17_bf16", bf), ("B17_fp32", f32)):
+            x = torch.randn(m, k, device=dev, generator=g).to(dt)
+            w = (torch.randn(k, n, device=dev, generator=g) / k ** 0.5).to(dt)
+            b = torch.randn(n, device=dev, generator=g)
+            r = torch.randn(m, n, device=dev, generator=g).to(dt)
+            row[f"{name}_ms"] = ms(lambda: dense.dense_residual(
+                x, w, b, r, out_dtype=dt))
+            if args.library:
+                c = (r.float() + b).to(dt)
+                row[f"{name}_addmm_ms"] = ms(lambda: torch.addmm(c, x, w))
+            del x, w, r
+
+    if "B10" in only:
+        emb = torch.randn(8, 240, 240, 512, device=dev, generator=g).to(bf)
+        txt = torch.randn(150, 512, device=dev, generator=g)
+        for name, dt in (("B10_fp32", f32), ("B10_bf16", bf)):
+            row[f"{name}_ms"] = ms(lambda: fc.fused_correlate(
+                emb, txt, compute_dtype=dt))
+            if args.library:
+                xn = torch.nn.functional.normalize(
+                    emb.float().reshape(-1, 512), dim=-1).to(dt)
+                tn = torch.nn.functional.normalize(txt, dim=-1).t().contiguous(
+                    ).to(dt)
+                row[f"{name}_matmul_ms"] = ms(lambda: torch.matmul(xn, tn))
+                del xn
+        del emb
+
+    if "B6_fp32" in only:
+        h, scale = 16, 64 ** -0.5
+        qkv = torch.randn(8, t, 3 * h * 64, device=dev, generator=g)
+        do = torch.randn(8, t, h * 64, device=dev, generator=g)
+        row["B6_fp32_ms"] = mode_ms(lambda: fa.flash_attention_flat(qkv, h,
+                                                                     scale))
+        if row["B6_fp32_ms"] is not None:
+            out, lse = fa.flash_attention_flat(qkv, h, scale, return_lse=True)
+            row["B7_fp32_ms"] = ms(lambda: fa.flash_attention_flat_bwd(
+                qkv, out, do, lse, h, scale))
+        else:
+            row["B7_fp32_ms"] = None
         if args.library:
-            c = (r.float() + b).to(dt)
-            row[f"{name}_addmm_ms"] = ms(lambda: torch.addmm(c, x, w))
-        del x, w, r
+            q, kk, v = (qkv.view(8, t, 3, h, 64).permute(2, 0, 3, 1, 4)
+                        .detach().clone().requires_grad_())
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            row["sdpa_fp32_ms"] = ms(lambda: sdpa(q, kk, v, scale=scale))
+            row["sdpa_fp32_kernels"] = kernels(lambda: sdpa(q, kk, v,
+                                                            scale=scale))
+            so = sdpa(q, kk, v, scale=scale)
+            dso = do.view(8, t, h, 64).transpose(1, 2)
 
-    emb = torch.randn(8, 240, 240, 512, device=dev, generator=g).to(bf)
-    txt = torch.randn(150, 512, device=dev, generator=g)
-    for name, dt in (("B10_fp32", f32), ("B10_bf16", bf)):
-        row[f"{name}_ms"] = ms(lambda: fc.fused_correlate(
-            emb, txt, compute_dtype=dt))
-        if args.library:
-            xn = torch.nn.functional.normalize(
-                emb.float().reshape(-1, 512), dim=-1).to(dt)
-            tn = torch.nn.functional.normalize(txt, dim=-1).t().contiguous(
-                ).to(dt)
-            row[f"{name}_matmul_ms"] = ms(lambda: torch.matmul(xn, tn))
-            del xn
-    del emb
+            def sdpa_bwd():
+                return torch.autograd.grad(so, (q, kk, v), dso,
+                                           retain_graph=True)
 
-    t, h, scale = 901, 16, 64 ** -0.5
-    qkv = torch.randn(8, t, 3 * h * 64, device=dev, generator=g)
-    do = torch.randn(8, t, h * 64, device=dev, generator=g)
-    row["B6_fp32_ms"] = mode_ms(lambda: fa.flash_attention_flat(qkv, h,
-                                                                 scale))
-    if row["B6_fp32_ms"] is not None:
-        out, lse = fa.flash_attention_flat(qkv, h, scale, return_lse=True)
-        row["B7_fp32_ms"] = ms(lambda: fa.flash_attention_flat_bwd(
-            qkv, out, do, lse, h, scale))
-    else:
-        row["B7_fp32_ms"] = None
-    if args.library:
-        q, kk, v = (qkv.view(8, t, 3, h, 64).permute(2, 0, 3, 1, 4).detach()
-                    .clone().requires_grad_())
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        row["sdpa_fp32_ms"] = ms(lambda: sdpa(q, kk, v, scale=scale))
-        row["sdpa_fp32_kernels"] = kernels(lambda: sdpa(q, kk, v,
-                                                        scale=scale))
-        so = sdpa(q, kk, v, scale=scale)
-        dso = do.view(8, t, h, 64).transpose(1, 2)
+            row["sdpa_bwd_fp32_ms"] = ms(sdpa_bwd)
+            row["sdpa_bwd_fp32_kernels"] = kernels(sdpa_bwd)
+    if "B16" in only:
+        from lseg_tpu_torch.ops.mlp import mlp_fused
+        from lseg_tpu_torch.ops.quant import quantize_rows
 
-        def sdpa_bwd():
-            return torch.autograd.grad(so, (q, kk, v), dso,
-                                       retain_graph=True)
-
-        row["sdpa_bwd_fp32_ms"] = ms(sdpa_bwd)
-        row["sdpa_bwd_fp32_kernels"] = kernels(sdpa_bwd)
+        d, hid = 1024, 4096
+        xq, sx = quantize_rows(torch.randn(8, t, d, device=dev, generator=g))
+        w1 = torch.randint(-127, 128, (hid, d), device=dev, generator=g,
+                           dtype=torch.int8)
+        w2 = torch.randint(-127, 128, (d, hid), device=dev, generator=g,
+                           dtype=torch.int8)
+        s1 = 2e-3 / d ** 0.5 * torch.rand(hid, device=dev, generator=g)
+        b1 = 0.5 * torch.randn(hid, device=dev, generator=g)
+        b1[hid // 16::hid // 8] += torch.arange(1.0, 9.0, device=dev)
+        s2 = 2e-2 / hid ** 0.5 * torch.rand(d, device=dev, generator=g)
+        b2 = 0.05 * torch.randn(d, device=dev, generator=g)
+        res = (2.0 * torch.randn(8, t, d, device=dev, generator=g)).to(bf)
+        row["B16_ms"] = ms(lambda: mlp_fused(xq, sx, res, w1, s1, b1, w2, s2,
+                                             b2))
     print(json.dumps(row), flush=True)
     return 0
 

@@ -1,0 +1,278 @@
+"""Copy this checkout into a directory with one named variant of a kernel
+source applied: a design alternative or a cut to time beside the tree,
+or a mutation that the card's checks must catch.
+
+    python -m lseg_tpu_torch.engine.variant_tree NAME DIR
+    cd DIR && python -m lseg_tpu_torch.engine.variant_tree --timeline
+
+DIR (a git-ignored directory such as `build/variants/NAME`) receives the
+checkout without `.git`, `build/` and `chiprun_out/`, with the variant's
+text substitutions applied to `lseg_tpu_torch/csrc`; run a script from
+there (`cd DIR && python3 chip_smoke.py`) or time it against the tree
+(`lseg_tpu_torch/engine/time_gemm.py --root DIR`). A substitution that no
+longer matches its source fails with exit code 1. `--timeline`, run from
+a `b16_timeline` copy, runs that copy's B16 on the card at ViT-L/16's
+MLP, (8, 901, 1024) codes and H = 4096, and prints one JSON line: the
+median over the CTAs of the microseconds between the kernel's phase
+points (`TIMELINE_PHASES`), and the spread of the CTAs' start times.
+Variants:
+
+- `b6_fp32_expf`: B6's fp32 mode with expf of the scaled score (lse =
+  m + log l) in place of ex2.approx of the score prescaled by log2 e;
+- `b6_fp32_lb3`: B6's fp32 mode compiled for three blocks an SM (168
+  registers a thread) instead of two (255);
+- `b16_fc1_2stages`: B16 with a two-stage fc1 ring instead of three;
+- `b16_s2_3`: B16 with three fc2 stages instead of six;
+- `b16_copy_8`: B16's copier lanes loading a chunk's 256 bytes in two
+  rounds of eight loads instead of one of sixteen (56 registers for the
+  producer warpgroup, 224 for the consumers, instead of 88 and 208);
+- `b16_timeline`: B16 stamping the global timer at its phase points;
+- `b6_fp32_no_alo_bhi`: split TF32 without the a_lo . b_hi product, a
+  mutation of B6's fp32 mode (and B7's, which phase 2 of `chip_smoke.py`
+  checks after B6's);
+- `b16_slice_amax`: B16 with each CTA's requantize scale taken over its
+  own hidden slice only (no cluster exchange), a mutation.
+
+Cuts, whose outputs are wrong by design (only their time is read):
+- `b16_no_gelu`: B16's GELU replaced by its argument;
+- `b16_no_dsm`: B16's copy of the peers' codes writes without reading
+  distributed shared memory;
+- `b16_no_fence`: B16's codes copy without its proxy fence (the copy may
+  race the products);
+- `b16_no_copy`: B16's copier arriving on the fc2 stages without reading
+  or writing the codes;
+- `b16_fc2_no_mma`: B16's fc2 loads and copies without its products;
+- `b16_fc2_one_w2`: B16's fc2 loading the same w2 box for every chunk;
+- `b16_no_fc2`: B16 without fc2 (no k-chunks: no w2 loads, codes copies
+  or products; its epilogue stores the bias and residual).
+"""
+
+from __future__ import annotations
+
+import argparse
+import shutil
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+
+# variant -> (source under lseg_tpu_torch/csrc, [(old, new), ...])
+VARIANTS = {
+    "b6_fp32_expf": ("flash_attention_flat_fp32.cu", [
+        ("const float sc = scale * kLog2e;", "const float sc = scale;"),
+        ("lseg::exp2_approx(", "expf("),
+        ("(m_run[h] + log2f(l[h])) * kLn2", "m_run[h] + logf(l[h])"),
+    ]),
+    "b6_fp32_lb3": ("flash_attention_flat_fp32.cu", [
+        ("__launch_bounds__(THREADS, 2)", "__launch_bounds__(THREADS, 3)"),
+    ]),
+    "b16_fc1_2stages": ("mlp_fused.cu", [
+        ("constexpr int S1 = 3;", "constexpr int S1 = 2;"),
+    ]),
+    "b16_copy_8": ("mlp_fused.cu", [
+        ("      uint4 v[A_BYTES / 16 / 32];\n#pragma unroll\n"
+         "      for (int j = 0; j < A_BYTES / 16 / 32; ++j)\n"
+         "        v[j] = ld_peer(src + 16 * (lane + 32 * j));\n"
+         "#pragma unroll\n"
+         "      for (int j = 0; j < A_BYTES / 16 / 32; ++j) "
+         "st[lane + 32 * j] = v[j];",
+         "      for (int h = 0; h < 2; ++h) {\n        uint4 v[8];\n"
+         "        for (int j = 0; j < 8; ++j)\n"
+         "          v[j] = ld_peer(src + 16 * (lane + 32 * (8 * h + j)));\n"
+         "        for (int j = 0; j < 8; ++j) "
+         "st[lane + 32 * (8 * h + j)] = v[j];\n      }"),
+        ("gm::regs_dec<88>();", "gm::regs_dec<56>();"),
+        ("gm::regs_inc<208>();", "gm::regs_inc<224>();"),
+    ]),
+    "b16_s2_3": ("mlp_fused.cu", [
+        ("constexpr int S2 = 6;", "constexpr int S2 = 3;"),
+    ]),
+    "b16_timeline": ("mlp_fused.cu", [
+        ('#include "wgmma_gemm.cuh"\n', '#include "wgmma_gemm.cuh"\n'
+         "__device__ unsigned long long lseg_b16_stamps[1024][10];\n"
+         "__device__ unsigned long long lseg_b16_chunks[1024][2][32];\n"
+         "#define NOW(v) asm volatile(\"mov.u64 %0, %%globaltimer;\" : "
+         "\"=l\"(v) :: \"memory\")\n"
+         "#define STAMP(i) if (threadIdx.x == 128 && blockIdx.x < 1024) "
+         "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"("
+         "lseg_b16_stamps[blockIdx.x][i]) :: \"memory\")\n"
+         "extern \"C\" int lseg_b16_timeline(void* dst) {\n"
+         "  int rc = static_cast<int>(cudaMemcpyFromSymbol(dst, "
+         "lseg_b16_stamps, sizeof(lseg_b16_stamps)));\n"
+         "  if (rc != 0) return rc;\n"
+         "  return static_cast<int>(cudaMemcpyFromSymbol(static_cast<char*>"
+         "(dst) + sizeof(lseg_b16_stamps), lseg_b16_chunks, "
+         "sizeof(lseg_b16_chunks)));\n}\n"),
+        # when thread 0 issues each w2 box, and when the consumer has each
+        # fc2 chunk
+        ("                        &sm.r2.full[s], chunk2(it) * BK, d0);\n",
+         "                        &sm.r2.full[s], chunk2(it) * BK, d0);\n"
+         "        if (blockIdx.x < 1024 && it < 32) "
+         "NOW(lseg_b16_chunks[blockIdx.x][0][it]);\n"),
+        ("&sm.r2.full[s], c * BK,\n                        d0);\n",
+         "&sm.r2.full[s], c * BK,\n                        d0);\n"
+         "      if (tma && blockIdx.x < 1024 && it < 32) "
+         "NOW(lseg_b16_chunks[blockIdx.x][0][it]);\n"),
+        ("    const int s = sm.r2.wait(it);\n",
+         "    const int s = sm.r2.wait(it);\n    if (threadIdx.x == 128 && "
+         "blockIdx.x < 1024 && it < 32) "
+         "NOW(lseg_b16_chunks[blockIdx.x][1][it]);\n"),
+        ("  cluster_sync();  // the barriers are set and every CTA of the "
+         "cluster runs\n",
+         "  STAMP(0);\n  cluster_sync();  // the barriers are set and every "
+         "CTA of the cluster runs\n  STAMP(1);\n"),
+        ("  if (tid == 0) sm.r1.release(n_k1 - 1);\n",
+         "  if (tid == 0) sm.r1.release(n_k1 - 1);\n  STAMP(2);\n"),
+        ("  cluster_sync();  // the row maxima are exchanged\n\n",
+         "  STAMP(3);\n  cluster_sync();  // the row maxima are exchanged\n"
+         "  STAMP(4);\n\n"),
+        ("  cluster_sync();  // the codes are written\n\n",
+         "  STAMP(5);\n  cluster_sync();  // the codes are written\n"
+         "  STAMP(6);\n\n"),
+        ("  wg::wait<0>();\n  gm::fence_acc(acc2);\n",
+         "  wg::wait<0>();\n  gm::fence_acc(acc2);\n  STAMP(7);\n"),
+        ("  cluster_sync();  // no CTA leaves while a peer may read its "
+         "codes\n}",
+         "  STAMP(8);\n  cluster_sync();  // no CTA leaves while a peer may "
+         "read its codes\n  STAMP(9);\n}"),
+    ]),
+    "b16_no_gelu": ("mlp_fused.cu", [
+        ("return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, "
+         "tanhf(inner)));", "return x;"),
+    ]),
+    "b16_no_dsm": ("mlp_fused.cu", [
+        ("v[j] = ld_peer(src + 16 * (lane + 32 * j));",
+         "v[j] = make_uint4(src, 0, 0, 0);"),
+    ]),
+    "b16_no_fence": ("mlp_fused.cu", [
+        ("      gm::fence_proxy_async();  // the copy's writes before wgmma "
+         "reads\n", ""),
+    ]),
+    "b16_no_copy": ("mlp_fused.cu", [
+        ("      gm::fence_proxy_async();  // the copy's writes before wgmma "
+         "reads\n", ""),
+        ("v[j] = ld_peer(src + 16 * (lane + 32 * j));",
+         "v[j] = make_uint4(src, 0, 0, 0);"),
+        ("st[lane + 32 * j] = v[j];", "(void)v[j];"),
+    ]),
+    "b16_fc2_no_mma": ("mlp_fused.cu", [
+        ("      gm::MmaS8<DC / 2>::ss(acc2, wg::desc_kstep(da, kk),\n"
+         "                            wg::desc_kstep(db, kk), 1);\n", ""),
+    ]),
+    "b16_fc2_one_w2": ("mlp_fused.cu", [
+        ("&sm.r2.full[s], chunk2(it) * BK, d0);", "&sm.r2.full[s], 0, d0);"),
+        ("&sm.r2.full[s], c * BK,\n                        d0);",
+         "&sm.r2.full[s], 0,\n                        d0);"),
+    ]),
+    "b16_no_fc2": ("mlp_fused.cu", [
+        ("const int n_k2 = C * CHUNKS;", "const int n_k2 = 0;"),
+    ]),
+    "b6_fp32_no_alo_bhi": ("tf32x3.cuh", [
+        ("  mma(d, a.lo, b.hi[0], b.hi[1]);\n", ""),
+    ]),
+    "b16_slice_amax": ("mlp_fused.cu", [
+        ("for (int p = 0; p < C; ++p) mx = fmaxf(mx, sm.amax[p][row[h]]);",
+         "mx = sm.amax[rank][row[h]];"),
+    ]),
+}
+
+
+# b16_timeline's stamps 0..9 -> the phases between consecutive ones
+TIMELINE_PHASES = ("cluster_start", "fc1", "gelu_amax", "amax_exchange",
+                   "quantize", "codes_barrier", "fc2", "epilogue",
+                   "exit_barrier")
+
+
+def read_timeline() -> dict:
+    """Run this checkout's B16 (a `b16_timeline` copy) at the flagship on
+    the card; the median microseconds of each phase over the CTAs and the
+    spread of their start times."""
+    import ctypes
+
+    import torch
+
+    from lseg_tpu_torch.ops._build import load_kernels
+    from lseg_tpu_torch.ops.mlp import mlp_fused
+    from lseg_tpu_torch.ops.quant import quantize_rows
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    m, d, h = 8 * 901, 1024, 4096
+    xq, sx = quantize_rows(torch.randn(8, 901, d, device=dev, generator=g))
+    w1 = torch.randint(-127, 128, (h, d), device=dev, generator=g,
+                       dtype=torch.int8)
+    w2 = torch.randint(-127, 128, (d, h), device=dev, generator=g,
+                       dtype=torch.int8)
+    s1 = 2e-3 / d ** 0.5 * torch.rand(h, device=dev, generator=g)
+    b1 = 0.5 * torch.randn(h, device=dev, generator=g)
+    s2 = 2e-2 / h ** 0.5 * torch.rand(d, device=dev, generator=g)
+    b2 = 0.05 * torch.randn(d, device=dev, generator=g)
+    res = torch.randn(8, 901, d, device=dev, generator=g).to(torch.bfloat16)
+    for _ in range(3):
+        mlp_fused(xq, sx, res, w1, s1, b1, w2, s2, b2)
+    torch.cuda.synchronize()
+    raw = torch.zeros(1024 * 10 + 1024 * 2 * 32, dtype=torch.int64)
+    rc = load_kernels().lseg_b16_timeline(ctypes.c_void_p(raw.data_ptr()))
+    if rc != 0:
+        raise RuntimeError(f"lseg_b16_timeline: cudaError {rc}")
+    ctas = 8 * -(-m // 64)
+    t = raw[:10240].view(1024, 10)[:ctas].double() / 1e3  # microseconds
+    chunks = raw[10240:].view(1024, 2, 32)[:ctas].double() / 1e3
+    phases = (t[:, 1:] - t[:, :-1]).median(0).values.tolist()
+    start = t[:, 0] - t[:, 0].min()
+    # each fc2 chunk's w2 box issued, and the consumer holding it, from the
+    # consumer's start of fc2 (stamp 6)
+    fc2 = (chunks - t[:, 6, None, None]).median(0).values
+    return {"phases_us": dict(zip(TIMELINE_PHASES, phases)),
+            "fc2_w2_issued_us": [round(v, 2) for v in fc2[0].tolist()],
+            "fc2_chunk_ready_us": [round(v, 2) for v in fc2[1].tolist()],
+            "cta_us": float((t[:, 9] - t[:, 0]).median()),
+            "call_us": float(t[:, 9].max() - t[:, 0].min()),
+            "start_us_quantiles": torch.quantile(
+                start, torch.tensor([0.0, 0.25, 0.5, 0.75, 1.0],
+                                    dtype=torch.float64)).tolist()}
+
+
+def make(name: str, dest: Path) -> None:
+    """Copy the checkout to `dest` and apply variant `name`; raises
+    KeyError for an unknown variant, ValueError for a substitution that
+    matches nothing."""
+    source, subs = VARIANTS[name]
+    if dest.exists():
+        shutil.rmtree(dest)
+    shutil.copytree(ROOT, dest, ignore=shutil.ignore_patterns(
+        ".git", "build", "chiprun_out", "__pycache__"))
+    path = dest / "lseg_tpu_torch" / "csrc" / source
+    text = path.read_text()
+    for old, new in subs:
+        if old not in text:
+            raise ValueError(f"variant {name}: {old!r} not in {source}")
+        text = text.replace(old, new)
+    path.write_text(text)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("name", nargs="?", choices=sorted(VARIANTS))
+    ap.add_argument("dest", nargs="?", type=Path)
+    ap.add_argument("--timeline", action="store_true",
+                    help="B16's phase times, run from a b16_timeline copy")
+    args = ap.parse_args(argv)
+    if args.timeline:
+        import json
+
+        print(json.dumps(read_timeline()), flush=True)
+        return 0
+    if args.name is None or args.dest is None:
+        ap.error("a variant NAME and a DIR are needed")
+    try:
+        make(args.name, args.dest.resolve())
+    except ValueError as e:
+        print(e, file=sys.stderr)
+        return 1
+    print(f"{args.name}: {args.dest}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -81,9 +81,10 @@ SIGNATURES = {
     # xq, w, sc, b1, tn, out, n, h, w, c, e, k, stream
     "lseg_head1_correlate_wup": (_P,) * 6 + (_I,) * 6 + (_P,),
     "lseg_head1_correlate_upsample_argmax": (_P,) * 6 + (_I,) * 6 + (_P,),
-    # xq, sx, resid, w1, s1, b1, w2, s2, b2, pm, hq, sh (scratch), out,
-    # m, dim, hidden, stream
-    "lseg_mlp_fused": (_P,) * 13 + (_I,) * 3 + (_P,),
+    # xq, sx, resid, w1, s1, b1, w2, s2, b2, out, m, dim, hidden,
+    # int* clusters (null: launch), stream
+    "lseg_mlp_fused": (_P,) * 10 + (_I,) * 3 + (
+        ctypes.POINTER(ctypes.c_int), _P),
     # xq, sx, wq, sw, bias, wp, sp, bp, resid, qkv, aq, sa (scratch), out,
     # n, t, dim, valid_len, scale, stream
     "lseg_flash_attention_qkvp_fused": (_P,) * 13 + (_I,) * 4 + (

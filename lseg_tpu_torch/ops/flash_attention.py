@@ -9,10 +9,10 @@ FLOP per head for each of q.k^T and P.V, plus one exp per score) and how
 the design keeps scores out of device memory. With `return_lse` it also
 returns each row's log-sum-exp, the statistics the backward reads. fp32
 qkv (an fp32 model) takes B6's fp32 mode in
-`lseg_tpu_torch/csrc/flash_attention_flat_fp32.cu` (SIMT FMAs) and B7's
-in `flash_attention_flat_bwd_fp32.cu` (split-TF32 tensor-core products,
-`csrc/tf32x3.cuh`, ~21 bits of each operand): every step fp32-accurate,
-as the TPU kernels compute for fp32 inputs.
+`lseg_tpu_torch/csrc/flash_attention_flat_fp32.cu` and B7's in
+`flash_attention_flat_bwd_fp32.cu`, both on split-TF32 tensor-core
+products (`csrc/tf32x3.cuh`, ~21 bits of each operand): every step
+fp32-accurate, as the TPU kernels compute for fp32 inputs.
 
 B2 replaces `pallas_attention.py` · `flash_attention_ln_qkv_fused_q8`:
 LayerNorm 1 + per-row int8 quantize + int8 qkv projection + attention +
@@ -137,8 +137,8 @@ def flash_attention_flat(qkv: torch.Tensor, num_heads: int, scale: float,
                          valid_len: int = None, return_lse: bool = False):
     """Kernel wrapper: (N, T, 3D) bf16 or fp32 contiguous -> (N, T, D) in
     the qkv dtype; with `return_lse`, also the (N, H, T) fp32 log-sum-exp
-    of each row. bf16 runs the wgmma kernel, fp32 its fp32 mode (SIMT
-    FMAs, no operand rounded)."""
+    of each row. bf16 runs the wgmma kernel, fp32 its fp32 mode
+    (split-TF32 products, no operand rounded below ~21 bits)."""
     check_no_grad("flash_attention_flat", qkv)
     n, t, d, vl = _check(qkv, num_heads, valid_len)
     if qkv.device.type == "cpu":

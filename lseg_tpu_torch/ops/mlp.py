@@ -3,9 +3,12 @@
 Replaces `lseg_tpu/ops/pallas_mlp.py` · `mlp_fused`: int8 fc1, tanh GELU,
 per-row int8 requantize of the hidden, int8 fc2, bias and residual, the
 `vit.mlp_fused` path of the ViT block. The CUDA source is
-`lseg_tpu_torch/csrc/mlp_fused.cu`, a chain of three launches behind one
-op; its header says what bounds it on the card and which tensors pass
-through device memory that the TPU kept on chip.
+`lseg_tpu_torch/csrc/mlp_fused.cu`, one launch of a thread-block cluster
+per 64-row tile that keeps the hidden on chip, as the TPU kernel does:
+fc1 runs once and the hidden codes never touch device memory (the
+cluster's CTAs share each row's amax and their slices of the codes
+through distributed shared memory). Its header says what bounds it on
+the card. The kernel takes the MLP widths of a ViT (`KERNEL_WIDTHS`).
 
 `mlp_fused` is the wrapper: on a CUDA tensor it launches the kernel (or
 raises), on a CPU tensor it runs `mlp_fused_plain`, which keeps the TPU
@@ -17,6 +20,8 @@ residual is added to the fp32 fc2 output before the one cast to bf16.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -27,6 +32,20 @@ from lseg_tpu_torch.ops._build import (
     load_kernels,
 )
 from lseg_tpu_torch.ops.quant import int8_mm, quantize_rows
+
+# The kernel's widths: a cluster of D / 128 CTAs (at most 8, the portable
+# cluster size) per row tile, each owning 128 output and 512 hidden
+# columns, so H = 4 D (a ViT's MLP ratio) with D a multiple of 128 up to
+# 1024: ViT-L/16's (1024, 4096), ViT-B's (768, 3072).
+KERNEL_WIDTHS = ("H = 4 D with D a multiple of 128 from 128 to 1024, "
+                 "e.g. (1024, 4096) or (768, 3072)")
+
+
+def check_kernel_widths(d: int, h: int) -> None:
+    """Raise ValueError unless the kernel takes (D, H)."""
+    if h != 4 * d or d % 128 or not 128 <= d <= 1024:
+        raise ValueError(f"mlp_fused kernel takes {KERNEL_WIDTHS}; got "
+                         f"D {d}, H {h}")
 
 
 def _check(xq, sx, resid, w1q, s1, b1, w2q, s2, b2):
@@ -74,34 +93,39 @@ def mlp_fused(xq: torch.Tensor, sx: torch.Tensor, resid: torch.Tensor,
               b2: torch.Tensor) -> torch.Tensor:
     """Kernel wrapper (B16): int8 (N, T, D) codes, fp32 (N, T, 1) row
     scales, bf16 (N, T, D) residual, int8 (H, D) and (D, H) weights, fp32
-    scales and biases -> (N, T, D) bf16. D % 128 == 0, H % 128 == 0, any
-    T."""
+    scales and biases -> (N, T, D) bf16. On the card (D, H) must be
+    kernel widths (`check_kernel_widths`); any T."""
     check_no_grad("mlp_fused", sx, resid, s1, b1, s2, b2)
     n, t, d, h = _check(xq, sx, resid, w1q, s1, b1, w2q, s2, b2)
     if xq.device.type == "cpu":
         return mlp_fused_plain(xq, sx, resid, w1q, s1, b1, w2q, s2, b2)
     if xq.device.type != "cuda":
         raise ValueError(f"mlp_fused: unsupported device {xq.device}")
-    if d % 128 or h % 128:
-        raise ValueError(f"mlp_fused kernel needs D and H multiples of 128, "
-                         f"got D {d}, H {h}")
+    check_kernel_widths(d, h)
     lib = load_kernels()
-    dev = xq.device
-    m = n * t
-    pm = torch.empty((m, h // 128), dtype=torch.float32, device=dev)
-    hq = torch.empty((m, h), dtype=torch.int8, device=dev)
-    sh = torch.empty((m,), dtype=torch.float32, device=dev)
-    out = torch.empty((n, t, d), dtype=torch.bfloat16, device=dev)
-    with torch.cuda.device(dev):
+    out = torch.empty((n, t, d), dtype=torch.bfloat16, device=xq.device)
+    with torch.cuda.device(xq.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lseg_mlp_fused(
             xq.data_ptr(), sx.data_ptr(), resid.data_ptr(), w1q.data_ptr(),
             s1.data_ptr(), b1.data_ptr(), w2q.data_ptr(), s2.data_ptr(),
-            b2.data_ptr(), pm.data_ptr(), hq.data_ptr(), sh.data_ptr(),
-            out.data_ptr(), m, d, h, stream)
+            b2.data_ptr(), out.data_ptr(), n * t, d, h, None, stream)
     check_launch(lib, "lseg_mlp_fused", rc)
     mlp_fused.launches += 1
     return out
 
 
 mlp_fused.launches = 0
+
+
+def mlp_fused_max_clusters(d: int, device) -> int:
+    """The most clusters of the kernel at width `d` that `device` holds at
+    once (cudaOccupancyMaxActiveClusters)."""
+    check_kernel_widths(d, 4 * d)
+    lib = load_kernels()
+    clusters = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.lseg_mlp_fused(*(None,) * 10, 0, d, 4 * d,
+                                ctypes.byref(clusters), None)
+    check_launch(lib, "lseg_mlp_fused", rc)
+    return clusters.value

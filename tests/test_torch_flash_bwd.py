@@ -513,6 +513,84 @@ def test_b7_fp32_kernel_arithmetic_emulated():
         assert not got[1][vl:].any() and not got[2][vl:].any()
 
 
+# B6's fp32 mode (csrc/flash_attention_flat_fp32.cu) emulated on the CPU
+# a 64 x 64 tile at a time: per k-step of 8 the split-TF32 products
+# a_lo . b_hi, a_hi . b_lo, a_hi . b_hi (`terms` = 1: a_hi . b_hi alone,
+# one TF32 product), each summed exactly and added to the fp32
+# accumulator with truncation; S afresh per key tile; the online softmax
+# in the base-2 domain (scores times scale * log2 e, P = 2^(x - m) rounded
+# once to fp32: ex2.approx's ~2 ulp are far below the gate); O rescaled
+# by alpha with a round-to-nearest multiply, then P . V added in place.
+def _tf32_products(c, a, b, terms=3):
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    pairs = ((al, bh), (ah, bl), (ah, bh))[3 - terms:]
+    for k in range(0, a.shape[1], 8):
+        for fa, fb in pairs:
+            c = _rz(c + fa[:, k:k + 8].astype(np.float64)
+                    @ fb[k:k + 8].astype(np.float64))
+    return c
+
+
+def _b6_fp32_emulated(q, k, v, vl, scale, terms=3):
+    """One head: (T, 64) fp32 q, k, v -> O (T, 64) and lse (T,)."""
+    t = q.shape[0]
+
+    def tile(x, i):
+        out = np.zeros((64, 64), np.float32)
+        rows = x[64 * i:64 * i + 64]
+        out[:len(rows)] = rows
+        return out
+
+    sc = np.float32(scale) * np.float32(np.log2(np.e))
+    o_all, lse_all = [], []
+    for qi in range(-(-t // 64)):
+        m = np.full(64, -np.inf, np.float32)
+        l = np.zeros(64, np.float32)
+        o = np.zeros((64, 64), np.float32)
+        for ki in range(-(-vl // 64)):
+            s = _tf32_products(np.zeros((64, 64), np.float32), tile(q, qi),
+                               tile(k, ki).T.copy(), terms)
+            x = np.where(64 * ki + np.arange(64) < vl, s * sc,
+                         -np.inf).astype(np.float32)
+            m_new = np.maximum(m, x.max(1))
+            p = np.exp2(x - m_new[:, None]).astype(np.float32)
+            alpha = np.exp2(m - m_new).astype(np.float32)
+            l = l * alpha + p.sum(1, dtype=np.float32)
+            o = _tf32_products(o * alpha[:, None], p, tile(v, ki), terms)
+            m = m_new
+        o_all.append(o / l[:, None])
+        lse_all.append((m + np.log2(l)) * np.float32(np.log(2.0)))
+    return np.concatenate(o_all)[:t], np.concatenate(lse_all)[:t]
+
+
+@pytest.mark.parametrize("t,valid_len", [(40, None), (130, 100)])
+def test_b6_fp32_kernel_arithmetic_emulated(t, valid_len):
+    """The fp32 B6 kernel's arithmetic (split TF32 in the kernel's term
+    order, truncating sums per k-step, the base-2 online softmax with O
+    rescaled in place) agrees with the plain twin within the card's
+    gates, O within 2e-5 + 1e-4 |plain| and lse within 1e-5, on one and
+    on three query tiles with a ragged edge and valid_len 100; one TF32
+    product instead of the split misses them."""
+    qkv, _ = _inputs(6, n=1, t=t, heads=2)
+    vl = valid_len or t
+    ref_o, ref_lse = flash_attention_flat_plain(
+        torch.from_numpy(qkv), 2, SCALE, valid_len, return_lse=True)
+    for terms in (3, 1):
+        within = True
+        for h in range(2):
+            cols = slice(64 * h, 64 * h + 64)
+            q, k, v = (qkv[0, :, 128 * i:128 * i + 128][:, cols]
+                       for i in range(3))
+            o, lse = _b6_fp32_emulated(q, k, v, vl, SCALE, terms)
+            want = ref_o[0][:, cols].numpy()
+            within &= bool(
+                (np.abs(o - want) <= FP32_ATOL + FP32_RTOL * np.abs(want)
+                 ).all()
+                and (np.abs(lse - ref_lse[0, h].numpy()) <= FP32_LSE_ATOL
+                     ).all())
+        assert within == (terms == 3), terms
+
+
 def _fp32_train_step(cfg, dev, plain):
     """One fp32 train step (`make_train_step`, the `--dtype float32`
     CLI's step) of `cfg` from seed 0 on a 64 x 64 synthetic batch of 2;

@@ -36,6 +36,7 @@ from lseg_tpu.ops.pallas_attention import (
 )
 from lseg_tpu.ops.pallas_mlp import mlp_fused as j_mlp_fused
 from lseg_tpu.testing import tiny_vit_config
+from lseg_tpu_torch.engine.variant_tree import ROOT, VARIANTS
 from lseg_tpu_torch.models.lseg import LSegNet
 from lseg_tpu_torch.models.vit import Block, DenseViT
 from lseg_tpu_torch.ops.flash_attention import (
@@ -44,8 +45,17 @@ from lseg_tpu_torch.ops.flash_attention import (
     flash_attention_qkvp_fused,
     flash_attention_qkvp_fused_plain,
 )
-from lseg_tpu_torch.ops.mlp import mlp_fused, mlp_fused_plain
-from lseg_tpu_torch.ops.quant import calibrate_act_scales, quantize_tree
+from lseg_tpu_torch.ops.mlp import (
+    check_kernel_widths,
+    mlp_fused,
+    mlp_fused_plain,
+)
+from lseg_tpu_torch.ops.quant import (
+    _codes,
+    calibrate_act_scales,
+    int8_mm,
+    quantize_tree,
+)
 from lseg_tpu_torch.utils.convert import from_jax_variables
 
 SCALE = 64 ** -0.5
@@ -138,6 +148,100 @@ def test_mlp_fused_plain_matches_pallas(t, resid_kind):
     # the wrapper takes the plain version for a CPU tensor
     np.testing.assert_array_equal(mlp_fused(*args).float().numpy(),
                                   got.float().numpy())
+
+
+def _mlp_cluster_emulated(xq, sx, resid, w1q, s1, b1, w2q, s2, b2,
+                          own_amax=False):
+    """Kernel B16's cluster decomposition (csrc/mlp_fused.cu) in torch on
+    the CPU. Rows in 64-row tiles, padded with zero codes and scales (TMA's
+    zero fill; the pad rows are never stored); per tile the C = D / 128
+    CTAs each own 512 hidden and 128 output columns: fc1 of the slice
+    exact in int32, dequant and GELU at the plain version's rounding
+    points, the slice's row maxima; sh from the maximum of the C partials
+    (with `own_amax`, from the CTA's own slice alone, the exchange cut
+    out); each slice's codes with that sh; fc2 of each CTA's columns over
+    the 128-deep k-chunks of all slices' codes in the kernel's order (its
+    own first), summed in int32; the epilogue with the CTA's sh."""
+    n, t, d = xq.shape
+    c_n = d // 128
+    m = n * t
+    pad = -m % 64
+    x = torch.nn.functional.pad(xq.reshape(m, d), (0, 0, 0, pad))
+    sxp = torch.nn.functional.pad(sx.reshape(m, 1), (0, 0, 0, pad))
+    out = []
+    for r0 in range(0, m + pad, 64):
+        rows = slice(r0, r0 + 64)
+        g, part = [], []
+        for r in range(c_n):
+            cols = slice(512 * r, 512 * r + 512)
+            h = (int8_mm(x[rows], w1q[cols]).float() * sxp[rows]
+                 * s1[cols] + b1[cols])
+            g.append(torch.nn.functional.gelu(h, approximate="tanh"))
+            part.append(g[-1].abs().amax(-1, keepdim=True))
+        amax = torch.stack(part).amax(0)
+        sh = [torch.clamp(part[r] if own_amax else amax, min=1e-8) / 127.0
+              for r in range(c_n)]
+        codes = torch.cat([_codes(g[r], sh[r]) for r in range(c_n)], -1)
+        tile = []
+        for r in range(c_n):
+            dcols = slice(128 * r, 128 * r + 128)
+            acc = torch.zeros(64, 128, dtype=torch.int32)
+            for it in range(4 * c_n):
+                k0 = 128 * ((4 * r + it) % (4 * c_n))
+                k = slice(k0, k0 + 128)
+                acc += int8_mm(codes[:, k].contiguous(),
+                               w2q[dcols, k].contiguous())
+            tile.append(acc.float() * sh[r] * s2[dcols] + b2[dcols])
+        out.append(torch.cat(tile, -1))
+    y = torch.cat(out)[:m]
+    return (y + resid.reshape(m, d).float()).to(torch.bfloat16).reshape(
+        n, t, d)
+
+
+@pytest.mark.parametrize("d", [1024, 768])
+def test_b16_cluster_decomposition_emulated(d):
+    """At ViT-L/16's (1024, 4096) and ViT-B's (768, 3072) widths (clusters
+    of 8 and 6 CTAs), 70 rows (a 64-row tile and a ragged 6) with a real
+    residual and eight outlier hidden channels of graded size, one in each
+    eighth of H, as `chip_smoke.py` feeds the card: the kernel's cluster
+    decomposition equals `mlp_fused_plain` bit for bit (the int32 sums are
+    exact in any order and the max of the slices' maxima is the row's);
+    with each CTA's amax taken over its own slice alone it differs."""
+    xq, sx, resid, w1, s1, b1, w2, s2, b2 = _mlp_inputs(
+        7, 1, 70, d, 4 * d, "real")
+    h = 4 * d
+    b1[h // 16::h // 8] += np.arange(1.0, 9.0, dtype=np.float32)
+    args = _mlp_port_args(xq, sx, resid, w1, s1, b1, w2, s2, b2)
+    ref = mlp_fused_plain(*args)
+    assert torch.equal(_mlp_cluster_emulated(*args), ref)
+    assert not torch.equal(_mlp_cluster_emulated(*args, own_amax=True), ref)
+
+
+@pytest.mark.parametrize("d,h,ok", [(1024, 4096, True), (768, 3072, True),
+                                    (128, 512, True), (1024, 3072, False),
+                                    (1152, 4608, False), (64, 256, False),
+                                    (320, 1280, False)])
+def test_mlp_fused_kernel_widths(d, h, ok):
+    """The kernel's width contract (a cluster of D / 128 <= 8 CTAs, each
+    owning 128 output and 512 hidden columns): ViT-L/16's and ViT-B's MLP
+    widths pass, and a width outside it raises a ValueError that names the
+    contract; the wrapper checks it before a card launch."""
+    if ok:
+        check_kernel_widths(d, h)
+    else:
+        with pytest.raises(ValueError, match="H = 4 D with D a multiple"):
+            check_kernel_widths(d, h)
+
+
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+def test_variant_tree_substitutions_match_the_sources(name):
+    """Each variant of `engine.variant_tree` (the alternatives and the
+    mutations the card's checks are run against) still finds every text
+    it replaces in its kernel source."""
+    source, subs = VARIANTS[name]
+    text = (ROOT / "lseg_tpu_torch" / "csrc" / source).read_text()
+    for old, _ in subs:
+        assert old in text, old
 
 
 # ---- B15: the whole int8 attention half-block ----
@@ -536,11 +640,26 @@ def _check_kernel(fn, plain, args, rel, resid_kind):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,t,d", [(2, 901, 1024), (2, 901, 768),
+                                   (1, 70, 1024), (1, 40, 768)])
 @pytest.mark.parametrize("resid_kind", ["zero", "real"])
-def test_mlp_fused_kernel_matches_plain(cuda_device, resid_kind):
+def test_mlp_fused_kernel_matches_plain(cuda_device, resid_kind, n, t, d):
+    """ViT-L/16's and ViT-B's widths; 1802, 70 and 40 rows are no
+    multiple of the kernel's 64-row tile."""
     args = _on(cuda_device, _mlp_port_args(*_mlp_inputs(
-        3, 2, 901, 1024, 4096, resid_kind)))
+        3, n, t, d, 4 * d, resid_kind)))
     _check_kernel(mlp_fused, mlp_fused_plain, args, 2e-2, resid_kind)
+
+
+@pytest.mark.gpu
+def test_mlp_fused_kernel_refuses_other_widths(cuda_device):
+    """On the card a width outside the kernel's contract raises before any
+    launch, naming the contract; the launch count stays."""
+    args = _on(cuda_device, _mlp_port_args(*_mlp_inputs(3, 1, 8, 256, 768)))
+    before = mlp_fused.launches
+    with pytest.raises(ValueError, match="H = 4 D with D a multiple"):
+        mlp_fused(*args)
+    assert mlp_fused.launches == before
 
 
 @pytest.mark.gpu
