@@ -16,7 +16,9 @@ the result line is printed:
    and TMA loads in B17's fp32 kernel, and TF32 tensor-core products in
    B6's fp32 kernel and both passes of B7's fp32 mode (the split-TF32
    products of `csrc/tf32x3.cuh`); integer warpgroup products (IGMMA)
-   and TMA loads in B16's cluster kernel;
+   and TMA loads in B16's cluster kernel, in the s8 qkv GEMM of B2, B8,
+   B9 and B15 (`csrc/qkv_wgmma.cuh`) and in B15's projection; HGMMA and
+   UTMALDG in the head-pair attention kernels of B2 and B15;
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the serving path, with its time beside the plain version's
    (B10 in both of its modes, fp32 and compute_dtype=bfloat16; B17 at
@@ -27,8 +29,10 @@ the result line is printed:
    fp32 model's route, at the flagship shape and a masked ragged one,
    beside SDPA in fp32; B16 as one kernel launch a call (counted by
    `torch.profiler`) with the card's cluster occupancy; at its end B6,
-   B7, B8 and B9 timed again, one after another, beside SDPA and SDPA's
-   backward);
+   B7, B8, B9, B2 and B15 timed again, one after another, beside SDPA
+   and SDPA's backward; the qkv stage of B2, B8, B9 and B15 alone, bit
+   for bit against its plain version; B20's device time alone, from
+   `torch.profiler`, beside its host-bound wrapper time);
 3. serving: the full-width `fast_serving(clip_vitl16_384, quant=False)`
    model (ViT-L/16, bf16) with seeded random weights answers three
    requests through `TextFeatureCache` + `make_predictor`; the kernels'
@@ -189,8 +193,11 @@ TRAIN_FP32_GRAD_REL = 1e-4
 # wgmma_gemm.cuh); TF32 warpgroup products and TMA loads in B17's fp32
 # kernel, TF32 tensor-core products (HMMA or HGMMA with the TF32 suffix)
 # in B6's fp32 kernel and both passes of B7's fp32 mode; integer
-# warpgroup products (IGMMA) and TMA loads in B16's cluster kernel; so a
-# SIMT or mma.sync fallback fails the run.
+# warpgroup products (IGMMA) and TMA loads in B16's cluster kernel, the s8
+# qkv GEMM (in every object that compiles it: B2, B8, B9, B15 and the
+# stage's own entry point) and B15's projection; HGMMA and TMA loads in
+# the head-pair attention of B2 (its cluster kernel) and B15; so a SIMT
+# or mma.sync fallback fails the run.
 WGMMA_TMA = (r"\bHGMMA\.", r"\bUTMALDG\b")
 TF32_MMA = r"\bH(?:G)?MMA\.[\w.]*TF32"
 SASS_REQUIRED = {
@@ -204,6 +211,10 @@ SASS_REQUIRED = {
     "bwd_dq_fp32_kernel": (TF32_MMA,),
     "bwd_dkdv_fp32_kernel": (TF32_MMA,),
     "mlp_fused_cluster_kernel": (r"\bIGMMA\.", r"\bUTMALDG\b"),
+    "qkv_wgmma_kernel": (r"\bIGMMA\.", r"\bUTMALDG\b"),
+    "pair_proj_wgmma_kernel": (r"\bIGMMA\.", r"\bUTMALDG\b"),
+    "flash_q8_cluster_kernel": WGMMA_TMA,
+    "pair_attention_kernel": WGMMA_TMA,
 }
 # ln_quantize_rows (B3): the kernel and the plain version sum the row in
 # another order, so a code may sit one level off at a bin edge; the row
@@ -687,6 +698,25 @@ def _device_kernels(fn):
             and "Memset" not in e.name]
 
 
+def _device_ms(fn, calls: int = 50) -> float:
+    """Device time a call of `fn` (the kernels it launches, summed), from
+    `torch.profiler` over `calls` back-to-back calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "Memcpy" not in e.name and "Memset" not in e.name)
+    if us <= 0:
+        fail("torch.profiler saw no device time")
+    return us / calls / 1e3
+
+
 def _timed(name, shape, kernel, plain):
     ms = cuda_time_ms(kernel)
     plain_ms = cuda_time_ms(plain)
@@ -696,10 +726,12 @@ def _timed(name, shape, kernel, plain):
 
 def _int8_kernels(dev, g):
     from lseg_tpu_torch.ops.flash_attention import (
+        _qkv_plain,
         flash_attention_ln_qkv_fused_q8,
         flash_attention_ln_qkv_fused_q8_plain,
         flash_attention_qkv_fused,
         flash_attention_qkv_fused_plain,
+        qkv_int8_gemm,
     )
     from lseg_tpu_torch.ops.head1_correlate import (
         head1_correlate_fused,
@@ -768,6 +800,9 @@ def _int8_kernels(dev, g):
                 "flash_attention_ln_qkv_fused_q8", "(8,901,1024) 16 heads",
                 lambda: flash_attention_ln_qkv_fused_q8(*args),
                 lambda: flash_attention_ln_qkv_fused_q8_plain(*args))
+            b2_args = args
+            ATTN_RETIME["B2 flash_attention_ln_qkv_fused_q8"] = (
+                lambda: flash_attention_ln_qkv_fused_q8(*b2_args))
             results["flash_attention_ln_qkv_fused_q8"] = result(
                 err, ms, plain_ms, nbytes(x, ln_g, ln_b, wq, sw, bias, oq,
                                           os_),
@@ -775,10 +810,23 @@ def _int8_kernels(dev, g):
                  "bf16": 4 * 8 * 16 * t * t * 64})
 
     # B8 at (8, 901, 1024) and the padded (8, 904, 1024), valid_len 901:
-    # the row codes and scales of a LayerNorm-1 output, B2's weights
+    # the row codes and scales of a LayerNorm-1 output, B2's weights; and
+    # the qkv stage that B2, B8, B9 and B15 share, alone, bit for bit
     for t, vl in ((901, None), (904, 901)):
         x = torch.randn(8, t, d, device=dev, generator=g).to(torch.bfloat16)
         xq, sx = quantize_rows(x)
+        stage = qkv_int8_gemm(xq, sx, wq, sw, bias)
+        same = torch.equal(stage, _qkv_plain(xq, sx, wq, sw, bias))
+        print(f"  qkv stage (8,{t},1024) -> (8,{t},3072): equal to the plain "
+              f"stage bit for bit: {same}")
+        if not same:
+            fail("qkv_int8_gemm: the qkv stage differs from its plain "
+                 "version")
+        if vl is None:
+            _timed("qkv stage", "(7208,1024).(1024,3072)",
+                   lambda: qkv_int8_gemm(xq, sx, wq, sw, bias),
+                   lambda: _qkv_plain(xq, sx, wq, sw, bias))
+        del stage
         args = (xq, sx, wq, sw, bias, 16, scale, vl)
         out = flash_attention_qkv_fused(*args)
         ref = flash_attention_qkv_fused_plain(*args)
@@ -1221,6 +1269,9 @@ def _fused_block_kernels(dev, g):
                           "(8,901,1024) 16 heads",
                           lambda: flash_attention_qkvp_fused(*args),
                           lambda: flash_attention_qkvp_fused_plain(*args))
+    b15_args = args
+    ATTN_RETIME["B15 flash_attention_qkvp_fused"] = (
+        lambda: flash_attention_qkvp_fused(*b15_args))
     # no single PyTorch call computes it: library call none
     results["flash_attention_qkvp_fused"] = result(
         err, ms, plain_ms, nbytes(*args[:9]) + m * d * 2,
@@ -1445,12 +1496,18 @@ def _probe_path_kernels(dev, g):
                           "(2,904,1024).(1024,128)",
                           lambda: int8_matmul_sliced_scale(*args),
                           lambda: int8_matmul_sliced_scale_plain(*args))
+    # the wrapper call is host-bound: the kernel's device time alone, from
+    # the profiler over back-to-back calls
+    device_ms = _device_ms(lambda: int8_matmul_sliced_scale(*args))
+    print(f"  int8_matmul_sliced_scale: device time {device_ms:.5f} ms a "
+          f"call (torch.profiler), wrapper call {ms:.4f} ms")
     # the int8 product; fp32 per output: three products and three sums. No
     # single PyTorch call computes it: library call none
     m = args[0].numel() // 1024
     results["int8_matmul_sliced_scale"] = result(
         err, ms, plain_ms, nbytes(*args, out),
         {"int8": 2 * m * 1024 * 128, "fp32": 6 * m * 128})
+    results["int8_matmul_sliced_scale"]["device_ms"] = device_ms
     return results
 
 

@@ -28,18 +28,19 @@
 // against 14.8 MB of input, 3 MB of weight and 14.8 MB of output: the
 // operations bound it (~0.05 ms). Design: the simple form, a chain of three
 // launches on one stream built from device code the port already has: B3's
-// LN + quantize routine (ln_quantize.cuh), B2's int8 GEMM with its dequant
-// epilogue (qkv_int8_gemm.cuh) and B6's flash interior (flash_flat.cuh).
+// LN + quantize routine (ln_quantize.cuh), the s8 wgmma + TMA qkv GEMM
+// with its dequant epilogue (qkv_wgmma.cuh) and B6's flash interior
+// (flash_flat.cuh).
 // Unlike the TPU kernel, the codes with their row scales and the bf16 qkv
 // tensor travel through device memory between the launches (7.4 MB and
 // 44 MB at the flagship), as in B2.
 
 #include "flash_flat.cuh"
 #include "ln_quantize.cuh"
-#include "qkv_int8_gemm.cuh"
+#include "qkv_wgmma.cuh"
 
 // Launch the three-step chain on `stream`; returns the first non-zero
-// cudaGetLastError() (0 on success). xq (N*T, D) int8, sx (N*T,) fp32 and
+// CUDA error code (0 on success). xq (N*T, D) int8, sx (N*T,) fp32 and
 // qkv (N*T, 3D) bf16 are scratch buffers allocated by the wrapper.
 // Requires dim % 256 == 0, dim <= 2048, 1 <= valid_len <= t, 16-byte
 // aligned tensors (checked by the wrapper).
@@ -53,8 +54,8 @@ extern "C" int lseg_flash_attention_ln_qkv_fused(
   int rc = lseg::launch_ln_quantize_rows(x, ln_g, ln_b, xq, sx, rows, dim,
                                          eps, st);
   if (rc != 0) return rc;
-  rc = lseg::qkv_gemm::launch(xq, sx, wq, sw, bias, qkv, rows, 3 * dim, dim,
-                              st);
+  rc = lseg::qkv_wg::launch(xq, sx, wq, sw, bias, qkv, rows, 3 * dim, dim,
+                            st);
   if (rc != 0) return rc;
   return lseg::flash_flat::launch(qkv, out, nullptr, n, t, dim, valid_len,
                                   scale, st);

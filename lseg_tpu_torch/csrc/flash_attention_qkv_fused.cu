@@ -26,17 +26,18 @@
 // 989 TFLOP/s), against 7.4 MB of codes, 3 MB of weight and 14.8 MB of
 // output: the operations bound it (~0.05 ms). Design: the simple form,
 // a chain of two launches on one stream that reuses device code of the
-// port: B2's int8 GEMM with its dequant epilogue (qkv_int8_gemm.cuh), then
-// B6's flash interior (flash_flat.cuh), which writes bf16. Unlike the TPU
+// port: the s8 wgmma + TMA qkv GEMM with its dequant epilogue
+// (qkv_wgmma.cuh, shared with B2, B9 and B15), then B6's flash interior
+// (flash_flat.cuh), which writes bf16. Unlike the TPU
 // kernel, the bf16 qkv tensor (N, T, 3D) travels through device memory
 // between the two (44 MB written and read at the flagship), as in B2:
 // keeping it on chip is the lead for a fused redesign.
 
 #include "flash_flat.cuh"
-#include "qkv_int8_gemm.cuh"
+#include "qkv_wgmma.cuh"
 
 // Launch the two-step chain on `stream`; returns the first non-zero
-// cudaGetLastError() (0 on success). qkv (N*T, 3D) bf16 is a scratch
+// CUDA error code (0 on success). qkv (N*T, 3D) bf16 is a scratch
 // buffer allocated by the wrapper. Requires dim % 128 == 0,
 // 1 <= valid_len <= t, 16-byte aligned tensors (checked by the wrapper).
 extern "C" int lseg_flash_attention_qkv_fused(
@@ -44,8 +45,8 @@ extern "C" int lseg_flash_attention_qkv_fused(
     const void* bias, void* qkv, void* out, int n, int t, int dim,
     int valid_len, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rc = lseg::qkv_gemm::launch(xq, sx, wq, sw, bias, qkv, n * t,
-                                        3 * dim, dim, st);
+  const int rc = lseg::qkv_wg::launch(xq, sx, wq, sw, bias, qkv, n * t,
+                                      3 * dim, dim, st);
   if (rc != 0) return rc;
   return lseg::flash_flat::launch(qkv, out, nullptr, n, t, dim, valid_len,
                                   scale, st);

@@ -23,8 +23,9 @@
 //   4. part_p = (int32 (aq_p . wp[:, p*128 : (p+1)*128]^T) * sa) * sp in
 //      fp32; acc = (part_0 + bp) + resid, then acc += part_p for p = 1 ..
 //      P - 1 in that order; cast to bf16.
-// One difference, as in B6: the online softmax rounds P relative to the
-// running row maximum, where the TPU kernel uses the maximum of the row.
+// Two differences, as in B6: the online softmax rounds P relative to the
+// running row maximum, where the TPU kernel uses the maximum of the row;
+// and the exponent is ex2.approx of one FMA.
 //
 // What bounds it on the card: at the flagship (8, 901, 1024) with 16
 // heads, 22.7 G int8 MAC of qkv and 7.6 G of proj (60.4 GOP, ~0.031 ms at
@@ -32,297 +33,256 @@
 // TFLOP/s), against ~36 MB of codes, weights, residual and output: the
 // operations bound it (~0.057 ms).
 //
-// Design: the simple form, a chain of three launches on one stream.
-//   (a) B2's int8 GEMM with its dequant epilogue (qkv_int8_gemm.cuh) ->
-//       bf16 qkv (N*T, 3D);
-//   (b) the pair interior: one 256-thread block per (64-query tile, head
-//       pair, image), eight warps as 2 heads x 4 warps of 16 rows, each
-//       running B6's online softmax (mma.sync bf16) for its head over K/V
-//       tiles of the pair's 128 columns that the block stages once. The
-//       fp32 (64, 128) output is staged in the shared memory of the K/V
-//       tiles, each row's amax is taken over the pair, and only the int8
-//       codes aq (N*T, D) and one fp32 scale per (row, pair) leave it;
-//   (c) the projection on the shared int8 GEMM tile: its K loop stops
-//       every 128 bytes (one pair) and flushes the exact int32 sum into an
-//       fp32 accumulator as (acc * sa[row, p]) * sp[col], in the TPU
-//       kernel's order, because each pair has its own row scale. The TPU's
-//       pair-minor grid axis with a VMEM accumulator becomes this loop
-//       inside one block: blocks run in parallel, nothing carries over
-//       between them, and no atomics reorder the sum.
+// Design: a chain of three launches on one stream.
+//   (a) the s8 wgmma + TMA qkv GEMM with its dequant epilogue
+//       (qkv_wgmma.cuh, shared with B2, B8 and B9) -> bf16 qkv (N*T, 3D);
+//   (b) the head-pair attention of pair_attention.cuh in its pair mode: a
+//       block per (64 query rows, head pair, image), two warpgroups on the
+//       wgmma + TMA interior of B6, the fp32 (64, 128) output quantized
+//       per row over the pair -> int8 codes aq (N*T, D) and one fp32
+//       scale per (row, pair);
+//   (c) the projection on s8 warpgroup products: a persistent kernel over
+//       128 x 128 output tiles, one producer thread keeping a four-stage TMA
+//       ring of aq's and wp's 128-byte k-chunks full (one chunk is one
+//       head pair: K = 128), two consumer warpgroups of 64 rows each
+//       running four m64n128k32 products a pair into an int32
+//       accumulator, then flushing it into an fp32 one as (acc *
+//       sa[row, p]) * sp[col] in the TPU kernel's order, because each pair
+//       has its own row scale. The TPU's pair-minor grid axis with a VMEM
+//       accumulator becomes this loop inside one warpgroup: nothing
+//       carries over between blocks, and no atomics reorder the sum. 64
+//       int32 and 64 fp32 accumulators a thread. The producer also loads
+//       each tile's residual by TMA (two 64-column boxes, rows past M
+//       zero-filled) into a stage of its own, read by the first flush;
+//       the bf16 output leaves through a shared-memory stage by TMA. The
+//       consumers hold the tile's column scales in registers too (the
+//       flush costs most of the projection: PERF.md).
 // Unlike the TPU kernel, the bf16 qkv (44 MB written and read at the
 // flagship, as B2 and B8 pay) and the int8 codes with their pair scales
 // (7.4 MB + 0.2 MB) pass through device memory between the launches:
 // keeping them on chip is the lead for a fused redesign.
 
-#include "qkv_int8_gemm.cuh"
+#include "pair_attention.cuh"
+#include "qkv_wgmma.cuh"
 
 namespace {
 
-namespace gemm = lseg::qkv_gemm;
-using lseg::ld_u32;
+namespace wg = lseg::wg;
+namespace gm = lseg::gemm;
+namespace pa = lseg::pair_attn;
 
 // ---- (b) the pair interior ----
-constexpr int HD = 64;            // head_dim (the kernel is specialised)
-constexpr int PW = 2 * HD;        // columns of a head pair
-constexpr int BQ = 64;            // query rows per block (4 warps x 16)
-constexpr int BKV = 64;           // keys per tile
-constexpr int LDK = PW + 8;       // K/V smem row stride in bf16 (272 bytes)
-constexpr int LDO = PW + 4;       // fp32 output stage row stride
-constexpr int PTHREADS = 256;     // 2 heads x 4 warps
-constexpr int KV_BYTES = 2 * BKV * LDK * 2;
-static_assert(BQ * LDO * 4 <= KV_BYTES, "output stage fits the K/V tiles");
-
-__global__ void __launch_bounds__(PTHREADS) pair_attention_q8_kernel(
-    const __nv_bfloat16* __restrict__ qkv, int8_t* __restrict__ aq,
+__global__ void __launch_bounds__(pa::THREADS, 2) pair_attention_kernel(
+    const __grid_constant__ CUtensorMap map, int8_t* __restrict__ aq,
     float* __restrict__ sa, int T, int D, int valid_len, float scale) {
-  __shared__ __align__(16) unsigned char smem[KV_BYTES];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + BKV * LDK;
-  float* Os = reinterpret_cast<float*>(smem);  // after the key loop
-
-  const int pair = blockIdx.y;
-  const int pairs = gridDim.y;
-  const int img = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int hh = warp / 4;    // head of the pair
-  const int wig = warp % 4;   // warp in head group: rows wig*16 ..
-  const int g = lane / 4;
-  const int t4 = lane % 4;
-
-  const long long row_stride = 3LL * D;
-  const __nv_bfloat16* base =
-      qkv + static_cast<long long>(img) * T * row_stride;
-  const int q_col = pair * PW + hh * HD;
-  const int lrow = wig * 16 + g;  // local rows lrow and lrow + 8
-  const int q0 = blockIdx.x * BQ + lrow;
-  const int rows[2] = {q0, q0 + 8};
-
-  uint32_t qa[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c = q_col + kk * 16 + 2 * t4 + 8 * half;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        qa[kk][2 * half + r] =
-            rows[r] < T ? ld_u32(base + rows[r] * row_stride + c) : 0u;
-      }
-    }
-  }
-
-  const float neg_inf = -__int_as_float(0x7f800000);
-  float o[8][4];
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[dt][e] = 0.0f;
-  float m_run[2] = {neg_inf, neg_inf};
-  float l_run[2] = {0.0f, 0.0f};
-
-  for (int k0 = 0; k0 < valid_len; k0 += BKV) {
-    // the pair's K and V columns of 64 keys, both heads at once
-    for (int i = tid; i < BKV * (PW / 8); i += PTHREADS) {
-      const int r = i / (PW / 8);
-      const int cv = (i % (PW / 8)) * 8;
-      const int key = k0 + r;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vv = kv;
-      if (key < valid_len) {
-        const __nv_bfloat16* rp = base + key * row_stride + pair * PW + cv;
-        kv = *reinterpret_cast<const uint4*>(rp + D);
-        vv = *reinterpret_cast<const uint4*>(rp + 2 * D);
-      }
-      *reinterpret_cast<uint4*>(Ks + r * LDK + cv) = kv;
-      *reinterpret_cast<uint4*>(Vs + r * LDK + cv) = vv;
-    }
-    __syncthreads();
-
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const __nv_bfloat16* kp =
-            Ks + (nt * 8 + g) * LDK + hh * HD + kk * 16 + 2 * t4;
-        lseg::mma_bf16_16816(s[nt], qa[kk], ld_u32(kp), ld_u32(kp + 8));
-      }
-    }
-
-    float mx[2] = {neg_inf, neg_inf};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + nt * 8 + 2 * t4 + (e & 1);
-        const float v = key < valid_len ? s[nt][e] * scale : neg_inf;
-        s[nt][e] = v;
-        mx[e / 2] = fmaxf(mx[e / 2], v);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      alpha[r] = expf(m_run[r] - m_new);  // 0 on the first tile
-      m_run[r] = m_new;
-    }
-    float rs[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[nt][e] - m_run[e / 2]);
-        s[nt][e] = p;
-        rs[e / 2] += p;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[dt][e] *= alpha[e / 2];
-
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {
-          lseg::pack_f32(s[2 * kk][0], s[2 * kk][1]),
-          lseg::pack_f32(s[2 * kk][2], s[2 * kk][3]),
-          lseg::pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          lseg::pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
-#pragma unroll
-      for (int dt = 0; dt < 8; ++dt) {
-        const __nv_bfloat16* vp =
-            Vs + (kk * 16 + 2 * t4) * LDK + hh * HD + dt * 8 + g;
-        const uint32_t b0 = lseg::pack_bf16(vp[0], vp[LDK]);
-        const uint32_t b1 = lseg::pack_bf16(vp[8 * LDK], vp[9 * LDK]);
-        lseg::mma_bf16_16816(o[dt], pa, b0, b1);
-      }
-    }
-    __syncthreads();  // the last one frees the K/V tiles for Os
-  }
-
-  // l over the 4 threads of each row; o / l in fp32 into the stage
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-    float* op = Os + (lrow + 8 * r) * LDO + hh * HD + 2 * t4;
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      op[dt * 8] = __fdiv_rn(o[dt][2 * r], l_run[r]);
-      op[dt * 8 + 1] = __fdiv_rn(o[dt][2 * r + 1], l_run[r]);
-    }
-  }
-  __syncthreads();
-
-  // per-row int8 quantize over the pair's 128 columns: a warp per row,
-  // four columns a lane
-  for (int lr = warp; lr < BQ; lr += PTHREADS / 32) {
-    const int row = blockIdx.x * BQ + lr;
-    if (row >= T) break;  // rows grow with lr: the rest are past T too
-    const float4 v = *reinterpret_cast<const float4*>(Os + lr * LDO +
-                                                      lane * 4);
-    const float amax = lseg::warp_max(
-        fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w))));
-    const float sc = __fdiv_rn(fmaxf(amax, 1e-8f), 127.0f);
-    const long long grow = static_cast<long long>(img) * T + row;
-    *reinterpret_cast<uint32_t*>(aq + grow * D + pair * PW + lane * 4) =
-        lseg::pack_codes(v.x, v.y, v.z, v.w, sc);
-    if (lane == 0) sa[grow * pairs + pair] = sc;
-  }
+  pa::run<false>(map, aq, sa, T, D, valid_len, scale);
 }
 
 // ---- (c) the projection of scaled pair partials + bias + residual ----
-__global__ void __launch_bounds__(gemm::THREADS) pair_proj_kernel(
-    const int8_t* __restrict__ aq, const float* __restrict__ sa,
-    const int8_t* __restrict__ wp, const float* __restrict__ sp,
-    const float* __restrict__ bp, const __nv_bfloat16* __restrict__ resid,
-    __nv_bfloat16* __restrict__ out, int M, int D) {
-  __shared__ __align__(16) int8_t As[gemm::BM * gemm::LD];
-  __shared__ __align__(16) int8_t Bs[gemm::BN * gemm::LD];
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t4 = lane % 4;
-  const int m0 = blockIdx.y * gemm::BM;
-  const int n0 = blockIdx.x * gemm::BN;
-  const int wm = (warp % 2) * 64;
-  const int wn = (warp / 2) * 32;
-  const int pairs = D / PW;
+// The int32 sum of one pair (|x| <= 128^3 < 2^22) as fp32, exactly, by
+// the fp32 adder: 1.5 * 2^23 + x holds x in its low mantissa bits. The
+// conversion unit (__int2float_rn, the same value) runs at a quarter of
+// the adder's rate, and each output takes D / 128 conversions.
+__device__ __forceinline__ float exact_float(int x) {
+  return __fsub_rn(__int_as_float(0x4B400000 + x), 12582912.0f);
+}
+constexpr int BM = 128;  // rows of a tile: two consumer warpgroups of 64
+constexpr int BN = 128;  // output columns of a tile
+constexpr int BK = 128;  // k bytes a stage: one head pair
+constexpr int STAGES = 4;
+constexpr int WG_THREADS = 128;
+constexpr int THREADS = 3 * WG_THREADS;  // 2 consumers + producer
+constexpr int A_BYTES = BM * BK;
+constexpr int B_BYTES = BN * BK;
+constexpr int STAGE = A_BYTES + B_BYTES;
 
-  float facc[4][4][4];
-  for (int p = 0; p < pairs; ++p) {
-    gemm::Acc acc;
-    gemm::zero(acc);
-    gemm::mainloop(aq, wp, M, D, m0, n0, p * PW, (p + 1) * PW, As, Bs, acc);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int c = n0 + wn + nt * 8 + 2 * t4;
-      const float sc0 = sp[c], sc1 = sp[c + 1];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = m0 + wm + mt * 16 + g + 8 * half;
-          const float sr = r < M ? sa[static_cast<long long>(r) * pairs + p]
-                                 : 0.0f;
-          const float p0 = __fmul_rn(
-              __fmul_rn(__int2float_rn(acc[mt][nt][2 * half]), sr), sc0);
-          const float p1 = __fmul_rn(
-              __fmul_rn(__int2float_rn(acc[mt][nt][2 * half + 1]), sr), sc1);
-          float* f = &facc[mt][nt][2 * half];
-          if (p == 0) {
-            float2 res = make_float2(0.0f, 0.0f);
-            if (r < M) {
-              res = __bfloat1622float2(*reinterpret_cast<
-                  const __nv_bfloat162*>(resid + static_cast<long long>(r) *
-                                                     D + c));
-            }
-            f[0] = __fadd_rn(__fadd_rn(p0, bp[c]), res.x);
-            f[1] = __fadd_rn(__fadd_rn(p1, bp[c + 1]), res.y);
-          } else {
-            f[0] = __fadd_rn(f[0], p0);
-            f[1] = __fadd_rn(f[1], p1);
-          }
+constexpr int RES_BYTES = BM * 64 * 2;   // a 128 x 64 bf16 residual box
+
+constexpr int OUT_BOX = 64 * 64 * 2;     // a 64 x 64 bf16 output box
+
+struct ProjSmem {
+  uint8_t ring[STAGES * STAGE];
+  uint8_t res[BN / 64][RES_BYTES];  // the tile's residual, 128-byte swizzled
+  uint8_t out[2][BN / 64][OUT_BOX];  // each consumer's bf16 output stage
+  gm::Ring<STAGES> r;
+  uint64_t res_full, res_empty;     // the residual's stage
+};
+constexpr int PROJ_SMEM = sizeof(ProjSmem) + 1024;  // + alignment slack
+
+__global__ void __launch_bounds__(THREADS, 1) pair_proj_wgmma_kernel(
+    const __grid_constant__ CUtensorMap map_a,
+    const __grid_constant__ CUtensorMap map_w,
+    const __grid_constant__ CUtensorMap map_r,
+    const __grid_constant__ CUtensorMap map_o, const float* __restrict__ sa,
+    const float* __restrict__ sp, const float* __restrict__ bp, int M,
+    int D) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  ProjSmem& sm = *reinterpret_cast<ProjSmem*>(
+      smem_raw + ((1024 - wg::smem_addr(smem_raw) % 1024) % 1024));
+  const int tiles_n = D / BN;
+  const int tiles = (M + BM - 1) / BM * tiles_n;
+  const int pairs = D / BK;
+  const int c = threadIdx.x / WG_THREADS;  // consumer: its 64 rows
+  const int tid = threadIdx.x % WG_THREADS;
+
+  if (threadIdx.x == 0) {
+    wg::bar_init(&sm.res_full, 1);
+    wg::bar_init(&sm.res_empty, 2);
+    sm.r.init(2);  // fences the barriers' init for TMA
+  }
+  __syncthreads();
+
+  if (c == 2) {  // the producer warpgroup: one thread issues the loads
+    gm::regs_dec<40>();
+    if (tid == 0) {
+      uint32_t it = 0, k = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++k) {
+        const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+        // the residual tile, once the consumers are done with the last
+        wg::bar_wait(&sm.res_empty, (k & 1) ^ 1);
+        wg::bar_expect_tx(&sm.res_full, BN / 64 * RES_BYTES);
+        for (int b = 0; b < BN / 64; ++b)
+          gm::tma_load_2d(sm.res[b], &map_r, &sm.res_full, n0 + 64 * b, m0);
+        for (int p = 0; p < pairs; ++p, ++it) {
+          const int s = sm.r.acquire(it, STAGE);
+          uint8_t* st = sm.ring + s * STAGE;
+          gm::tma_load_2d(st, &map_a, &sm.r.full[s], p * BK, m0);
+          gm::tma_load_2d(st + A_BYTES, &map_w, &sm.r.full[s], p * BK, n0);
         }
       }
     }
+    return;
   }
 
+  // room for the tile's column scales beside the int32 and fp32
+  // accumulators: a flush loads nothing but its two row scales
+  gm::regs_inc<232>();
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  int acc[BN / 8][4];
+  float f[BN / 8][4];
+  gm::zero(acc);
+  uint32_t it = 0, k = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++k) {
+    const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+    const int r0 = m0 + c * 64 + warp * 16 + g;  // rows r0 and r0 + 8
+    float2 s2[BN / 8];  // the tile's column scales
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int c = n0 + wn + nt * 8 + 2 * t4;
+    for (int nt = 0; nt < BN / 8; ++nt)
+      s2[nt] = __ldg(reinterpret_cast<const float2*>(sp + n0 + nt * 8 +
+                                                     2 * t4));
+    for (int p = 0; p < pairs; ++p, ++it) {
+      // the rows' scales of pair p, loaded under its products
+      float sr[2];
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
+      for (int h = 0; h < 2; ++h)
+        sr[h] = r0 + 8 * h < M
+                    ? sa[static_cast<long long>(r0 + 8 * h) * pairs + p]
+                    : 0.0f;
+      const int s = sm.r.wait(it);
+      const uint8_t* st = sm.ring + s * STAGE;
+      gm::fence_acc(acc);
+      wg::fence();
+      const uint64_t da = wg::desc(st + c * (A_BYTES / 2));
+      const uint64_t db = wg::desc(st + A_BYTES);
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = m0 + wm + mt * 16 + g + 8 * half;
-        if (r >= M) continue;
-        *reinterpret_cast<__nv_bfloat162*>(
-            out + static_cast<long long>(r) * D + c) =
-            __floats2bfloat162_rn(facc[mt][nt][2 * half],
-                                  facc[mt][nt][2 * half + 1]);
+      for (int kk = 0; kk < BK / 32; ++kk)
+        gm::MmaS8<BN>::ss(acc, wg::desc_kstep(da, kk),
+                          wg::desc_kstep(db, kk), kk > 0);
+      wg::commit();
+      wg::wait<0>();
+      gm::fence_acc(acc);
+      if (tid == 0) sm.r.release(it);
+
+      // part_p = (acc * sa[row, p]) * sp[col]; (part_0 + bp) + resid, then
+      // += part_p in pair order
+      if (p == 0) wg::bar_wait(&sm.res_full, k & 1);
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt) {
+        const int col = n0 + nt * 8 + 2 * t4;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e / 2;
+          const float part =
+              __fmul_rn(__fmul_rn(exact_float(acc[nt][e]), sr[h]),
+                        e % 2 ? s2[nt].y : s2[nt].x);
+          if (p == 0) {
+            const int lr = c * 64 + warp * 16 + g + 8 * h;  // row of the tile
+            const __nv_bfloat16 res = reinterpret_cast<const __nv_bfloat16*>(
+                sm.res[nt / 8] + gm::swizzled_offset(lr, nt % 8 * 8 +
+                                                         2 * t4))[e % 2];
+            f[nt][e] = __fadd_rn(__fadd_rn(part, __ldg(bp + col + e % 2)),
+                                 __bfloat162float(res));
+          } else {
+            f[nt][e] = __fadd_rn(f[nt][e], part);
+          }
+        }
+      }
+      if (p == 0) {  // every warp of the group has read the residual
+        wg::named_sync(1 + c, WG_THREADS);
+        if (tid == 0)
+          asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                           wg::smem_addr(&sm.res_empty))
+                       : "memory");
       }
     }
+
+    // one cast to bf16 into the stage, once the last tile's store has
+    // read it; then stored by TMA (rows past M are not written)
+    if (tid == 0)
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    wg::named_sync(1 + c, WG_THREADS);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt)
+        *reinterpret_cast<__nv_bfloat162*>(
+            sm.out[c][nt / 8] +
+            gm::swizzled_offset(warp * 16 + g + 8 * h, nt % 8 * 8 + 2 * t4)) =
+            __floats2bfloat162_rn(f[nt][2 * h], f[nt][2 * h + 1]);
+    gm::fence_proxy_async();  // the stage's writes before the TMA store
+    wg::named_sync(1 + c, WG_THREADS);
+    if (tid == 0) {
+      for (int b = 0; b < BN / 64; ++b)
+        gm::tma_store_2d(&map_o, sm.out[c][b], n0 + 64 * b, m0 + 64 * c);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
   }
+  // the last stores are complete before the block's shared memory goes
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// The projection's launch: one block an SM (or one a tile, if fewer).
+int launch_proj(const void* aq, const void* sa, const void* wp,
+                const void* sp, const void* bp, const void* resid, void* out,
+                int m, int dim, cudaStream_t st) {
+  static const int attr = wg::allow_smem(pair_proj_wgmma_kernel, PROJ_SMEM);
+  if (attr != 0) return attr;
+  CUtensorMap map_a, map_w, map_r, map_o;
+  int rc = gm::make_map_2d(&map_a, aq, 1, dim, m, BK, BM, true);
+  if (rc == 0) rc = gm::make_map_2d(&map_w, wp, 1, dim, dim, BK, BN, true);
+  if (rc == 0) rc = gm::make_map_2d(&map_r, resid, 2, dim, m, 64, BM, true);
+  if (rc == 0) rc = gm::make_map_2d(&map_o, out, 2, dim, m, 64, 64, true);
+  if (rc != 0) return rc;
+  int dev = 0, sms = 0;
+  rc = static_cast<int>(cudaGetDevice(&dev));
+  if (rc == 0)
+    rc = static_cast<int>(
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  if (rc != 0) return rc;
+  const int tiles = (m + BM - 1) / BM * (dim / BN);
+  pair_proj_wgmma_kernel<<<tiles < sms ? tiles : sms, THREADS, PROJ_SMEM,
+                           st>>>(
+      map_a, map_w, map_r, map_o, static_cast<const float*>(sa),
+      static_cast<const float*>(sp), static_cast<const float*>(bp), m, dim);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launch the three-step chain on `stream`; returns the first non-zero
-// cudaGetLastError() (0 on success). qkv (N*T, 3D) bf16, aq (N*T, D) int8
+// CUDA error code (0 on success). qkv (N*T, 3D) bf16, aq (N*T, D) int8
 // and sa (N*T, D / 128) fp32 are scratch buffers allocated by the wrapper.
 // Requires dim % 128 == 0, 1 <= valid_len <= t, 16-byte aligned tensors
 // (checked by the wrapper).
@@ -333,22 +293,21 @@ extern "C" int lseg_flash_attention_qkvp_fused(
     int t, int dim, int valid_len, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = n * t;
-  int rc = gemm::launch(xq, sx, wq, sw, bias, qkv, rows, 3 * dim, dim, st);
+  int rc = lseg::qkv_wg::launch(xq, sx, wq, sw, bias, qkv, rows, 3 * dim,
+                                dim, st);
   if (rc != 0) return rc;
 
-  const dim3 agrid((t + BQ - 1) / BQ, dim / PW, n);
-  pair_attention_q8_kernel<<<agrid, PTHREADS, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<int8_t*>(aq),
-      static_cast<float*>(sa), t, dim, valid_len, scale);
+  static const int attr = wg::allow_smem(pair_attention_kernel, pa::SMEM);
+  if (attr != 0) return attr;
+  CUtensorMap map;
+  rc = wg::make_map(&map, qkv, 3 * dim, t, n);
+  if (rc != 0) return rc;
+  const dim3 agrid(dim / pa::PW, (t + pa::BQ - 1) / pa::BQ, n);
+  pair_attention_kernel<<<agrid, pa::THREADS, pa::SMEM, st>>>(
+      map, static_cast<int8_t*>(aq), static_cast<float*>(sa), t, dim,
+      valid_len, scale);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
 
-  const dim3 pgrid(dim / gemm::BN, (rows + gemm::BM - 1) / gemm::BM);
-  pair_proj_kernel<<<pgrid, gemm::THREADS, 0, st>>>(
-      static_cast<const int8_t*>(aq), static_cast<const float*>(sa),
-      static_cast<const int8_t*>(wp), static_cast<const float*>(sp),
-      static_cast<const float*>(bp),
-      static_cast<const __nv_bfloat16*>(resid),
-      static_cast<__nv_bfloat16*>(out), rows, dim);
-  return static_cast<int>(cudaGetLastError());
+  return launch_proj(aq, sa, wp, sp, bp, resid, out, rows, dim, st);
 }

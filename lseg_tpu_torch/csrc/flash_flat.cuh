@@ -1,6 +1,8 @@
 // The flat flash-attention interior shared by kernels B6
 // (flash_attention_flat.cu), B8 (flash_attention_qkv_fused.cu) and B9
-// (flash_attention_ln_qkv_fused.cu).
+// (flash_attention_ln_qkv_fused.cu), and, as the device routine `attend`
+// of one warpgroup, by the head-pair blocks of B2 and B15
+// (pair_attention.cuh).
 //
 // Input: qkv (N, T, 3D) bf16; head h reads q, k and v at column offsets
 // h*64, D + h*64 and 2D + h*64 of each row. Output: flat (N, T, D) bf16,
@@ -59,66 +61,70 @@ constexpr int BQ = 64;      // query rows per block: one warpgroup
 constexpr int STAGES = 2;   // K/V ring depth
 constexpr int THREADS = 128;
 
-struct Smem {
+// One warpgroup's Q tile and K/V ring (40 KB; each tile 1024-byte
+// aligned where the struct is), and the barriers that complete them.
+struct Tiles {
   __nv_bfloat16 q[wg::TILE * wg::TILE];
   __nv_bfloat16 k[STAGES][wg::TILE * wg::TILE];
   __nv_bfloat16 v[STAGES][wg::TILE * wg::TILE];
-  uint64_t q_bar;
+};
+struct Bars {
+  uint64_t q;
   uint64_t full[STAGES];
 };
-constexpr int SMEM_BYTES = sizeof(Smem) + 1024;  // + alignment slack
 
-__global__ void __launch_bounds__(THREADS, 4) flash_flat_kernel(
-    const __grid_constant__ CUtensorMap map, __nv_bfloat16* __restrict__ out,
-    float* __restrict__ lse, int T, int D, int valid_len, float scale) {
-  extern __shared__ __align__(1024) uint8_t smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+// One thread, before the warpgroup's first wait: set the barriers.
+__device__ __forceinline__ void init_bars(Bars& b) {
+  wg::bar_init(&b.q, 1);
+  for (int s = 0; s < STAGES; ++s) wg::bar_init(&b.full[s], 1);
+  wg::bar_init_fence();
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;   // rows g and g + 8 of the warp's 16
-  const int t4 = lane % 4;  // columns 2*t4, 2*t4 + 1 of each 8
-  const int head = blockIdx.y;
-  const int img = blockIdx.z;
-  const int q0 = blockIdx.x * BQ;
-  const int n_kt = (valid_len + BKV - 1) / BKV;
-  const int k_col = D + head * HD;
-  const int v_col = 2 * D + head * HD;
-
-  if (tid == 0) {
-    wg::bar_init(&sm.q_bar, 1);
-    for (int s = 0; s < STAGES; ++s) wg::bar_init(&sm.full[s], 1);
-    wg::bar_init_fence();
+// One thread, after every thread of the warpgroup saw the barriers set:
+// the Q tile at column q_col and rows q0.. of image img, and the first
+// STAGES K/V tiles (of n_kt) at columns k_col and v_col of the 3-D map.
+__device__ __forceinline__ void issue_first(Tiles& t, Bars& b,
+                                            const CUtensorMap* map,
+                                            int q_col, int k_col, int v_col,
+                                            int q0, int img, int n_kt) {
+  wg::bar_expect_tx(&b.q, wg::TILE_BYTES);
+  wg::tma_load(t.q, map, &b.q, q_col, q0, img);
+  for (int s = 0; s < STAGES && s < n_kt; ++s) {
+    wg::bar_expect_tx(&b.full[s], 2 * wg::TILE_BYTES);
+    wg::tma_load(t.k[s], map, &b.full[s], k_col, s * BKV, img);
+    wg::tma_load(t.v[s], map, &b.full[s], v_col, s * BKV, img);
   }
-  __syncthreads();
-  if (tid == 0) {
-    wg::bar_expect_tx(&sm.q_bar, wg::TILE_BYTES);
-    wg::tma_load(sm.q, &map, &sm.q_bar, head * HD, q0, img);
-    for (int s = 0; s < STAGES && s < n_kt; ++s) {
-      wg::bar_expect_tx(&sm.full[s], 2 * wg::TILE_BYTES);
-      wg::tma_load(sm.k[s], &map, &sm.full[s], k_col, s * BKV, img);
-      wg::tma_load(sm.v[s], &map, &sm.full[s], v_col, s * BKV, img);
-    }
-  }
+}
 
+// The interior, run by the 128 threads of one warpgroup (`tid` 0..127 in
+// it, named barrier `bar_id` of its own): the online softmax of the Q
+// tile's 64 rows against the n_kt key tiles, keys at or past valid_len
+// masked, with `c` = scale * log2(e). Returns the unnormalised output o,
+// and for each of the thread's two rows the maximum m2 of s * c and the
+// sum l of P (reduced over the 4 threads of the row). Thread 0 refills
+// each K/V stage two tiles ahead.
+__device__ __forceinline__ void attend(Tiles& t, Bars& b,
+                                       const CUtensorMap* map, int k_col,
+                                       int v_col, int img, int n_kt,
+                                       int valid_len, float c, int tid,
+                                       int bar_id, float (&o)[8][4],
+                                       float (&m2)[2], float (&l)[2]) {
+  const int t4 = tid % 4;  // columns 2*t4, 2*t4 + 1 of each 8
   const float neg_inf = -__int_as_float(0x7f800000);
-  const float c = scale * 1.4426950408889634f;  // scale * log2(e)
-  float o[8][4], sc[8][4];
+  float sc[8][4];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[i][e] = sc[i][e] = 0.0f;
-  float m2[2] = {neg_inf, neg_inf};  // running max of s * c
-  float l[2] = {0.0f, 0.0f};         // per-thread partial sums of P
-  wg::bar_wait(&sm.q_bar, 0);
-  const uint64_t dq = wg::desc(sm.q);
+  m2[0] = m2[1] = neg_inf;  // running max of s * c
+  l[0] = l[1] = 0.0f;       // per-thread partial sums of P
+  wg::bar_wait(&b.q, 0);
+  const uint64_t dq = wg::desc(t.q);
 
   for (int j = 0; j < n_kt; ++j) {
     const int s = j % STAGES;
-    wg::bar_wait(&sm.full[s], (j / STAGES) & 1);
-    wg::product_abt(sc, dq, wg::desc(sm.k[s]));
+    wg::bar_wait(&b.full[s], (j / STAGES) & 1);
+    wg::product_abt(sc, dq, wg::desc(t.k[s]));
     wg::wait<0>();
     wg::fence_acc(sc);
 
@@ -164,26 +170,64 @@ __global__ void __launch_bounds__(THREADS, 4) flash_flat_kernel(
 
     uint32_t pa[4][4];
     wg::pack_a(pa, sc);
-    wg::product_pb(o, pa, wg::desc(sm.v[s]));
+    wg::product_pb(o, pa, wg::desc(t.v[s]));
     wg::wait<0>();
     wg::fence_acc(o);
 
     // the warpgroup is done with stage s: refill it two tiles ahead
-    wg::named_sync(1, THREADS);
+    wg::named_sync(bar_id, THREADS);
     if (tid == 0 && j + STAGES < n_kt) {
       const int k1 = (j + STAGES) * BKV;
-      wg::bar_expect_tx(&sm.full[s], 2 * wg::TILE_BYTES);
-      wg::tma_load(sm.k[s], &map, &sm.full[s], k_col, k1, img);
-      wg::tma_load(sm.v[s], &map, &sm.full[s], v_col, k1, img);
+      wg::bar_expect_tx(&b.full[s], 2 * wg::TILE_BYTES);
+      wg::tma_load(t.k[s], map, &b.full[s], k_col, k1, img);
+      wg::tma_load(t.v[s], map, &b.full[s], v_col, k1, img);
     }
   }
-
-  // l over the 4 threads of each row, divide, cast, store flat; lse
-  const int heads = gridDim.y;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+}
+
+struct Smem {
+  Tiles t;
+  Bars b;
+};
+constexpr int SMEM_BYTES = sizeof(Smem) + 1024;  // + alignment slack
+
+__global__ void __launch_bounds__(THREADS, 4) flash_flat_kernel(
+    const __grid_constant__ CUtensorMap map, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int T, int D, int valid_len, float scale) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;   // rows g and g + 8 of the warp's 16
+  const int t4 = lane % 4;  // columns 2*t4, 2*t4 + 1 of each 8
+  const int head = blockIdx.y;
+  const int img = blockIdx.z;
+  const int q0 = blockIdx.x * BQ;
+  const int n_kt = (valid_len + BKV - 1) / BKV;
+  const int k_col = D + head * HD;
+  const int v_col = 2 * D + head * HD;
+
+  if (tid == 0) init_bars(sm.b);
+  __syncthreads();
+  if (tid == 0)
+    issue_first(sm.t, sm.b, &map, head * HD, k_col, v_col, q0, img, n_kt);
+
+  float o[8][4], m2[2], l[2];
+  attend(sm.t, sm.b, &map, k_col, v_col, img, n_kt, valid_len,
+         scale * 1.4426950408889634f, tid, 1, o, m2, l);
+
+  // divide by l, cast, store flat; lse
+  const int heads = gridDim.y;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
     const int row = q0 + warp * 16 + g + 8 * r;
     if (row >= T) continue;
     __nv_bfloat16* op = out + (static_cast<long long>(img) * T + row) * D +

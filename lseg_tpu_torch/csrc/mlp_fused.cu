@@ -30,7 +30,7 @@
 // 64-row fp32 hidden tile (1 MB at H = 4096) fits no SM. So the cluster's
 // C = D / 128 CTAs (8 at ViT-L/16, 6 at ViT-B) each own H / C = 512
 // hidden columns and D / C = 128 output columns, and share the row maxima
-// and the codes through distributed shared memory (DSM):
+// and the codes through distributed shared memory (DSM, cluster.cuh):
 //   fc1: a producer warpgroup keeps a three-stage TMA ring of 128-deep
 //     k-chunks full (xq's 64 x 128 box and w1's 512 rows, 72 KB a stage,
 //     128-byte swizzle); two consumer warpgroups each run s8 warpgroup
@@ -74,12 +74,17 @@
 // setmaxnreg gives the producer warpgroup 88 registers and the consumers
 // 208.
 
+#include "cluster.cuh"
 #include "wgmma_gemm.cuh"
 
 namespace {
 
 namespace wg = lseg::wg;
 namespace gm = lseg::gemm;
+namespace cl = lseg::cluster;
+using cl::ld_peer;
+using cl::peer_addr;
+using cl::st_peer;
 
 constexpr int BM = 64;          // rows of a cluster's tile
 constexpr int BK = 128;         // k a stage: one 128-byte swizzle row
@@ -120,46 +125,6 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, tanhf(inner)));
 }
 
-// ---- the cluster ------------------------------------------------------------
-
-__device__ __forceinline__ int cluster_rank() {
-  int r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// Every thread of every CTA of the cluster: this thread's earlier writes
-// (to its own or a peer's shared memory) are visible to every thread of
-// the cluster after it.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release;\n"
-      "barrier.cluster.wait.acquire;\n" ::
-          : "memory");
-}
-
-// The address of `p` (in this CTA's shared memory) in CTA `rank`'s.
-__device__ __forceinline__ uint32_t peer_addr(const void* p, int rank) {
-  uint32_t a;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(a)
-               : "r"(wg::smem_addr(p)), "r"(rank));
-  return a;
-}
-
-__device__ __forceinline__ void st_peer(uint32_t addr, float v) {
-  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ uint4 ld_peer(uint32_t addr) {
-  uint4 v;
-  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "r"(addr));
-  return v;
-}
-
 // ---- the kernel -------------------------------------------------------------
 
 // One CTA of the cluster of a 64-row tile: warpgroup 0 the producer (one
@@ -180,7 +145,7 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_fused_cluster_kernel(
   Smem& sm = *reinterpret_cast<Smem*>(
       smem_raw + ((1024 - wg::smem_addr(smem_raw) % 1024) % 1024));
   const int C = D / DC;  // CTAs of the cluster
-  const int rank = cluster_rank();
+  const int rank = cl::rank();
   const int m0 = (blockIdx.x / C) * BM;
   const int h0 = rank * HC, d0 = rank * DC;
   const int n_k1 = D / BK;        // fc1 k-chunks
@@ -194,7 +159,7 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_fused_cluster_kernel(
     sm.r1.init(2);
     sm.r2.init(2, 2);  // the w2 box's bytes and one copier warp
   }
-  cluster_sync();  // the barriers are set and every CTA of the cluster runs
+  cl::sync();  // the barriers are set and every CTA of the cluster runs
 
   if (wg_id == 0) {
     gm::regs_dec<88>();
@@ -217,8 +182,8 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_fused_cluster_kernel(
       }
     }
     __syncwarp();
-    cluster_sync();  // the row maxima are exchanged
-    cluster_sync();  // the codes are written
+    cl::sync();  // the row maxima are exchanged
+    cl::sync();  // the codes are written
     // each warp copies every fourth chunk, so four chunks' peer round
     // trips are in flight at once; a lane moves 256 bytes a chunk in one
     // round of sixteen 16-byte loads
@@ -243,7 +208,7 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_fused_cluster_kernel(
       __syncwarp();
       if (lane == 0) sm.r2.fill(it);
     }
-    cluster_sync();  // no CTA leaves while a peer may read its codes
+    cl::sync();  // no CTA leaves while a peer may read its codes
     return;
   }
 
@@ -312,7 +277,7 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_fused_cluster_kernel(
     const float v = fmaxf(sm.wmax[0][tid], sm.wmax[1][tid]);
     for (int p = 0; p < C; ++p) st_peer(peer_addr(&sm.amax[rank][tid], p), v);
   }
-  cluster_sync();  // the row maxima are exchanged
+  cl::sync();  // the row maxima are exchanged
 
   // ---- requantize into this CTA's codes ----
   float sh[2];
@@ -336,7 +301,7 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_fused_cluster_kernel(
           (((cb >> 4) ^ (r & 7)) << 4) + (cb & 15)) = codes;
     }
   }
-  cluster_sync();  // the codes are written
+  cl::sync();  // the codes are written
 
   // ---- fc2: 64 rows x 64 output columns a warpgroup over all of H ----
   int acc2[DC / 2 / 8][4];
@@ -383,28 +348,8 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_fused_cluster_kernel(
           __floats2bfloat162_rn(__fadd_rn(y0, res.x), __fadd_rn(y1, res.y));
     }
   }
-  cluster_sync();  // no CTA leaves while a peer may read its codes
+  cl::sync();  // no CTA leaves while a peer may read its codes
 }
-
-// The launch configuration of `tiles` row tiles at width `dim`: a cluster
-// of dim / 128 CTAs per tile.
-struct Launch {
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  Launch(int dim, int tiles, cudaStream_t stream) {
-    const int cluster = dim / DC;
-    cfg.gridDim = dim3(cluster * tiles);
-    cfg.blockDim = dim3(THREADS);
-    cfg.dynamicSmemBytes = SMEM;
-    cfg.stream = stream;
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-  }
-};
 
 }  // namespace
 
@@ -423,7 +368,7 @@ extern "C" int lseg_mlp_fused(const void* xq, const void* sx,
   static const int attr = wg::allow_smem(mlp_fused_cluster_kernel, SMEM);
   if (attr != 0) return attr;
   if (clusters != nullptr) {
-    Launch l(dim, 1, nullptr);
+    cl::Launch l(dim3(dim / DC), THREADS, SMEM, dim / DC, nullptr);
     return static_cast<int>(cudaOccupancyMaxActiveClusters(
         clusters, mlp_fused_cluster_kernel, &l.cfg));
   }
@@ -433,7 +378,8 @@ extern "C" int lseg_mlp_fused(const void* xq, const void* sx,
     rc = gm::make_map_2d(&map_w1, w1, 1, dim, hidden, BK, HC / 2, true);
   if (rc == 0) rc = gm::make_map_2d(&map_w2, w2, 1, hidden, dim, BK, DC, true);
   if (rc != 0) return rc;
-  Launch l(dim, (m + BM - 1) / BM, static_cast<cudaStream_t>(stream));
+  cl::Launch l(dim3(dim / DC * ((m + BM - 1) / BM)), THREADS, SMEM, dim / DC,
+               static_cast<cudaStream_t>(stream));
   const cudaError_t e = cudaLaunchKernelEx(
       &l.cfg, mlp_fused_cluster_kernel, map_x, map_w1, map_w2,
       static_cast<const float*>(sx), static_cast<const float*>(s1),

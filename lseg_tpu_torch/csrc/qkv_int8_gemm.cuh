@@ -1,4 +1,4 @@
-// The int8 GEMM tile of the port and the qkv projection built on it.
+// The int8 GEMM tile of kernel B20 (int8_sliced_scale.cu).
 //
 // `mainloop` accumulates one 128 x 128 output tile of
 //
@@ -7,19 +7,14 @@
 // over a range of K: a 256-thread block walks K in slices of 64 bytes
 // staged in shared memory (rows padded by 16 bytes against bank
 // conflicts); eight warps as 2 (rows) x 4 (columns) run mma.sync m16n8k32
-// s8 into int32. w is the port's (out, in) weight storage, the
-// column-major B operand. Kernels B2 (flash_attention_ln_qkv_q8.cu), B8
-// (flash_attention_qkv_fused.cu), B9 (flash_attention_ln_qkv_fused.cu),
-// B15 (flash_attention_qkvp_fused.cu) and B16 (mlp_fused.cu) put their
-// own epilogue behind it.
+// s8 into int32. w is the column-major B operand. B20 puts its `_rn`
+// epilogue (the order of `sum(parts)`) behind it.
 //
-// `qkv_int8_gemm_kernel` is the qkv projection with its dequant epilogue:
-//
-//   out (M, N) bf16 = bf16(((acc * sa[row]) * sw[col]) + bias[col])
-//
-// Products and sums are rounded one by one (no FMA contraction), as the
-// TPU kernels' `_dequant_qkv_parts` computes them.
-// Requires N % 128 == 0, K % 64 == 0 and 16-byte aligned rows.
+// The port's other int8 products (the qkv projection of B2, B8, B9 and
+// B15, B15's output projection, B16's MLP) run on the s8 warpgroup
+// products of wgmma_gemm.cuh (qkv_wgmma.cuh,
+// flash_attention_qkvp_fused.cu, mlp_fused.cu).
+// Requires K % 64 == 0 and 16-byte aligned rows.
 
 #pragma once
 
@@ -104,66 +99,6 @@ __device__ __forceinline__ void mainloop(const int8_t* __restrict__ a,
     }
     __syncthreads();
   }
-}
-
-__global__ void __launch_bounds__(THREADS) qkv_int8_gemm_kernel(
-    const int8_t* __restrict__ a, const float* __restrict__ sa,
-    const int8_t* __restrict__ w, const float* __restrict__ sw,
-    const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int M,
-    int N, int K) {
-  __shared__ __align__(16) int8_t As[BM * LD];
-  __shared__ __align__(16) int8_t Bs[BN * LD];
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t4 = lane % 4;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int wm = (warp % 2) * 64;
-  const int wn = (warp / 2) * 32;
-
-  Acc acc;
-  zero(acc);
-  mainloop(a, w, M, K, m0, n0, 0, K, As, Bs, acc);
-
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int c = n0 + wn + nt * 8 + 2 * t4;
-    const float s0 = sw[c], s1 = sw[c + 1];
-    const float b0 = bias[c], b1 = bias[c + 1];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = m0 + wm + mt * 16 + g + 8 * half;
-        if (r >= M) continue;
-        const float sr = sa[r];
-        const float v0 = __fadd_rn(
-            __fmul_rn(__fmul_rn(__int2float_rn(acc[mt][nt][2 * half]), sr),
-                      s0), b0);
-        const float v1 = __fadd_rn(
-            __fmul_rn(__fmul_rn(__int2float_rn(acc[mt][nt][2 * half + 1]),
-                                sr), s1), b1);
-        *reinterpret_cast<__nv_bfloat162*>(
-            out + static_cast<long long>(r) * N + c) =
-            __floats2bfloat162_rn(v0, v1);
-      }
-    }
-  }
-}
-
-// Launch on `st`; returns cudaGetLastError() (0 on success).
-inline int launch(const void* a, const void* sa, const void* w,
-                  const void* sw, const void* bias, void* out, int M, int N,
-                  int K, cudaStream_t st) {
-  const dim3 grid(N / BN, (M + BM - 1) / BM);
-  qkv_int8_gemm_kernel<<<grid, THREADS, 0, st>>>(
-      static_cast<const int8_t*>(a), static_cast<const float*>(sa),
-      static_cast<const int8_t*>(w), static_cast<const float*>(sw),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), M,
-      N, K);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace qkv_gemm

@@ -1,17 +1,24 @@
 """Time kernels B17 (`dense_residual`) and B10 (`fused_correlate`) in each
-of their modes, the fp32 modes of B6 and B7, and B16 (`mlp_fused`), at the
-flagship shapes on one card, beside the PyTorch call that computes the
-same function where there is one.
+of their modes, the fp32 modes of B6 and B7, B16 (`mlp_fused`), and the
+int8 attention kernels B2, B15, B8 and B9 with each of their stages, at
+the flagship shapes on one card, beside the PyTorch call that computes
+the same function where there is one.
 
     python lseg_tpu_torch/engine/time_gemm.py [--root DIR] [--tag T]
-        [--library] [--only B6_fp32,B16,...]
+        [--library] [--only B6_fp32,B16,B2,B15,B8,B9,...]
 
 Shapes: B17 at ViT-L/16's fc2, (7208, 4096) . (4096, 1024) with a
 residual, bf16 and fp32; B10 at the streamed head's (8, 240, 240, 512) bf16
 pixels against K = 150, compute_dtype float32 and bfloat16; B6 and B7 on
 fp32 qkv (8, 901, 3072) with 16 heads; B16 at ViT-L/16's MLP, (8, 901,
 1024) codes with H = 4096, a real residual and `chip_smoke.py`'s outlier
-hidden channels. It imports the port from `--root`
+hidden channels; B2 and B9 on a bf16 (8, 901, 1024) residual stream, B8
+and B15 on its row codes, 16 heads, B15 with a real residual. For those
+four, `<name>_stages` holds each stage's device time a call
+(`torch.profiler` over 10 calls, the launches of a call named by their
+kernels: `ln` the LN + quantize, `qkv_gemm` the int8 qkv product,
+`interior` the attention, `projection` B15's output projection). It
+imports the port from `--root`
 (default: the checkout that holds this file), so the same script times an
 older tree's kernels in the same call as this one's: run them in turns
 (old, new, new, old) and compare only within one call. A mode an older
@@ -20,7 +27,7 @@ tree does not have (fp32 B6 and B7 before they were ported) reads null.
 fp32) and the names of the device kernels that one fp32 SDPA call and its
 backward launch (`torch.profiler`), which say which of PyTorch's kernels
 computes them. `--only` times the named rows alone (B17, B10, B6_fp32 (with
-B7_fp32), B16). Prints one JSON line: the card's name and power limit and
+B7_fp32), B16, B2, B15, B8, B9). Prints one JSON line: the card's name and power limit and
 each time in ms (CUDA events over 20 calls after 3 warm-ups). Without a
 card it exits 1.
 """
@@ -32,6 +39,70 @@ import json
 import subprocess
 import sys
 from pathlib import Path
+
+
+def stage_of(kernel: str) -> str:
+    """The stage of an int8 attention kernel's chain a device kernel is."""
+    if "ln_quantize" in kernel:
+        return "ln"
+    if "qkv_int8_gemm" in kernel or "qkv_wgmma" in kernel:
+        return "qkv_gemm"
+    if "proj" in kernel:
+        return "projection"
+    return "interior"
+
+
+def int8_attention_rows(row, only, dev, g, ms):
+    """B2, B15, B8 and B9 at (8, 901, 1024), 16 heads: ms a call, and
+    each stage's device ms a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lseg_tpu_torch.ops import flash_attention as fa
+    from lseg_tpu_torch.ops.quant import quantize_rows
+
+    n, t, d, heads, scale = 8, 901, 1024, 16, 64 ** -0.5
+    x = torch.randn(n, t, d, device=dev, generator=g).to(torch.bfloat16)
+    ln_g = 1.0 + 0.1 * torch.randn(d, device=dev, generator=g)
+    ln_b = 0.1 * torch.randn(d, device=dev, generator=g)
+    xq, sx = quantize_rows(x)
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, device=dev, generator=g,
+                             dtype=torch.int8)
+
+    wq, wp = codes(3 * d, d), codes(d, d)
+    sw = 1e-3 * torch.rand(3 * d, device=dev, generator=g)
+    bias = 0.05 * torch.randn(3 * d, device=dev, generator=g)
+    sp = 2e-2 / d ** 0.5 * torch.rand(d, device=dev, generator=g)
+    bp = 0.05 * torch.randn(d, device=dev, generator=g)
+    res = (2.0 * torch.randn(n, t, d, device=dev, generator=g)).to(
+        torch.bfloat16)
+    calls = {
+        "B2": lambda: fa.flash_attention_ln_qkv_fused_q8(
+            x, ln_g, ln_b, wq, sw, bias, heads, scale),
+        "B15": lambda: fa.flash_attention_qkvp_fused(
+            xq, sx, wq, sw, bias, wp, sp, bp, res, heads, scale),
+        "B8": lambda: fa.flash_attention_qkv_fused(xq, sx, wq, sw, bias,
+                                                   heads, scale),
+        "B9": lambda: fa.flash_attention_ln_qkv_fused(
+            x, ln_g, ln_b, wq, sw, bias, heads, scale),
+    }
+    for name, fn in calls.items():
+        if name not in only:
+            continue
+        row[f"{name}_ms"] = ms(fn)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        stages = {}
+        for e in prof.events():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and "Memcpy" not in e.name and "Memset" not in e.name):
+                key = stage_of(e.name)
+                stages[key] = stages.get(key, 0.0) + e.device_time_total
+        row[f"{name}_stages"] = {k: v / 10 / 1e3 for k, v in stages.items()}
 
 
 def main(argv=None) -> int:
@@ -171,6 +242,8 @@ def main(argv=None) -> int:
         res = (2.0 * torch.randn(8, t, d, device=dev, generator=g)).to(bf)
         row["B16_ms"] = ms(lambda: mlp_fused(xq, sx, res, w1, s1, b1, w2, s2,
                                              b2))
+    if only & {"B2", "B15", "B8", "B9"}:
+        int8_attention_rows(row, only, dev, g, ms)
     print(json.dumps(row), flush=True)
     return 0
 

@@ -31,7 +31,11 @@ Variants:
   mutation of B6's fp32 mode (and B7's, which phase 2 of `chip_smoke.py`
   checks after B6's);
 - `b16_slice_amax`: B16 with each CTA's requantize scale taken over its
-  own hidden slice only (no cluster exchange), a mutation.
+  own hidden slice only (no cluster exchange), a mutation;
+- `b2_slice_amax`: B2 with each CTA's row scale taken over its own head
+  pair's 128 columns only (no cluster exchange), a mutation;
+- `b15_pair0_scale`: B15's projection flushing every pair's int32 sum
+  with pair 0's row scale, a mutation.
 
 Cuts, whose outputs are wrong by design (only their time is read):
 - `b16_no_gelu`: B16's GELU replaced by its argument;
@@ -44,7 +48,19 @@ Cuts, whose outputs are wrong by design (only their time is read):
 - `b16_fc2_no_mma`: B16's fc2 loads and copies without its products;
 - `b16_fc2_one_w2`: B16's fc2 loading the same w2 box for every chunk;
 - `b16_no_fc2`: B16 without fc2 (no k-chunks: no w2 loads, codes copies
-  or products; its epilogue stores the bias and residual).
+  or products; its epilogue stores the bias and residual);
+- `qkv_no_mma`: the s8 qkv GEMM of B2, B8, B9 and B15 without its
+  products (its loads and its epilogue stay);
+- `qkv_no_epilogue`: that GEMM without its epilogue (no dequant, no
+  stage writes, no TMA stores);
+- `pair_no_epilogue`: B15's head-pair attention without its epilogue
+  (no division, amax, codes or stores after the interior);
+- `pair_rcp`: the head-pair epilogue dividing O by l as a product with
+  the row sum's reciprocal, and `quantize_rcp`: every int8 quantize of
+  the port (`lseg_common.cuh`) dividing by the scale the same way (the
+  cost of the IEEE divisions);
+- `proj_no_flush`: B15's projection without its per-pair flushes;
+- `proj_no_mma`: B15's projection without its products.
 """
 
 from __future__ import annotations
@@ -117,23 +133,23 @@ VARIANTS = {
          "    const int s = sm.r2.wait(it);\n    if (threadIdx.x == 128 && "
          "blockIdx.x < 1024 && it < 32) "
          "NOW(lseg_b16_chunks[blockIdx.x][1][it]);\n"),
-        ("  cluster_sync();  // the barriers are set and every CTA of the "
+        ("  cl::sync();  // the barriers are set and every CTA of the "
          "cluster runs\n",
-         "  STAMP(0);\n  cluster_sync();  // the barriers are set and every "
+         "  STAMP(0);\n  cl::sync();  // the barriers are set and every "
          "CTA of the cluster runs\n  STAMP(1);\n"),
         ("  if (tid == 0) sm.r1.release(n_k1 - 1);\n",
          "  if (tid == 0) sm.r1.release(n_k1 - 1);\n  STAMP(2);\n"),
-        ("  cluster_sync();  // the row maxima are exchanged\n\n",
-         "  STAMP(3);\n  cluster_sync();  // the row maxima are exchanged\n"
+        ("  cl::sync();  // the row maxima are exchanged\n\n",
+         "  STAMP(3);\n  cl::sync();  // the row maxima are exchanged\n"
          "  STAMP(4);\n\n"),
-        ("  cluster_sync();  // the codes are written\n\n",
-         "  STAMP(5);\n  cluster_sync();  // the codes are written\n"
+        ("  cl::sync();  // the codes are written\n\n",
+         "  STAMP(5);\n  cl::sync();  // the codes are written\n"
          "  STAMP(6);\n\n"),
         ("  wg::wait<0>();\n  gm::fence_acc(acc2);\n",
          "  wg::wait<0>();\n  gm::fence_acc(acc2);\n  STAMP(7);\n"),
-        ("  cluster_sync();  // no CTA leaves while a peer may read its "
+        ("  cl::sync();  // no CTA leaves while a peer may read its "
          "codes\n}",
-         "  STAMP(8);\n  cluster_sync();  // no CTA leaves while a peer may "
+         "  STAMP(8);\n  cl::sync();  // no CTA leaves while a peer may "
          "read its codes\n  STAMP(9);\n}"),
     ]),
     "b16_no_gelu": ("mlp_fused.cu", [
@@ -167,12 +183,54 @@ VARIANTS = {
     "b16_no_fc2": ("mlp_fused.cu", [
         ("const int n_k2 = C * CHUNKS;", "const int n_k2 = 0;"),
     ]),
+    "qkv_no_mma": ("qkv_wgmma.cuh", [
+        ("        gemm::MmaS8<BN>::ss(acc, wg::desc_kstep(da, kk),\n"
+         "                            wg::desc_kstep(db, kk), "
+         "kc > 0 || kk > 0);\n", ""),
+    ]),
+    "qkv_no_epilogue": ("qkv_wgmma.cuh", [
+        ("    for (int nt = 0; nt < BN / 8; ++nt) {\n",
+         "    for (int nt = 0; nt < 0; ++nt) {\n"),
+        ("      for (int b = 0; b < BN / 64; ++b)\n",
+         "      for (int b = 0; b < 0; ++b)\n"),
+    ]),
+    "pair_no_epilogue": ("pair_attention.cuh", [
+        ("             scale * 1.4426950408889634f, tid, 1 + hh, o, m2, l);\n",
+         "             scale * 1.4426950408889634f, tid, 1 + hh, o, m2, l);\n"
+         "  if constexpr (!ROW) return;\n"),
+    ]),
+    "pair_rcp": ("pair_attention.cuh", [
+        ("__fdiv_rn(o[dt][2 * r + e], l[r])",
+         "o[dt][2 * r + e] * __frcp_rn(l[r])"),
+    ]),
+    "quantize_rcp": ("lseg_common.cuh", [
+        ("rintf(__fdiv_rn(v, s))", "rintf(v * __frcp_rn(s))"),
+    ]),
+    "proj_no_flush": ("flash_attention_qkvp_fused.cu", [
+        ("      for (int nt = 0; nt < BN / 8; ++nt) {\n"
+         "        const int col = n0 + nt * 8 + 2 * t4;\n",
+         "      for (int nt = 0; nt < 0; ++nt) {\n"
+         "        const int col = n0 + nt * 8 + 2 * t4;\n"),
+    ]),
+    "proj_no_mma": ("flash_attention_qkvp_fused.cu", [
+        ("        gm::MmaS8<BN>::ss(acc, wg::desc_kstep(da, kk),\n"
+         "                          wg::desc_kstep(db, kk), kk > 0);\n", ""),
+    ]),
     "b6_fp32_no_alo_bhi": ("tf32x3.cuh", [
         ("  mma(d, a.lo, b.hi[0], b.hi[1]);\n", ""),
     ]),
     "b16_slice_amax": ("mlp_fused.cu", [
         ("for (int p = 0; p < C; ++p) mx = fmaxf(mx, sm.amax[p][row[h]]);",
          "mx = sm.amax[rank][row[h]];"),
+    ]),
+    "b2_slice_amax": ("pair_attention.cuh", [
+        ("      for (int p = 0; p < pairs; ++p)\n"
+         "        mx[r] = fmaxf(mx[r], sm.amax[p][row[r]]);\n",
+         "      mx[r] = sm.amax[rank][row[r]];\n"),
+    ]),
+    "b15_pair0_scale": ("flash_attention_qkvp_fused.cu", [
+        ("? sa[static_cast<long long>(r0 + 8 * h) * pairs + p]",
+         "? sa[static_cast<long long>(r0 + 8 * h) * pairs]"),
     ]),
 }
 

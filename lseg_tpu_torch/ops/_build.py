@@ -78,6 +78,8 @@ SIGNATURES = {
     # scale, stream
     "lseg_flash_attention_qkv_fused": (_P,) * 7 + (_I,) * 4 + (
         ctypes.c_float, _P),
+    # xq, sx, wq, sw, bias, qkv, m, n, k, stream
+    "lseg_qkv_int8_gemm": (_P,) * 6 + (_I,) * 3 + (_P,),
     # xq, w, sc, b1, tn, out, n, h, w, c, e, k, stream
     "lseg_head1_correlate_wup": (_P,) * 6 + (_I,) * 6 + (_P,),
     "lseg_head1_correlate_upsample_argmax": (_P,) * 6 + (_I,) * 6 + (_P,),

@@ -18,22 +18,28 @@ B2 replaces `pallas_attention.py` · `flash_attention_ln_qkv_fused_q8`:
 LayerNorm 1 + per-row int8 quantize + int8 qkv projection + attention +
 per-row int8 quantize of the output, the int8 fast path's attention. The
 CUDA source is `lseg_tpu_torch/csrc/flash_attention_ln_qkv_q8.cu`, a
-chain of three launches behind one op; its header says which tensors now
-pass through device memory that the TPU kept on chip.
+chain of three launches behind one op (B3's LN routine, the s8 wgmma qkv
+GEMM of `csrc/qkv_wgmma.cuh`, and the head-pair attention of
+`csrc/pair_attention.cuh` launched as thread-block clusters that share
+each row's amax); its header says which tensors now pass through device
+memory that the TPU kept on chip. The kernel takes the widths of
+`B2_KERNEL_WIDTHS`.
 
 B8 replaces `pallas_attention.py` · `flash_attention_qkv_fused`: the int8
 qkv projection of rows quantized beforehand (`quantize_rows` of the
 LayerNorm-1 output) + attention, bf16 out, the `attn_impl='flashq'` path.
 The CUDA source is `lseg_tpu_torch/csrc/flash_attention_qkv_fused.cu`, a
-chain of two launches (B2's int8 GEMM, then B6's flash interior) behind
-one op.
+chain of two launches (the s8 wgmma qkv GEMM, then B6's flash interior)
+behind one op. `qkv_int8_gemm` runs that qkv stage alone, for checks.
 
 B15 replaces `pallas_attention.py` · `flash_attention_qkvp_fused`: the
 whole int8 attention half-block, B8's work plus the per-(row, head pair)
 int8 requantize of the fp32 attention output, the int8 output projection
 summed pair by pair, its bias and the residual, the `attn_impl='flashqp'`
 path. The CUDA source is `lseg_tpu_torch/csrc/flash_attention_qkvp_fused.cu`,
-a chain of three launches behind one op.
+a chain of three launches behind one op (the qkv GEMM, the head-pair
+attention, the projection on s8 warpgroup products flushed pair by
+pair).
 
 B9 replaces `pallas_attention.py` · `flash_attention_ln_qkv_fused`: B2
 without the quantize of its output, bf16 out. No model path of the
@@ -324,12 +330,62 @@ def _qkv_plain(xq, sx, wq, sw, bias):
     return qkv.reshape(n, t, 3 * d)
 
 
+def qkv_int8_gemm(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
+                  sw: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The qkv stage of B2, B8, B9 and B15 alone (`csrc/qkv_wgmma.cuh`),
+    for checks: (N, T, D) int8 row codes, (N, T, 1) fp32 row scales, int8
+    (3D, D) weight, fp32 (3D,) scales and bias -> (N, T, 3D) bf16, equal
+    to `_qkv_plain` bit for bit (exact int32 sums, the same rounding
+    points). D % 128 == 0 on the card."""
+    check_no_grad("qkv_int8_gemm", sx, sw, bias)
+    n, t, d = xq.shape
+    if wq.shape != (3 * d, d) or tuple(sx.shape) != (n, t, 1):
+        raise ValueError(f"qkv_int8_gemm: codes {tuple(xq.shape)}, scales "
+                         f"{tuple(sx.shape)}, weight {tuple(wq.shape)}")
+    if xq.device.type == "cpu":
+        return _qkv_plain(xq, sx, wq, sw, bias)
+    if xq.device.type != "cuda":
+        raise ValueError(f"qkv_int8_gemm: unsupported device {xq.device}")
+    check_operands("qkv_int8_gemm", {
+        "xq": (xq, torch.int8), "sx": (sx, torch.float32),
+        "wq": (wq, torch.int8), "sw": (sw, torch.float32),
+        "bias": (bias, torch.float32)})
+    if d % 128:
+        raise ValueError(f"qkv_int8_gemm kernel needs D % 128 == 0, got {d}")
+    lib = load_kernels()
+    qkv = torch.empty((n, t, 3 * d), dtype=torch.bfloat16, device=xq.device)
+    with torch.cuda.device(xq.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.lseg_qkv_int8_gemm(
+            xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), sw.data_ptr(),
+            bias.data_ptr(), qkv.data_ptr(), n * t, 3 * d, d, stream)
+    check_launch(lib, "lseg_qkv_int8_gemm", rc)
+    qkv_int8_gemm.launches += 1
+    return qkv
+
+
+qkv_int8_gemm.launches = 0
+
+
 def _qkv_attention_plain(xq, sx, wq, sw, bias, num_heads, scale,
                          valid_len):
     """`_qkv_plain`, then the attention of `flash_attention_flat_plain`:
     (N, T, D) bf16."""
     return flash_attention_flat_plain(_qkv_plain(xq, sx, wq, sw, bias),
                                       num_heads, scale, valid_len)
+
+
+# B2's widths on the card: its row scale is shared by a thread-block
+# cluster of D / 128 CTAs, one a head pair, at most 8 (the portable
+# cluster size): ViT-L/16's 1024 and ViT-B's 768.
+B2_KERNEL_WIDTHS = "D a multiple of 128 from 128 to 1024, e.g. 1024 or 768"
+
+
+def check_b2_widths(d: int) -> None:
+    """Raise ValueError unless B2's kernel takes width D."""
+    if d % 128 or not 128 <= d <= 1024:
+        raise ValueError(f"flash_attention_ln_qkv_fused_q8 kernel takes "
+                         f"{B2_KERNEL_WIDTHS}; got D {d}")
 
 
 def flash_attention_ln_qkv_fused_q8_plain(
@@ -355,7 +411,8 @@ def flash_attention_ln_qkv_fused_q8(
         eps: float = 1e-6):
     """Kernel wrapper: (N, T, D) bf16, fp32 LN params (D,), int8 (3D, D)
     weight, fp32 (3D,) scales and bias -> (int8 (N, T, D), fp32
-    (N, T, 1)). head_dim 64, D % 256 == 0, any T."""
+    (N, T, 1)). head_dim 64; on the card D must be a kernel width
+    (`check_b2_widths`); any T."""
     check_no_grad("flash_attention_ln_qkv_fused_q8", x, ln_scale, ln_bias,
                   bias)
     n, t, d, vl = _check_q8(x, wq, sw, bias, num_heads, valid_len)
@@ -370,9 +427,7 @@ def flash_attention_ln_qkv_fused_q8(
         "x": (x, torch.bfloat16), "ln_scale": (ln_scale, torch.float32),
         "ln_bias": (ln_bias, torch.float32), "wq": (wq, torch.int8),
         "sw": (sw, torch.float32), "bias": (bias, torch.float32)})
-    if d % 256:
-        raise ValueError(f"flash_attention_ln_qkv_fused_q8 kernel needs "
-                         f"D % 256 == 0, got {d}")
+    check_b2_widths(d)
     lib = load_kernels()
     dev = x.device
     xq = torch.empty((n * t, d), dtype=torch.int8, device=dev)

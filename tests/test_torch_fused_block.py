@@ -40,6 +40,8 @@ from lseg_tpu_torch.engine.variant_tree import ROOT, VARIANTS
 from lseg_tpu_torch.models.lseg import LSegNet
 from lseg_tpu_torch.models.vit import Block, DenseViT
 from lseg_tpu_torch.ops.flash_attention import (
+    _flat_attention_f32,
+    _qkv_plain,
     flash_attention_ln_qkv_fused,
     flash_attention_ln_qkv_fused_plain,
     flash_attention_qkvp_fused,
@@ -54,6 +56,7 @@ from lseg_tpu_torch.ops.quant import (
     _codes,
     calibrate_act_scales,
     int8_mm,
+    quantize_rows,
     quantize_tree,
 )
 from lseg_tpu_torch.utils.convert import from_jax_variables
@@ -290,6 +293,64 @@ def test_flash_attention_qkvp_fused_plain_matches_pallas(valid_len,
     np.testing.assert_array_equal(
         flash_attention_qkvp_fused(*args).float().numpy(),
         got.float().numpy())
+
+
+def _qkvp_tiles_emulated(xq, sx, wq, sw, bias, wp, sp, bp, resid,
+                         num_heads, scale, valid_len=None, pair0_scale=False):
+    """Kernel B15 (csrc/flash_attention_qkvp_fused.cu) in torch on the CPU:
+    the plain qkv and fp32 attention, the pair interior's per-(row, pair)
+    codes and scales, then the projection as the kernel tiles it: rows in
+    128-row tiles padded with zero codes (TMA's zero fill; the pad rows
+    read a scale of 0 and are never stored), 128 output columns a tile;
+    per pair (one 128-deep k-chunk) the exact int32 sum, flushed into the
+    fp32 accumulator as (acc * sa[row, p]) * sp[col], (part_0 + bp) +
+    resid for the first pair and += part_p after it; one cast to bf16.
+    With `pair0_scale` every pair is flushed with pair 0's row scale."""
+    n, t, d = xq.shape
+    m = n * t
+    att = _flat_attention_f32(_qkv_plain(xq, sx, wq, sw, bias), num_heads,
+                              scale, valid_len)[0].reshape(m, d)
+    pairs = d // 128
+    codes, scales = zip(*(quantize_rows(att[:, 128 * p:128 * p + 128])
+                          for p in range(pairs)))
+    pad = -m % 128
+    aq = torch.nn.functional.pad(torch.cat(codes, -1), (0, 0, 0, pad))
+    sa = torch.nn.functional.pad(torch.cat(scales, -1), (0, 0, 0, pad))
+    res = torch.nn.functional.pad(resid.reshape(m, d).float(),
+                                  (0, 0, 0, pad))
+    out = torch.empty(m + pad, d)
+    for r0 in range(0, m + pad, 128):
+        rows = slice(r0, r0 + 128)
+        for c0 in range(0, d, 128):
+            cols = slice(c0, c0 + 128)
+            f = None
+            for p in range(pairs):
+                k = slice(128 * p, 128 * p + 128)
+                acc = int8_mm(aq[rows, k].contiguous(),
+                              wp[cols, k].contiguous())
+                sr = sa[rows, 0 if pair0_scale else p].reshape(-1, 1)
+                part = acc.float() * sr * sp[cols]
+                f = (part + bp[cols] + res[rows, cols] if f is None
+                     else f + part)
+            out[rows, cols] = f
+    return out[:m].to(torch.bfloat16).reshape(n, t, d)
+
+
+@pytest.mark.parametrize("d,resid_kind", [(256, "real"), (768, "zero"),
+                                          (768, "real")])
+def test_b15_projection_tiles_emulated(d, resid_kind):
+    """ViT-B's width (6 pairs) and two pairs, 130 rows (a 128-row tile and
+    a ragged 2), keys masked past 100: the kernel's tiled projection with
+    its per-pair flushes equals `flash_attention_qkvp_fused_plain` bit for
+    bit (the int32 sums are exact, and each flush rounds at the plain
+    version's points in its pair order); flushing every pair with pair 0's
+    scale differs."""
+    a = _qkvp_inputs(11, 1, 130, d, resid_kind)
+    args = _qkvp_port_args(*a) + (d // 64, SCALE, 100)
+    ref = flash_attention_qkvp_fused_plain(*args)
+    assert torch.equal(_qkvp_tiles_emulated(*args), ref)
+    assert not torch.equal(_qkvp_tiles_emulated(*args, pair0_scale=True),
+                           ref)
 
 
 # ---- B9: LayerNorm + int8 qkv + attention, bf16 out ----
@@ -673,8 +734,36 @@ def test_flash_attention_qkvp_fused_kernel_matches_plain(cuda_device,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("t,valid_len", [(130, 100), (904, 901)])
+@pytest.mark.parametrize("resid_kind", ["zero", "real"])
+def test_flash_attention_qkvp_fused_kernel_vit_b(cuda_device, resid_kind, t,
+                                                 valid_len):
+    """ViT-B's width (768, 12 heads: six pairs) at a ragged T = 130 with
+    keys masked past 100 (a 128-row projection tile and a ragged 2, a
+    64-row attention tile and a ragged 2), and at T = 904 with keys
+    masked past 901."""
+    args = _on(cuda_device, _qkvp_port_args(*_qkvp_inputs(
+        4, 2, t, 768, resid_kind))) + (12, SCALE, valid_len)
+    _check_kernel(flash_attention_qkvp_fused,
+                  flash_attention_qkvp_fused_plain, args, 2e-2, resid_kind)
+
+
+@pytest.mark.gpu
 def test_flash_attention_ln_qkv_fused_kernel_matches_plain(cuda_device):
     args = _on(cuda_device, _ln_qkv_port_args(*_ln_qkv_inputs(
         3, 2, 901, 1024))) + (16, SCALE)
+    _check_kernel(flash_attention_ln_qkv_fused,
+                  flash_attention_ln_qkv_fused_plain, args, 2e-2, "zero")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,t,d,valid_len", [(2, 130, 768, 100),
+                                             (2, 904, 1024, 901)])
+def test_flash_attention_ln_qkv_fused_kernel_other_shapes(cuda_device, n, t,
+                                                          d, valid_len):
+    """B9 on the new qkv stage at ViT-B's width with ragged keys, and at
+    the padded flagship token count."""
+    args = _on(cuda_device, _ln_qkv_port_args(*_ln_qkv_inputs(
+        4, n, t, d))) + (d // 64, SCALE, valid_len)
     _check_kernel(flash_attention_ln_qkv_fused,
                   flash_attention_ln_qkv_fused_plain, args, 2e-2, "zero")

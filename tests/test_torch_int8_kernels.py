@@ -15,8 +15,12 @@ from lseg_tpu.ops.pallas_attention import (
 from lseg_tpu.ops.pallas_correlation import head1_correlate_fused as j_head1
 from lseg_tpu.ops.pallas_ln import ln_quantize_rows as j_ln_quantize
 from lseg_tpu_torch.ops.flash_attention import (
+    _qkv_attention_plain,
+    _qkv_plain,
+    check_b2_widths,
     flash_attention_ln_qkv_fused_q8,
     flash_attention_ln_qkv_fused_q8_plain,
+    qkv_int8_gemm,
 )
 from lseg_tpu_torch.ops.head1_correlate import (
     head1_correlate_fused,
@@ -26,6 +30,7 @@ from lseg_tpu_torch.ops.ln_quant import (
     ln_quantize_rows,
     ln_quantize_rows_plain,
 )
+from lseg_tpu_torch.ops.quant import _codes, quantize_rows
 
 
 def _t(a):
@@ -151,6 +156,133 @@ def test_ln_qkv_q8_kernel_matches_plain(cuda_device, t, valid_len):
     ref = pq.float() * ps
     err = float((got - ref).abs().max() / ref.abs().max())
     assert err < 2e-2, err
+
+
+def _b2_cluster_emulated(x, g, b, wq, sw, bias, num_heads, scale,
+                         valid_len=None, own_amax=False):
+    """Kernel B2's cluster epilogue (csrc/pair_attention.cuh, row mode) in
+    torch on the CPU: the plain LN codes, qkv and bf16 attention output;
+    per row each head's amax over its 64 columns, each CTA's slice amax
+    the max of its pair's two heads, the row's the max of the D / 128
+    slices (with `own_amax`, each CTA's own slice alone, the exchange cut
+    out); each CTA's 128 code columns quantized with its scale, and rank
+    0's scale written out."""
+    xq, sx = ln_quantize_rows_plain(x, g, b)
+    o = _qkv_attention_plain(xq, sx, wq, sw, bias, num_heads, scale,
+                             valid_len).float()
+    d = o.shape[-1]
+    heads = [o[..., 64 * h:64 * h + 64].abs().amax(-1, keepdim=True)
+             for h in range(d // 64)]
+    slices = [torch.maximum(heads[2 * p], heads[2 * p + 1])
+              for p in range(d // 128)]
+    amax = torch.stack(slices).amax(0)
+    scales = [torch.clamp(s if own_amax else amax, min=1e-8) / 127.0
+              for s in slices]
+    codes = torch.cat([_codes(o[..., 128 * p:128 * p + 128], scales[p])
+                       for p in range(d // 128)], -1)
+    return codes, scales[0]
+
+
+@pytest.mark.parametrize("d", [1024, 768])
+def test_b2_cluster_decomposition_emulated(d):
+    """At ViT-L/16's and ViT-B's widths (clusters of 8 and 6 CTAs), 70
+    tokens with keys masked past 61 and eight v channels of graded bias,
+    one in each eighth of D, so that each slice has its own maximum: the
+    kernel's cluster decomposition equals
+    `flash_attention_ln_qkv_fused_q8_plain` bit for bit (max is exact and
+    order-free); with each CTA's amax over its own slice alone it
+    differs."""
+    x, g, b, wq, sw, bias = _q8_inputs(8, n=1, t=70, d=d)
+    bias[2 * d + d // 16::d // 8] += np.arange(1.0, 9.0,
+                                               dtype=np.float32)[:8]
+    args = (_t(x).bfloat16(), _t(g), _t(b), _t(np.ascontiguousarray(wq.T)),
+            _t(sw), _t(bias), d // 64, 64 ** -0.5, 61)
+    ref_q, ref_s = flash_attention_ln_qkv_fused_q8_plain(*args)
+    q, s = _b2_cluster_emulated(*args)
+    assert torch.equal(q, ref_q) and torch.equal(s, ref_s)
+    q, s = _b2_cluster_emulated(*args, own_amax=True)
+    assert not torch.equal(q, ref_q)
+
+
+@pytest.mark.parametrize("d,ok", [(1024, True), (768, True), (128, True),
+                                  (384, True), (896, True), (1152, False),
+                                  (2048, False), (64, False), (320, False)])
+def test_b2_kernel_widths(d, ok):
+    """B2's width contract on the card (a cluster of D / 128 <= 8 CTAs,
+    one a head pair): ViT-L/16's and ViT-B's widths pass, and a width
+    outside it raises a ValueError that names the contract."""
+    if ok:
+        check_b2_widths(d)
+    else:
+        with pytest.raises(ValueError, match="D a multiple of 128 from 128 "
+                                             "to 1024"):
+            check_b2_widths(d)
+
+
+def test_qkv_int8_gemm_takes_the_plain_stage_on_cpu():
+    """The qkv stage's wrapper runs `_qkv_plain` for a CPU tensor, with
+    (N, T, 3D) bf16 out."""
+    x, g, b, wq, sw, bias = _q8_inputs(9, n=2, t=20, d=128)
+    xq, sx = quantize_rows(_t(x))
+    w = _t(np.ascontiguousarray(wq.T))
+    got = qkv_int8_gemm(xq, sx, w, _t(sw), _t(bias))
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 20, 384)
+    assert torch.equal(got, _qkv_plain(xq, sx, w, _t(sw), _t(bias)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,valid_len", [(130, 100), (904, 901),
+                                         (901, None)])
+def test_ln_qkv_q8_kernel_vit_b(cuda_device, t, valid_len):
+    """ViT-B's width (768, 12 heads: a cluster of 6 CTAs) at a ragged
+    T = 130 with keys masked past 100, at T = 904 with keys masked past
+    901, and at 901."""
+    x, g, b, wq, sw, bias = _q8_inputs(5, n=2, t=t, d=768)
+    dev = cuda_device
+    args = (_t(x).to(dev, torch.bfloat16), _t(g).to(dev), _t(b).to(dev),
+            _t(np.ascontiguousarray(wq.T)).to(dev), _t(sw).to(dev),
+            _t(bias).to(dev), 12, 64 ** -0.5, valid_len)
+    before = flash_attention_ln_qkv_fused_q8.launches
+    oq, os_ = flash_attention_ln_qkv_fused_q8(*args)
+    pq, ps = flash_attention_ln_qkv_fused_q8_plain(*args)
+    torch.cuda.synchronize()
+    assert flash_attention_ln_qkv_fused_q8.launches == before + 1
+    err = float((oq.float() * os_ - pq.float() * ps).abs().max()
+                / (pq.float() * ps).abs().max())
+    assert err < 2e-2, err
+
+
+@pytest.mark.gpu
+def test_ln_qkv_q8_kernel_refuses_other_widths(cuda_device):
+    """On the card a width outside B2's contract (D = 1152, a cluster of 9)
+    raises before any launch, naming the contract."""
+    x, g, b, wq, sw, bias = _q8_inputs(6, n=1, t=8, d=1152)
+    dev = cuda_device
+    args = (_t(x).to(dev, torch.bfloat16), _t(g).to(dev), _t(b).to(dev),
+            _t(np.ascontiguousarray(wq.T)).to(dev), _t(sw).to(dev),
+            _t(bias).to(dev), 18, 64 ** -0.5)
+    before = flash_attention_ln_qkv_fused_q8.launches
+    with pytest.raises(ValueError, match="D a multiple of 128 from 128"):
+        flash_attention_ln_qkv_fused_q8(*args)
+    assert flash_attention_ln_qkv_fused_q8.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,t,d", [(8, 901, 1024), (2, 130, 768),
+                                   (1, 70, 384)])
+def test_qkv_int8_gemm_kernel_equals_plain(cuda_device, n, t, d):
+    """The s8 wgmma qkv stage of B2, B8, B9 and B15 (csrc/qkv_wgmma.cuh)
+    against `_qkv_plain` bit for bit: exact int32 sums and the same fp32
+    rounding points; 7208, 260 and 70 rows are no multiple of its 128-row
+    tile."""
+    x, g, b, wq, sw, bias = _q8_inputs(7, n=n, t=t, d=d)
+    dev = cuda_device
+    xq, sx = quantize_rows(_t(x).to(dev))
+    w = _t(np.ascontiguousarray(wq.T)).to(dev)
+    got = qkv_int8_gemm(xq, sx, w, _t(sw).to(dev), _t(bias).to(dev))
+    ref = _qkv_plain(xq, sx, w, _t(sw).to(dev), _t(bias).to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
 
 
 # ---- B4: int8 head1 + correlation ----
