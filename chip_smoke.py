@@ -17,8 +17,9 @@ the result line is printed:
    B6's fp32 kernel and both passes of B7's fp32 mode (the split-TF32
    products of `csrc/tf32x3.cuh`); integer warpgroup products (IGMMA)
    and TMA loads in B16's cluster kernel, in the s8 qkv GEMM of B2, B8,
-   B9 and B15 (`csrc/qkv_wgmma.cuh`) and in B15's projection; HGMMA and
-   UTMALDG in the head-pair attention kernels of B2 and B15;
+   B9 and B15 (`csrc/qkv_wgmma.cuh`), in B15's projection, in B18's
+   three channel widths and in B13's embed; HGMMA and UTMALDG in the
+   head-pair attention kernels of B2 and B15;
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the serving path, with its time beside the plain version's
    (B10 in both of its modes, fp32 and compute_dtype=bfloat16; B17 at
@@ -32,7 +33,9 @@ the result line is printed:
    B7, B8, B9, B2 and B15 timed again, one after another, beside SDPA
    and SDPA's backward; the qkv stage of B2, B8, B9 and B15 alone, bit
    for bit against its plain version; B20's device time alone, from
-   `torch.profiler`, beside its host-bound wrapper time);
+   `torch.profiler`, beside its host-bound wrapper time; B18 checked and
+   timed at each of the fused decoder's four shapes, its device time
+   from `torch.profiler`, its row a request's seven launches);
 3. serving: the full-width `fast_serving(clip_vitl16_384, quant=False)`
    model (ViT-L/16, bf16) with seeded random weights answers three
    requests through `TextFeatureCache` + `make_predictor`; the kernels'
@@ -195,9 +198,10 @@ TRAIN_FP32_GRAD_REL = 1e-4
 # in B6's fp32 kernel and both passes of B7's fp32 mode; integer
 # warpgroup products (IGMMA) and TMA loads in B16's cluster kernel, the s8
 # qkv GEMM (in every object that compiles it: B2, B8, B9, B15 and the
-# stage's own entry point) and B15's projection; HGMMA and TMA loads in
-# the head-pair attention of B2 (its cluster kernel) and B15; so a SIMT
-# or mma.sync fallback fails the run.
+# stage's own entry point), B15's projection, B18 (each of its three
+# channel widths) and B13's embed; HGMMA and TMA loads in the head-pair
+# attention of B2 (its cluster kernel) and B15; so a SIMT or mma.sync
+# fallback fails the run.
 WGMMA_TMA = (r"\bHGMMA\.", r"\bUTMALDG\b")
 TF32_MMA = r"\bH(?:G)?MMA\.[\w.]*TF32"
 SASS_REQUIRED = {
@@ -213,6 +217,10 @@ SASS_REQUIRED = {
     "mlp_fused_cluster_kernel": (r"\bIGMMA\.", r"\bUTMALDG\b"),
     "qkv_wgmma_kernel": (r"\bIGMMA\.", r"\bUTMALDG\b"),
     "pair_proj_wgmma_kernel": (r"\bIGMMA\.", r"\bUTMALDG\b"),
+    "fused_rcu_wgmma_kernelILi64E": (r"\bIGMMA\.", r"\bUTMALDG\b"),
+    "fused_rcu_wgmma_kernelILi128E": (r"\bIGMMA\.", r"\bUTMALDG\b"),
+    "fused_rcu_wgmma_kernelILi256E": (r"\bIGMMA\.", r"\bUTMALDG\b"),
+    "head1_up_argmax_wgmma_kernel": (r"\bIGMMA\.", r"\bUTMALDG\b"),
     "flash_q8_cluster_kernel": WGMMA_TMA,
     "pair_attention_kernel": WGMMA_TMA,
 }
@@ -1348,10 +1356,16 @@ def _tail_dense(x, wq, sw, b, s_in, out_scale=None):
                        ).to(torch.int8)
 
 
+# B18's shapes on the fused decoder: (side, launches a request) of
+# refinenet1's two RCUs, refinenet2's, refinenet3's and refinenet4's rcu2
+RCU_SHAPES = ((120, 2), (60, 2), (30, 2), (15, 1))
+
+
 def _decoder_kernels(dev, g):
-    """B18 at refinenet1's (8, 120, 120, 256) and refinenet4's odd
-    (8, 15, 15, 256); B19 at refinenet2's (8, 60, 60, 256) with bf16 out
-    and at refinenet1's hand-off (8, 120, 120, 256) with int8 out."""
+    """B18 at the fused decoder's four shapes, (8, S, S, 256) for S = 120,
+    60, 30, 15, each checked and timed, its row the sum over a request's
+    seven launches; B19 at refinenet2's (8, 60, 60, 256) with bf16 out and
+    at refinenet1's hand-off (8, 120, 120, 256) with int8 out."""
     from lseg_tpu_torch.ops.decoder import (
         fused_upsample_outconv,
         fused_upsample_outconv_plain,
@@ -1361,7 +1375,13 @@ def _decoder_kernels(dev, g):
     results = {}
     c = 256
     ops = _rcu_operands(dev, g, c)
-    for shape in ((8, 120, 120, c), (8, 15, 15, c)):
+    # per request: device ms, plain ms, bytes and operations, each shape's
+    # sum weighted by its launches
+    req = {"ms": 0.0, "plain_ms": 0.0, "moved": 0, "int8": 0, "fp32": 0,
+           "err": 0.0}
+    shapes = {}
+    for side, launches in RCU_SHAPES:
+        shape = (8, side, side, c)
         x = (torch.randn(shape, device=dev, generator=g)
              * (1.0 + torch.arange(c, device=dev) / c)).to(torch.bfloat16)
         out = fused_rcu(x, *ops)
@@ -1383,18 +1403,40 @@ def _decoder_kernels(dev, g):
             fail("fused_rcu: the check input does not isolate conv2's edge "
                  "padding")
         del wrong, ring, ref
-        if shape[1] == 120:
-            ms, plain_ms = _timed("fused_rcu", f"{shape}",
-                                  lambda: fused_rcu(x, *ops),
-                                  lambda: fused_rcu_plain(x, *ops))
-            px = x.numel() // c
-            # two 3x3 int8 convolutions; fp32 per element: quantize 3,
-            # affine + relu 3, requantize 2, affine 2, residual 1. No
-            # single PyTorch call computes the unit: library call none
-            results["fused_rcu"] = result(
-                err, ms, plain_ms, nbytes(x, out, *ops),
-                {"int8": 2 * 2 * 9 * c * c * px, "fp32": 11 * px * c})
+        ms, plain_ms = _timed("fused_rcu", f"{shape}",
+                              lambda: fused_rcu(x, *ops),
+                              lambda: fused_rcu_plain(x, *ops))
+        # the device time: at the small shapes the wrapper's host time
+        # (tensor maps, ctypes) exceeds the kernel's
+        dev_ms = _device_ms(lambda: fused_rcu(x, *ops))
+        px = x.numel() // c
+        # two 3x3 int8 convolutions; fp32 per element: quantize 3, affine
+        # + relu 3, requantize 2, affine 2, residual 1
+        moved, int8, fp32 = (nbytes(x, out, *ops), 2 * 2 * 9 * c * c * px,
+                             11 * px * c)
+        b_ms, _ = bound(moved, {"int8": int8, "fp32": fp32})
+        print(f"    device {dev_ms:.4f} ms a call, bound {b_ms:.4f} ms, "
+              f"{launches} a request")
+        shapes[str(side)] = {"ms": dev_ms, "events_ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": b_ms,
+                             "launches_per_request": launches}
+        req["ms"] += launches * dev_ms
+        req["plain_ms"] += launches * plain_ms
+        req["moved"] += launches * moved
+        req["int8"] += launches * int8
+        req["fp32"] += launches * fp32
+        req["err"] = max(req["err"], err)
         del x, out
+    # the row: a request's seven launches (device time, plain time, bytes
+    # and operations summed; every shape is bound by its operations, so
+    # the bound of the sums is the sum of the bounds). No single PyTorch
+    # call computes the unit: library call none
+    print(f"  fused_rcu a request (7 launches): device {req['ms']:.4f} ms, "
+          f"plain {req['plain_ms']:.4f} ms")
+    results["fused_rcu"] = result(
+        req["err"], req["ms"], req["plain_ms"], req["moved"],
+        {"int8": req["int8"], "fp32": req["fp32"]})
+    results["fused_rcu"]["shapes"] = shapes
 
     wq = torch.randint(-127, 128, (c, c), device=dev, generator=g,
                        dtype=torch.int8)

@@ -1,5 +1,5 @@
-// Thread-block cluster helpers shared by kernels B16 (mlp_fused.cu) and B2
-// (pair_attention.cuh): the CTA's rank, cluster barriers, loads and stores
+// Thread-block cluster helpers shared by kernels B16 (mlp_fused.cu), B2
+// (pair_attention.cuh) and B18 (fused_rcu.cu): the CTA's rank, cluster barriers, loads and stores
 // into a peer CTA's shared memory (distributed shared memory, DSM) at the
 // addresses `mapa` gives, and the launch configuration of a cluster grid.
 
@@ -48,6 +48,20 @@ __device__ __forceinline__ uint32_t peer_addr(const void* p, int rank) {
 
 __device__ __forceinline__ void st_peer(uint32_t addr, float v) {
   asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_peer(uint32_t addr, uint32_t lo,
+                                        uint32_t hi) {
+  asm volatile("st.shared::cluster.v2.u32 [%0], {%1, %2};\n" ::"r"(addr),
+               "r"(lo), "r"(hi)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_peer(uint32_t addr, uint4 v) {
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
                : "memory");
 }
 

@@ -21,33 +21,75 @@
 // 1979 TOP/s), against 118 MB of x read and out written (0.035 ms at
 // 3.35 TB/s): the operations bound it.
 //
-// Design: the TPU kernel keeps a full-width row band in VMEM; a band of
-// (8 + 4) x (120 + 2) x 256 int8 is 375 KB, beyond the 227 KB of shared
-// memory a block can use. So one block takes an 8 x 16 output tile and
-// keeps, in shared memory, the relu-quantized q1 of its 12 x 20 halo
-// (2 pixels on every side, 60 KB at C = 256) and the requantized q2 of the
-// 10 x 18 pixels that conv2 reads (45 KB): conv1 runs over that 10 x 18
-// halo (1.41x its work, recomputed by the neighbouring tiles) so that h
-// never leaves the SM. Each convolution is an implicit GEMM: nine shifted
-// views of the staged tile are the A operand (no im2col buffer), a
-// (64 output channels) x (one tap, C bytes) slice of the weight is the B
-// operand, streamed from L2 with cp.async into a double buffer (the 576 KB
-// kernels cannot stay resident), and mma.sync m16n8k32 s8 accumulates in
-// int32. Output channels run in chunks of 64, so the int32 tile stays in
-// registers (conv1: 192 rows x 64, conv2: 128 x 64); each conv1 chunk's
-// epilogue requantizes into q2, and conv2's writes bf16 with the residual
-// read from x. One block per SM (149 KB of shared memory at C = 256).
+// Design. The TPU kernel keeps a full-width row band in VMEM; a band is
+// beyond an SM's shared memory, so the image is cut into TR x TC output
+// tiles (the wrapper picks them, `ops/qconv.py` · rcu_tile: TR TC <= 192,
+// (TR + 2)(TC + 2) <= 256). One thread-block cluster of S = C / 64 CTAs
+// takes a tile; CTA `rank` owns output channels 64 rank .. + 63 of both
+// convolutions, so each CTA streams only its 64 rows of w1 and w2 and the
+// small shapes (15 x 15 and 30 x 30, one and two tiles an image) still
+// fill the card. Each CTA:
+//   - stages q1 of the (TR + 4) x (TC + 4) halo into shared memory (all C
+//     channels, C + 16 bytes a pixel so ldmatrix reads no bank twice),
+//     zero outside the image: it reads and quantizes its own 64 channels
+//     of x and writes their codes into every peer's tile too (DSM);
+//   - conv1 over the (TR + 2) x (TC + 2) pixels that conv2 reads, as an
+//     implicit GEMM: 4 m-blocks of 64 rows (two a consumer warpgroup,
+//     padded rows repeat the last pixel and are dropped), 9C deep, the A
+//     operand a shifted view of the q1 tile, loaded per k-step of 32 with
+//     one ldmatrix.x4 a warp and m-block (each lane one pixel's row
+//     address: no im2col buffer), the B operand the CTA's 64 rows of the
+//     weight, 128 k-bytes a stage, by TMA (128-byte swizzle, K-major)
+//     into an eight-stage mbarrier ring that one producer thread keeps
+//     full; products on s8 wgmma m64n64k32 in the RS form (IGMMA, A from
+//     registers, exact int32), two chunks' fragments loaded, their 16
+//     products issued, then drained before the next loads (`conv`);
+//   - requantizes its 64 channels of h into its q2 tile, then copies that
+//     slice into every peer's q2 tile over distributed shared memory
+//     (16-byte st.shared::cluster), and a cluster barrier makes every
+//     CTA's q2 whole;
+//   - conv2 the same way over the TR x TC outputs (3 m-blocks: two for the
+//     first consumer warpgroup, one for the second), then the epilogue:
+//     affine, residual x read from global, bf16 out, in the plain twin's
+//     order of `_rn` steps.
+// The weights' next conv's first stages load under conv1's epilogue and
+// the exchange. Why RS and not three column-shifted copies of the tile in
+// the SS layout: a copy of the q1 halo is 80 KB at C = 256, and three do
+// not fit beside q2; with RS the tile is staged once and any tile shape
+// works. Budgets: 219 KB of shared memory at C = 256 (one CTA an SM);
+// setmaxnreg gives the producer warpgroup 40 registers, the consumers 232.
 
-#include "lseg_common.cuh"
+#include "cluster.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;             // 8 warps: 4 (rows) x 2 (columns)
-constexpr int TR = 8, TC = 16;           // output tile
-constexpr int Q1R = TR + 4, Q1C = TC + 4;  // q1 halo tile, 12 x 20
-constexpr int Q2R = TR + 2, Q2C = TC + 2;  // q2 tile, 10 x 18
-constexpr int M1 = Q2R * Q2C;            // 180 conv1 output pixels
-constexpr int NCH = 64;                  // output channels per chunk
+namespace wg = lseg::wg;
+namespace gm = lseg::gemm;
+namespace cl = lseg::cluster;
+
+constexpr int NS = 64;                   // output channels a CTA owns
+constexpr int BK = 128;                  // k bytes a ring stage
+constexpr int STAGES = 8;
+constexpr int WG_THREADS = 128;
+constexpr int THREADS = 3 * WG_THREADS;  // producer + 2 consumers
+constexpr int B_BYTES = NS * BK;         // 8 KB: 64 weight rows
+constexpr int M1_ROWS = 256;             // conv1 rows: 4 m-blocks
+constexpr int M2_ROWS = 192;             // conv2 rows: 3 m-blocks
+constexpr int MAX_Q1 = 320;              // (TR + 4)(TC + 4) pixels at most
+
+struct Smem {
+  uint8_t ring[STAGES * B_BYTES];
+  gm::Ring<STAGES> r;
+  float d1[NS], e1[NS], d2[NS], e2[NS];
+};
+// the q1 and q2 tiles follow `Smem`, 16-byte aligned
+constexpr int SMEM_FIXED = (sizeof(Smem) + 15) / 16 * 16;
+
+template <int C>
+constexpr int smem_bytes() {
+  return SMEM_FIXED + (MAX_Q1 + M1_ROWS) * (C + 16) + 1024;
+}
 
 __device__ __forceinline__ uint32_t code(float v, float inv) {
   const float r = rintf(__fmul_rn(v, inv));
@@ -55,265 +97,375 @@ __device__ __forceinline__ uint32_t code(float v, float inv) {
              fminf(fmaxf(r, -127.0f), 127.0f))) & 0xffu;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
+// The A fragments of ring chunk kc (four k-steps of 32, fewer where 9C is
+// not a multiple of 128) for each of MB m-blocks: `abase` is this lane's
+// pixel row of the m-block (tap (0, 0), k-byte 16 (lane / 16)), a tap
+// (dy, dx) is dy rows of `cols` pixels and dx pixels further.
+template <int C, int MB>
+__device__ __forceinline__ void load_a(uint32_t (&af)[4][MB][4],
+                                       const uint32_t (&abase)[MB], int cols,
+                                       int kc) {
+  constexpr int LD = C + 16;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int step = kc * 4 + kk;
+    if (step >= 9 * C / 32) break;
+    const int tap = step * 32 / C, ch = step * 32 % C;
+    const uint32_t off = ((tap / 3) * cols + tap % 3) * LD + ch;
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb) gm::ldsm_x4(af[kk][mb], abase[mb] + off);
+  }
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// The products of ring chunk kc from stage s.
+template <int C, int MB>
+__device__ __forceinline__ void mma_chunk(const Smem& sm,
+                                          int (&acc)[MB][8][4],
+                                          const uint32_t (&af)[4][MB][4],
+                                          int s, int kc) {
+  const uint64_t db = wg::desc(sm.ring + s * B_BYTES);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kc * 4 + kk >= 9 * C / 32) break;
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb)
+      gm::MmaS8<NS>::rs(acc[mb], af[kk][mb], wg::desc_kstep(db, kk), 1);
+  }
 }
 
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+// A whole convolution (ring iterations it0 .. it0 + NK - 1) into acc, two
+// ring chunks at a time: wait for both weight slices, load both chunks' A
+// fragments, issue their products and wait for all of them. A register
+// that wgmma reads may not be rewritten while any product is in flight
+// (ptxas serializes every product otherwise), so the loads of the next
+// pair wait; the other consumer warpgroup's products fill the gap. The
+// loop is unrolled whole, so every branch is settled at compile time.
+template <int C, int MB>
+__device__ __forceinline__ void conv(Smem& sm, int (&acc)[MB][8][4],
+                                     const uint32_t (&abase)[MB], int cols,
+                                     uint32_t it0, int tid) {
+  constexpr int NK = (9 * C + BK - 1) / BK;
+  uint32_t af[2][4][MB][4];
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb) gm::zero(acc[mb]);
+#pragma unroll
+  for (int kc = 0; kc < NK; kc += 2) {
+    const bool two = kc + 1 < NK;
+    const int s0 = sm.r.wait(it0 + kc);
+    const int s1 = two ? sm.r.wait(it0 + kc + 1) : 0;
+    load_a<C, MB>(af[0], abase, cols, kc);
+    if (two) load_a<C, MB>(af[1], abase, cols, kc + 1);
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb) gm::fence_acc(acc[mb]);
+    wg::fence();
+    mma_chunk<C, MB>(sm, acc, af[0], s0, kc);
+    if (two) mma_chunk<C, MB>(sm, acc, af[1], s1, kc + 1);
+    wg::commit();
+    wg::wait<0>();
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb) gm::fence_acc(acc[mb]);
+    if (tid == 0) {
+      sm.r.release(it0 + kc);
+      if (two) sm.r.release(it0 + kc + 1);
+    }
+  }
 }
 
 struct Args {
   const __nv_bfloat16* x;
-  const int8_t* w1;
   const float* d1;
   const float* e1;
-  const int8_t* w2;
   const float* d2;
   const float* e2;
+  const float* s1_inv;
+  const float* s2_inv;
   __nv_bfloat16* out;
-  int H, W, C;
+  int H, W, TR, TC;
 };
 
-// Start the copy of step s's weight slice into buffer s & 1: conv s / per,
-// output channels chunk * 64 .. + 63, bytes tap * C .. + C of each row.
-__device__ __forceinline__ void load_b(const Args& a, int8_t* bs, int ld,
-                                       int s, int per) {
-  const int8_t* w = s < per ? a.w1 : a.w2;
-  const int t = s % per;
-  const int chunk = t / 9, tap = t % 9;
-  int8_t* dst = bs + (s & 1) * NCH * ld;
-  const int vec = a.C / 16;
-  const long long row = 9LL * a.C;
-  for (int i = threadIdx.x; i < NCH * vec; i += THREADS) {
-    const int r = i / vec, c = (i % vec) * 16;
-    cp_async16(dst + r * ld + c,
-               w + (chunk * NCH + r) * row + tap * a.C + c);
-  }
-  cp_async_commit();
-}
-
-// One convolution over `per` steps (chunks x 9 taps), starting at global
-// step s0: MT row tiles of 16 per warp, A rows at `rowoff` in `src` (a
-// tile `src_cols` pixels wide), the epilogue called after each chunk's
-// ninth tap. The next step's slice (possibly the next conv's first) is in
-// flight while this one computes.
-template <int MT, typename Epilogue>
-__device__ __forceinline__ void conv(const Args& a, int8_t* bs, int ld,
-                                     const int8_t* src, int src_cols,
-                                     const int (&rowoff)[MT][2], int s0,
-                                     int per, int total, int wn,
-                                     Epilogue epilogue) {
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t4 = lane % 4;
-  int acc[MT][4][4];
+// conv1's epilogue for this warpgroup's m-blocks: q2 codes of the CTA's
+// 64 channels at the conv1 pixels (0 outside the image), into the local
+// q2 tile.
+__device__ __forceinline__ void conv1_epilogue(const Args& a, const Smem& sm,
+                                               int8_t* q2s, int ld,
+                                               const int (&acc)[2][8][4],
+                                               int c, int ch0, int r0, int c0,
+                                               float s2_inv) {
+  const int tid = threadIdx.x % WG_THREADS;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int q2c = a.TC + 2, m1 = (a.TR + 2) * q2c;
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int b = 0; b < 2; ++b)
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int h = 0; h < 2; ++h) {
+      const int m = 64 * (2 * c + b) + 16 * warp + g + 8 * h;
+      if (m >= m1) continue;
+      const int rr = r0 - 1 + m / q2c, cc = c0 - 1 + m % q2c;
+      const bool inside = rr >= 0 && rr < a.H && cc >= 0 && cc < a.W;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
-
-  for (int s = s0; s < s0 + per; ++s) {
-    if (s + 1 < total) {
-      load_b(a, bs, ld, s + 1, per);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int tap = (s - s0) % 9;
-    const int tapoff = ((tap / 3) * src_cols + tap % 3) * ld;
-    const int8_t* b = bs + (s & 1) * NCH * ld;
-    for (int kk = 0; kk < a.C; kk += 32) {
-      uint32_t af[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int8_t* p0 = src + rowoff[mt][0] + tapoff + kk + t4 * 4;
-        const int8_t* p1 = src + rowoff[mt][1] + tapoff + kk + t4 * 4;
-        af[mt][0] = lseg::ld_u32(p0);
-        af[mt][1] = lseg::ld_u32(p1);
-        af[mt][2] = lseg::ld_u32(p0 + 16);
-        af[mt][3] = lseg::ld_u32(p1 + 16);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int8_t* pb = b + (wn + nt * 8 + g) * ld + kk + t4 * 4;
-        const uint32_t b0 = lseg::ld_u32(pb);
-        const uint32_t b1 = lseg::ld_u32(pb + 16);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-          lseg::mma_s8_16832(acc[mt][nt], af[mt], b0, b1);
+      for (int nt = 0; nt < 8; ++nt) {
+        const int col = nt * 8 + 2 * t4;
+        uint32_t q = 0u;
+        if (inside) {
+          const float h0 = __fadd_rn(
+              __fmul_rn(__int2float_rn(acc[b][nt][2 * h]), sm.d1[col]),
+              sm.e1[col]);
+          const float h1 = __fadd_rn(
+              __fmul_rn(__int2float_rn(acc[b][nt][2 * h + 1]),
+                        sm.d1[col + 1]),
+              sm.e1[col + 1]);
+          q = code(fmaxf(h0, 0.0f), s2_inv) |
+              (code(fmaxf(h1, 0.0f), s2_inv) << 8);
+        }
+        *reinterpret_cast<uint16_t*>(q2s + m * ld + ch0 + col) =
+            static_cast<uint16_t>(q);
       }
     }
-    if (tap == 8) {
-      epilogue((s - s0) / 9 * NCH, acc);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
-    }
-    __syncthreads();  // the next step refills buffer s & 1
-  }
 }
 
-__global__ void __launch_bounds__(THREADS, 1) fused_rcu_kernel(
-    Args a, const float* __restrict__ s1_inv_p,
-    const float* __restrict__ s2_inv_p) {
-  extern __shared__ __align__(16) int8_t smem[];
-  const int C = a.C, H = a.H, W = a.W;
-  const int ld = C + 16;  // bytes per staged pixel (conflict-free reads)
-  int8_t* q1s = smem;                     // Q1R x Q1C pixels
-  int8_t* q2s = q1s + Q1R * Q1C * ld;     // Q2R x Q2C pixels
-  int8_t* bs = q2s + M1 * ld;             // 2 x NCH rows
+// conv2's epilogue for MB m-blocks from m-block mb0: affine, residual,
+// bf16 out.
+template <int MB>
+__device__ __forceinline__ void conv2_epilogue(const Args& a, const Smem& sm,
+                                               const int (&acc)[MB][8][4],
+                                               int mb0, int C, int ch0,
+                                               int r0, int c0,
+                                               long long img) {
+  const int tid = threadIdx.x % WG_THREADS;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int m2 = a.TR * a.TC;
+#pragma unroll
+  for (int b = 0; b < MB; ++b)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = 64 * (mb0 + b) + 16 * warp + g + 8 * h;
+      if (m >= m2) continue;
+      const int rr = r0 + m / a.TC, cc = c0 + m % a.TC;
+      if (rr >= a.H || cc >= a.W) continue;
+      const long long px = (img + static_cast<long long>(rr) * a.W + cc) * C;
+      // the row's residuals first, all in flight together (x and out may
+      // alias for the compiler, which would wait out each load)
+      __nv_bfloat162 xr[8];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        xr[nt] = __ldg(reinterpret_cast<const __nv_bfloat162*>(
+            a.x + px + ch0 + nt * 8 + 2 * t4));
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int col = nt * 8 + 2 * t4;
+        const long long off = px + ch0 + col;
+        const float2 res = __bfloat1622float2(xr[nt]);
+        const float y0 = __fadd_rn(
+            __fmul_rn(__int2float_rn(acc[b][nt][2 * h]), sm.d2[col]),
+            sm.e2[col]);
+        const float y1 = __fadd_rn(
+            __fmul_rn(__int2float_rn(acc[b][nt][2 * h + 1]), sm.d2[col + 1]),
+            sm.e2[col + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(a.out + off) =
+            __floats2bfloat162_rn(__fadd_rn(y0, res.x), __fadd_rn(y1, res.y));
+      }
+    }
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;
-  const int t4 = lane % 4;
-  const int wn = (warp / 4) * 32;
+template <int C>
+__global__ void __launch_bounds__(THREADS, 1) fused_rcu_wgmma_kernel(
+    const __grid_constant__ CUtensorMap map_w1,
+    const __grid_constant__ CUtensorMap map_w2, Args a) {
+  constexpr int S = C / NS;  // CTAs of the cluster
+  constexpr int LD = C + 16;
+  constexpr int NK = (9 * C + BK - 1) / BK;  // ring chunks a convolution
+  constexpr int TOTAL = 2 * NK;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  // aligned by an offset from the shared array itself, so the compiler
+  // keeps every access of `sm` a shared-memory instruction
+  uint8_t* base = smem_raw + ((1024 - wg::smem_addr(smem_raw) % 1024) % 1024);
+  Smem& sm = *reinterpret_cast<Smem*>(base);
+  int8_t* q1s = reinterpret_cast<int8_t*>(base + SMEM_FIXED);
+  int8_t* q2s = q1s + MAX_Q1 * LD;
+
+  const int rank = S > 1 ? cl::rank() : 0;
+  const int ch0 = rank * NS;
   const int n = blockIdx.z;
-  const int r0 = blockIdx.y * TR, c0 = blockIdx.x * TC;
-  const int per = (C / NCH) * 9;
-  const long long img = static_cast<long long>(n) * H * W;
-  const float s1_inv = *s1_inv_p, s2_inv = *s2_inv_p;
+  const int r0 = blockIdx.y * a.TR, c0 = (blockIdx.x / S) * a.TC;
+  const int q1c = a.TC + 4, q2c = a.TC + 2;
+  const long long img = static_cast<long long>(n) * a.H * a.W;
+  const int wg_id = threadIdx.x / WG_THREADS;
+  const int tid = threadIdx.x % WG_THREADS;
 
-  load_b(a, bs, ld, 0, per);
+  // producer: ring iteration it is conv it / NK's chunk it % NK
+  auto load_b = [&](uint32_t it) {
+    const int s = sm.r.acquire(it, B_BYTES);
+    gm::tma_load_2d(sm.ring + s * B_BYTES, it < NK ? &map_w1 : &map_w2,
+                    &sm.r.full[s], (it % NK) * BK, ch0);
+  };
 
-  // q1: relu + quantize of the 12 x 20 halo tile, zero outside the image
-  const int groups = C / 8;
-  for (int i = tid; i < Q1R * Q1C * groups; i += THREADS) {
-    const int pix = i / groups, cg = (i % groups) * 8;
-    const int rr = r0 - 2 + pix / Q1C, cc = c0 - 2 + pix % Q1C;
-    uint2 codes = make_uint2(0u, 0u);
-    if (rr >= 0 && rr < H && cc >= 0 && cc < W) {
-      float v[8];
-      lseg::unpack8(*reinterpret_cast<const uint4*>(
-                        a.x + (img + rr * W + cc) * C + cg), v);
-      uint32_t q[8];
+  const float s1_inv = *a.s1_inv;
+  if (threadIdx.x == 0) sm.r.init(2);
+  if (threadIdx.x < NS) {
+    sm.d1[threadIdx.x] = a.d1[ch0 + threadIdx.x];
+    sm.e1[threadIdx.x] = a.e1[ch0 + threadIdx.x];
+    sm.d2[threadIdx.x] = a.d2[ch0 + threadIdx.x];
+    sm.e2[threadIdx.x] = a.e2[ch0 + threadIdx.x];
+  }
+  cl::sync();  // the barriers are set and every CTA of the cluster runs
+  if (threadIdx.x == 0)
+    for (int it = 0; it < STAGES && it < TOTAL; ++it) load_b(it);
+
+  // q1: relu + quantize of the (TR + 4) x (TC + 4) halo, 0 outside. Each
+  // CTA of the cluster reads its 64 channels of x (each thread keeping
+  // Q1_LOADS 16-byte loads in flight) and writes their codes into its own
+  // q1 tile and every peer's: read whole by every CTA, x took a quarter
+  // of a CTA's time
+  {
+    constexpr int Q1_LOADS = 8;
+    constexpr int groups = NS / 8;
+    const int total = (a.TR + 4) * q1c * groups;
+    for (int i0 = threadIdx.x; i0 < total; i0 += THREADS * Q1_LOADS) {
+      uint4 raw[Q1_LOADS];
 #pragma unroll
-      for (int k = 0; k < 8; ++k) q[k] = code(fmaxf(v[k], 0.0f), s1_inv);
-      codes.x = q[0] | (q[1] << 8) | (q[2] << 16) | (q[3] << 24);
-      codes.y = q[4] | (q[5] << 8) | (q[6] << 16) | (q[7] << 24);
+      for (int u = 0; u < Q1_LOADS; ++u) {
+        const int i = i0 + u * THREADS;
+        const int pix = i / groups, cg = (i % groups) * 8;
+        const int rr = r0 - 2 + pix / q1c, cc = c0 - 2 + pix % q1c;
+        raw[u] = make_uint4(0u, 0u, 0u, 0u);
+        if (i < total && rr >= 0 && rr < a.H && cc >= 0 && cc < a.W)
+          raw[u] = __ldg(reinterpret_cast<const uint4*>(
+              a.x + (img + static_cast<long long>(rr) * a.W + cc) * C +
+              ch0 + cg));
+      }
+#pragma unroll
+      for (int u = 0; u < Q1_LOADS; ++u) {
+        const int i = i0 + u * THREADS;
+        if (i >= total) break;
+        float v[8];
+        lseg::unpack8(raw[u], v);
+        uint32_t q[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) q[k] = code(fmaxf(v[k], 0.0f), s1_inv);
+        int8_t* dst = q1s + (i / groups) * LD + ch0 + (i % groups) * 8;
+        const uint32_t lo = q[0] | (q[1] << 8) | (q[2] << 16) | (q[3] << 24);
+        const uint32_t hi = q[4] | (q[5] << 8) | (q[6] << 16) | (q[7] << 24);
+        *reinterpret_cast<uint2*>(dst) = make_uint2(lo, hi);
+#pragma unroll
+        for (int peer = 0; peer < S; ++peer)
+          if (peer != rank) cl::st_peer(cl::peer_addr(dst, peer), lo, hi);
+      }
     }
-    *reinterpret_cast<uint2*>(q1s + pix * ld + cg) = codes;
+  }
+  cl::sync();  // every CTA's q1 is whole
+
+  if (wg_id == 0) {
+    gm::regs_dec<40>();
+    // conv1's chunks and conv2's first STAGES: each waits only on a
+    // conv1 stage, which the consumers free before the exchange
+    if (tid == 0)
+      for (int it = STAGES; it < NK + STAGES && it < TOTAL; ++it) load_b(it);
+    __syncwarp();
+    cl::sync();  // the q2 slices are exchanged
+    if (tid == 0)
+      for (int it = NK + STAGES; it < TOTAL; ++it) load_b(it);
+    return;
   }
 
-  // conv1 over the 10 x 18 q2 pixels (180 rows, padded to 192 with
-  // copies of the last pixel, whose results are dropped)
-  {
-    const int wm = (warp % 4) * 48;
-    int rowoff[3][2];
-#pragma unroll
-    for (int mt = 0; mt < 3; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = min(wm + mt * 16 + g + 8 * h, M1 - 1);
-        rowoff[mt][h] = ((m / Q2C) * Q1C + m % Q2C) * ld;
-      }
-    conv<3>(a, bs, ld, q1s, Q1C, rowoff, 0, per, 2 * per, wn,
-            [&](int ch, int (&acc)[3][4][4]) {
-#pragma unroll
-              for (int nt = 0; nt < 4; ++nt) {
-                const int col = ch + wn + nt * 8 + 2 * t4;
-                const float da = a.d1[col], db = a.d1[col + 1];
-                const float ea = a.e1[col], eb = a.e1[col + 1];
-#pragma unroll
-                for (int mt = 0; mt < 3; ++mt)
-#pragma unroll
-                  for (int h = 0; h < 2; ++h) {
-                    const int m = wm + mt * 16 + g + 8 * h;
-                    if (m >= M1) continue;
-                    const int rr = r0 - 1 + m / Q2C, cc = c0 - 1 + m % Q2C;
-                    uint32_t q = 0u;
-                    if (rr >= 0 && rr < H && cc >= 0 && cc < W) {
-                      const float h0 = __fadd_rn(__fmul_rn(__int2float_rn(
-                          acc[mt][nt][2 * h]), da), ea);
-                      const float h1 = __fadd_rn(__fmul_rn(__int2float_rn(
-                          acc[mt][nt][2 * h + 1]), db), eb);
-                      q = code(fmaxf(h0, 0.0f), s2_inv) |
-                          (code(fmaxf(h1, 0.0f), s2_inv) << 8);
-                    }
-                    *reinterpret_cast<uint16_t*>(q2s + m * ld + col) =
-                        static_cast<uint16_t>(q);
-                  }
-              }
-            });
-  }
+  gm::regs_inc<232>();
+  const int c = wg_id - 1;  // this consumer warpgroup
+  const int warp = tid / 32, lane = tid % 32;
+  // this lane's row of an m-block's ldmatrix, and its k-byte offset
+  const int lrow = 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const uint32_t kb = (lane >> 4) * 16;
 
-  // conv2 over the 8 x 16 output pixels, + the residual
+  // ---- conv1: m-blocks 2c and 2c + 1 of the (TR + 2) x (TC + 2) pixels
   {
-    const int wm = (warp % 4) * 32;
-    int rowoff[2][2];
+    const int m1 = (a.TR + 2) * q2c;
+    uint32_t abase[2];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = wm + mt * 16 + g + 8 * h;
-        rowoff[mt][h] = ((m / TC) * Q2C + m % TC) * ld;
-      }
-    conv<2>(a, bs, ld, q2s, Q2C, rowoff, per, per, 2 * per, wn,
-            [&](int ch, int (&acc)[2][4][4]) {
-#pragma unroll
-              for (int nt = 0; nt < 4; ++nt) {
-                const int col = ch + wn + nt * 8 + 2 * t4;
-                const float da = a.d2[col], db = a.d2[col + 1];
-                const float ea = a.e2[col], eb = a.e2[col + 1];
-#pragma unroll
-                for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-                  for (int h = 0; h < 2; ++h) {
-                    const int m = wm + mt * 16 + g + 8 * h;
-                    const int rr = r0 + m / TC, cc = c0 + m % TC;
-                    if (rr >= H || cc >= W) continue;
-                    const long long off = (img + rr * W + cc) * C + col;
-                    const float2 res = __bfloat1622float2(
-                        *reinterpret_cast<const __nv_bfloat162*>(a.x + off));
-                    const float y0 = __fadd_rn(__fmul_rn(__int2float_rn(
-                        acc[mt][nt][2 * h]), da), ea);
-                    const float y1 = __fadd_rn(__fmul_rn(__int2float_rn(
-                        acc[mt][nt][2 * h + 1]), db), eb);
-                    *reinterpret_cast<__nv_bfloat162*>(a.out + off) =
-                        __floats2bfloat162_rn(__fadd_rn(y0, res.x),
-                                              __fadd_rn(y1, res.y));
-                  }
-              }
-            });
+    for (int b = 0; b < 2; ++b) {
+      const int m = min(64 * (2 * c + b) + lrow, m1 - 1);
+      abase[b] = wg::smem_addr(q1s) + ((m / q2c) * q1c + m % q2c) * LD + kb;
+    }
+    int acc[2][8][4];
+    conv<C, 2>(sm, acc, abase, q1c, 0, tid);
+    conv1_epilogue(a, sm, q2s, LD, acc, c, ch0, r0, c0, *a.s2_inv);
   }
+  // this warpgroup's q2 rows, this CTA's 64 channels, into every peer
+  wg::named_sync(1 + c, WG_THREADS);
+  if (S > 1) {
+    const int m1 = (a.TR + 2) * q2c;
+    const int lo = 128 * c, hi = min(lo + 128, m1);
+    for (int i = tid; i < (hi - lo) * (NS / 16); i += WG_THREADS) {
+      const int8_t* p = q2s + (lo + i / (NS / 16)) * LD + ch0 +
+                        16 * (i % (NS / 16));
+      const uint4 v = *reinterpret_cast<const uint4*>(p);
+#pragma unroll
+      for (int peer = 0; peer < S; ++peer)
+        if (peer != rank) cl::st_peer(cl::peer_addr(p, peer), v);
+    }
+  }
+  cl::sync();  // the q2 slices are exchanged
+
+  // ---- conv2 over the TR x TC outputs: m-blocks 0, 1 and 2
+  const int m2 = a.TR * a.TC;
+  auto abase2 = [&](int mb) {
+    const int m = min(64 * mb + lrow, m2 - 1);
+    return wg::smem_addr(q2s) + ((m / a.TC) * q2c + m % a.TC) * LD + kb;
+  };
+  if (c == 0) {
+    const uint32_t abase[2] = {abase2(0), abase2(1)};
+    int acc[2][8][4];
+    conv<C, 2>(sm, acc, abase, q2c, NK, tid);
+    conv2_epilogue<2>(a, sm, acc, 0, C, ch0, r0, c0, img);
+  } else {
+    const uint32_t abase[1] = {abase2(2)};
+    int acc[1][8][4];
+    conv<C, 1>(sm, acc, abase, q2c, NK, tid);
+    conv2_epilogue<1>(a, sm, acc, 2, C, ch0, r0, c0, img);
+  }
+}
+
+template <int C>
+int launch(const void* w1, const void* w2, const Args& a, int n,
+           cudaStream_t st) {
+  static const int attr =
+      wg::allow_smem(fused_rcu_wgmma_kernel<C>, smem_bytes<C>());
+  if (attr != 0) return attr;
+  CUtensorMap map_w1, map_w2;
+  int rc = gm::make_map_2d(&map_w1, w1, 1, 9 * C, C, BK, NS, true);
+  if (rc == 0) rc = gm::make_map_2d(&map_w2, w2, 1, 9 * C, C, BK, NS, true);
+  if (rc != 0) return rc;
+  const dim3 grid(C / NS * ((a.W + a.TC - 1) / a.TC),
+                  (a.H + a.TR - 1) / a.TR, n);
+  cl::Launch l(grid, THREADS, smem_bytes<C>(), C / NS, st);
+  const cudaError_t e = cudaLaunchKernelEx(&l.cfg, fused_rcu_wgmma_kernel<C>,
+                                           map_w1, map_w2, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success). Requires
-// C % 64 == 0, C <= 256 and 16-byte aligned tensors (checked by the
-// wrapper).
+// Launch on `stream`; returns the launch's error code (0 on success).
+// Requires C in {64, 128, 256}, tr tc <= 192, (tr + 2)(tc + 2) <= 256,
+// (tr + 4)(tc + 4) <= 320 and 16-byte aligned tensors (the wrapper checks
+// them and picks the tile).
 extern "C" int lseg_fused_rcu(const void* x, const void* w1, const void* d1,
                               const void* e1, const void* s1_inv,
                               const void* w2, const void* d2, const void* e2,
                               const void* s2_inv, void* out, int n, int h,
-                              int w, int c, void* stream) {
-  const int smem = (Q1R * Q1C + M1 + 2 * NCH) * (c + 16);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_rcu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  Args a{static_cast<const __nv_bfloat16*>(x),
-         static_cast<const int8_t*>(w1), static_cast<const float*>(d1),
-         static_cast<const float*>(e1), static_cast<const int8_t*>(w2),
-         static_cast<const float*>(d2), static_cast<const float*>(e2),
-         static_cast<__nv_bfloat16*>(out), h, w, c};
-  const dim3 grid((w + TC - 1) / TC, (h + TR - 1) / TR, n);
-  fused_rcu_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<const float*>(s1_inv), static_cast<const float*>(s2_inv));
-  return static_cast<int>(cudaGetLastError());
+                              int w, int c, int tr, int tc, void* stream) {
+  if (tr < 1 || tc < 1 || tr * tc > M2_ROWS ||
+      (tr + 2) * (tc + 2) > M1_ROWS || (tr + 4) * (tc + 4) > MAX_Q1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{static_cast<const __nv_bfloat16*>(x),
+               static_cast<const float*>(d1), static_cast<const float*>(e1),
+               static_cast<const float*>(d2), static_cast<const float*>(e2),
+               static_cast<const float*>(s1_inv),
+               static_cast<const float*>(s2_inv),
+               static_cast<__nv_bfloat16*>(out), h, w, tr, tc};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (c) {
+    case 64: return launch<64>(w1, w2, a, n, st);
+    case 128: return launch<128>(w1, w2, a, n, st);
+    case 256: return launch<256>(w1, w2, a, n, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -26,38 +26,78 @@
 // rounded to bf16: each product of two bf16 values is exact in fp32, so
 // the sum rounds once, as the TPU kernel's (2W, W) @ (W, K) product with
 // fp32 accumulation rounds it. Every other product and sum is rounded on
-// its own (__fmul_rn / __fadd_rn).
+// its own (__fmul_rn / __fadd_rn). The logits lo are kernel B4's bits for
+// the same inputs (head1_wgmma.cuh says why), so the labels equal the
+// plain tail of B4's logits everywhere.
 //
 // What bounds it on the card: at the flagship (8, 240, 240, 256) -> K =
 // 150 the head work of kernel B14 (121 GOP int8, 71 GFLOP bf16), ~0.13 ms
 // at the tensor cores' peaks, plus ~1.7 GFLOP of fp32 blending, against
 // 118 MB of codes in and 7.4 MB of labels out (~0.037 ms): the operations
-// bound it. Design: the TPU kernel's band of R + 2 source rows x W x K
-// logits (432 KB at R = 4, W = 240, K = 150) does not fit the 227 KB of an
-// SM's shared memory, so the output is tiled in W too. One 256-thread
-// block per (image, 8 output rows, 64 output columns) needs at most 6
-// source rows x 34 source columns; it computes their logits with B4's
-// tile code (head1_tile.cuh), 64 pixels at a time, into a (pixels, K)
-// bf16 buffer in shared memory (60 KB at K = 150, beside the tile's
-// 117 KB), recomputing the halo rows and columns that neighbouring blocks
-// also compute (at the flagship ~5 x 33 pixels for 4 x 32 source pixels
-// of output: x1.3, and x1.5 in 64-pixel tiles). Then each warp takes
-// output pixels in turn: its lanes stride over K, blend along H and W from
-// the shared buffer and keep a running (value, index) best, which a
-// butterfly across the warp joins, first index on ties. Only the (N, 2H,
-// 2W) int32 labels reach device memory.
+// bound it.
+//
+// Design: every source pixel's logits once, or nearly. A CTA owns a strip
+// of 127 source columns (128 with the one it shares with the next strip)
+// and a segment of source rows, and walks down the segment one source row
+// (a step of 128 pixels) at a time:
+//   - a producer thread loads the row's codes (two 64-pixel boxes a
+//     128-byte k-chunk) and, per quarter of 128 head1 channels, that
+//     quarter's weight rows and text columns into a two-stage mbarrier
+//     ring, all by TMA (head1_wgmma.cuh's layout);
+//   - two consumer warpgroups, 64 pixels each, run the embed on s8 wgmma,
+//     the dequant and the correlate on mma.sync, and hold the row's
+//     normalized logits in registers, 38 labels of 2 pixels a thread;
+//   - the output rows whose first H tap is the previous row are blended
+//     along H once per (output row, source column, label) from the
+//     previous row's logits (kept in shared memory by the thread that
+//     computed them) and this row's; the W-interp then needs a pixel's
+//     right neighbour, which is the lane 4 over (rotated, so the eighth
+//     pixel's neighbour is the first lane's second row), or (once a
+//     warp) the next warp's first pixel, handed over in shared memory
+//     behind one barrier a row; each thread takes the
+//     output columns whose left tap is its pixel, reduces its 38 labels
+//     and joins its
+//     quad's four partial (value, index) maxima in two shuffles;
+//   - this row's logits become the previous row's.
+// Strips overlap by one source column and segments by one source row, so
+// at the flagship (two strips, eight segments of 30 rows, 128 CTAs) the
+// logits of 1.07 x 1.03 the source pixels are computed (the grid is
+// chosen by the wrapper, `ops/head1_correlate.py` · b13_grid). Only the
+// (N, 2H, 2W) int32 labels reach device memory. Budgets: 220 KB of shared
+// memory (one CTA an SM); setmaxnreg gives the producer warpgroup 40
+// registers, the consumers 232. Limits: C <= 256, C % 32 == 0, E % 128 ==
+// 0, K <= 152, segments of at most 64 rows.
 
-#include "head1_tile.cuh"
+#include "head1_wgmma.cuh"
 
 namespace {
 
-namespace h1 = lseg::head1;
+namespace hw = lseg::head1w;
+namespace wg = lseg::wg;
+namespace gm = lseg::gemm;
 
-constexpr int RO = 8;                   // output rows per block
-constexpr int CO = 64;                  // output columns per block
-constexpr int SRC_ROWS = RO / 2 + 2;    // source rows they can need
-constexpr int SRC_COLS = CO / 2 + 2;    // source columns they can need
-constexpr int MAX_PIX = SRC_ROWS * SRC_COLS;
+constexpr int STRIP = hw::ROWS - 1;      // source columns a strip owns
+constexpr int MAX_SEG = 64;              // source rows a segment owns
+constexpr int NR = 2 * MAX_SEG + 8;      // output rows a segment can own
+constexpr int NJ = 2 * STRIP + 8;        // output columns a strip can own
+constexpr int CONSUMERS = 2 * hw::WG_THREADS;
+constexpr int CWARPS = CONSUMERS / 32;
+constexpr int WORDS = 2 * hw::KT;        // bf16 pairs of a thread's logits
+
+struct Smem {
+  uint8_t codes[hw::CODES_BYTES];
+  uint8_t ring[2][hw::STAGE];
+  uint32_t prev[WORDS][CONSUMERS];  // the previous row's logits, by thread
+  uint32_t edge[2][CWARPS][4][hw::KT];  // each warp's first pixel's blend
+  int row_ho[NR];
+  float row_f[NR];
+  int col_lo[NJ];
+  float col_a0[NJ], col_a1[NJ];
+  int pix_j[hw::ROWS][2];  // the output columns a pixel owns: first, last
+  uint64_t cfull, cempty;
+  gm::Ring<2> r;
+};
+constexpr int SMEM = sizeof(Smem) + 1024;  // + alignment slack
 
 // the line of _interp_matrix(in, 2 in, align_corners=True) for output o:
 // lower source index and its fp32 weights (1 - frac, frac)
@@ -95,162 +135,283 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-__global__ void __launch_bounds__(h1::THREADS) head1_up_argmax_kernel(
-    const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
-    const float* __restrict__ sc, const float* __restrict__ b1,
-    const __nv_bfloat16* __restrict__ tn, int* __restrict__ out, int H,
-    int W, int C, int E, int K) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const h1::Tile t = h1::carve(smem, C, E);
-  __nv_bfloat16* Ls = reinterpret_cast<__nv_bfloat16*>(smem + t.L.total);
-  __shared__ int row_ho[RO];
-  __shared__ float row_f[RO];
-  __shared__ int col_lo[CO];
-  __shared__ float col_a0[CO], col_a1[CO];
+__device__ __forceinline__ float bf_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
 
+// bf16(p0 * fa + p1 * fb) of both halves of a pair
+__device__ __forceinline__ uint32_t blend(uint32_t p0, uint32_t p1, float fa,
+                                          float fb) {
+  return lseg::pack_f32(
+      __fadd_rn(__fmul_rn(bf_lo(p0), fa), __fmul_rn(bf_lo(p1), fb)),
+      __fadd_rn(__fmul_rn(bf_hi(p0), fa), __fmul_rn(bf_hi(p1), fb)));
+}
+
+// An order-preserving key of (bf16 value b, label k): the larger value
+// first, NaN above every number, equal values (-0 and +0 among them) to
+// the smaller k, as jnp.argmax orders them: 0x8000 +- |b| (a conditional
+// negate: -0 and +0 meet) in the high half, 0xffff - k in the low half.
+// No branch: written with ternaries over key parts, ptxas branched on
+// each label's sign and lanes diverged.
+__device__ __forceinline__ uint32_t label_key(uint32_t b, uint32_t k) {
+  const uint32_t mag = b & 0x7fffu, neg = (b >> 15) & 1u;
+  uint32_t v = 0x8000u + ((mag ^ (0u - neg)) + neg);
+  v = mag > 0x7f80u ? 0xffffu : v;  // NaN
+  return (v << 16) | (0xffffu - k);
+}
+
+struct Args {
+  const float* sc;
+  const float* b1;
+  int* out;
+  int H, W, C, K, E, seg;
+};
+
+__global__ void __launch_bounds__(hw::THREADS, 1) head1_up_argmax_wgmma_kernel(
+    const __grid_constant__ CUtensorMap map_x,
+    const __grid_constant__ CUtensorMap map_w,
+    const __grid_constant__ CUtensorMap map_t, Args a) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      smem_raw + ((1024 - wg::smem_addr(smem_raw) % 1024) % 1024));
+  const int H = a.H, W = a.W;
+  const int c0 = blockIdx.x * STRIP;
+  const int ra = blockIdx.y * a.seg, rb = min(ra + a.seg, H);
   const int n = blockIdx.z;
-  const int o0 = blockIdx.y * RO;
-  const int ow0 = blockIdx.x * CO;
-  const int o_end = min(o0 + RO, 2 * H);
-  const int ow_end = min(ow0 + CO, 2 * W);
-  const int tid = threadIdx.x;
+  const int steps = min(rb, H - 1) - ra + 1;
+  const int nq = a.E / hw::EQ;
+  const int o0 = max(0, 2 * ra - 3), j0 = max(0, 2 * c0 - 3);
+  const int kcl = (a.C + 127) / 128;  // k-chunks TMA loads
 
-  // the source window [r_lo, r_hi] x [c_lo, c_hi] of the block's outputs
-  int r_lo, r_hi, c_lo, c_hi;
-  {
-    float f, a0, a1;
-    h_taps(o0, H, r_lo, f);
-    h_taps(o_end - 1, H, r_hi, f);
-    r_hi = min(r_hi + 1, H - 1);
-    taps(ow0, W, c_lo, a0, a1);
-    taps(ow_end - 1, W, c_hi, a0, a1);
-    c_hi = min(c_hi + 1, W - 1);
+  // at C <= 128 the second k-chunk of the codes and of the weight stages
+  // is never loaded: zeros, whose products add nothing
+  for (int i = threadIdx.x; kcl < hw::KCH && i < hw::CODES_BOX * 2 / 16;
+       i += hw::THREADS) {
+    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+    reinterpret_cast<uint4*>(sm.codes + 2 * hw::CODES_BOX)[i] = z;
+    reinterpret_cast<uint4*>(sm.ring[0] + hw::W_BOX)[i] = z;
+    reinterpret_cast<uint4*>(sm.ring[1] + hw::W_BOX)[i] = z;
   }
-  const int nc = c_hi - c_lo + 1;
-  const int npix = (r_hi - r_lo + 1) * nc;
-  if (tid < RO && o0 + tid < o_end) {
-    h_taps(o0 + tid, H, row_ho[tid], row_f[tid]);
-  } else if (tid >= 32 && tid < 32 + CO && ow0 + tid - 32 < ow_end) {
-    const int j = tid - 32;
-    float a0, a1;
-    taps(ow0 + j, W, col_lo[j], a0, a1);
-    col_a0[j] = round_bf16(a0);
-    col_a1[j] = round_bf16(a1);
-  }
+  gm::fence_proxy_async();  // before wgmma reads them
 
-  // normalized logits of the window's pixels, 64 at a time
-  const int xchunks = C / 16;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;
-  const int t4 = lane % 4;
-  const int wr = (warp % 4) * 16;
-  const int wc = warp / 4;
-  for (int p0 = 0; p0 < npix; p0 += h1::BM) {
-    for (int i = tid; i < h1::BM * xchunks; i += h1::THREADS) {
-      const int r = i / xchunks;
-      const int c = (i % xchunks) * 16;
-      const int p = p0 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (p < npix) {
-        const long long m =
-            (static_cast<long long>(n) * H + r_lo + p / nc) * W + c_lo +
-            p % nc;
-        v = *reinterpret_cast<const uint4*>(xq + m * C + c);
-      }
-      *reinterpret_cast<uint4*>(t.Xs + r * t.L.ldx + c) = v;
-    }
-    h1::embed(t, w, sc, b1, C, E);
-    for (int k0 = 0; k0 < K; k0 += h1::KCH) {
-      float acc[2][4];
-      h1::correlate(t, tn, k0, K, E, acc);
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int lr = wr + g + 8 * half;
-        const int p = p0 + lr;
-        if (p >= npix) continue;
-        const float inv =
-            rsqrtf(fmaxf(t.ssq[lr] + t.ssq[h1::BM + lr], 1e-24f));
-        __nv_bfloat16* lp = Ls + p * K;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int k = k0 + wc * 16 + j * 8 + 2 * t4;
-          if (k < K)
-            lp[k] = __float2bfloat16_rn(__fmul_rn(acc[j][2 * half], inv));
-          if (k + 1 < K)
-            lp[k + 1] =
-                __float2bfloat16_rn(__fmul_rn(acc[j][2 * half + 1], inv));
+  // the taps of the output rows and columns this CTA may own
+  if (threadIdx.x == 0) {
+    wg::bar_init(&sm.cfull, 1);
+    wg::bar_init(&sm.cempty, CWARPS);
+    sm.r.init(CWARPS);
+  }
+  for (int t = threadIdx.x; t < NR; t += hw::THREADS) {
+    int ho = -1;
+    float f = 0.0f;
+    if (o0 + t < 2 * H) h_taps(o0 + t, H, ho, f);
+    sm.row_ho[t] = ho;
+    sm.row_f[t] = f;
+  }
+  for (int t = threadIdx.x; t < NJ; t += hw::THREADS) {
+    int lo = -1;
+    float a0 = 0.0f, a1 = 0.0f;
+    if (j0 + t < 2 * W) taps(j0 + t, W, lo, a0, a1);
+    sm.col_lo[t] = lo;
+    sm.col_a0[t] = round_bf16(a0);
+    sm.col_a1[t] = round_bf16(a1);
+  }
+  __syncthreads();
+  // pixel p of the strip owns the output columns whose left tap it is
+  if (threadIdx.x < hw::ROWS) {
+    const int p = threadIdx.x, c = c0 + p;
+    int first = 0, last = -1;
+    if (p < STRIP && c <= max(W - 2, 0)) {
+      for (int t = 0; t < NJ; ++t)
+        if (sm.col_lo[t] == c) {
+          if (last < first) first = j0 + t;
+          last = j0 + t;
         }
-      }
     }
+    sm.pix_j[p][0] = first;
+    sm.pix_j[p][1] = last;
   }
   __syncthreads();
 
-  // H-blend, W-interp and argmax: one output pixel per warp at a time
-  const int ncols = ow_end - ow0;
-  for (int q = warp; q < (o_end - o0) * ncols; q += h1::THREADS / 32) {
-    const int oi = q / ncols;
-    const int j = q % ncols;
-    const int ho = row_ho[oi];
-    const float fb = row_f[oi];
-    const float fa = __fsub_rn(1.0f, fb);
-    const int s0 = (ho - r_lo) * nc;
-    const int s1 = (min(ho + 1, H - 1) - r_lo) * nc;
-    const int lo = col_lo[j];
-    const int c0 = lo - c_lo;
-    const int c1 = min(lo + 1, W - 1) - c_lo;
-    const float a0 = col_a0[j], a1 = col_a1[j];
-    const __nv_bfloat16* p00 = Ls + (s0 + c0) * K;
-    const __nv_bfloat16* p10 = Ls + (s1 + c0) * K;
-    const __nv_bfloat16* p01 = Ls + (s0 + c1) * K;
-    const __nv_bfloat16* p11 = Ls + (s1 + c1) * K;
-    float best = -INFINITY;
-    int arg = 0x7fffffff;
-    for (int k = lane; k < K; k += 32) {
-      const float hb0 = round_bf16(
-          __fadd_rn(__fmul_rn(__bfloat162float(p00[k]), fa),
-                    __fmul_rn(__bfloat162float(p10[k]), fb)));
-      const float hb1 = round_bf16(
-          __fadd_rn(__fmul_rn(__bfloat162float(p01[k]), fa),
-                    __fmul_rn(__bfloat162float(p11[k]), fb)));
-      const float v =
-          round_bf16(__fadd_rn(__fmul_rn(a0, hb0), __fmul_rn(a1, hb1)));
-      if (lseg::argmax_better(v, k, best, arg)) {
-        best = v;
-        arg = k;
+  const int wg_id = threadIdx.x / hw::WG_THREADS;
+  if (wg_id == 0) {
+    gm::regs_dec<40>();
+    if (threadIdx.x == 0) {
+      uint32_t it = 0;
+      for (int step = 0; step < steps; ++step) {
+        wg::bar_wait(&sm.cempty, (step & 1) ^ 1);
+        wg::bar_expect_tx(&sm.cfull, kcl * 2 * hw::CODES_BOX);
+        const int m0 = (n * H + ra + step) * W + c0;
+        for (int kc = 0; kc < kcl; ++kc)
+          for (int cw = 0; cw < 2; ++cw)
+            gm::tma_load_2d(sm.codes + (kc * 2 + cw) * hw::CODES_BOX, &map_x,
+                            &sm.cfull, kc * 128, m0 + 64 * cw);
+        for (int q = 0; q < nq; ++q, ++it) {
+          const int s =
+              sm.r.acquire(it, kcl * hw::W_BOX + 2 * hw::T_BOX);
+          for (int kc = 0; kc < kcl; ++kc)
+            gm::tma_load_2d(sm.ring[s] + kc * hw::W_BOX, &map_w,
+                            &sm.r.full[s], kc * 128, q * hw::EQ);
+          for (int b = 0; b < 2; ++b)
+            gm::tma_load_2d(sm.ring[s] + hw::W_BYTES + b * hw::T_BOX, &map_t,
+                            &sm.r.full[s], q * hw::EQ + 64 * b, 0);
+        }
       }
     }
+    return;
+  }
+
+  gm::regs_inc<232>();
+  const int ct = threadIdx.x - hw::WG_THREADS;  // 0 .. 255
+  const int cw = ct / hw::WG_THREADS;
+  const int warp = (ct / 32) % 4, cwarp = ct / 32;
+  const int lane = ct % 32, g = lane / 4, t4 = lane % 4;
+  const int pix[2] = {64 * cw + 16 * warp + g, 64 * cw + 16 * warp + g + 8};
+  int tp = 0;  // the next output row of the table to emit
+  while (tp < NR && sm.row_ho[tp] >= 0 && sm.row_ho[tp] < ra) ++tp;
+  uint32_t it = 0;
+  for (int step = 0; step < steps; ++step) {
+    const int r = ra + step;
+    // ---- the row's normalized logits ----
+    wg::bar_wait(&sm.cfull, step & 1);
+    float ss[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+    float cacc[hw::KT][4];
 #pragma unroll
-    for (int s = 16; s > 0; s >>= 1) lseg::argmax_xor(best, arg, s);
-    if (lane == 0) {
-      out[(static_cast<long long>(n) * 2 * H + o0 + oi) * 2 * W + ow0 + j] =
-          arg;
+    for (int lt = 0; lt < hw::KT; ++lt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cacc[lt][e] = 0.0f;
+    for (int q = 0; q < nq; ++q, ++it) {
+      const int s = sm.r.wait(it);
+      uint32_t af[8][4];
+      {
+        int acc[16][4];
+        hw::embed(acc, sm.codes, sm.ring[s], cw);
+        if (q == nq - 1) {  // the codes are read
+          __syncwarp();
+          if (lane == 0)
+            asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                             wg::smem_addr(&sm.cempty))
+                         : "memory");
+        }
+        hw::dequant(acc, a.sc, a.b1, q * hw::EQ, ss, af);
+      }
+      hw::correlate(cacc, af, sm.ring[s] + hw::W_BYTES);
+      __syncwarp();
+      if (lane == 0) sm.r.release(it);
     }
+    uint32_t cur[2][hw::KT];
+    hw::logits(cacc, ss, cur);
+
+    // ---- the output rows whose taps are rows r - 1 and r (or r, r) ----
+    const bool last = r == H - 1 && r < rb;
+    while (tp < NR) {
+      const int ho = sm.row_ho[tp];
+      const bool from_prev = r > ra && ho == r - 1;
+      if (ho < 0 || !(from_prev || (last && ho == r))) break;
+      const int o = o0 + tp;
+      const float fb = sm.row_f[tp];
+      const float fa = __fsub_rn(1.0f, fb);
+      const int buf = tp & 1;
+      uint32_t hb[2][hw::KT];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int w = 0; w < hw::KT; ++w)
+          hb[h][w] = blend(from_prev ? sm.prev[h * hw::KT + w][ct] : cur[h][w],
+                           cur[h][w], fa, fb);
+      if (g == 0)
+#pragma unroll
+        for (int w = 0; w < hw::KT; ++w) sm.edge[buf][cwarp][t4][w] = hb[0][w];
+      wg::named_sync(3, CONSUMERS);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // the blend of the right neighbour pixel, same labels: pixel
+        // p + 1 is lane + 4's of the same row (g < 7); for the last row g
+        // = 7 of the first half (h = 0), pixel 8 of the warp, lane t4's
+        // second row, which a rotation by 4 lanes brings too; of the
+        // second half, the next warp's first pixel
+        uint32_t nb[hw::KT];
+#pragma unroll
+        for (int w = 0; w < hw::KT; ++w) {
+          const uint32_t next = __shfl_sync(
+              0xffffffffu, h == 0 && lane < 4 ? hb[1][w] : hb[h][w],
+              (lane + 4) & 31);
+          nb[w] = g < 7 || h == 0 ? next
+                  : cwarp + 1 < CWARPS ? sm.edge[buf][cwarp + 1][t4][w]
+                                       : hb[1][w];
+          if (W == 1) nb[w] = hb[h][w];
+        }
+        const int jf = sm.pix_j[pix[h]][0], jl = sm.pix_j[pix[h]][1];
+        const int cnt = jl - jf + 1;
+        const int jmax = __reduce_max_sync(0xffffffffu, max(cnt, 0));
+        for (int jj = 0; jj < jmax; ++jj) {
+          const bool valid = jj < cnt;
+          const int t = valid ? jf + jj - j0 : 0;
+          const float a0 = sm.col_a0[t], a1 = sm.col_a1[t];
+          // the largest (bf16 value, first label) as one unsigned key
+          uint32_t best = 0u;
+#pragma unroll
+          for (int w = 0; w < hw::KT; ++w) {
+            const uint32_t up = lseg::pack_f32(
+                __fadd_rn(__fmul_rn(a0, bf_lo(hb[h][w])),
+                          __fmul_rn(a1, bf_lo(nb[w]))),
+                __fadd_rn(__fmul_rn(a0, bf_hi(hb[h][w])),
+                          __fmul_rn(a1, bf_hi(nb[w]))));
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const uint32_t k = 8 * w + 2 * t4 + e;
+              // labels past K (zero-filled text rows) take key 0
+              best = max(best, label_key(e ? up >> 16 : up & 0xffffu, k) &
+                                   (0u - static_cast<uint32_t>(
+                                            k < static_cast<uint32_t>(a.K))));
+            }
+          }
+          best = max(best, __shfl_xor_sync(0xffffffffu, best, 1));
+          best = max(best, __shfl_xor_sync(0xffffffffu, best, 2));
+          if (valid && t4 == 0)
+            a.out[(static_cast<long long>(n) * 2 * H + o) * 2 * W + jf + jj] =
+                0xffff - static_cast<int>(best & 0xffffu);
+        }
+      }
+      ++tp;
+    }
+    // this row's logits become the previous row's (this thread's own)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int w = 0; w < hw::KT; ++w) sm.prev[h * hw::KT + w][ct] = cur[h][w];
   }
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
-// Requires c % 32 == 0, e % 128 == 0, k >= 1, the tile plus 204 * k bf16
-// logits within the 227 KB of shared memory, 2h / 8 <= 65535 and
-// 16-byte aligned tensors (checked by the wrapper).
+// Launch on `stream`; returns the launch's error code (0 on success).
+// Requires c % 32 == 0, c <= 256, e % 128 == 0, 1 <= k <= 152,
+// 1 <= seg <= 64 and 16-byte aligned tensors (checked by the wrapper,
+// which picks seg).
 extern "C" int lseg_head1_correlate_upsample_argmax(
     const void* xq, const void* w, const void* sc, const void* b1,
     const void* tn, void* out, int n, int h, int wd, int c, int e, int k,
-    void* stream) {
-  const size_t smem = h1::layout(c, e).total +
-                      static_cast<size_t>(MAX_PIX) * k * sizeof(__nv_bfloat16);
-  int rc = static_cast<int>(cudaFuncSetAttribute(
-      head1_up_argmax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem)));
+    int seg, void* stream) {
+  if (c % 32 || c > hw::MAX_C || e % hw::EQ || k < 1 || k > hw::KG ||
+      seg < 1 || seg > MAX_SEG)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static const int attr = wg::allow_smem(head1_up_argmax_wgmma_kernel, SMEM);
+  if (attr != 0) return attr;
+  CUtensorMap map_x, map_w, map_t;
+  int rc = gm::make_map_2d(&map_x, xq, 1, c,
+                           static_cast<long long>(n) * h * wd, 128, 64, true);
+  if (rc == 0) rc = gm::make_map_2d(&map_w, w, 1, c, e, 128, hw::EQ, true);
+  if (rc == 0) rc = gm::make_map_2d(&map_t, tn, 2, e, k, 64, hw::KG, true);
   if (rc != 0) return rc;
-  const dim3 grid((2 * wd + CO - 1) / CO, (2 * h + RO - 1) / RO, n);
-  head1_up_argmax_kernel<<<grid, h1::THREADS, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(xq), static_cast<const int8_t*>(w),
-      static_cast<const float*>(sc), static_cast<const float*>(b1),
-      static_cast<const __nv_bfloat16*>(tn), static_cast<int*>(out), h, wd, c,
-      e, k);
+  const dim3 grid(max(1, (wd - 1 + STRIP - 1) / STRIP), (h + seg - 1) / seg,
+                  n);
+  const Args a{static_cast<const float*>(sc), static_cast<const float*>(b1),
+               static_cast<int*>(out), h, wd, c, k, e, seg};
+  head1_up_argmax_wgmma_kernel<<<grid, hw::THREADS, SMEM,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      map_x, map_w, map_t, a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,7 +8,7 @@
 //   embed        e = (codes . w^T) * sc + b in fp32 (int32 accumulation on
 //                mma.sync m16n8k32 s8, 128 output channels of the weight
 //                staged at a time), written as bf16(e) into a (64, E)
-//                shared tile, with the fp32 row sums of e^2;
+//                shared tile, with the fp32 row sums of e^2 (`add_sq2`);
 //   correlate    bf16(e) . tn^T for 32 labels (rows past K zero-filled)
 //                on mma.sync m16n8k16 bf16 into fp32.
 //
@@ -28,6 +28,13 @@ constexpr int BM = 64;         // pixels per block
 constexpr int THREADS = 256;   // 8 warps: 4 (rows) x 2 (columns)
 constexpr int ECH = 128;       // head1 output channels per staged chunk
 constexpr int KCH = 32;        // labels per staged chunk
+
+// s + (v0^2 + v1^2), every step rounded on its own (no FMA contraction):
+// the row sums of e^2 of this tile and of B13's (head1_wgmma.cuh), which
+// must give the same bits, whatever the compiler would contract.
+__device__ __forceinline__ float add_sq2(float s, float v0, float v1) {
+  return __fadd_rn(s, __fadd_rn(__fmul_rn(v0, v0), __fmul_rn(v1, v1)));
+}
 
 struct Layout {
   int ldx;       // bytes per int8 row (codes and weight chunk)
@@ -157,7 +164,7 @@ __device__ inline void embed(const Tile& t, const int8_t* __restrict__ w,
             __fmul_rn(__int2float_rn(acc[nt][2 * half]), s0), c0);
         const float v1 = __fadd_rn(
             __fmul_rn(__int2float_rn(acc[nt][2 * half + 1]), s1), c1);
-        ss[half] += v0 * v0 + v1 * v1;
+        ss[half] = add_sq2(ss[half], v0, v1);
         *reinterpret_cast<__nv_bfloat162*>(
             t.Es + (wr + g + 8 * half) * lde + col) =
             __floats2bfloat162_rn(v0, v1);

@@ -28,7 +28,8 @@
 //     bytes apart (its stride byte offset), k-step kk 2048 bytes
 //     (desc_mn, wg::desc_rowstep).
 // Integer products: m64nNk32 s8 -> s32 for N = 64, 128, 192 and 256 (MmaS8), both
-// operands K-major from shared memory, as 8-bit wgmma requires: a
+// operands K-major from shared memory, as 8-bit wgmma requires (or, for
+// N = 64, A from registers: `MmaS8<64>::rs`, fed by `ldsm_x4`): a
 // 128-byte swizzled row holds 128 codes, so a k-step of 32 is the same
 // 32 bytes along the row as a bf16 k-step of 16 (wg::desc_kstep). The
 // accumulator `int acc[N / 8][4]` has the fp32 layout above; its sums are
@@ -245,6 +246,29 @@ struct MmaS8<64> {
           "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3])
         : "l"(da), "l"(db), "r"(scale_d));
   }
+  // A (64 x 32 codes) from registers: each warp's 16 rows as mma.sync's
+  // m16n8k32 A fragment (ldsm_x4 loads it), B K-major from shared memory
+  static __device__ __forceinline__ void rs(int (&d)[8][4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+        : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+          "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+          "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+          "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
+          "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+          "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
+          "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
+          "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  }
 };
 
 template <>
@@ -379,6 +403,20 @@ struct MmaS8<256> {
         : "l"(da), "l"(db), "r"(scale_d));
   }
 };
+
+// Four 8 x 16-byte matrices of shared memory into registers (ldmatrix):
+// lane i gives the address of row i % 8 of matrix i / 8, and register j
+// receives matrix j, lane (g, t4) its row g, bytes 4 t4 .. 4 t4 + 3. With
+// matrices (rows 0-7, bytes 0-15), (rows 8-15, bytes 0-15), (rows 0-7,
+// bytes 16-31), (rows 8-15, bytes 16-31) of a 16-row, 32-byte operand that
+// is mma.sync's m16n8k32 A fragment of 8-bit codes.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
 
 // ---- the ring ---------------------------------------------------------------
 

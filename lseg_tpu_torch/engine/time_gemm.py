@@ -1,11 +1,13 @@
 """Time kernels B17 (`dense_residual`) and B10 (`fused_correlate`) in each
-of their modes, the fp32 modes of B6 and B7, B16 (`mlp_fused`), and the
-int8 attention kernels B2, B15, B8 and B9 with each of their stages, at
-the flagship shapes on one card, beside the PyTorch call that computes
-the same function where there is one.
+of their modes, the fp32 modes of B6 and B7, B16 (`mlp_fused`), the int8
+attention kernels B2, B15, B8 and B9 with each of their stages, B18
+(`fused_rcu`) at the fused decoder's four shapes and B13
+(`head1_correlate_upsample_argmax`) at the flagship head, on one card,
+beside the PyTorch call that computes the same function where there is
+one.
 
     python lseg_tpu_torch/engine/time_gemm.py [--root DIR] [--tag T]
-        [--library] [--only B6_fp32,B16,B2,B15,B8,B9,...]
+        [--library] [--only B6_fp32,B16,B2,B15,B8,B9,B18,B13,...]
 
 Shapes: B17 at ViT-L/16's fc2, (7208, 4096) . (4096, 1024) with a
 residual, bf16 and fp32; B10 at the streamed head's (8, 240, 240, 512) bf16
@@ -17,8 +19,12 @@ and B15 on its row codes, 16 heads, B15 with a real residual. For those
 four, `<name>_stages` holds each stage's device time a call
 (`torch.profiler` over 10 calls, the launches of a call named by their
 kernels: `ln` the LN + quantize, `qkv_gemm` the int8 qkv product,
-`interior` the attention, `projection` B15's output projection). It
-imports the port from `--root`
+`interior` the attention, `projection` B15's output projection). B18
+at (8, S, S, 256) for S = 120, 60, 30, 15 (2, 2, 2 and 1 launches a
+request of the fused decoder): `B18_<S>_ms` each, `B18_request_ms` their
+sum weighted by the launches, and `B18_<S>_stages` the device ms a call
+by kernel name; B13 at (8, 240, 240, 256) codes against K = 150 labels:
+`B13_ms` and `B13_stages`. It imports the port from `--root`
 (default: the checkout that holds this file), so the same script times an
 older tree's kernels in the same call as this one's: run them in turns
 (old, new, new, old) and compare only within one call. A mode an older
@@ -27,7 +33,7 @@ tree does not have (fp32 B6 and B7 before they were ported) reads null.
 fp32) and the names of the device kernels that one fp32 SDPA call and its
 backward launch (`torch.profiler`), which say which of PyTorch's kernels
 computes them. `--only` times the named rows alone (B17, B10, B6_fp32 (with
-B7_fp32), B16, B2, B15, B8, B9). Prints one JSON line: the card's name and power limit and
+B7_fp32), B16, B2, B15, B8, B9, B18, B13). Prints one JSON line: the card's name and power limit and
 each time in ms (CUDA events over 20 calls after 3 warm-ups). Without a
 card it exits 1.
 """
@@ -50,6 +56,93 @@ def stage_of(kernel: str) -> str:
     if "proj" in kernel:
         return "projection"
     return "interior"
+
+
+def device_stages(fn, calls: int = 10) -> dict:
+    """Device ms a call of `fn` by kernel name (`torch.profiler` over
+    `calls` calls; memory copies and sets left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    stages = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and "Memcpy" not in e.name and "Memset" not in e.name):
+            stages[e.name] = stages.get(e.name, 0.0) + e.device_time_total
+    return {k: v / calls / 1e3 for k, v in stages.items()}
+
+
+# B18's shapes on the fused decoder (side, launches a request)
+B18_SHAPES = ((120, 2), (60, 2), (30, 2), (15, 1))
+
+
+def rcu_operands(dev, g, c: int = 256) -> list:
+    """B18's operands after x, as `chip_smoke.py` makes them: two int8
+    (C, 9C) kernels, each with the BatchNorm folded with its dequant
+    scale and its inverse activation scale."""
+    import torch
+
+    from lseg_tpu_torch.ops.qconv import fold_bn_affine
+
+    ops = []
+    for a in (4.0, 16.0):
+        wq = torch.randint(-127, 128, (c, 9 * c), device=dev, generator=g,
+                           dtype=torch.int8)
+        sw = 2e-3 * torch.rand(c, device=dev, generator=g) + 1e-4
+        bn = (torch.rand(c, device=dev, generator=g) + 0.5,
+              0.5 * torch.rand(c, device=dev, generator=g) + 0.1,
+              0.1 * torch.randn(c, device=dev, generator=g),
+              torch.rand(c, device=dev, generator=g) + 0.5)
+        act = torch.tensor(a, device=dev)
+        d, e = fold_bn_affine(act / 127.0, sw, *bn)
+        ops += [wq, d, e, 127.0 / act]
+    return ops
+
+
+def decoder_head_rows(row, only, dev, g, ms):
+    """B18 at the fused decoder's four (8, S, S, 256) shapes and B13 at
+    the flagship head: ms a call and device ms a call by kernel name."""
+    import torch
+
+    if "B18" in only:
+        from lseg_tpu_torch.ops.qconv import fused_rcu
+
+        c = 256
+        ops = rcu_operands(dev, g, c)
+        total = 0.0
+        for side, launches in B18_SHAPES:
+            x = torch.randn(8, side, side, c, device=dev,
+                            generator=g).to(torch.bfloat16)
+            fn = lambda: fused_rcu(x, *ops)  # noqa: E731
+            row[f"B18_{side}_ms"] = ms(fn)
+            row[f"B18_{side}_stages"] = device_stages(fn)
+            total += launches * row[f"B18_{side}_ms"]
+        row["B18_request_ms"] = total
+    if "B13" in only:
+        from lseg_tpu_torch.ops.head1_correlate import (
+            head1_correlate_upsample_argmax,
+        )
+
+        n, h, w, c, e, k = 8, 240, 240, 256, 512, 150
+        xq = torch.randint(-127, 128, (n, h, w, c), device=dev, generator=g,
+                           dtype=torch.int8)
+        w1q = torch.randint(-127, 128, (e, c), device=dev, generator=g,
+                            dtype=torch.int8)
+        s1 = 1e-3 * torch.rand(e, device=dev, generator=g) + 1e-4
+        b1 = 0.1 * torch.randn(e, device=dev, generator=g)
+        txt = torch.randn(k, e, device=dev, generator=g)
+        sx = torch.tensor(0.02, device=dev)
+
+        def fn():
+            return head1_correlate_upsample_argmax(xq, sx, w1q, s1, b1, txt,
+                                                   1.0 / 0.07)
+
+        row["B13_ms"] = ms(fn)
+        row["B13_stages"] = device_stages(fn)
 
 
 def int8_attention_rows(row, only, dev, g, ms):
@@ -244,6 +337,8 @@ def main(argv=None) -> int:
                                              b2))
     if only & {"B2", "B15", "B8", "B9"}:
         int8_attention_rows(row, only, dev, g, ms)
+    if only & {"B18", "B13"}:
+        decoder_head_rows(row, only, dev, g, ms)
     print(json.dumps(row), flush=True)
     return 0
 

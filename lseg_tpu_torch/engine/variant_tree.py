@@ -14,7 +14,9 @@ longer matches its source fails with exit code 1. `--timeline`, run from
 a `b16_timeline` copy, runs that copy's B16 on the card at ViT-L/16's
 MLP, (8, 901, 1024) codes and H = 4096, and prints one JSON line: the
 median over the CTAs of the microseconds between the kernel's phase
-points (`TIMELINE_PHASES`), and the spread of the CTAs' start times.
+points (`TIMELINE_PHASES`), and the spread of the CTAs' start times;
+`--timeline b18`, from a `b18_timeline` copy, does the same for B18 at
+(8, 120, 120, 256) and (8, 15, 15, 256) (`B18_PHASES`).
 Variants:
 
 - `b6_fp32_expf`: B6's fp32 mode with expf of the scaled score (lse =
@@ -27,6 +29,9 @@ Variants:
   rounds of eight loads instead of one of sixteen (56 registers for the
   producer warpgroup, 224 for the consumers, instead of 88 and 208);
 - `b16_timeline`: B16 stamping the global timer at its phase points;
+- `b18_timeline`: B18 the same (`--timeline b18` reads it);
+- `b13_timeline`: B13 summing, per CTA, its steps' time on the logits
+  and on the output rows (`--timeline b13` reads it);
 - `b6_fp32_no_alo_bhi`: split TF32 without the a_lo . b_hi product, a
   mutation of B6's fp32 mode (and B7's, which phase 2 of `chip_smoke.py`
   checks after B6's);
@@ -35,7 +40,11 @@ Variants:
 - `b2_slice_amax`: B2 with each CTA's row scale taken over its own head
   pair's 128 columns only (no cluster exchange), a mutation;
 - `b15_pair0_scale`: B15's projection flushing every pair's int32 sum
-  with pair 0's row scale, a mutation.
+  with pair 0's row scale, a mutation;
+- `b18_skip_peer`: B18's q2 exchange skipping one peer's slice (CTA r
+  never sends its slice to CTA r + 1 of the cluster), a mutation;
+- `b13_stale_ring`: B13's ring of logit rows not advanced past a
+  segment's first row, a mutation.
 
 Cuts, whose outputs are wrong by design (only their time is read):
 - `b16_no_gelu`: B16's GELU replaced by its argument;
@@ -60,7 +69,18 @@ Cuts, whose outputs are wrong by design (only their time is read):
   the port (`lseg_common.cuh`) dividing by the scale the same way (the
   cost of the IEEE divisions);
 - `proj_no_flush`: B15's projection without its per-pair flushes;
-- `proj_no_mma`: B15's projection without its products.
+- `proj_no_mma`: B15's projection without its products;
+- `b18_no_mma`: B18 without its products (loads, staging, exchange and
+  epilogues stay);
+- `b18_no_q1`: B18 without the global loads of its q1 staging;
+- `b13_no_blend`: B13 without its output rows (no blend, W-interp,
+  argmax or label stores);
+- `b13_no_correlate`: B13 without its correlate products;
+- `b13_no_store`: B13 without its label stores;
+- `b13_no_sync`: B13 without the barrier of each output row (the next
+  warp's edge pixel is read unsynchronized);
+- `b13_no_interp`: B13 with its argmax reduced to one xor a label (no
+  keys, no max).
 """
 
 from __future__ import annotations
@@ -216,6 +236,105 @@ VARIANTS = {
         ("        gm::MmaS8<BN>::ss(acc, wg::desc_kstep(da, kk),\n"
          "                          wg::desc_kstep(db, kk), kk > 0);\n", ""),
     ]),
+    "b18_skip_peer": ("fused_rcu.cu", [
+        ("        if (peer != rank) cl::st_peer(cl::peer_addr(p, peer), v);",
+         "        if (peer != rank && peer != (rank + 1) % S)\n"
+         "          cl::st_peer(cl::peer_addr(p, peer), v);"),
+    ]),
+    "b13_stale_ring": ("head1_correlate_upsample_argmax.cu", [
+        ("      for (int w = 0; w < hw::KT; ++w) sm.prev[h * hw::KT + w][ct] = "
+         "cur[h][w];",
+         "      for (int w = 0; w < hw::KT; ++w)\n"
+         "        if (step == 0) sm.prev[h * hw::KT + w][ct] = cur[h][w];"),
+    ]),
+    "b18_timeline": ("fused_rcu.cu", [
+        ('#include "wgmma_gemm.cuh"\n', '#include "wgmma_gemm.cuh"\n'
+         "__device__ unsigned long long lseg_b18_stamps[4096][8];\n"
+         "#define STAMP(i) if (threadIdx.x == 128) { const unsigned b = "
+         "blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z); "
+         "if (b < 4096) asm volatile(\"mov.u64 %0, %%globaltimer;\" : "
+         "\"=l\"(lseg_b18_stamps[b][i]) :: \"memory\"); }\n"
+         "extern \"C\" int lseg_b18_timeline(void* dst) {\n"
+         "  return static_cast<int>(cudaMemcpyFromSymbol(dst, "
+         "lseg_b18_stamps, sizeof(lseg_b18_stamps)));\n}\n"),
+        ("  cl::sync();  // the barriers are set and every CTA of the cluster"
+         " runs\n",
+         "  STAMP(0);\n  cl::sync();  // the barriers are set and every CTA "
+         "of the cluster runs\n  STAMP(1);\n"),
+        ("  cl::sync();  // every CTA's q1 is whole\n",
+         "  cl::sync();  // every CTA's q1 is whole\n  STAMP(2);\n"),
+        ("    conv<C, 2>(sm, acc, abase, q1c, 0, tid);\n",
+         "    conv<C, 2>(sm, acc, abase, q1c, 0, tid);\n    STAMP(3);\n"),
+        ("    conv1_epilogue(a, sm, q2s, LD, acc, c, ch0, r0, c0, *a.s2_inv);\n",
+         "    conv1_epilogue(a, sm, q2s, LD, acc, c, ch0, r0, c0, *a.s2_inv);\n"
+         "    STAMP(4);\n"),
+        ("  cl::sync();  // the q2 slices are exchanged\n\n",
+         "  cl::sync();  // the q2 slices are exchanged\n  STAMP(5);\n\n"),
+        ("    conv<C, 2>(sm, acc, abase, q2c, NK, tid);\n",
+         "    conv<C, 2>(sm, acc, abase, q2c, NK, tid);\n    STAMP(6);\n"),
+        ("    conv2_epilogue<2>(a, sm, acc, 0, C, ch0, r0, c0, img);\n",
+         "    conv2_epilogue<2>(a, sm, acc, 0, C, ch0, r0, c0, img);\n"
+         "    STAMP(7);\n"),
+    ]),
+    "b13_timeline": ("head1_correlate_upsample_argmax.cu", [
+        ('#include "head1_wgmma.cuh"\n', '#include "head1_wgmma.cuh"\n'
+         "__device__ unsigned long long lseg_b13_stamps[1024][4];\n"
+         "#define NOW(v) asm volatile(\"mov.u64 %0, %%globaltimer;\" : "
+         "\"=l\"(v) :: \"memory\")\n"
+         "extern \"C\" int lseg_b13_timeline(void* dst) {\n"
+         "  return static_cast<int>(cudaMemcpyFromSymbol(dst, "
+         "lseg_b13_stamps, sizeof(lseg_b13_stamps)));\n}\n"),
+        ("  uint32_t it = 0;\n  for (int step = 0; step < steps; ++step) {\n",
+         "  uint32_t it = 0;\n  unsigned long long t_a, t_b, t_c, "
+         "sum_logits = 0, sum_rows = 0, t_start;\n  NOW(t_start);\n"
+         "  for (int step = 0; step < steps; ++step) {\n    NOW(t_a);\n"),
+        ("    hw::logits(cacc, ss, cur);\n",
+         "    hw::logits(cacc, ss, cur);\n    NOW(t_b);\n"
+         "    sum_logits += t_b - t_a;\n"),
+        ("    // this row's logits become the previous row's (this thread's "
+         "own)\n",
+         "    NOW(t_c);\n    sum_rows += t_c - t_b;\n"
+         "    // this row's logits become the previous row's (this thread's "
+         "own)\n"),
+        ("      for (int w = 0; w < hw::KT; ++w) sm.prev[h * hw::KT + w][ct] = "
+         "cur[h][w];\n  }\n}\n",
+         "      for (int w = 0; w < hw::KT; ++w) sm.prev[h * hw::KT + w][ct] = "
+         "cur[h][w];\n  }\n  const unsigned b = blockIdx.x + gridDim.x * "
+         "(blockIdx.y + gridDim.y * blockIdx.z);\n"
+         "  if (threadIdx.x == 128 && b < 1024) {\n    NOW(t_a);\n"
+         "    lseg_b13_stamps[b][0] = t_a - t_start;\n"
+         "    lseg_b13_stamps[b][1] = sum_logits;\n"
+         "    lseg_b13_stamps[b][2] = sum_rows;\n"
+         "    lseg_b13_stamps[b][3] = steps;\n  }\n}\n"),
+    ]),
+    "b13_no_store": ("head1_correlate_upsample_argmax.cu", [
+        ("          if (valid && t4 == 0)\n            a.out[", "          if "
+         "(valid && t4 == 0 && best == 7u)\n            a.out["),
+    ]),
+    "b13_no_sync": ("head1_correlate_upsample_argmax.cu", [
+        ("      wg::named_sync(3, CONSUMERS);\n", ""),
+    ]),
+    "b13_no_interp": ("head1_correlate_upsample_argmax.cu", [
+        ("              best = max(best, label_key(e ? up >> 16 : up & "
+         "0xffffu, k) &\n",
+         "              best ^= up; (void)(\n"),
+    ]),
+    "b18_no_mma": ("fused_rcu.cu", [
+        ("      gm::MmaS8<NS>::rs(acc[mb], af[kk][mb], wg::desc_kstep(db, kk), "
+         "1);", "      (void)db;"),
+    ]),
+    "b18_no_q1": ("fused_rcu.cu", [
+        ("        if (i < total && rr >= 0 && rr < a.H && cc >= 0 && "
+         "cc < a.W)", "        if (false)"),
+    ]),
+    "b13_no_blend": ("head1_correlate_upsample_argmax.cu", [
+        ("    while (tp < NR) {", "    while (false) {"),
+    ]),
+    "b13_no_correlate": ("head1_wgmma.cuh", [
+        ("      mma_bf16_16816(acc[lt], af[kk], ld_u32(tb + lt * 1024 + c0),\n"
+         "                     ld_u32(tb + lt * 1024 + c1));",
+         "      acc[lt][0] += __uint_as_float(af[kk][0] & 1u);"),
+    ]),
     "b6_fp32_no_alo_bhi": ("tf32x3.cuh", [
         ("  mma(d, a.lo, b.hi[0], b.hi[1]);\n", ""),
     ]),
@@ -291,6 +410,94 @@ def read_timeline() -> dict:
                                     dtype=torch.float64)).tolist()}
 
 
+# b18_timeline's stamps 0..7 (thread 128, the first consumer warpgroup's
+# first thread) -> the phases between consecutive ones
+B18_PHASES = ("cluster_start", "q1_staging", "conv1", "conv1_epilogue",
+              "q2_exchange", "conv2", "conv2_epilogue")
+
+
+def read_b18_timeline() -> dict:
+    """Run this checkout's B18 (a `b18_timeline` copy) at (8, 120, 120,
+    256) and (8, 15, 15, 256) on the card; per shape, the median
+    microseconds of each phase over the CTAs and of a whole CTA, and the
+    call's span."""
+    import ctypes
+
+    import torch
+
+    from lseg_tpu_torch.engine.time_gemm import rcu_operands
+    from lseg_tpu_torch.ops._build import load_kernels
+    from lseg_tpu_torch.ops.qconv import fused_rcu, rcu_tile
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    c = 256
+    ops = rcu_operands(dev, g, c)
+    out = {}
+    for side in (120, 15):
+        x = torch.randn(8, side, side, c, device=dev,
+                        generator=g).to(torch.bfloat16)
+        for _ in range(3):
+            fused_rcu(x, *ops)
+        torch.cuda.synchronize()
+        raw = torch.zeros(4096 * 8, dtype=torch.int64)
+        rc = load_kernels().lseg_b18_timeline(
+            ctypes.c_void_p(raw.data_ptr()))
+        if rc != 0:
+            raise RuntimeError(f"lseg_b18_timeline: cudaError {rc}")
+        tr, tc = rcu_tile(side, side)
+        ctas = min(4096, c // 64 * -(-side // tr) * -(-side // tc) * 8)
+        t = raw.view(4096, 8)[:ctas].double() / 1e3  # microseconds
+        phases = (t[:, 1:] - t[:, :-1]).median(0).values.tolist()
+        out[str(side)] = {"phases_us": dict(zip(B18_PHASES, phases)),
+                          "cta_us": float((t[:, 7] - t[:, 0]).median()),
+                          "call_us": float(t[:, 7].max() - t[:, 0].min()),
+                          "ctas": ctas}
+    return out
+
+
+def read_b13_timeline() -> dict:
+    """Run this checkout's B13 (a `b13_timeline` copy) at the flagship,
+    (8, 240, 240, 256) codes against K = 150, on the card; the median over
+    the CTAs of the microseconds of a CTA, of its steps' logits (codes,
+    embed, correlate, norm) and of its steps' output rows (blend,
+    W-interp, argmax, stores), and of its steps."""
+    import ctypes
+
+    import torch
+
+    from lseg_tpu_torch.ops._build import load_kernels
+    from lseg_tpu_torch.ops.head1_correlate import (
+        head1_correlate_upsample_argmax,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    n, h, w, c, e, k = 8, 240, 240, 256, 512, 150
+    xq = torch.randint(-127, 128, (n, h, w, c), device=dev, generator=g,
+                       dtype=torch.int8)
+    w1q = torch.randint(-127, 128, (e, c), device=dev, generator=g,
+                        dtype=torch.int8)
+    s1 = 1e-3 * torch.rand(e, device=dev, generator=g) + 1e-4
+    b1 = 0.1 * torch.randn(e, device=dev, generator=g)
+    txt = torch.randn(k, e, device=dev, generator=g)
+    for _ in range(3):
+        head1_correlate_upsample_argmax(xq, torch.tensor(0.02, device=dev),
+                                        w1q, s1, b1, txt, 1.0 / 0.07)
+    torch.cuda.synchronize()
+    raw = torch.zeros(1024 * 4, dtype=torch.int64)
+    rc = load_kernels().lseg_b13_timeline(ctypes.c_void_p(raw.data_ptr()))
+    if rc != 0:
+        raise RuntimeError(f"lseg_b13_timeline: cudaError {rc}")
+    t = raw.view(1024, 4)
+    t = t[t[:, 3] > 0].double()
+    return {"ctas": int(t.shape[0]),
+            "cta_us": float((t[:, 0] / 1e3).median()),
+            "logits_us": float((t[:, 1] / 1e3).median()),
+            "rows_us": float((t[:, 2] / 1e3).median()),
+            "steps": float(t[:, 3].median())}
+
+
 def make(name: str, dest: Path) -> None:
     """Copy the checkout to `dest` and apply variant `name`; raises
     KeyError for an unknown variant, ValueError for a substitution that
@@ -313,13 +520,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("name", nargs="?", choices=sorted(VARIANTS))
     ap.add_argument("dest", nargs="?", type=Path)
-    ap.add_argument("--timeline", action="store_true",
-                    help="B16's phase times, run from a b16_timeline copy")
+    ap.add_argument("--timeline", nargs="?", const="b16",
+                    choices=("b16", "b18", "b13"),
+                    help="B16's (B18's, B13's) phase times, run from a "
+                         "b16_timeline (b18_timeline, b13_timeline) copy")
     args = ap.parse_args(argv)
     if args.timeline:
         import json
 
-        print(json.dumps(read_timeline()), flush=True)
+        read = {"b16": read_timeline, "b18": read_b18_timeline,
+                "b13": read_b13_timeline}[args.timeline]
+        print(json.dumps(read()), flush=True)
         return 0
     if args.name is None or args.dest is None:
         ap.error("a variant NAME and a DIR are needed")

@@ -82,7 +82,8 @@ SIGNATURES = {
     "lseg_qkv_int8_gemm": (_P,) * 6 + (_I,) * 3 + (_P,),
     # xq, w, sc, b1, tn, out, n, h, w, c, e, k, stream
     "lseg_head1_correlate_wup": (_P,) * 6 + (_I,) * 6 + (_P,),
-    "lseg_head1_correlate_upsample_argmax": (_P,) * 6 + (_I,) * 6 + (_P,),
+    # xq, w, sc, b1, tn, out, n, h, w, c, e, k, segment rows, stream
+    "lseg_head1_correlate_upsample_argmax": (_P,) * 6 + (_I,) * 7 + (_P,),
     # xq, sx, resid, w1, s1, b1, w2, s2, b2, out, m, dim, hidden,
     # int* clusters (null: launch), stream
     "lseg_mlp_fused": (_P,) * 10 + (_I,) * 3 + (
@@ -95,8 +96,9 @@ SIGNATURES = {
     # n, t, dim, valid_len, scale, eps, stream
     "lseg_flash_attention_ln_qkv_fused": (_P,) * 10 + (_I,) * 4 + (
         ctypes.c_float, ctypes.c_float, _P),
-    # x, w1, d1, e1, s1_inv, w2, d2, e2, s2_inv, out, n, h, w, c, stream
-    "lseg_fused_rcu": (_P,) * 10 + (_I,) * 4 + (_P,),
+    # x, w1, d1, e1, s1_inv, w2, d2, e2, s2_inv, out, n, h, w, c, tile
+    # rows, tile columns, stream
+    "lseg_fused_rcu": (_P,) * 10 + (_I,) * 6 + (_P,),
     # x, th, tw, wq, sc, bias, inv_in, inv_out, out, n, h, w, c, co,
     # out_int8, stream
     "lseg_fused_upsample_outconv": (_P,) * 9 + (_I,) * 6 + (_P,),

@@ -10,10 +10,12 @@ B4 replaces `lseg_tpu/ops/pallas_correlation.py` · `head1_correlate_fused`
 (`csrc/head1_correlate_upsample_argmax.cu`); B5 replaces
 `head1_correlate_argmax_fused_t` and its row-major form B12
 `head1_correlate_argmax_fused` (CUDA:
-`lseg_tpu_torch/csrc/head1_correlate_argmax.cu`). The four kernels share
-their tile code (`csrc/head1_tile.cuh`); the sources' headers say what
-bounds each on the card and how the (M, 512) pixel-embedding map stays
-out of device memory.
+`lseg_tpu_torch/csrc/head1_correlate_argmax.cu`). B4, B14 and B5 share
+their tile code (`csrc/head1_tile.cuh`); B13 runs on its wgmma + TMA
+tile (`csrc/head1_wgmma.cuh`), whose logits are B4's bit for bit, and
+walks down strips of source rows (`b13_grid`). The sources' headers say
+what bounds each on the card and how the (M, 512) pixel-embedding map
+stays out of device memory.
 
 `head1_correlate_fused`, `head1_correlate_wup_fused`,
 `head1_correlate_upsample_argmax` and `head1_correlate_argmax_fused` are
@@ -323,6 +325,25 @@ def upsample_argmax_bf16(lo: torch.Tensor) -> torch.Tensor:
     return torch.argmax(w_interp_bf16(hb).float(), dim=-1).to(torch.int32)
 
 
+# kernel B13's limits (csrc/head1_correlate_upsample_argmax.cu): a strip of
+# 127 source columns (one step of 128 pixels with the column it shares),
+# segments of at most 64 source rows, 152 labels (19 tiles of 8 in a
+# thread's registers), C <= 256 (two 128-byte k-chunks of codes)
+B13_STRIP, B13_MAX_SEG, B13_MAX_K, B13_MAX_C = 127, 64, 152, 256
+
+
+def b13_grid(n: int, h: int, w: int, sms: int):
+    """Kernel B13's grid at (N, H, W) codes on a card of `sms` SMs: the
+    strips of 127 source columns that cover the left taps 0 .. W - 2 (one
+    at W = 1), and the segment length: the fewest source rows a segment
+    that still give one CTA an SM, at most 64. Returns (strips, segment
+    rows, segments)."""
+    strips = max(1, -(-(w - 1) // B13_STRIP))
+    per = max(1, sms // (strips * n))
+    seg = min(B13_MAX_SEG, -(-h // per))
+    return strips, seg, -(-h // seg)
+
+
 def head1_correlate_upsample_argmax(xq: torch.Tensor, sx,
                                     w1q: torch.Tensor, s1: torch.Tensor,
                                     b1: torch.Tensor,
@@ -330,9 +351,8 @@ def head1_correlate_upsample_argmax(xq: torch.Tensor, sx,
                                     logit_scale: float = 1.0 / 0.07
                                     ) -> torch.Tensor:
     """Kernel wrapper (B13): the arguments of `head1_correlate_fused` ->
-    (N, 2H, 2W) int32 labels. C % 32 == 0, E % 128 == 0, and the head1
-    tile plus 6 x 34 pixels of (K,) bf16 logits within an SM's shared
-    memory (K <= 270 at C = 256, E = 512)."""
+    (N, 2H, 2W) int32 labels. C % 32 == 0, C <= 256, E % 128 == 0,
+    K <= 152."""
     check_no_grad("head1_correlate_upsample_argmax", sx, s1, b1,
                   text_features)
     if xq.device.type == "cpu":
@@ -342,18 +362,19 @@ def head1_correlate_upsample_argmax(xq: torch.Tensor, sx,
                                           xq, sx, w1q, s1, b1, text_features,
                                           logit_scale)
     k = text_features.shape[0]
-    # the kernel's window of 6 x 34 source pixels, and its ~1 KB of
-    # static shared memory
-    if _tile_smem(c, e) + 6 * 34 * k * 2 + 1024 > SMEM_LIMIT:
-        raise ValueError(f"head1_correlate_upsample_argmax kernel: K={k} "
-                         f"labels do not fit in shared memory")
+    if c > B13_MAX_C or k > B13_MAX_K:
+        raise ValueError(f"head1_correlate_upsample_argmax kernel needs "
+                         f"C <= {B13_MAX_C} and K <= {B13_MAX_K}, got C={c},"
+                         f" K={k}")
+    _, seg, _ = b13_grid(n, h, w, torch.cuda.get_device_properties(
+        xq.device).multi_processor_count)
     lib = load_kernels()
     out = torch.empty((n, 2 * h, 2 * w), dtype=torch.int32, device=xq.device)
     with torch.cuda.device(xq.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lseg_head1_correlate_upsample_argmax(
             *[v.data_ptr() for v in ops], out.data_ptr(), n, h, w, c, e, k,
-            stream)
+            seg, stream)
     check_launch(lib, "lseg_head1_correlate_upsample_argmax", rc)
     head1_correlate_upsample_argmax.launches += 1
     return out

@@ -9,7 +9,9 @@ per-tensor int8 grids, both 3x3 convolutions exact in int32, and aff_i the
 eval-mode BatchNorm (or the conv bias) folded with the dequant scales into
 one per-channel affine (`fold_bn_affine`). The CUDA source is
 `lseg_tpu_torch/csrc/fused_rcu.cu`; its header says what bounds it on the
-card and how its tiles stay in shared memory.
+card and how its tiles stay in shared memory. `rcu_tile` picks the output
+tile the kernel takes at each shape; a cluster of C / 64 CTAs shares a
+tile, each CTA owning 64 output channels of both convolutions.
 
 `fused_rcu` is the wrapper: on a CUDA tensor it launches the kernel (or
 raises), on a CPU tensor it runs `fused_rcu_plain`, the whole-image form of
@@ -23,6 +25,8 @@ port's OIHW `weight_q` so.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -77,6 +81,31 @@ def rcu_weight(weight_q: torch.Tensor) -> torch.Tensor:
     column, input channel)."""
     o = weight_q.shape[0]
     return weight_q.permute(0, 2, 3, 1).reshape(o, -1).contiguous()
+
+
+# the kernel's tile limits (csrc/fused_rcu.cu): conv2's TR x TC outputs in
+# 3 m-blocks of 64 rows, conv1's (TR + 2) x (TC + 2) pixels in 4, the q1
+# halo of (TR + 4) x (TC + 4) pixels in its shared-memory tile
+RCU_M2_ROWS, RCU_M1_ROWS, RCU_Q1_PIXELS = 192, 256, 320
+RCU_CHANNELS = 64  # output channels of one CTA of a tile's cluster
+
+
+@functools.lru_cache(maxsize=None)
+def rcu_tile(h: int, w: int):
+    """The (TR, TC) output tile of kernel B18 at an H x W image: the
+    fewest tiles within the kernel's limits (every tile costs a cluster the
+    same), then the widest rows (8-row ldmatrix groups that do not wrap),
+    then the tallest."""
+    best = None
+    for tr in range(1, 17):
+        for tc in range(1, 17):
+            if (tr * tc > RCU_M2_ROWS or (tr + 2) * (tc + 2) > RCU_M1_ROWS
+                    or (tr + 4) * (tc + 4) > RCU_Q1_PIXELS):
+                continue
+            key = (-(-h // tr) * -(-w // tc), -tc, -tr)
+            if best is None or key < best[0]:
+                best = (key, (tr, tc))
+    return best[1]
 
 
 def _codes(v: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
@@ -147,6 +176,7 @@ def fused_rcu(x: torch.Tensor, w1q: torch.Tensor, d1: torch.Tensor,
     if c % 64 or c > 256:
         raise ValueError(f"fused_rcu kernel needs C % 64 == 0 and C <= 256, "
                          f"got C={c}")
+    tr, tc = rcu_tile(h, w)
     lib = load_kernels()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -154,7 +184,7 @@ def fused_rcu(x: torch.Tensor, w1q: torch.Tensor, d1: torch.Tensor,
         rc = lib.lseg_fused_rcu(
             x.data_ptr(), w1q.data_ptr(), d1.data_ptr(), e1.data_ptr(),
             s1_inv.data_ptr(), w2q.data_ptr(), d2.data_ptr(), e2.data_ptr(),
-            s2_inv.data_ptr(), out.data_ptr(), n, h, w, c, stream)
+            s2_inv.data_ptr(), out.data_ptr(), n, h, w, c, tr, tc, stream)
     check_launch(lib, "lseg_fused_rcu", rc)
     fused_rcu.launches += 1
     return out

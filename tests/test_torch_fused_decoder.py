@@ -43,11 +43,13 @@ from lseg_tpu_torch.ops.decoder import (
     fused_upsample_outconv_plain,
 )
 from lseg_tpu_torch.ops.qconv import (
+    RCU_CHANNELS,
     fold_bn_affine,
     fused_rcu,
     fused_rcu_plain,
+    rcu_tile,
 )
-from lseg_tpu_torch.ops.quant import calibrate_act_scales
+from lseg_tpu_torch.ops.quant import calibrate_act_scales, int8_mm
 from lseg_tpu_torch.utils.convert import from_jax_variables
 
 # Bit for bit is the aim: every product of the kernels' arithmetic is
@@ -181,6 +183,105 @@ def test_fused_rcu_edge_padding_is_conv2s_own():
     assert bool(differs[0].any() or differs[-1].any()
                 or differs[:, 0].any() or differs[:, -1].any())
     assert not bool(differs[1:-1, 1:-1].any())
+
+
+def _conv3x3_valid(q, wk):
+    """(N, H + 2, W + 2, C) int8 against (Co, 9C), no padding ->
+    (N, H, W, Co) exact int32."""
+    n, hp, wp, c = q.shape
+    h, w = hp - 2, wp - 2
+    cols = torch.cat([q[:, i:i + h, j:j + w] for i in range(3)
+                      for j in range(3)], dim=-1)
+    return int8_mm(cols.reshape(-1, 9 * c), wk).reshape(n, h, w, -1)
+
+
+def _rcu_tiles_emulated(x, w1q, d1, e1, s1_inv, w2q, d2, e2, s2_inv,
+                        skip_peer=False):
+    """Kernel B18's decomposition (csrc/fused_rcu.cu) in torch on the CPU.
+    The image in `rcu_tile`'s TR x TC output tiles; per tile a cluster of
+    S = C / 64 CTAs: each stages q1 of the (TR + 4) x (TC + 4) halo (0
+    outside the image), runs conv1 of its 64 output channels over the
+    (TR + 2) x (TC + 2) pixels, requantizes them into its q2 slice (0 at
+    pixels outside the image: conv2's own padding), and hands that slice
+    to every peer; each CTA then runs conv2 of its 64 channels over the
+    whole q2 tile and writes the TR x TC outputs inside the image. With
+    `skip_peer`, CTA r never receives peer (r + 1) % S's slice (that part
+    of its q2 tile stays 0), the exchange's mutation."""
+    n, h, w, c = x.shape
+    tr, tc = rcu_tile(h, w)
+    s_n = c // RCU_CHANNELS
+    nty, ntx = -(-h // tr), -(-w // tc)
+    xf = x.float()
+    q1 = torch.clamp(torch.round(torch.clamp(xf, min=0.0) * s1_inv),
+                     -127, 127).to(torch.int8)
+    # the halo of every tile, zeros outside the image
+    q1p = torch.nn.functional.pad(
+        q1, (0, 0, 2, ntx * tc - w + 2, 2, nty * tr - h + 2))
+    out = torch.empty_like(x)
+    for ty in range(nty):
+        for tx in range(ntx):
+            r0, c0 = ty * tr, tx * tc
+            q1t = q1p[:, r0:r0 + tr + 4, c0:c0 + tc + 4]
+            rr = torch.arange(r0 - 1, r0 + tr + 1).reshape(-1, 1)
+            cc = torch.arange(c0 - 1, c0 + tc + 1).reshape(1, -1)
+            inside = ((rr >= 0) & (rr < h) & (cc >= 0) & (cc < w))[..., None]
+            slices = []
+            for rank in range(s_n):
+                ch = slice(RCU_CHANNELS * rank, RCU_CHANNELS * (rank + 1))
+                hh = _conv3x3_valid(q1t, w1q[ch]).float() * d1[ch] + e1[ch]
+                q2 = torch.clamp(torch.round(torch.clamp(hh, min=0.0)
+                                             * s2_inv), -127, 127)
+                slices.append(torch.where(inside, q2, 0.0).to(torch.int8))
+            ho, wo = min(tr, h - r0), min(tc, w - c0)
+            for rank in range(s_n):
+                ch = slice(RCU_CHANNELS * rank, RCU_CHANNELS * (rank + 1))
+                q2t = torch.cat([
+                    torch.zeros_like(slices[p])
+                    if skip_peer and s_n > 1 and p == (rank + 1) % s_n
+                    else slices[p] for p in range(s_n)], dim=-1)
+                y = _conv3x3_valid(q2t, w2q[ch]).float() * d2[ch] + e2[ch]
+                res = xf[:, r0:r0 + ho, c0:c0 + wo, ch]
+                out[:, r0:r0 + ho, c0:c0 + wo, ch] = (
+                    y[:, :ho, :wo] + res).to(torch.bfloat16)
+    return out
+
+
+@pytest.mark.parametrize("shape", [(1, 15, 15, 256), (1, 30, 30, 128),
+                                   (1, 61, 37, 128)])
+def test_b18_tiles_emulated(shape):
+    """Kernel B18's decomposition (tiles, halo edges, the channel split
+    across the cluster and the q2 exchange) equals `fused_rcu_plain` bit
+    for bit at refinenet4's odd 15 x 15 (one cluster of four CTAs a tile),
+    at 30 x 30 with C = 128 (two CTAs) and at a ragged 61 x 37 whose tiles
+    overhang both edges; without one peer's q2 slice it differs. At
+    30 x 30 it also matches the Pallas kernel in interpret mode (to the
+    contraction bound of `test_fused_rcu_plain_matches_pallas`)."""
+    x, conv1, conv2 = _rcu_inputs(sum(shape) + 5, *shape)
+    args = _port_rcu_ops(x, conv1, conv2)
+    ref = fused_rcu_plain(*args)
+    got = _rcu_tiles_emulated(*args)
+    assert torch.equal(got, ref)
+    assert not torch.equal(_rcu_tiles_emulated(*args, skip_peer=True), ref)
+    if shape[1] == 30:
+        jref, jops = _jax_rcu(x, conv1, conv2, None)
+        _assert_near_exact(got.float().numpy(), jref,
+                           127.0 * float(np.abs(jops[5]).max()),
+                           f"B18 tiles {shape} vs the Pallas kernel")
+
+
+@pytest.mark.parametrize("h,w,tile", [(120, 120, (12, 16)),
+                                      (60, 60, (12, 16)),
+                                      (30, 30, (12, 16)),
+                                      (15, 15, (12, 16)),
+                                      (61, 37, (13, 14)), (1, 1, (12, 16))])
+def test_rcu_tile_within_the_kernels_limits(h, w, tile):
+    """The tiles `rcu_tile` picks at the decoder's four shapes and two odd
+    ones: the fewest tiles under the kernel's limits on conv2's rows,
+    conv1's rows and the q1 halo."""
+    tr, tc = rcu_tile(h, w)
+    assert (tr, tc) == tile
+    assert tr * tc <= 192 and (tr + 2) * (tc + 2) <= 256
+    assert (tr + 4) * (tc + 4) <= 320
 
 
 @pytest.mark.parametrize("case", ["bn", "bias", "bn+bias"])
@@ -639,10 +740,14 @@ def _on(dev, args):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(2, 120, 120, 256), (8, 15, 15, 256),
-                                   (1, 16, 16, 128)])
+                                   (1, 16, 16, 128), (8, 60, 60, 256),
+                                   (8, 30, 30, 256), (1, 61, 37, 128),
+                                   (1, 9, 7, 64)])
 def test_fused_rcu_kernel_matches_plain(cuda_device, shape):
     """Bit for bit: both sums are exact and every rounding step is the
-    plain twin's."""
+    plain twin's. The decoder's four shapes (clusters of four CTAs), a
+    ragged one with C = 128 (two) and one with C = 64 (one CTA, 9C not a
+    multiple of the 128-byte weight stage)."""
     args = _on(cuda_device, _port_rcu_ops(*_rcu_inputs(1, *shape)))
     before = fused_rcu.launches
     got = fused_rcu(*args)

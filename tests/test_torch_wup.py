@@ -8,6 +8,7 @@ are imported inside the fixture that uses them: the card machine has JAX
 but no flax."""
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +34,8 @@ from lseg_tpu.ops.pallas_correlation import (
 )
 from lseg_tpu_torch.models.lseg import LSegNet
 from lseg_tpu_torch.ops.head1_correlate import (
+    B13_STRIP,
+    b13_grid,
     head1_correlate_fused,
     head1_correlate_fused_plain,
     head1_correlate_upsample_argmax,
@@ -154,6 +157,97 @@ def test_head1_correlate_upsample_argmax_plain_ties():
     txt = torch.stack([txt[1], txt[0], txt[0]])
     got = head1_correlate_upsample_argmax_plain(xq, sx, w, s1, b1, txt)
     assert not bool((got == 2).any())
+
+
+def _taps_kernel(o, n):
+    """Kernel B13's `taps`: the lower source index of output o of an
+    align-corners x2 interp over n, and its fp32 weights, from the float64
+    source position."""
+    if n == 1:
+        return 0, np.float32(1.0), np.float32(0.0)
+    src = o * (n - 1) / (2 * n - 1)
+    lo = min(max(int(math.floor(src)), 0), n - 2)
+    return lo, np.float32(1.0 - (src - lo)), np.float32(src - lo)
+
+
+def _b13_walk_emulated(lo, sms, stale_ring=False):
+    """Kernel B13's walk (csrc/head1_correlate_upsample_argmax.cu) in torch
+    on the CPU, fed with normalized bf16 logits (N, H, W, K): the grid of
+    `b13_grid` (strips of 127 source columns plus the one they share,
+    segments of source rows); each CTA walks its segment's rows ra ..
+    min(rb, H - 1), keeping the previous row's logits (the ring; with
+    `stale_ring` it is never advanced past the segment's first row), and at
+    row r emits the output rows whose first H tap is r - 1, and at r =
+    H - 1 those whose tap is H - 1 itself; each pixel of the strip emits
+    the output columns whose left tap it is, its right neighbour read
+    within the strip. Rounding as the kernel's: H-blend, W-interp and the
+    first argmax over the K labels."""
+    n, h, w, k = lo.shape
+    strips, seg, nseg = b13_grid(n, h, w, sms)
+    lof = lo.float()
+    out = torch.full((n, 2 * h, 2 * w), -1, dtype=torch.int32)
+    rows = []
+    for o in range(2 * h):
+        ho_lo, a0, a1 = _taps_kernel(o, h)
+        ho = ho_lo if a0 > 0 else ho_lo + 1
+        rows.append((ho, np.float32(1.0) - (a0 if a0 > 0 else a1)))
+    cols = [_taps_kernel(j, w) for j in range(2 * w)]
+    bf = lambda v: float(torch.tensor(v).to(torch.bfloat16))  # noqa: E731
+    for s in range(strips):
+        c0 = s * B13_STRIP
+        own = [j for j, (c, _, _) in enumerate(cols)
+               if c0 <= c < c0 + B13_STRIP]
+        for g in range(nseg):
+            ra, rb = g * seg, min(g * seg + seg, h)
+            prev = None
+            for r in range(ra, min(rb, h - 1) + 1):
+                cur = lof[:, r, c0:c0 + B13_STRIP + 1]
+                for o, (ho, f) in enumerate(rows):
+                    if not ((r > ra and ho == r - 1)
+                            or (r == h - 1 and r < rb and ho == r)):
+                        continue
+                    p0 = prev if ho == r - 1 else cur
+                    fa = np.float32(1.0) - f
+                    hb = (p0 * float(fa) + cur * float(f)).to(torch.bfloat16)
+                    for j in own:
+                        c, a0, a1 = cols[j]
+                        p, p1 = c - c0, min(c + 1, w - 1) - c0
+                        up = (bf(a0) * hb[:, p].float()
+                              + bf(a1) * hb[:, p1].float()).to(torch.bfloat16)
+                        out[:, o, j] = torch.argmax(up.float(), dim=-1).to(
+                            torch.int32)
+                if prev is None or not stale_ring:
+                    prev = cur
+    return out
+
+
+@pytest.mark.parametrize("shape,sms", [
+    ((1, 6, 240, 32, 128, 150), 132),   # flagship width, segments of 1 row
+    ((1, 7, 240, 32, 128, 150), 4),     # segments of 4 and 3 rows
+    ((2, 16, 16, 32, 64, 13), 6),       # the reference case, all-negative
+    ((1, 1, 5, 32, 128, 4), 132),       # one source row
+    ((1, 3, 1, 32, 128, 4), 132),       # one source column
+    ((1, 9, 130, 32, 128, 7), 2),       # two strips, the second of 2 columns
+])
+def test_b13_walk_emulated(shape, sms):
+    """Kernel B13's strip and segment walk, fed with
+    `head1_correlate_fused_plain`'s normalized logits, equals
+    `upsample_argmax_bf16` of the same logits bit for bit: at the flagship
+    W = 240 (two strips) with small H, at H not a multiple of the segment,
+    at the reference's all-negative case and the one-row and one-column
+    edges of `test_head1_correlate_upsample_argmax_plain_edges`. Where a
+    segment has more than two rows and the labels vary (not the
+    all-negative case, whose label is the same almost everywhere), a ring
+    not advanced differs."""
+    neg = shape[-1] == 13
+    _, targs = _codes(8, *shape, neg=neg)
+    lo = head1_correlate_fused_plain(*targs)
+    ref = upsample_argmax_bf16(lo)
+    got = _b13_walk_emulated(lo, sms)
+    assert bool((got >= 0).all())
+    assert torch.equal(got, ref)
+    if b13_grid(shape[0], shape[1], shape[2], sms)[1] > 2 and not neg:
+        assert not torch.equal(_b13_walk_emulated(lo, sms, True), ref)
 
 
 # ---- the head_fused='wup' model ----
@@ -295,12 +389,17 @@ def test_head1_correlate_wup_kernel_matches_plain(cuda_device, shape):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,neg", [((1, 60, 240, 256, 512, 150), False),
                                        ((2, 5, 9, 32, 128, 13), True),
-                                       ((1, 1, 3, 32, 128, 4), False)])
+                                       ((1, 1, 3, 32, 128, 4), False),
+                                       ((8, 67, 240, 256, 512, 150), False),
+                                       ((1, 9, 130, 128, 256, 4), False),
+                                       ((1, 3, 1, 32, 128, 13), True)])
 def test_head1_correlate_upsample_argmax_kernel_matches_plain(
         cuda_device, shape, neg):
     """>= 0.999 of the labels equal to the plain twin's; all of them equal
     to the plain tail (`upsample_argmax_bf16`) of kernel B4's logits on
-    the same inputs, which it rounds op by op."""
+    the same inputs, which it rounds op by op. Beside the flagship row
+    width: 8 images of 67 rows (segments of 17, the last of 16), two strips
+    whose second owns one column, K = 13 and K = 4, one source column."""
     _, targs = _codes(6, *shape, neg=neg)
     args = [a.to(cuda_device) for a in targs]
     before = head1_correlate_upsample_argmax.launches
