@@ -199,7 +199,8 @@ TRAIN_FP32_GRAD_REL = 1e-4
 # warpgroup products (IGMMA) and TMA loads in B16's cluster kernel, the s8
 # qkv GEMM (in every object that compiles it: B2, B8, B9, B15 and the
 # stage's own entry point), B15's projection, B18 (each of its three
-# channel widths) and B13's embed; HGMMA and TMA loads in the head-pair
+# channel widths) and the embed of B13 (its one- and many-chunk copies),
+# B14 and B5 (their C <= 256 kernels); HGMMA and TMA loads in the head-pair
 # attention of B2 (its cluster kernel) and B15; so a SIMT or mma.sync
 # fallback fails the run.
 WGMMA_TMA = (r"\bHGMMA\.", r"\bUTMALDG\b")
@@ -220,7 +221,10 @@ SASS_REQUIRED = {
     "fused_rcu_wgmma_kernelILi64E": (r"\bIGMMA\.", r"\bUTMALDG\b"),
     "fused_rcu_wgmma_kernelILi128E": (r"\bIGMMA\.", r"\bUTMALDG\b"),
     "fused_rcu_wgmma_kernelILi256E": (r"\bIGMMA\.", r"\bUTMALDG\b"),
-    "head1_up_argmax_wgmma_kernel": (r"\bIGMMA\.", r"\bUTMALDG\b"),
+    "head1_up_argmax_wgmma_kernelILb0E": (r"\bIGMMA\.", r"\bUTMALDG\b"),
+    "head1_up_argmax_wgmma_kernelILb1E": (r"\bIGMMA\.", r"\bUTMALDG\b"),
+    "head1_wup_wgmma_kernel": (r"\bIGMMA\.", r"\bUTMALDG\b"),
+    "head1_argmax_wgmma_kernel": (r"\bIGMMA\.", r"\bUTMALDG\b"),
     "flash_q8_cluster_kernel": WGMMA_TMA,
     "pair_attention_kernel": WGMMA_TMA,
 }
@@ -1040,13 +1044,45 @@ def _head_kernels(dev, g):
         lambda: head1_correlate_argmax_fused(path1, sx, w1q, s1, b1, txt),
         lambda: head1_correlate_argmax_fused_plain(path1, sx, w1q, s1, b1,
                                                    txt))
+    ms_i8, plain_i8 = _timed(
+        "head1_correlate_argmax_fused", "(8,240,240,256) int8 -> K=150",
+        lambda: head1_correlate_argmax_fused(xq, sx, w1q, s1, b1, txt),
+        lambda: head1_correlate_argmax_fused_plain(xq, sx, w1q, s1, b1,
+                                                   txt))
     m = path1.numel() // 256
+    head_ops = {"int8": 2 * m * 256 * 512, "bf16": 2 * m * 512 * 150}
     results["head1_correlate_argmax_fused"] = result(
         1.0 - float((got["bf16"] == head1_correlate_argmax_fused_plain(
             path1, sx, w1q, s1, b1, txt)).float().mean()),
-        ms, plain_ms, nbytes(path1, w1q, s1, b1, txt, got["bf16"]),
-        {"int8": 2 * m * 256 * 512, "bf16": 2 * m * 512 * 150})
+        ms, plain_ms, nbytes(path1, w1q, s1, b1, txt, got["bf16"]), head_ops)
+    results["head1_correlate_argmax_fused"]["int8"] = result(
+        1.0 - float((got["int8"] == head1_correlate_argmax_fused_plain(
+            xq, sx, w1q, s1, b1, txt)).float().mean()),
+        ms_i8, plain_i8, nbytes(xq, w1q, s1, b1, txt, got["int8"]), head_ops)
+    _correlate_sum_probe(xq, sx, w1q, s1, b1, txt)
     return results
+
+
+def _correlate_sum_probe(xq, sx, w1q, s1, b1, txt):
+    """Printed, not gated: whether wgmma m64n64k16 bf16 sums the
+    flagship's bf16(e) . tn^T (B5's head inputs, the text with B13's and
+    B14's temperature) to mma.sync m16n8k16's bits, k16 steps in the same
+    order (`correlate_sum_probe`)."""
+    from lseg_tpu_torch.ops.head1_correlate import (
+        correlate_sum_probe,
+        text_matrix,
+    )
+    from lseg_tpu_torch.ops.quant import int8_mm
+
+    ef = (int8_mm(xq.reshape(-1, xq.shape[-1]), w1q).float() * (sx * s1)
+          + b1).to(torch.bfloat16)
+    sums_w, sums_m = correlate_sum_probe(ef, text_matrix(txt, 1.0 / 0.07))
+    torch.cuda.synchronize()
+    differ = int((sums_w != sums_m).sum())
+    print(f"  probe: wgmma vs mma.sync bf16 k16 sums of {tuple(ef.shape)} . "
+          f"{tuple(txt.shape)}^T bit-equal: {differ == 0} ({differ} of "
+          f"{sums_w.numel()} differ, max |diff| "
+          f"{float((sums_w - sums_m).abs().max()):.3g})")
 
 
 def _corr_bf16_magnitude(x, t, ref, scale):
@@ -1118,6 +1154,7 @@ def _upsampled_head_kernels(dev, g):
                           f"{(n, h, w, c)}->(8,240,480,150)",
                           lambda: head1_correlate_wup_fused(*args),
                           lambda: head1_correlate_wup_fused_plain(*args))
+    _three_hundred_labels(dev, g, xq, w1q, s1, b1, e)
     # no single PyTorch call computes head1, the correlation and the
     # W-interp: library call none. fp32 work: the squared norm (2 per
     # element of e) and the blend (3 per output)
@@ -1179,6 +1216,59 @@ def _upsampled_head_kernels(dev, g):
         1.0 - equal, ms, plain_ms, nbytes(xq, w1q, s1, b1, txt, lab),
         {**head_ops, "fp32": 2 * m * e + 3 * up // 2 + 4 * up})
     return results
+
+
+def _three_hundred_labels(dev, g, xq, w1q, s1, b1, e):
+    """B14 and B13 at K = 300, two label chunks, on the first two images
+    of the flagship's codes, under the gates of K = 150; both timed at the
+    flagship's 8 images, printed."""
+    from lseg_tpu_torch.ops.head1_correlate import (
+        head1_correlate_fused,
+        head1_correlate_fused_plain,
+        head1_correlate_upsample_argmax,
+        head1_correlate_upsample_argmax_plain,
+        head1_correlate_wup_fused,
+        head1_correlate_wup_fused_plain,
+        upsample_argmax_bf16,
+        w_interp_bf16,
+    )
+
+    k = 300
+    txt = torch.randn(k, e, device=dev, generator=g)
+    sx = torch.tensor(0.02, device=dev)
+    args = (xq[:2].contiguous(), sx, w1q, s1, b1, txt, 1.0 / 0.07)
+    shape = tuple(args[0].shape)
+    out = head1_correlate_wup_fused(*args)
+    lo = head1_correlate_fused(*args, True)
+    env = w_interp_bf16(head1_correlate_fused_plain(*args, True).abs())
+    check_close(f"head1_correlate_wup_fused {shape}->K={k}", out,
+                head1_correlate_wup_fused_plain(*args), WUP_RTOL,
+                HEAD1_ATOL, env.float())
+    del env
+    if not torch.equal(out, w_interp_bf16(lo)):
+        fail(f"head1_correlate_wup_fused K={k}: differs from the W-interp of "
+             f"B4's logits")
+    print(f"  head1_correlate_wup_fused K={k} equals the W-interp of B4's "
+          f"logits bit for bit: True")
+    del out
+    lab = head1_correlate_upsample_argmax(*args)
+    if _labels_equal(f"head1_correlate_upsample_argmax {shape}->K={k}", lab,
+                     head1_correlate_upsample_argmax_plain(*args),
+                     k) < HEAD_ARGMAX_MIN_EQUAL:
+        fail(f"head1_correlate_upsample_argmax K={k}: kernel disagrees with "
+             f"its plain version")
+    if _labels_equal(f"head1_correlate_upsample_argmax K={k} vs the plain "
+                     f"tail of B4's logits", lab, upsample_argmax_bf16(lo),
+                     k) < UPARGMAX_MIN_EQUAL:
+        fail(f"head1_correlate_upsample_argmax K={k}: differs from the plain "
+             f"tail of B4's logits")
+    del lab, lo
+    full = (xq, sx, w1q, s1, b1, txt, 1.0 / 0.07)
+    for name, fn in (("head1_correlate_wup_fused", head1_correlate_wup_fused),
+                     ("head1_correlate_upsample_argmax",
+                      head1_correlate_upsample_argmax)):
+        print(f"  {name} {tuple(xq.shape)}->K={k}: kernel "
+              f"{cuda_time_ms(lambda: fn(*full)):.4f} ms")
 
 
 def _residual_checks(name, fn, plain, make_args):

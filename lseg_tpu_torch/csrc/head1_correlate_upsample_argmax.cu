@@ -45,8 +45,9 @@
 //     quarter's weight rows and text columns into a two-stage mbarrier
 //     ring, all by TMA (head1_wgmma.cuh's layout);
 //   - two consumer warpgroups, 64 pixels each, run the embed on s8 wgmma,
-//     the dequant and the correlate on mma.sync, and hold the row's
-//     normalized logits in registers, 38 labels of 2 pixels a thread;
+//     the dequant in registers and the correlate on wgmma m64n152k16
+//     (RS), and hold the row's normalized logits in registers, 38 labels
+//     of 2 pixels a thread;
 //   - the output rows whose first H tap is the previous row are blended
 //     along H once per (output row, source column, label) from the
 //     previous row's logits (kept in shared memory by the thread that
@@ -66,7 +67,19 @@
 // (N, 2H, 2W) int32 labels reach device memory. Budgets: 220 KB of shared
 // memory (one CTA an SM); setmaxnreg gives the producer warpgroup 40
 // registers, the consumers 232. Limits: C <= 256, C % 32 == 0, E % 128 ==
-// 0, K <= 152, segments of at most 64 rows.
+// 0, K <= 65535 (a label fits the key's 16 bits), segments of at most 64
+// rows.
+//
+// More than KG = 152 labels: the walk runs once a chunk of up to 152
+// labels (the embed again each time; a second instance of the kernel, so
+// that K <= 152 runs the one-chunk code). The H-blend and the W-interp are
+// linear per label, so each chunk's outputs are the full map's for its
+// labels, and a chunked argmax is exact. A thread emits the same output
+// pixels in every chunk, so it keeps each pixel's running key in the
+// label map itself: after chunk 0 it stores the key, after a later one the
+// larger of the stored key and its own (keys of different labels never
+// tie; on equal values the smaller label wins, as in one pass), after the
+// last one the label. K <= 152 is one pass, as before.
 
 #include "head1_wgmma.cuh"
 
@@ -85,8 +98,7 @@ constexpr int CWARPS = CONSUMERS / 32;
 constexpr int WORDS = 2 * hw::KT;        // bf16 pairs of a thread's logits
 
 struct Smem {
-  uint8_t codes[hw::CODES_BYTES];
-  uint8_t ring[2][hw::STAGE];
+  hw::Pipe<1> p;
   uint32_t prev[WORDS][CONSUMERS];  // the previous row's logits, by thread
   uint32_t edge[2][CWARPS][4][hw::KT];  // each warp's first pixel's blend
   int row_ho[NR];
@@ -94,34 +106,15 @@ struct Smem {
   int col_lo[NJ];
   float col_a0[NJ], col_a1[NJ];
   int pix_j[hw::ROWS][2];  // the output columns a pixel owns: first, last
-  uint64_t cfull, cempty;
-  gm::Ring<2> r;
 };
 constexpr int SMEM = sizeof(Smem) + 1024;  // + alignment slack
-
-// the line of _interp_matrix(in, 2 in, align_corners=True) for output o:
-// lower source index and its fp32 weights (1 - frac, frac)
-__device__ __forceinline__ void taps(int o, int in, int& lo, float& a0,
-                                     float& a1) {
-  if (in == 1) {
-    lo = 0;
-    a0 = 1.0f;
-    a1 = 0.0f;
-    return;
-  }
-  const double src = static_cast<double>(o) * (in - 1) / (2 * in - 1);
-  lo = min(max(static_cast<int>(floor(src)), 0), in - 2);
-  const double frac = src - lo;
-  a0 = static_cast<float>(1.0 - frac);
-  a1 = static_cast<float>(frac);
-}
 
 // the TPU kernel's H taps of output row o: first source row with a
 // positive weight, and f = 1 - its weight (fp32)
 __device__ __forceinline__ void h_taps(int o, int H, int& ho, float& f) {
   int lo;
   float a0, a1;
-  taps(o, H, lo, a0, a1);
+  hw::taps(o, H, lo, a0, a1);
   if (a0 > 0.0f) {
     ho = lo;
     f = __fsub_rn(1.0f, a0);
@@ -170,6 +163,8 @@ struct Args {
   int H, W, C, K, E, seg;
 };
 
+// MULTI: more than one label chunk (the keys kept in the label map)
+template <bool MULTI>
 __global__ void __launch_bounds__(hw::THREADS, 1) head1_up_argmax_wgmma_kernel(
     const __grid_constant__ CUtensorMap map_x,
     const __grid_constant__ CUtensorMap map_w,
@@ -185,24 +180,12 @@ __global__ void __launch_bounds__(hw::THREADS, 1) head1_up_argmax_wgmma_kernel(
   const int nq = a.E / hw::EQ;
   const int o0 = max(0, 2 * ra - 3), j0 = max(0, 2 * c0 - 3);
   const int kcl = (a.C + 127) / 128;  // k-chunks TMA loads
+  const int chunks = MULTI ? (a.K + hw::KG - 1) / hw::KG : 1;
 
-  // at C <= 128 the second k-chunk of the codes and of the weight stages
-  // is never loaded: zeros, whose products add nothing
-  for (int i = threadIdx.x; kcl < hw::KCH && i < hw::CODES_BOX * 2 / 16;
-       i += hw::THREADS) {
-    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-    reinterpret_cast<uint4*>(sm.codes + 2 * hw::CODES_BOX)[i] = z;
-    reinterpret_cast<uint4*>(sm.ring[0] + hw::W_BOX)[i] = z;
-    reinterpret_cast<uint4*>(sm.ring[1] + hw::W_BOX)[i] = z;
-  }
-  gm::fence_proxy_async();  // before wgmma reads them
+  hw::zero_unloaded(sm.p, kcl, hw::THREADS);
 
   // the taps of the output rows and columns this CTA may own
-  if (threadIdx.x == 0) {
-    wg::bar_init(&sm.cfull, 1);
-    wg::bar_init(&sm.cempty, CWARPS);
-    sm.r.init(CWARPS);
-  }
+  if (threadIdx.x == 0) hw::init_pipe(sm.p, 1);
   for (int t = threadIdx.x; t < NR; t += hw::THREADS) {
     int ho = -1;
     float f = 0.0f;
@@ -213,7 +196,7 @@ __global__ void __launch_bounds__(hw::THREADS, 1) head1_up_argmax_wgmma_kernel(
   for (int t = threadIdx.x; t < NJ; t += hw::THREADS) {
     int lo = -1;
     float a0 = 0.0f, a1 = 0.0f;
-    if (j0 + t < 2 * W) taps(j0 + t, W, lo, a0, a1);
+    if (j0 + t < 2 * W) hw::taps(j0 + t, W, lo, a0, a1);
     sm.col_lo[t] = lo;
     sm.col_a0[t] = round_bf16(a0);
     sm.col_a1[t] = round_bf16(a1);
@@ -240,24 +223,12 @@ __global__ void __launch_bounds__(hw::THREADS, 1) head1_up_argmax_wgmma_kernel(
     gm::regs_dec<40>();
     if (threadIdx.x == 0) {
       uint32_t it = 0;
-      for (int step = 0; step < steps; ++step) {
-        wg::bar_wait(&sm.cempty, (step & 1) ^ 1);
-        wg::bar_expect_tx(&sm.cfull, kcl * 2 * hw::CODES_BOX);
-        const int m0 = (n * H + ra + step) * W + c0;
-        for (int kc = 0; kc < kcl; ++kc)
-          for (int cw = 0; cw < 2; ++cw)
-            gm::tma_load_2d(sm.codes + (kc * 2 + cw) * hw::CODES_BOX, &map_x,
-                            &sm.cfull, kc * 128, m0 + 64 * cw);
-        for (int q = 0; q < nq; ++q, ++it) {
-          const int s =
-              sm.r.acquire(it, kcl * hw::W_BOX + 2 * hw::T_BOX);
-          for (int kc = 0; kc < kcl; ++kc)
-            gm::tma_load_2d(sm.ring[s] + kc * hw::W_BOX, &map_w,
-                            &sm.r.full[s], kc * 128, q * hw::EQ);
-          for (int b = 0; b < 2; ++b)
-            gm::tma_load_2d(sm.ring[s] + hw::W_BYTES + b * hw::T_BOX, &map_t,
-                            &sm.r.full[s], q * hw::EQ + 64 * b, 0);
-        }
+      for (int ls = 0; ls < chunks * steps; ++ls) {
+        const int ch = MULTI ? ls / steps : 0;
+        const int step = MULTI ? ls % steps : ls;
+        hw::load_step(sm.p, &map_x, &map_w, &map_t, ls,
+                      (n * H + ra + step) * W + c0, kcl, nq, ch * hw::KG, 1,
+                      true, it);
       }
     }
     return;
@@ -269,38 +240,21 @@ __global__ void __launch_bounds__(hw::THREADS, 1) head1_up_argmax_wgmma_kernel(
   const int warp = (ct / 32) % 4, cwarp = ct / 32;
   const int lane = ct % 32, g = lane / 4, t4 = lane % 4;
   const int pix[2] = {64 * cw + 16 * warp + g, 64 * cw + 16 * warp + g + 8};
-  int tp = 0;  // the next output row of the table to emit
-  while (tp < NR && sm.row_ho[tp] >= 0 && sm.row_ho[tp] < ra) ++tp;
+  int tp0 = 0;  // the first output row of the table to emit
+  while (tp0 < NR && sm.row_ho[tp0] >= 0 && sm.row_ho[tp0] < ra) ++tp0;
+  int tp = tp0;  // the next output row of the table to emit
   uint32_t it = 0;
-  for (int step = 0; step < steps; ++step) {
+  for (int ls = 0; ls < chunks * steps; ++ls) {
+    const int ch = MULTI ? ls / steps : 0;
+    const int step = MULTI ? ls % steps : ls;
+    const int kt0 = ch * hw::KG;  // the chunk's first label
+    if (MULTI && step == 0) tp = tp0;
     const int r = ra + step;
     // ---- the row's normalized logits ----
-    wg::bar_wait(&sm.cfull, step & 1);
-    float ss[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+    float ss[2][2];
     float cacc[hw::KT][4];
-#pragma unroll
-    for (int lt = 0; lt < hw::KT; ++lt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) cacc[lt][e] = 0.0f;
-    for (int q = 0; q < nq; ++q, ++it) {
-      const int s = sm.r.wait(it);
-      uint32_t af[8][4];
-      {
-        int acc[16][4];
-        hw::embed(acc, sm.codes, sm.ring[s], cw);
-        if (q == nq - 1) {  // the codes are read
-          __syncwarp();
-          if (lane == 0)
-            asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                             wg::smem_addr(&sm.cempty))
-                         : "memory");
-        }
-        hw::dequant(acc, a.sc, a.b1, q * hw::EQ, ss, af);
-      }
-      hw::correlate(cacc, af, sm.ring[s] + hw::W_BYTES);
-      __syncwarp();
-      if (lane == 0) sm.r.release(it);
-    }
+    hw::codes_full(sm.p, ls);
+    hw::step_sums(sm.p, a.sc, a.b1, nq, ls, true, cw, it, ss, cacc);
     uint32_t cur[2][hw::KT];
     hw::logits(cacc, ss, cur);
 
@@ -361,7 +315,7 @@ __global__ void __launch_bounds__(hw::THREADS, 1) head1_up_argmax_wgmma_kernel(
                           __fmul_rn(a1, bf_hi(nb[w]))));
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-              const uint32_t k = 8 * w + 2 * t4 + e;
+              const uint32_t k = kt0 + 8 * w + 2 * t4 + e;
               // labels past K (zero-filled text rows) take key 0
               best = max(best, label_key(e ? up >> 16 : up & 0xffffu, k) &
                                    (0u - static_cast<uint32_t>(
@@ -370,9 +324,15 @@ __global__ void __launch_bounds__(hw::THREADS, 1) head1_up_argmax_wgmma_kernel(
           }
           best = max(best, __shfl_xor_sync(0xffffffffu, best, 1));
           best = max(best, __shfl_xor_sync(0xffffffffu, best, 2));
-          if (valid && t4 == 0)
-            a.out[(static_cast<long long>(n) * 2 * H + o) * 2 * W + jf + jj] =
-                0xffff - static_cast<int>(best & 0xffffu);
+          if (valid && t4 == 0) {
+            int* op = a.out + (static_cast<long long>(n) * 2 * H + o) * 2 * W +
+                      jf + jj;
+            if (MULTI && ch > 0)
+              best = max(best, static_cast<uint32_t>(*op));
+            *op = MULTI && ch + 1 < chunks
+                      ? static_cast<int>(best)
+                      : 0xffff - static_cast<int>(best & 0xffffu);
+          }
         }
       }
       ++tp;
@@ -388,17 +348,19 @@ __global__ void __launch_bounds__(hw::THREADS, 1) head1_up_argmax_wgmma_kernel(
 }  // namespace
 
 // Launch on `stream`; returns the launch's error code (0 on success).
-// Requires c % 32 == 0, c <= 256, e % 128 == 0, 1 <= k <= 152,
+// Requires c % 32 == 0, c <= 256, e % 128 == 0, 1 <= k <= 65535,
 // 1 <= seg <= 64 and 16-byte aligned tensors (checked by the wrapper,
 // which picks seg).
 extern "C" int lseg_head1_correlate_upsample_argmax(
     const void* xq, const void* w, const void* sc, const void* b1,
     const void* tn, void* out, int n, int h, int wd, int c, int e, int k,
     int seg, void* stream) {
-  if (c % 32 || c > hw::MAX_C || e % hw::EQ || k < 1 || k > hw::KG ||
+  if (c % 32 || c > hw::MAX_C || e % hw::EQ || k < 1 || k > 0xffff ||
       seg < 1 || seg > MAX_SEG)
     return static_cast<int>(cudaErrorInvalidValue);
-  static const int attr = wg::allow_smem(head1_up_argmax_wgmma_kernel, SMEM);
+  static const int attr =
+      max(wg::allow_smem(head1_up_argmax_wgmma_kernel<false>, SMEM),
+          wg::allow_smem(head1_up_argmax_wgmma_kernel<true>, SMEM));
   if (attr != 0) return attr;
   CUtensorMap map_x, map_w, map_t;
   int rc = gm::make_map_2d(&map_x, xq, 1, c,
@@ -410,8 +372,9 @@ extern "C" int lseg_head1_correlate_upsample_argmax(
                   n);
   const Args a{static_cast<const float*>(sc), static_cast<const float*>(b1),
                static_cast<int*>(out), h, wd, c, k, e, seg};
-  head1_up_argmax_wgmma_kernel<<<grid, hw::THREADS, SMEM,
-                                 static_cast<cudaStream_t>(stream)>>>(
+  auto* kernel = k > hw::KG ? head1_up_argmax_wgmma_kernel<true>
+                            : head1_up_argmax_wgmma_kernel<false>;
+  kernel<<<grid, hw::THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
       map_x, map_w, map_t, a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,134 +19,308 @@
 // _interp_matrix: float64 source position, weights rounded to fp32, then
 // to bf16). Each product of two bf16 values is exact in fp32, so the sum
 // rounds once, as the TPU kernel's (2W, W) @ (W, K) product with fp32
-// accumulation rounds it; the zeros of that operator add exactly 0.
+// accumulation rounds it; the zeros of that operator add exactly 0. The
+// logits lo are kernel B4's bits for the same inputs (head1_wgmma.cuh says
+// why), so the output is the W-interp of B4's logits bit for bit.
 //
 // What bounds it on the card: at the flagship (8, 240, 240, 256) -> K =
 // 150 the head1 product is 60.4 G int8 MAC (121 GOP) and the correlation
 // 35.4 G bf16 MAC (71 GFLOP), ~0.13 ms at the tensor cores' peaks,
 // against 118 MB of codes in (~0.035 ms) and 276 MB of logits out
 // (~0.082 ms): the operations bound it, the output bytes close behind.
-// Design: one 256-thread block per source row (image, h), so that the
-// W-interp never needs a neighbour's logits. The block runs B4's tile code
-// (head1_tile.cuh) over the row's W pixels, 64 at a time, and keeps the
-// row's (W, K) bf16 logits in shared memory (72 KB at W = 240, K = 150,
-// beside the tile's 117 KB); then each warp takes output columns in turn,
-// its lanes striding over K, and writes the row's (2W, K) outputs. Neither
-// the (M, 512) embedding map nor the (N, H, W, K) logits reach device
-// memory. The last 64-pixel tile of a row is partly empty (W = 240 uses
-// 240 of 256 slots).
+//
+// Design: the tile of kernel B13 (head1_wgmma.cuh) on a persistent grid.
+// A step is a strip of 127 source columns of one source row (128 pixels
+// with the column it shares with the next strip) against a chunk of up to
+// KG = 152 labels; the steps run chunk by chunk, row by row, strip by
+// strip, and a CTA keeps one strip (the grid is a multiple of the strips),
+// so the taps of its output columns are tabled once.
+//   - A producer thread loads the step's codes (two 64-pixel boxes a
+//     128-byte k-chunk) and, per quarter of 128 head1 channels, that
+//     quarter's weight rows and the chunk's text columns into a two-stage
+//     mbarrier ring, all by TMA;
+//   - two consumer warpgroups, 64 pixels each, run the embed on s8 wgmma,
+//     the dequant in registers and the correlate on wgmma m64n152k16
+//     (RS), and hold the step's normalized logits in registers, 38 labels
+//     of 2 pixels a thread;
+//   - the W-interp needs a pixel's right neighbour, the lane 4 over
+//     (rotated, so the eighth pixel's neighbour is the first lane's second
+//     row), or (once a warp) the next warp's first pixel, handed over in
+//     shared memory behind one barrier a step (B13's hand-off);
+//   - each warp writes the outputs of its pixels in two passes of 8 pixels
+//     (the rows g, then g + 8 of its lanes): each thread blends the output
+//     columns whose left tap is its pixel into the warp's staging area in
+//     shared memory, laid out as the output lies in device memory (the
+//     pass's columns, each of the chunk's labels, at a pitch congruent to
+//     the output's row pitch mod 16 bytes), so that the 16-byte aligned
+//     middle of each contiguous range goes out by one bulk copy
+//     (cp.async.bulk) and only its ends by 2-byte stores. With one chunk
+//     (K <= 152) a pass is one contiguous range of (about 17, K) bf16;
+//     with more, one range a column.
+// Neither the (M, 512) embedding map nor the (N, H, W, K) logits reach
+// device memory; the codes of the column two strips share are read twice
+// (1/127 more). Labels past 152 run the steps again (the embed too) with
+// the next chunk's text: the logits of different labels are independent.
+// Budgets: 226 KB of shared memory (one CTA an SM); setmaxnreg gives the
+// producer warpgroup 40 registers, the consumers 232. Limits: C <= 256,
+// C % 32 == 0, E % 128 == 0, K >= 1.
 
-#include "head1_tile.cuh"
+#include "head1_wgmma.cuh"
 
 namespace {
 
-namespace h1 = lseg::head1;
+namespace hw = lseg::head1w;
+namespace wg = lseg::wg;
+namespace gm = lseg::gemm;
 
-// the W operator of _interp_matrix (align_corners, in -> 2 in) for output
-// column ow: lower source column and its two weights, rounded to bf16
-__device__ __forceinline__ void w_taps_bf16(int ow, int W, int& lo,
-                                            float& a0, float& a1) {
-  if (W == 1) {
-    lo = 0;
-    a0 = 1.0f;
-    a1 = 0.0f;
-    return;
-  }
-  const double src = static_cast<double>(ow) * (W - 1) / (2 * W - 1);
-  lo = min(max(static_cast<int>(floor(src)), 0), W - 2);
-  const double frac = src - lo;
-  a0 = __bfloat162float(__float2bfloat16_rn(static_cast<float>(1.0 - frac)));
-  a1 = __bfloat162float(__float2bfloat16_rn(static_cast<float>(frac)));
+constexpr int STRIP = hw::ROWS - 1;      // source columns a strip owns
+constexpr int NJ = 2 * STRIP + 8;        // output columns a strip can own
+constexpr int CONSUMERS = 2 * hw::WG_THREADS;
+constexpr int CWARPS = CONSUMERS / 32;
+constexpr int CAP = 18;                  // output columns a staging pass
+constexpr int PITCH_MAX = 2 * hw::KG + 16;  // a staged column's bytes
+constexpr int REGION = CAP * PITCH_MAX + 16;  // a warp's staging area
+
+struct Smem {
+  hw::Pipe<1> p;
+  uint8_t stage[CWARPS][REGION];
+  uint32_t edge[2][CWARPS][4][hw::KT];  // each warp's first pixel's logits
+  float col_a0[NJ], col_a1[NJ];
+  int pix_j[hw::ROWS][2];  // the output columns a pixel owns: first, last
+};
+constexpr int SMEM = sizeof(Smem) + 1024;  // + alignment slack
+static_assert(REGION % 16 == 0, "staging areas stay 16-byte aligned");
+static_assert(SMEM <= 232448, "one CTA an SM");
+
+__device__ __forceinline__ float bf_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
 }
 
-__global__ void __launch_bounds__(h1::THREADS) head1_wup_kernel(
-    const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
-    const float* __restrict__ sc, const float* __restrict__ b1,
-    const __nv_bfloat16* __restrict__ tn, __nv_bfloat16* __restrict__ out,
-    int W, int C, int E, int K) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const h1::Tile t = h1::carve(smem, C, E);
-  __nv_bfloat16* Ls = reinterpret_cast<__nv_bfloat16*>(smem + t.L.total);
+// `len` bytes (even) of shared memory at `s` to device memory at `g`, with
+// s = g mod 16: the 16-byte aligned middle as one bulk copy of this
+// thread's bulk group, the ends as 2-byte stores.
+__device__ __forceinline__ void put_range(uint8_t* g, const uint8_t* s,
+                                          int len) {
+  const uintptr_t ga = reinterpret_cast<uintptr_t>(g);
+  int head = static_cast<int>((16 - ga % 16) % 16);
+  if (head > len) head = len;
+  const int mid = (len - head) / 16 * 16;
+  if (mid > 0)
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+            g + head),
+        "r"(wg::smem_addr(s + head)), "r"(mid)
+        : "memory");
+  for (int b = 0; b < head; b += 2)
+    *reinterpret_cast<uint16_t*>(g + b) =
+        *reinterpret_cast<const uint16_t*>(s + b);
+  for (int b = head + mid; b < len; b += 2)
+    *reinterpret_cast<uint16_t*>(g + b) =
+        *reinterpret_cast<const uint16_t*>(s + b);
+}
 
-  const long long row = blockIdx.x;  // n * H + h
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t4 = lane % 4;
-  const int wr = (warp % 4) * 16;
-  const int wc = warp / 4;
-  const int row_end = static_cast<int>((row + 1) * W);  // fits: M < 2^31
+struct Args {
+  const float* sc;
+  const float* b1;
+  __nv_bfloat16* out;
+  int W, C, K, E, strips, rows;  // rows: N x H source rows
+};
 
-  for (int p0 = 0; p0 < W; p0 += h1::BM) {
-    h1::stage_codes(t, xq, 0.0f, static_cast<int>(row * W) + p0, row_end,
-                    C);
-    h1::embed(t, w, sc, b1, C, E);
-    for (int k0 = 0; k0 < K; k0 += h1::KCH) {
-      float acc[2][4];
-      h1::correlate(t, tn, k0, K, E, acc);
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int lr = wr + g + 8 * half;
-        const int p = p0 + lr;
-        if (p >= W) continue;
-        const float inv =
-            rsqrtf(fmaxf(t.ssq[lr] + t.ssq[h1::BM + lr], 1e-24f));
-        __nv_bfloat16* lp = Ls + static_cast<long long>(p) * K;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int k = k0 + wc * 16 + j * 8 + 2 * t4;
-          if (k < K)
-            lp[k] = __float2bfloat16_rn(__fmul_rn(acc[j][2 * half], inv));
-          if (k + 1 < K)
-            lp[k + 1] =
-                __float2bfloat16_rn(__fmul_rn(acc[j][2 * half + 1], inv));
+__global__ void __launch_bounds__(hw::THREADS, 1) head1_wup_wgmma_kernel(
+    const __grid_constant__ CUtensorMap map_x,
+    const __grid_constant__ CUtensorMap map_w,
+    const __grid_constant__ CUtensorMap map_t, Args a) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      smem_raw + ((1024 - wg::smem_addr(smem_raw) % 1024) % 1024));
+  const int W = a.W, K = a.K;
+  // this CTA's steps: its strip of rows row0, row0 + rs, ... (per of
+  // them), for each label chunk in turn
+  const int rs = gridDim.x / a.strips;
+  const int c0 = (blockIdx.x % a.strips) * STRIP;
+  const int row0 = blockIdx.x / a.strips;
+  const int per = (a.rows - row0 + rs - 1) / rs;
+  const int steps = (K + hw::KG - 1) / hw::KG * per;
+  const int nq = a.E / hw::EQ;
+  const int kcl = (a.C + 127) / 128;  // k-chunks TMA loads
+  const int j0 = max(0, 2 * c0 - 3);
+
+  hw::zero_unloaded(sm.p, kcl, hw::THREADS);
+  if (threadIdx.x == 0) hw::init_pipe(sm.p, 1);
+  // the bf16 weights of the output columns this CTA's strip may own
+  for (int t = threadIdx.x; t < NJ; t += hw::THREADS) {
+    int lo;
+    float a0 = 0.0f, a1 = 0.0f;
+    if (j0 + t < 2 * W) hw::taps(j0 + t, W, lo, a0, a1);
+    sm.col_a0[t] = __bfloat162float(__float2bfloat16_rn(a0));
+    sm.col_a1[t] = __bfloat162float(__float2bfloat16_rn(a1));
+  }
+  // pixel p of the strip owns the output columns whose left tap it is
+  if (threadIdx.x < hw::ROWS) {
+    const int p = threadIdx.x, c = c0 + p;
+    int first = 0, last = -1;
+    if (p < STRIP && c <= max(W - 2, 0)) {
+      for (int t = 0; t < NJ && j0 + t < 2 * W; ++t) {
+        int lo;
+        float a0, a1;
+        hw::taps(j0 + t, W, lo, a0, a1);
+        if (lo == c) {
+          if (last < first) first = j0 + t;
+          last = j0 + t;
         }
       }
     }
+    sm.pix_j[p][0] = first;
+    sm.pix_j[p][1] = last;
   }
   __syncthreads();
 
-  // x2 W-interp of the row: output column ow blends source columns lo and
-  // lo + 1 with the bf16 weights of the interp operator
-  __nv_bfloat16* orow = out + row * 2 * W * K;
-  for (int ow = warp; ow < 2 * W; ow += h1::THREADS / 32) {
-    int lo;
-    float a0, a1;
-    w_taps_bf16(ow, W, lo, a0, a1);
-    const __nv_bfloat16* x0 = Ls + static_cast<long long>(lo) * K;
-    const __nv_bfloat16* x1 = Ls + static_cast<long long>(min(lo + 1, W - 1)) *
-                                       K;
-    __nv_bfloat16* op = orow + static_cast<long long>(ow) * K;
-    for (int k = lane; k < K; k += 32) {
-      op[k] = __float2bfloat16_rn(
-          __fadd_rn(__fmul_rn(a0, __bfloat162float(x0[k])),
-                    __fmul_rn(a1, __bfloat162float(x1[k]))));
+  const int wg_id = threadIdx.x / hw::WG_THREADS;
+  if (wg_id == 0) {
+    gm::regs_dec<40>();
+    if (threadIdx.x == 0) {
+      uint32_t it = 0;
+      for (int ls = 0; ls < steps; ++ls) {
+        const int ch = ls / per, row = row0 + (ls % per) * rs;
+        hw::load_step(sm.p, &map_x, &map_w, &map_t, ls, row * W + c0, kcl,
+                      nq, ch * hw::KG, 1, true, it);
+      }
+    }
+    return;
+  }
+
+  gm::regs_inc<232>();
+  const int ct = threadIdx.x - hw::WG_THREADS;  // 0 .. 255
+  const int cw = ct / hw::WG_THREADS;
+  const int cwarp = ct / 32;
+  const int lane = ct % 32, g = lane / 4, t4 = lane % 4;
+  uint8_t* const region = sm.stage[cwarp];
+  uint32_t it = 0;
+  for (int ls = 0; ls < steps; ++ls) {
+    const int ch = ls / per, row = row0 + (ls % per) * rs;
+    const int kt0 = ch * hw::KG, kc = min(hw::KG, K - kt0);
+    // ---- the step's normalized logits ----
+    float ss[2][2];
+    float cacc[hw::KT][4];
+    hw::codes_full(sm.p, ls);
+    hw::step_sums(sm.p, a.sc, a.b1, nq, ls, true, cw, it, ss, cacc);
+    uint32_t cur[2][hw::KT];
+    hw::logits(cacc, ss, cur);
+
+    // ---- the right neighbours: the next warp's first pixel ----
+    const int buf = ls & 1;
+    if (g == 0)
+#pragma unroll
+      for (int w = 0; w < hw::KT; ++w) sm.edge[buf][cwarp][t4][w] = cur[0][w];
+    wg::named_sync(3, CONSUMERS);
+
+    // the output's row pitch, and the staging pitch congruent to it mod 16
+    const int pitch = kc == K ? 2 * K : 2 * kc + (2 * (K - kc)) % 16;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t nb[hw::KT];
+#pragma unroll
+      for (int w = 0; w < hw::KT; ++w) {
+        const uint32_t next = __shfl_sync(
+            0xffffffffu, h == 0 && lane < 4 ? cur[1][w] : cur[h][w],
+            (lane + 4) & 31);
+        nb[w] = g < 7 || h == 0 ? next
+                : cwarp + 1 < CWARPS ? sm.edge[buf][cwarp + 1][t4][w]
+                                     : cur[1][w];
+        if (W == 1) nb[w] = cur[h][w];
+      }
+      // this pass's pixels 16 warp + 8 h .. + 7 own the output columns
+      // jp .. jq, contiguous
+      const int pix = 64 * cw + 16 * (cwarp % 4) + 8 * h + g;
+      const int jf = sm.pix_j[pix][0], jl = sm.pix_j[pix][1];
+      const bool owns = jl >= jf;
+      const int jp = __reduce_min_sync(0xffffffffu, owns ? jf : 0x7fffffff);
+      const int jq = __reduce_max_sync(0xffffffffu, owns ? jl : -1);
+      for (int r0 = jp; r0 <= jq; r0 += CAP) {
+        const int nr = min(CAP, jq - r0 + 1);
+        // the first output element of the range and its staged copy
+        __nv_bfloat16* const gout =
+            a.out + (static_cast<long long>(row) * 2 * W + r0) * K + kt0;
+        uint8_t* const s0 =
+            region + reinterpret_cast<uintptr_t>(gout) % 16;
+        // the previous pass's bulk copies have read the area
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        __syncwarp();
+        for (int j = max(jf, r0); j <= min(jl, r0 + nr - 1); ++j) {
+          const float a0 = sm.col_a0[j - j0], a1 = sm.col_a1[j - j0];
+          uint8_t* const dst = s0 + (j - r0) * pitch + 4 * t4;
+#pragma unroll
+          for (int w = 0; w < hw::KT; ++w) {
+            const uint32_t up = lseg::pack_f32(
+                __fadd_rn(__fmul_rn(a0, bf_lo(cur[h][w])),
+                          __fmul_rn(a1, bf_lo(nb[w]))),
+                __fadd_rn(__fmul_rn(a0, bf_hi(cur[h][w])),
+                          __fmul_rn(a1, bf_hi(nb[w]))));
+            const int k = 8 * w + 2 * t4;  // the pair's first label
+            if (k + 1 < kc && K % 2 == 0) {
+              *reinterpret_cast<uint32_t*>(dst + 16 * w) = up;
+            } else {
+              if (k < kc)
+                *reinterpret_cast<uint16_t*>(dst + 16 * w) =
+                    static_cast<uint16_t>(up & 0xffffu);
+              if (k + 1 < kc)
+                *reinterpret_cast<uint16_t*>(dst + 16 * w + 2) =
+                    static_cast<uint16_t>(up >> 16);
+            }
+          }
+        }
+        gm::fence_proxy_async();  // before the bulk copies read the area
+        __syncwarp();
+        if (kc == K) {  // one chunk: the columns are one range
+          if (lane == 0)
+            put_range(reinterpret_cast<uint8_t*>(gout), s0, nr * 2 * K);
+        } else if (lane < nr) {  // a range a column
+          put_range(reinterpret_cast<uint8_t*>(gout + lane * K),
+                    s0 + lane * pitch, 2 * kc);
+        }
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
     }
   }
+  // the last bulk copies have written their outputs
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
-// Requires c % 32 == 0, e % 128 == 0, k >= 1, the tile plus w * k bf16
-// logits within the 227 KB of shared memory, 16-byte aligned tensors
-// (checked by the wrapper).
+// Launch on `stream`; returns the launch's error code (0 on success).
+// Requires c % 32 == 0, c <= 256, e % 128 == 0, k >= 1, 16-byte aligned
+// tensors (checked by the wrapper); `ctas` is the wrapper's grid, a
+// multiple of the strips (`wup_grid`).
 extern "C" int lseg_head1_correlate_wup(const void* xq, const void* w,
                                         const void* sc, const void* b1,
                                         const void* tn, void* out, int n,
                                         int h, int wd, int c, int e, int k,
-                                        void* stream) {
-  const size_t smem = h1::layout(c, e).total +
-                      static_cast<size_t>(wd) * k * sizeof(__nv_bfloat16);
-  int rc = static_cast<int>(cudaFuncSetAttribute(
-      head1_wup_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem)));
+                                        int ctas, void* stream) {
+  const int strips = max(1, (wd - 1 + STRIP - 1) / STRIP);
+  const long long rows = static_cast<long long>(n) * h;
+  if (c % 32 || c > hw::MAX_C || e % hw::EQ || k < 1 || ctas < strips ||
+      ctas % strips || rows * wd > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static const int attr = wg::allow_smem(head1_wup_wgmma_kernel, SMEM);
+  if (attr != 0) return attr;
+  CUtensorMap map_x, map_w, map_t;
+  int rc = gm::make_map_2d(&map_x, xq, 1, c,
+                           static_cast<long long>(n) * h * wd, 128, 64, true);
+  if (rc == 0) rc = gm::make_map_2d(&map_w, w, 1, c, e, 128, hw::EQ, true);
+  if (rc == 0) rc = gm::make_map_2d(&map_t, tn, 2, e, k, 64, hw::KG, true);
   if (rc != 0) return rc;
-  head1_wup_kernel<<<n * h, h1::THREADS, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(xq), static_cast<const int8_t*>(w),
-      static_cast<const float*>(sc), static_cast<const float*>(b1),
-      static_cast<const __nv_bfloat16*>(tn), static_cast<__nv_bfloat16*>(out),
-      wd, c, e, k);
+  // a multiple of the strips, at most one step a CTA
+  const int grid = static_cast<int>(
+      min(static_cast<long long>(ctas), rows * strips));
+  const Args a{static_cast<const float*>(sc), static_cast<const float*>(b1),
+               static_cast<__nv_bfloat16*>(out), wd, c, k, e, strips,
+               static_cast<int>(rows)};
+  head1_wup_wgmma_kernel<<<grid, hw::THREADS, SMEM,
+                           static_cast<cudaStream_t>(stream)>>>(map_x, map_w,
+                                                                map_t, a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,7 @@
-// The int8 head1 tile shared by kernels B4 (head1_correlate.cu) and B5
-// (head1_correlate_argmax.cu): one 256-thread block per 64-pixel tile.
+// The int8 head1 tile of kernel B4 (head1_correlate.cu) and of the C > 256
+// routes of B14 and B5 (head1_correlate_*_wide.cu): one 256-thread block
+// per 64-pixel tile. Its logits are the bits that the wgmma tile of B13, B14
+// and B5 (head1_wgmma.cuh) reproduces.
 //
 //   stage_codes  the tile's path1 rows into shared memory as int8 codes:
 //                int8 input as it is; bf16 input quantized on the way,

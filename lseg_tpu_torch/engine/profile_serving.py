@@ -8,16 +8,20 @@ by `quantize_tree` and calibrated on one seeded batch, as `chip_smoke.py`
 builds them), then times `model(x, txt, return_argmax=True)`, the call of
 the reference's bench, and the image encoder `model.vit(x)` alone with
 CUDA events, at batch 8, 480x480 and K = 150 (`bench.py`'s shape), and
-profiles three calls with `torch.profiler`. It prints the call's ms, the
+profiles three calls with `torch.profiler` (`model(x, txt)` on a logits
+path). It prints the call's ms, the
 encoder's ms, the device busy share (the sum of kernel times over the
 profiled wall time) and the largest kernels by device time per call.
 Paths: `fast_bf16`, `fast_cal`, `fast_flashq`, `fused_block`
 (`fast_cal` with `attn_impl='flashqp'`, `mlp_fused` and no MLP-hidden
 calibration), `fused_decoder` (`fast_cal` with `decoder_fused_rcu` and
-`decoder_fused_tail`: kernels B18 and B19) and `int8_handoff` (that, with
+`decoder_fused_tail`: kernels B18 and B19), `int8_handoff` (that, with
 `head_fused=True` and no `decoder_conv_first`, so that refinenet1's B19
-hands int8 codes to the B5 head). Needs a CUDA device: without one it
-exits with an error.
+hands int8 codes to the B5 head), `fused_argmax` (`fast_cal` with
+`head_fused=True` alone: bf16 path1 into B5) and `wup` (`fast_cal` with
+`head_fused='wup'`, whose call is `model(x, txt)`, the full-resolution
+logits of kernel B14 and the bf16 H-interp). Needs a CUDA device: without
+one it exits with an error.
 """
 
 from __future__ import annotations
@@ -45,7 +49,11 @@ INT8_PATHS = {
     "fused_decoder": ({}, FUSED_DECODER),
     "int8_handoff": ({}, {**FUSED_DECODER, "head_fused": True,
                           "decoder_conv_first": False}),
+    "fused_argmax": ({}, {"head_fused": True}),
+    "wup": ({}, {"head_fused": "wup"}),
 }
+# paths whose call is the logits, `model(x, txt)`
+LOGITS_PATHS = {"wup"}
 PATHS = ("fast_bf16", *INT8_PATHS)
 BATCH, SIZE, LABELS = 8, 480, 150
 CALLS, TOP, SEED = 3, 30, 0
@@ -110,9 +118,11 @@ def main(argv=None) -> int:
     txt = torch.nn.functional.normalize(torch.randn(
         LABELS, model.cfg.out_c, device=dev, generator=g), dim=-1)
 
+    argmax = args.path not in LOGITS_PATHS
+
     def call():
         with torch.inference_mode():
-            return model(x, txt, return_argmax=True)
+            return model(x, txt, return_argmax=argmax)
 
     def encoder():
         with torch.inference_mode():

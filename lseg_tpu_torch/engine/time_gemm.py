@@ -1,13 +1,14 @@
 """Time kernels B17 (`dense_residual`) and B10 (`fused_correlate`) in each
 of their modes, the fp32 modes of B6 and B7, B16 (`mlp_fused`), the int8
 attention kernels B2, B15, B8 and B9 with each of their stages, B18
-(`fused_rcu`) at the fused decoder's four shapes and B13
-(`head1_correlate_upsample_argmax`) at the flagship head, on one card,
+(`fused_rcu`) at the fused decoder's four shapes and the int8 heads B13
+(`head1_correlate_upsample_argmax`), B14 (`head1_correlate_wup_fused`)
+and B5 (`head1_correlate_argmax_fused`) at the flagship head, on one card,
 beside the PyTorch call that computes the same function where there is
 one.
 
     python lseg_tpu_torch/engine/time_gemm.py [--root DIR] [--tag T]
-        [--library] [--only B6_fp32,B16,B2,B15,B8,B9,B18,B13,...]
+        [--library] [--only B6_fp32,B16,B2,B15,B8,B9,B18,B13,B14,B5,...]
 
 Shapes: B17 at ViT-L/16's fc2, (7208, 4096) . (4096, 1024) with a
 residual, bf16 and fp32; B10 at the streamed head's (8, 240, 240, 512) bf16
@@ -23,8 +24,13 @@ kernels: `ln` the LN + quantize, `qkv_gemm` the int8 qkv product,
 at (8, S, S, 256) for S = 120, 60, 30, 15 (2, 2, 2 and 1 launches a
 request of the fused decoder): `B18_<S>_ms` each, `B18_request_ms` their
 sum weighted by the launches, and `B18_<S>_stages` the device ms a call
-by kernel name; B13 at (8, 240, 240, 256) codes against K = 150 labels:
-`B13_ms` and `B13_stages`. It imports the port from `--root`
+by kernel name; B13, B14 and B5 at (8, 240, 240, 256) codes against K =
+150 labels: `B13_ms`, `B14_ms`, `B5_ms` (bf16 path1 quantized in the
+kernel) and `B5_int8_ms` (the codes), and each against K = 300 (two
+label chunks): `B13_300_ms`, `B14_300_ms`, `B5_300_ms` (null where the
+tree's wrapper refuses the shape), with `B13_stages`, `B14_stages` and
+`B5_stages` the device ms a call by kernel name at K = 150. It imports
+the port from `--root`
 (default: the checkout that holds this file), so the same script times an
 older tree's kernels in the same call as this one's: run them in turns
 (old, new, new, old) and compare only within one call. A mode an older
@@ -32,8 +38,9 @@ tree does not have (fp32 B6 and B7 before they were ported) reads null.
 `--library` adds the PyTorch calls (`torch.addmm`, `torch.matmul`, SDPA in
 fp32) and the names of the device kernels that one fp32 SDPA call and its
 backward launch (`torch.profiler`), which say which of PyTorch's kernels
-computes them. `--only` times the named rows alone (B17, B10, B6_fp32 (with
-B7_fp32), B16, B2, B15, B8, B9, B18, B13). Prints one JSON line: the card's name and power limit and
+computes them. `--only` times the named rows alone (B17, B10, B6_fp32
+(with B7_fp32), B16, B2, B15, B8, B9, B18, B13, B14, B5). Prints one JSON
+line: the card's name and power limit and
 each time in ms (CUDA events over 20 calls after 3 warm-ups). Without a
 card it exits 1.
 """
@@ -103,9 +110,64 @@ def rcu_operands(dev, g, c: int = 256) -> list:
     return ops
 
 
+def head_operands(dev, g, k):
+    """The int8 heads' operands at the flagship, (8, 240, 240, 256) codes
+    and bf16 path1 on their grid, E = 512, K labels: (codes, bf16 path1,
+    sx, w1q, s1, b1, text)."""
+    import torch
+
+    n, h, w, c, e = 8, 240, 240, 256, 512
+    x = (0.5 * torch.randn(n, h, w, c, device=dev, generator=g)).to(
+        torch.bfloat16)
+    sx = x.float().abs().amax() / 127.0
+    xq = torch.clamp(torch.round(x.float() / sx), -127, 127).to(torch.int8)
+    w1q = torch.randint(-127, 128, (e, c), device=dev, generator=g,
+                        dtype=torch.int8)
+    s1 = 1e-3 * torch.rand(e, device=dev, generator=g) + 1e-4
+    b1 = 0.1 * torch.randn(e, device=dev, generator=g)
+    txt = torch.randn(k, e, device=dev, generator=g)
+    return xq, x, sx, w1q, s1, b1, txt
+
+
+def head_rows(row, only, dev, g, ms):
+    """B13, B14 and B5 at the flagship head against K = 150 and 300: ms a
+    call (None where the wrapper refuses the shape), and device ms a call
+    by kernel name at K = 150."""
+    from lseg_tpu_torch.ops import head1_correlate as hc
+
+    def ms_or_none(fn):
+        try:
+            fn()
+        except ValueError:
+            return None
+        return ms(fn)
+
+    for k in (150, 300):
+        xq, x, sx, w1q, s1, b1, txt = head_operands(dev, g, k)
+        tag = "" if k == 150 else f"_{k}"
+        calls = {
+            "B13": lambda: hc.head1_correlate_upsample_argmax(
+                xq, sx, w1q, s1, b1, txt, 1.0 / 0.07),
+            "B14": lambda: hc.head1_correlate_wup_fused(
+                xq, sx, w1q, s1, b1, txt, 1.0 / 0.07),
+            "B5": lambda: hc.head1_correlate_argmax_fused(
+                x, sx, w1q, s1, b1, txt),
+            "B5_int8": lambda: hc.head1_correlate_argmax_fused(
+                xq, sx, w1q, s1, b1, txt),
+        }
+        for name, fn in calls.items():
+            if name.split("_")[0] not in only or (k == 300 and "int8" in
+                                                  name):
+                continue
+            row[f"{name}{tag}_ms"] = ms_or_none(fn)
+            if k == 150 and "int8" not in name:
+                row[f"{name}_stages"] = device_stages(fn)
+        del xq, x, txt
+
+
 def decoder_head_rows(row, only, dev, g, ms):
-    """B18 at the fused decoder's four (8, S, S, 256) shapes and B13 at
-    the flagship head: ms a call and device ms a call by kernel name."""
+    """B18 at the fused decoder's four (8, S, S, 256) shapes: ms a call
+    and device ms a call by kernel name; the int8 heads (`head_rows`)."""
     import torch
 
     if "B18" in only:
@@ -122,27 +184,8 @@ def decoder_head_rows(row, only, dev, g, ms):
             row[f"B18_{side}_stages"] = device_stages(fn)
             total += launches * row[f"B18_{side}_ms"]
         row["B18_request_ms"] = total
-    if "B13" in only:
-        from lseg_tpu_torch.ops.head1_correlate import (
-            head1_correlate_upsample_argmax,
-        )
-
-        n, h, w, c, e, k = 8, 240, 240, 256, 512, 150
-        xq = torch.randint(-127, 128, (n, h, w, c), device=dev, generator=g,
-                           dtype=torch.int8)
-        w1q = torch.randint(-127, 128, (e, c), device=dev, generator=g,
-                            dtype=torch.int8)
-        s1 = 1e-3 * torch.rand(e, device=dev, generator=g) + 1e-4
-        b1 = 0.1 * torch.randn(e, device=dev, generator=g)
-        txt = torch.randn(k, e, device=dev, generator=g)
-        sx = torch.tensor(0.02, device=dev)
-
-        def fn():
-            return head1_correlate_upsample_argmax(xq, sx, w1q, s1, b1, txt,
-                                                   1.0 / 0.07)
-
-        row["B13_ms"] = ms(fn)
-        row["B13_stages"] = device_stages(fn)
+    if only & {"B13", "B14", "B5"}:
+        head_rows(row, only, dev, g, ms)
 
 
 def int8_attention_rows(row, only, dev, g, ms):
@@ -337,7 +380,7 @@ def main(argv=None) -> int:
                                              b2))
     if only & {"B2", "B15", "B8", "B9"}:
         int8_attention_rows(row, only, dev, g, ms)
-    if only & {"B18", "B13"}:
+    if only & {"B18", "B13", "B14", "B5"}:
         decoder_head_rows(row, only, dev, g, ms)
     print(json.dumps(row), flush=True)
     return 0

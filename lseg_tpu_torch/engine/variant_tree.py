@@ -19,6 +19,8 @@ points (`TIMELINE_PHASES`), and the spread of the CTAs' start times;
 (8, 120, 120, 256) and (8, 15, 15, 256) (`B18_PHASES`).
 Variants:
 
+- `head1_correlate_mma_sync`: the correlate of B13, B14 and B5 on
+  mma.sync m16n8k16 (the earlier design) instead of wgmma m64n152k16;
 - `b6_fp32_expf`: B6's fp32 mode with expf of the scaled score (lse =
   m + log l) in place of ex2.approx of the score prescaled by log2 e;
 - `b6_fp32_lb3`: B6's fp32 mode compiled for three blocks an SM (168
@@ -44,7 +46,18 @@ Variants:
 - `b18_skip_peer`: B18's q2 exchange skipping one peer's slice (CTA r
   never sends its slice to CTA r + 1 of the cluster), a mutation;
 - `b13_stale_ring`: B13's ring of logit rows not advanced past a
-  segment's first row, a mutation.
+  segment's first row, a mutation;
+- `b13_tie_to_later`: B13's running key of an output pixel replaced by a
+  later label chunk's best on equal values (ties to the later label), a
+  mutation (phase 2 catches it at K = 300);
+- `b14_stale_neighbour`: B14's last lanes taking their own warp's first
+  pixel as the right neighbour of their second row, a mutation;
+- `b5_unmasked_padding`: B5's labels past K (zero text rows) competing in
+  the argmax, a mutation (the all-negative case catches it);
+- `b14_timeline`, `b5_timeline`: B14 summing, per CTA, its steps' time on
+  the logits and on the outputs (W-interp, staging, copies); B5 its
+  steps' wait for the codes and the rest of each step (`--timeline b14`,
+  `--timeline b5`).
 
 Cuts, whose outputs are wrong by design (only their time is read):
 - `b16_no_gelu`: B16's GELU replaced by its argument;
@@ -75,12 +88,20 @@ Cuts, whose outputs are wrong by design (only their time is read):
 - `b18_no_q1`: B18 without the global loads of its q1 staging;
 - `b13_no_blend`: B13 without its output rows (no blend, W-interp,
   argmax or label stores);
-- `b13_no_correlate`: B13 without its correlate products;
+- `b13_no_correlate`: B13 (and B14, B5) without their correlate
+  products;
 - `b13_no_store`: B13 without its label stores;
 - `b13_no_sync`: B13 without the barrier of each output row (the next
   warp's edge pixel is read unsynchronized);
 - `b13_no_interp`: B13 with its argmax reduced to one xor a label (no
-  keys, no max).
+  keys, no max);
+- `b5_unroll6`: B5's quantizers with six 16-channel groups in flight
+  (72 registers for the producer warpgroup, 216 for the consumers)
+  instead of four (56, 224);
+- `b5_no_prefetch`: B5 without its L2 prefetch of the bf16 rows;
+- `b14_no_copy`: B14 staging its outputs without copying them out;
+- `b14_no_stage`: B14 without its W-interp and staging (its hand-off of
+  the neighbours and its copies of the unwritten staging stay).
 """
 
 from __future__ import annotations
@@ -284,10 +305,10 @@ VARIANTS = {
          "extern \"C\" int lseg_b13_timeline(void* dst) {\n"
          "  return static_cast<int>(cudaMemcpyFromSymbol(dst, "
          "lseg_b13_stamps, sizeof(lseg_b13_stamps)));\n}\n"),
-        ("  uint32_t it = 0;\n  for (int step = 0; step < steps; ++step) {\n",
+        ("  uint32_t it = 0;\n  for (int ls = 0; ls < chunks * steps; ++ls) {\n",
          "  uint32_t it = 0;\n  unsigned long long t_a, t_b, t_c, "
          "sum_logits = 0, sum_rows = 0, t_start;\n  NOW(t_start);\n"
-         "  for (int step = 0; step < steps; ++step) {\n    NOW(t_a);\n"),
+         "  for (int ls = 0; ls < chunks * steps; ++ls) {\n    NOW(t_a);\n"),
         ("    hw::logits(cacc, ss, cur);\n",
          "    hw::logits(cacc, ss, cur);\n    NOW(t_b);\n"
          "    sum_logits += t_b - t_a;\n"),
@@ -307,9 +328,94 @@ VARIANTS = {
          "    lseg_b13_stamps[b][2] = sum_rows;\n"
          "    lseg_b13_stamps[b][3] = steps;\n  }\n}\n"),
     ]),
+    "b14_timeline": ("head1_correlate_wup.cu", [
+        ('#include "head1_wgmma.cuh"\n', '#include "head1_wgmma.cuh"\n'
+         "__device__ unsigned long long lseg_b14_stamps[1024][4];\n"
+         "#define NOW(v) asm volatile(\"mov.u64 %0, %%globaltimer;\" : "
+         "\"=l\"(v) :: \"memory\")\n"
+         "extern \"C\" int lseg_b14_timeline(void* dst) {\n"
+         "  return static_cast<int>(cudaMemcpyFromSymbol(dst, "
+         "lseg_b14_stamps, sizeof(lseg_b14_stamps)));\n}\n"),
+        ("  uint32_t it = 0;\n  for (int ls = 0; ls < steps; ++ls) {\n",
+         "  uint32_t it = 0;\n  unsigned long long t_a, t_b, t_c, "
+         "sum_logits = 0, sum_out = 0, t_start;\n  NOW(t_start);\n"
+         "  for (int ls = 0; ls < steps; ++ls) {\n    NOW(t_a);\n"),
+        ("    hw::logits(cacc, ss, cur);\n",
+         "    hw::logits(cacc, ss, cur);\n    NOW(t_b);\n"
+         "    sum_logits += t_b - t_a;\n"),
+        ("        asm volatile(\"cp.async.bulk.commit_group;\\n\" ::: "
+         "\"memory\");\n      }\n    }\n  }\n",
+         "        asm volatile(\"cp.async.bulk.commit_group;\\n\" ::: "
+         "\"memory\");\n      }\n    }\n    NOW(t_c);\n"
+         "    sum_out += t_c - t_b;\n  }\n"
+         "  if (threadIdx.x == 128 && blockIdx.x < 1024) {\n    NOW(t_a);\n"
+         "    lseg_b14_stamps[blockIdx.x][0] = t_a - t_start;\n"
+         "    lseg_b14_stamps[blockIdx.x][1] = sum_logits;\n"
+         "    lseg_b14_stamps[blockIdx.x][2] = sum_out;\n"
+         "    lseg_b14_stamps[blockIdx.x][3] = steps;\n  }\n"),
+    ]),
+    "b5_timeline": ("head1_correlate_argmax.cu", [
+        ('#include "head1_wgmma.cuh"\n', '#include "head1_wgmma.cuh"\n'
+         "__device__ unsigned long long lseg_b5_stamps[1024][4];\n"
+         "#define NOW(v) asm volatile(\"mov.u64 %0, %%globaltimer;\" : "
+         "\"=l\"(v) :: \"memory\")\n"
+         "extern \"C\" int lseg_b5_timeline(void* dst) {\n"
+         "  return static_cast<int>(cudaMemcpyFromSymbol(dst, "
+         "lseg_b5_stamps, sizeof(lseg_b5_stamps)));\n}\n"),
+        ("  uint32_t it = 0;\n  for (int ls = 0; ls < steps; ++ls) {\n"
+         "    const int m0",
+         "  uint32_t it = 0;\n  unsigned long long t_a, t_b, "
+         "sum_wait = 0, sum_step = 0, t_start;\n  NOW(t_start);\n"
+         "  for (int ls = 0; ls < steps; ++ls) {\n    NOW(t_a);\n"
+         "    const int m0"),
+        ("    hw::codes_full(sm, ls);\n",
+         "    hw::codes_full(sm, ls);\n"
+         "    NOW(t_b);\n    sum_wait += t_b - t_a;\n"),
+        ("      if (t4 == 0 && m0 + pix[h] < a.M) a.out[m0 + pix[h]] = bi[h];\n"
+         "    }\n  }\n",
+         "      if (t4 == 0 && m0 + pix[h] < a.M) a.out[m0 + pix[h]] = bi[h];\n"
+         "    }\n    NOW(t_a);\n    sum_step += t_a - t_b;\n  }\n"
+         "  if (threadIdx.x == 128 && blockIdx.x < 1024) {\n    NOW(t_a);\n"
+         "    lseg_b5_stamps[blockIdx.x][0] = t_a - t_start;\n"
+         "    lseg_b5_stamps[blockIdx.x][1] = sum_wait;\n"
+         "    lseg_b5_stamps[blockIdx.x][2] = sum_step;\n"
+         "    lseg_b5_stamps[blockIdx.x][3] = steps;\n  }\n"),
+    ]),
+    "b14_stale_neighbour": ("head1_correlate_wup.cu", [
+        ("                : cwarp + 1 < CWARPS ? sm.edge[buf][cwarp + 1][t4][w]",
+         "                : cwarp + 1 < CWARPS ? sm.edge[buf][cwarp][t4][w]"),
+    ]),
+    "b5_unmasked_padding": ("head1_correlate_argmax.cu", [
+        ("            if (k < a.K && lseg::argmax_better(v, k, bv[h], bi[h])) {",
+         "            if (lseg::argmax_better(v, k, bv[h], bi[h])) {"),
+    ]),
+    "b13_tie_to_later": ("head1_correlate_upsample_argmax.cu", [
+        ("            if (MULTI && ch > 0)\n"
+         "              best = max(best, static_cast<uint32_t>(*op));",
+         "            if (MULTI && ch > 0 && (static_cast<uint32_t>(*op) >> 16) "
+         "> (best >> 16))\n              best = static_cast<uint32_t>(*op);"),
+    ]),
+    "b5_no_prefetch": ("head1_correlate_argmax.cu", [
+        ("  if (m0 >= M) return;\n", "  if (m0 >= 0) return;\n"),
+    ]),
+    "b5_unroll6": ("head1_correlate_argmax.cu", [
+        ("constexpr int UNROLL = 4;", "constexpr int UNROLL = 6;"),
+        ("    gm::regs_dec<56>();", "    gm::regs_dec<72>();"),
+        ("  gm::regs_inc<224>();", "  gm::regs_inc<216>();"),
+    ]),
+    "b14_no_copy": ("head1_correlate_wup.cu", [
+        ("        if (kc == K) {  // one chunk: the columns are one range",
+         "        if (false) {"),
+        ("        } else if (lane < nr) {  // a range a column",
+         "        } else if (false) {"),
+    ]),
+    "b14_no_stage": ("head1_correlate_wup.cu", [
+        ("        for (int j = max(jf, r0); j <= min(jl, r0 + nr - 1); ++j) {",
+         "        for (int j = max(jf, r0); j < 0; ++j) {"),
+    ]),
     "b13_no_store": ("head1_correlate_upsample_argmax.cu", [
-        ("          if (valid && t4 == 0)\n            a.out[", "          if "
-         "(valid && t4 == 0 && best == 7u)\n            a.out["),
+        ("          if (valid && t4 == 0) {\n", "          if "
+         "(valid && t4 == 0 && best == 7u) {\n"),
     ]),
     "b13_no_sync": ("head1_correlate_upsample_argmax.cu", [
         ("      wg::named_sync(3, CONSUMERS);\n", ""),
@@ -331,9 +437,27 @@ VARIANTS = {
         ("    while (tp < NR) {", "    while (false) {"),
     ]),
     "b13_no_correlate": ("head1_wgmma.cuh", [
-        ("      mma_bf16_16816(acc[lt], af[kk], ld_u32(tb + lt * 1024 + c0),\n"
-         "                     ld_u32(tb + lt * 1024 + c1));",
-         "      acc[lt][0] += __uint_as_float(af[kk][0] & 1u);"),
+        ("    mma_rs152(acc, af[kk],\n"
+         "              wg::desc_kstep(wg::desc(tst + (kk / 4) * T_BOX), "
+         "kk % 4));",
+         "    acc[0][0] += __uint_as_float(af[kk][0] & 1u);"),
+    ]),
+    # the earlier correlate: mma.sync m16n8k16, the text read from its stage
+    "head1_correlate_mma_sync": ("head1_wgmma.cuh", [
+        ("  gemm::fence_acc(acc);\n  wg::fence();\n#pragma unroll\n"
+         "  for (int kk = 0; kk < 8; ++kk)\n"
+         "    mma_rs152(acc, af[kk],\n"
+         "              wg::desc_kstep(wg::desc(tst + (kk / 4) * T_BOX), "
+         "kk % 4));\n"
+         "  wg::commit();\n  wg::wait<0>();\n  gemm::fence_acc(acc);\n",
+         "  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;\n"
+         "#pragma unroll\n  for (int kk = 0; kk < 8; ++kk) {\n"
+         "    const uint8_t* tb = tst + (kk / 4) * T_BOX + g * 128 + 4 * t4;\n"
+         "    const int c0 = ((2 * (kk % 4)) ^ g) * 16;\n"
+         "    const int c1 = ((2 * (kk % 4) + 1) ^ g) * 16;\n"
+         "#pragma unroll\n    for (int lt = 0; lt < KT; ++lt)\n"
+         "      mma_bf16_16816(acc[lt], af[kk], ld_u32(tb + lt * 1024 + c0),\n"
+         "                     ld_u32(tb + lt * 1024 + c1));\n  }\n"),
     ]),
     "b6_fp32_no_alo_bhi": ("tf32x3.cuh", [
         ("  mma(d, a.lo, b.hi[0], b.hi[1]);\n", ""),
@@ -498,6 +622,61 @@ def read_b13_timeline() -> dict:
             "steps": float(t[:, 3].median())}
 
 
+def _read_head_timeline(name: str, call, columns) -> dict:
+    """Run this checkout's B14 or B5 (a `<name>_timeline` copy) at the
+    flagship, (8, 240, 240, 256) codes (bf16 path1 for B5) against K =
+    150, on the card: the median over the CTAs of the microseconds of a
+    CTA and of each summed phase, and of its steps."""
+    import ctypes
+
+    import torch
+
+    from lseg_tpu_torch.engine.time_gemm import head_operands
+    from lseg_tpu_torch.ops._build import load_kernels
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    ops = head_operands(dev, g, 150)
+    for _ in range(3):
+        call(*ops)
+    torch.cuda.synchronize()
+    raw = torch.zeros(1024 * 4, dtype=torch.int64)
+    rc = getattr(load_kernels(), f"lseg_{name}_timeline")(
+        ctypes.c_void_p(raw.data_ptr()))
+    if rc != 0:
+        raise RuntimeError(f"lseg_{name}_timeline: cudaError {rc}")
+    t = raw.view(1024, 4)
+    t = t[t[:, 3] > 0].double()
+    out = {"ctas": int(t.shape[0]), "cta_us": float((t[:, 0] / 1e3).median())}
+    for i, col in enumerate(columns):
+        out[col] = float((t[:, i + 1] / 1e3).median())
+    out["steps"] = float(t[:, 3].median())
+    return out
+
+
+def read_b14_timeline() -> dict:
+    """B14's CTAs: their steps' logits (codes, embed, correlate, norm) and
+    outputs (hand-off, W-interp, staging, bulk copies)."""
+    from lseg_tpu_torch.ops.head1_correlate import head1_correlate_wup_fused
+
+    return _read_head_timeline(
+        "b14", lambda xq, x, sx, w1q, s1, b1, txt: head1_correlate_wup_fused(
+            xq, sx, w1q, s1, b1, txt, 1.0 / 0.07), ("logits_us", "out_us"))
+
+
+def read_b5_timeline() -> dict:
+    """B5's CTAs on bf16 path1: their steps' wait for the quantized codes,
+    and the rest of each step (embed, correlate, keys, labels)."""
+    from lseg_tpu_torch.ops.head1_correlate import (
+        head1_correlate_argmax_fused,
+    )
+
+    return _read_head_timeline(
+        "b5", lambda xq, x, sx, w1q, s1, b1, txt:
+        head1_correlate_argmax_fused(x, sx, w1q, s1, b1, txt),
+        ("codes_wait_us", "step_us"))
+
+
 def make(name: str, dest: Path) -> None:
     """Copy the checkout to `dest` and apply variant `name`; raises
     KeyError for an unknown variant, ValueError for a substitution that
@@ -521,15 +700,16 @@ def main(argv=None) -> int:
     ap.add_argument("name", nargs="?", choices=sorted(VARIANTS))
     ap.add_argument("dest", nargs="?", type=Path)
     ap.add_argument("--timeline", nargs="?", const="b16",
-                    choices=("b16", "b18", "b13"),
-                    help="B16's (B18's, B13's) phase times, run from a "
-                         "b16_timeline (b18_timeline, b13_timeline) copy")
+                    choices=("b16", "b18", "b13", "b14", "b5"),
+                    help="B16's (B18's, B13's, B14's, B5's) phase times, run "
+                         "from a b16_timeline (b18_timeline, ...) copy")
     args = ap.parse_args(argv)
     if args.timeline:
         import json
 
         read = {"b16": read_timeline, "b18": read_b18_timeline,
-                "b13": read_b13_timeline}[args.timeline]
+                "b13": read_b13_timeline, "b14": read_b14_timeline,
+                "b5": read_b5_timeline}[args.timeline]
         print(json.dumps(read()), flush=True)
         return 0
     if args.name is None or args.dest is None:

@@ -72,16 +72,23 @@ SIGNATURES = {
     "lseg_fused_correlate": (_P,) * 4 + (_I,) * 6 + (ctypes.c_float, _P),
     # x, out, n, h, w, k, x_bf16, stream
     "lseg_upsample2x_argmax": (_P,) * 2 + (_I,) * 5 + (_P,),
+    # x, sx, w, sc, b1, tn, out, m, c, e, k, x_bf16, ctas, stream
+    "lseg_head1_correlate_argmax": (_P,) * 7 + (_I,) * 6 + (_P,),
+    # the C > 256 routes of B14 and B5 (head1_correlate_*_wide.cu):
+    # xq, w, sc, b1, tn, out, n, h, w, c, e, k, stream
+    "lseg_head1_correlate_wup_wide": (_P,) * 6 + (_I,) * 6 + (_P,),
     # x, sx, w, sc, b1, tn, out, m, c, e, k, x_bf16, stream
-    "lseg_head1_correlate_argmax": (_P,) * 7 + (_I,) * 5 + (_P,),
+    "lseg_head1_correlate_argmax_wide": (_P,) * 7 + (_I,) * 5 + (_P,),
+    # ef, tn, out_wgmma, out_mma, m, k, e, stream
+    "lseg_head1_sum_probe": (_P,) * 4 + (_I,) * 3 + (_P,),
     # xq, sx, wq, sw, bias, qkv (scratch), out, n, t, dim, valid_len,
     # scale, stream
     "lseg_flash_attention_qkv_fused": (_P,) * 7 + (_I,) * 4 + (
         ctypes.c_float, _P),
     # xq, sx, wq, sw, bias, qkv, m, n, k, stream
     "lseg_qkv_int8_gemm": (_P,) * 6 + (_I,) * 3 + (_P,),
-    # xq, w, sc, b1, tn, out, n, h, w, c, e, k, stream
-    "lseg_head1_correlate_wup": (_P,) * 6 + (_I,) * 6 + (_P,),
+    # xq, w, sc, b1, tn, out, n, h, w, c, e, k, ctas, stream
+    "lseg_head1_correlate_wup": (_P,) * 6 + (_I,) * 7 + (_P,),
     # xq, w, sc, b1, tn, out, n, h, w, c, e, k, segment rows, stream
     "lseg_head1_correlate_upsample_argmax": (_P,) * 6 + (_I,) * 7 + (_P,),
     # xq, sx, resid, w1, s1, b1, w2, s2, b2, out, m, dim, hidden,

@@ -10,12 +10,17 @@ B4 replaces `lseg_tpu/ops/pallas_correlation.py` · `head1_correlate_fused`
 (`csrc/head1_correlate_upsample_argmax.cu`); B5 replaces
 `head1_correlate_argmax_fused_t` and its row-major form B12
 `head1_correlate_argmax_fused` (CUDA:
-`lseg_tpu_torch/csrc/head1_correlate_argmax.cu`). B4, B14 and B5 share
-their tile code (`csrc/head1_tile.cuh`); B13 runs on its wgmma + TMA
-tile (`csrc/head1_wgmma.cuh`), whose logits are B4's bit for bit, and
-walks down strips of source rows (`b13_grid`). The sources' headers say
-what bounds each on the card and how the (M, 512) pixel-embedding map
-stays out of device memory.
+`lseg_tpu_torch/csrc/head1_correlate_argmax.cu`). B4 runs on the
+SIMT-staged tile of `csrc/head1_tile.cuh`; B13, B14 and B5 on the wgmma +
+TMA tile of `csrc/head1_wgmma.cuh`, whose logits are B4's bit for bit:
+B13 walks down strips of source rows (`b13_grid`), B14 and B5 take
+persistent grids of 128-pixel steps (`b14_ctas`), and all three walk the
+labels in chunks of at most 152. Path1 wider than 256 channels (no
+registered config: `features` is 256) takes B14's and B5's earlier
+kernels on B4's tile (`csrc/head1_correlate_wup_wide.cu`,
+`csrc/head1_correlate_argmax_wide.cu`); B13 refuses it. The
+sources' headers say what bounds each on the card and how the (M, 512)
+pixel-embedding map stays out of device memory.
 
 `head1_correlate_fused`, `head1_correlate_wup_fused`,
 `head1_correlate_upsample_argmax` and `head1_correlate_argmax_fused` are
@@ -44,6 +49,9 @@ from lseg_tpu_torch.ops.resize import _interp_matrix, interp_matrix
 
 # shared memory of one SM that a block may take (H100: 227 KB)
 SMEM_LIMIT = 232448
+# the widest path1 the wgmma + TMA head tile takes (two 128-byte k-chunks
+# of codes); wider path1 takes B14's and B5's `*_wide.cu` kernels
+WGMMA_MAX_C = 256
 
 
 def text_matrix(text_features: torch.Tensor,
@@ -95,7 +103,8 @@ def _int8_operands(name, xq, sx, w1q, s1, b1, text_features, logit_scale):
 
 def _tile_smem(c: int, e: int) -> int:
     """Bytes of shared memory of the head1 tile (`head1_tile.cuh`
-    `layout(c, e).total`)."""
+    `layout(c, e).total`): B14's C > 256 route keeps a row's (W, K)
+    logits beside it."""
     ldx, lde = c + 16, e + 8
     return (64 * ldx + 64 * lde * 2 + max(128 * ldx, 32 * lde * 2)
             + 2 * 64 * 4)
@@ -187,7 +196,8 @@ def head1_correlate_argmax_fused(x: torch.Tensor, sx, w1q: torch.Tensor,
     """Kernel wrapper: (N, H, W, C) int8 codes or bf16 path1 (quantized
     in the kernel on the grid sx), fp32 scalar activation scale sx, head1
     int8 kernel (E, C[, 1, 1]), fp32 (E,) scales and bias, (K, E) text
-    features -> (N, H, W) int32 labels. C % 32 == 0, E % 128 == 0."""
+    features -> (N, H, W) int32 labels. C % 32 == 0, E % 128 == 0; a
+    persistent grid of one CTA an SM."""
     check_no_grad("head1_correlate_argmax_fused", x, sx, s1, b1,
                   text_features)
     if x.device.type == "cpu":
@@ -215,13 +225,17 @@ def head1_correlate_argmax_fused(x: torch.Tensor, sx, w1q: torch.Tensor,
                              f"contiguous, 16-byte aligned and on {x.device}")
     lib = load_kernels()
     out = torch.empty((n, h, w), dtype=torch.int32, device=x.device)
+    wide = c > WGMMA_MAX_C
+    entry = ("lseg_head1_correlate_argmax_wide" if wide
+             else "lseg_head1_correlate_argmax")
+    grid = () if wide else (_sms(x.device),)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lseg_head1_correlate_argmax(
+        rc = getattr(lib, entry)(
             x.data_ptr(), sxt.data_ptr(), w1q.data_ptr(), sc.data_ptr(),
             b1.data_ptr(), tn.data_ptr(), out.data_ptr(), n * h * w, c, e,
-            tn.shape[0], int(x.dtype == torch.bfloat16), stream)
-    check_launch(lib, "lseg_head1_correlate_argmax", rc)
+            tn.shape[0], int(x.dtype == torch.bfloat16), *grid, stream)
+    check_launch(lib, entry, rc)
     head1_correlate_argmax_fused.launches += 1
     return out
 
@@ -257,8 +271,9 @@ def head1_correlate_wup_fused(xq: torch.Tensor, sx, w1q: torch.Tensor,
                               logit_scale: float = 1.0 / 0.07
                               ) -> torch.Tensor:
     """Kernel wrapper (B14): the arguments of `head1_correlate_fused` ->
-    (N, H, 2W, K) bf16. C % 32 == 0, E % 128 == 0, and the head1 tile plus
-    one row's (W, K) bf16 logits within an SM's shared memory."""
+    (N, H, 2W, K) bf16. C % 32 == 0, E % 128 == 0; past C = 256 (the
+    earlier kernel of `head1_correlate_wup_wide.cu`) also the head1 tile
+    plus one row's (W, K) bf16 logits within an SM's shared memory."""
     check_no_grad("head1_correlate_wup_fused", sx, s1, b1, text_features)
     if xq.device.type == "cpu":
         return head1_correlate_wup_fused_plain(xq, sx, w1q, s1, b1,
@@ -267,18 +282,23 @@ def head1_correlate_wup_fused(xq: torch.Tensor, sx, w1q: torch.Tensor,
                                           sx, w1q, s1, b1, text_features,
                                           logit_scale)
     k = text_features.shape[0]
-    if _tile_smem(c, e) + w * k * 2 > SMEM_LIMIT:
-        raise ValueError(f"head1_correlate_wup_fused kernel: a row of W={w}"
-                         f" x K={k} logits does not fit in shared memory")
+    wide = c > WGMMA_MAX_C
+    if wide and _tile_smem(c, e) + w * k * 2 > SMEM_LIMIT:
+        raise ValueError(f"head1_correlate_wup_fused kernel: at C={c} > "
+                         f"{WGMMA_MAX_C} a row of W={w} x K={k} logits does "
+                         f"not fit in shared memory")
     lib = load_kernels()
     out = torch.empty((n, h, 2 * w, k), dtype=torch.bfloat16,
                       device=xq.device)
+    entry = ("lseg_head1_correlate_wup_wide" if wide
+             else "lseg_head1_correlate_wup")
+    grid = () if wide else (b14_ctas(w, _sms(xq.device)),)
     with torch.cuda.device(xq.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lseg_head1_correlate_wup(*[v.data_ptr() for v in ops],
-                                          out.data_ptr(), n, h, w, c, e, k,
-                                          stream)
-    check_launch(lib, "lseg_head1_correlate_wup", rc)
+        rc = getattr(lib, entry)(*[v.data_ptr() for v in ops],
+                                 out.data_ptr(), n, h, w, c, e, k, *grid,
+                                 stream)
+    check_launch(lib, entry, rc)
     head1_correlate_wup_fused.launches += 1
     return out
 
@@ -325,11 +345,24 @@ def upsample_argmax_bf16(lo: torch.Tensor) -> torch.Tensor:
     return torch.argmax(w_interp_bf16(hb).float(), dim=-1).to(torch.int32)
 
 
-# kernel B13's limits (csrc/head1_correlate_upsample_argmax.cu): a strip of
-# 127 source columns (one step of 128 pixels with the column it shares),
-# segments of at most 64 source rows, 152 labels (19 tiles of 8 in a
-# thread's registers), C <= 256 (two 128-byte k-chunks of codes)
-B13_STRIP, B13_MAX_SEG, B13_MAX_K, B13_MAX_C = 127, 64, 152, 256
+# the head kernels' wgmma tile (csrc/head1_wgmma.cuh): a strip of 127
+# source columns (one step of 128 pixels with the column it shares), label
+# chunks of 152 (19 tiles of 8 in a thread's registers); B13's segments of
+# at most 64 source rows, and its labels within its keys' 16 bits
+B13_STRIP, B13_MAX_SEG, HEAD_KG, B13_MAX_K = 127, 64, 152, 0xFFFF
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def b14_ctas(w: int, sms: int) -> int:
+    """Kernel B14's persistent grid at W source columns on a card of
+    `sms` SMs: the strips of 127 source columns that cover the left taps
+    0 .. W - 2 (one at W = 1), times the source rows a round of steps
+    takes, one CTA an SM where the strips allow."""
+    strips = max(1, -(-(w - 1) // B13_STRIP))
+    return strips * max(1, sms // strips)
 
 
 def b13_grid(n: int, h: int, w: int, sms: int):
@@ -352,7 +385,7 @@ def head1_correlate_upsample_argmax(xq: torch.Tensor, sx,
                                     ) -> torch.Tensor:
     """Kernel wrapper (B13): the arguments of `head1_correlate_fused` ->
     (N, 2H, 2W) int32 labels. C % 32 == 0, C <= 256, E % 128 == 0,
-    K <= 152."""
+    K < 65536 (in chunks of 152 labels)."""
     check_no_grad("head1_correlate_upsample_argmax", sx, s1, b1,
                   text_features)
     if xq.device.type == "cpu":
@@ -362,12 +395,11 @@ def head1_correlate_upsample_argmax(xq: torch.Tensor, sx,
                                           xq, sx, w1q, s1, b1, text_features,
                                           logit_scale)
     k = text_features.shape[0]
-    if c > B13_MAX_C or k > B13_MAX_K:
+    if c > WGMMA_MAX_C or k > B13_MAX_K:
         raise ValueError(f"head1_correlate_upsample_argmax kernel needs "
-                         f"C <= {B13_MAX_C} and K <= {B13_MAX_K}, got C={c},"
-                         f" K={k}")
-    _, seg, _ = b13_grid(n, h, w, torch.cuda.get_device_properties(
-        xq.device).multi_processor_count)
+                         f"C <= {WGMMA_MAX_C} and K <= {B13_MAX_K}, got "
+                         f"C={c}, K={k}")
+    _, seg, _ = b13_grid(n, h, w, _sms(xq.device))
     lib = load_kernels()
     out = torch.empty((n, 2 * h, 2 * w), dtype=torch.int32, device=xq.device)
     with torch.cuda.device(xq.device):
@@ -381,3 +413,29 @@ def head1_correlate_upsample_argmax(xq: torch.Tensor, sx,
 
 
 head1_correlate_upsample_argmax.launches = 0
+
+
+def correlate_sum_probe(ef: torch.Tensor, tn: torch.Tensor):
+    """(M, E) bf16(e) and (K, E) bf16 text on the card -> two (M, K) fp32
+    sums of ef . tn^T, k16 step by k16 step in ascending order: on wgmma
+    m64n64k16 and on mma.sync m16n8k16 (`csrc/head1_sum_probe.cu`), for a
+    bit-for-bit comparison. A probe of the tensor cores, not a path's
+    kernel: no launch count."""
+    if ef.device.type != "cuda" or ef.dtype != torch.bfloat16 or (
+            tn.dtype != torch.bfloat16 or ef.shape[1] != tn.shape[1]
+            or ef.shape[1] % 64):
+        raise ValueError(f"correlate_sum_probe: bf16 (M, E), (K, E) on the "
+                         f"card, E % 64 == 0; got {tuple(ef.shape)} "
+                         f"{ef.dtype} {ef.device}, {tuple(tn.shape)}")
+    ef, tn = ef.contiguous(), tn.contiguous()
+    m, e = ef.shape
+    k = tn.shape[0]
+    out = torch.empty((2, m, k), dtype=torch.float32, device=ef.device)
+    lib = load_kernels()
+    with torch.cuda.device(ef.device):
+        rc = lib.lseg_head1_sum_probe(
+            ef.data_ptr(), tn.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), m, k, e,
+            torch.cuda.current_stream().cuda_stream)
+    check_launch(lib, "lseg_head1_sum_probe", rc)
+    return out[0], out[1]

@@ -47,9 +47,12 @@ from lseg_tpu_torch.ops.fused_correlate import (
     fused_correlate_plain,
 )
 from lseg_tpu_torch.ops.head1_correlate import (
+    HEAD_KG,
     head1_correlate_argmax_fused,
     head1_correlate_argmax_fused_plain,
+    text_matrix,
 )
+from lseg_tpu_torch.ops.quant import int8_mm
 from lseg_tpu_torch.ops.upsample_argmax import (
     upsample2x_argmax,
     upsample2x_argmax_plain,
@@ -208,6 +211,136 @@ def test_head1_correlate_argmax_bf16_input_is_quantize_first():
     np.testing.assert_array_equal(
         head1_correlate_argmax_fused_plain(xb, *rest).numpy(),
         head1_correlate_argmax_fused_plain(xq, *rest).numpy())
+
+
+def _b5_keys_emulated(args, tie_to_later=False, unmasked=False):
+    """Kernel B5's label walk (csrc/head1_correlate_argmax.cu) on the CPU:
+    the fp32 sums bf16(e) . tn^T of `head1_correlate_argmax_fused_plain`
+    against the text padded with zero rows to whole chunks of 152; each
+    lane t4 of a pixel's quad takes its labels 152 ch + 8 lt + 2 t4 + e
+    chunk by chunk in ascending order, replacing its running (value,
+    label) where the new one is larger or equal with a smaller label
+    (`argmax_better`); labels past K never compete; a butterfly over
+    lanes 1 then 2 joins the quad. `tie_to_later` replaces on equal
+    values too, `unmasked` lets the padding compete: two mutations."""
+    x, sx, w1q, s1, b1, txt = args
+    k = txt.shape[0]
+    chunks = -(-k // HEAD_KG)
+    tn = torch.zeros(chunks * HEAD_KG, txt.shape[1], dtype=torch.bfloat16)
+    tn[:k] = text_matrix(txt, 1.0)
+    c = x.shape[-1]
+    if x.dtype != torch.int8:
+        x = torch.clamp(torch.round(x.float() / sx), -127, 127
+                        ).to(torch.int8)
+    ef = int8_mm(x.reshape(-1, c), w1q.reshape(w1q.shape[0], -1)).float() * (
+        sx * s1) + b1
+    lo = ef.to(torch.bfloat16).float() @ tn.float().t()
+    m = lo.shape[0]
+    bv = torch.full((m, 4), -float("inf"))
+    bi = torch.full((m, 4), 2 ** 31 - 1, dtype=torch.int64)
+    for ch in range(chunks):
+        for t4 in range(4):
+            for lt in range(HEAD_KG // 8):
+                for e in range(2):
+                    kk = ch * HEAD_KG + 8 * lt + 2 * t4 + e
+                    if kk >= k and not unmasked:
+                        continue
+                    v = lo[:, kk]
+                    better = (v > bv[:, t4]) | (
+                        (v >= bv[:, t4]) if tie_to_later
+                        else (v == bv[:, t4]) & (kk < bi[:, t4]))
+                    bv[:, t4] = torch.where(better, v, bv[:, t4])
+                    bi[:, t4] = torch.where(better, kk, bi[:, t4])
+    for o in (1, 2):
+        pv, pi = bv[:, [t ^ o for t in range(4)]], bi[:, [t ^ o
+                                                         for t in range(4)]]
+        better = (pv > bv) | ((pv == bv) & (pi < bi))
+        bv, bi = torch.where(better, pv, bv), torch.where(better, pi, bi)
+    return bi[:, 0].to(torch.int32).reshape(x.shape[:-1])
+
+
+@pytest.mark.parametrize("k", [1, 150, 153, 300])
+@pytest.mark.parametrize("case", ["ties", "all-negative"])
+def test_b5_label_chunks_emulated(k, case):
+    """Kernel B5's running keys across lanes and chunks of 152 labels
+    equal `head1_correlate_argmax_fused_plain` bit for bit at K = 1, 150,
+    153 and 300 (the same fp32 sums here; on the card they are summed in
+    another order). `ties`: every label from 76 on repeats the text of the
+    label 76 below (in another lane of the quad), and past 152 labels every
+    label of the later chunks repeats the first pixel's winner (in the
+    same lane as some copy), so that a walk that lets the later label win a
+    tie differs; `all-negative`: every logit below zero, so that K padding
+    that competed with its logit 0 would win."""
+    x, sx, w1q, s1, b1, txt = _head1_inputs(12, 1, 16, 16, 32, 128, k)
+    if case == "ties":
+        for j in range(76, k):
+            txt[j] = txt[j - 76]
+    else:
+        s1 = (s1 * 1e-2).astype(np.float32)
+        b1 = -(np.abs(b1) + 1.0).astype(np.float32)
+        txt = (np.abs(txt) + 0.1).astype(np.float32)
+    w_oihw = _t(np.ascontiguousarray(w1q.T)).reshape(w1q.shape[1], -1, 1, 1)
+    args = [_t(x).bfloat16(), torch.tensor(sx), w_oihw, _t(s1), _t(b1),
+            _t(txt)]
+    if case == "ties" and k > HEAD_KG:
+        first = int(head1_correlate_argmax_fused_plain(*args).flatten()[0])
+        txt[HEAD_KG:] = txt[first]
+        args[-1] = _t(txt)
+    ref = head1_correlate_argmax_fused_plain(*args)
+    assert torch.equal(_b5_keys_emulated(args), ref)
+    if case == "ties" and k > HEAD_KG:
+        assert not torch.equal(_b5_keys_emulated(args, tie_to_later=True),
+                               ref)
+    if case == "all-negative" and k % 8:
+        assert not torch.equal(_b5_keys_emulated(args, unmasked=True), ref)
+
+
+def _quantize_fast_emulated(v, s):
+    """Kernel B5's `code_fast` in numpy float32 (IEEE round to nearest, as
+    the card's `_rn` operations): the product with the rounded reciprocal,
+    the division where it lies within 1e-4 of a half-integer (the kernel
+    takes the division for all 16 values of a group that holds one)."""
+    f32 = np.float32
+    v = v.astype(f32)
+    inv = f32(1.0) / f32(s)
+    t = (v * inv).astype(f32)
+    frac = (t - np.floor(t)).astype(f32)
+    near = ~(np.abs((frac - f32(0.5)).astype(f32)) > f32(1e-4))
+    r = np.where(near, np.rint((v / f32(s)).astype(f32)), np.rint(t))
+    return np.clip(r, -127, 127).astype(np.int8), int(near.sum())
+
+
+@pytest.mark.parametrize("s", [0.0123, 1.0 / 127.0, 3.7e-3, 0.5])
+def test_b5_fast_quantize_is_the_division(s):
+    """B5's quantizers take clip(rint(v / s)) from the product with the
+    rounded reciprocal and fall back to the IEEE division within 1e-4 of a
+    half-integer: the codes equal the division's (`_quantize`, the plain
+    twin's) for random bf16 values, and for values a few ulps either side
+    of every half-integer quotient up to the clip and past it, where the
+    product alone would round some the other way."""
+    rng = np.random.RandomState(13)
+    f32 = np.float32
+    k = np.arange(-140, 141).astype(f32) + f32(0.5)
+    edge = (k * f32(s)).astype(f32)
+    near = [np.nextafter(edge, np.sign(d) * np.inf * np.ones_like(edge))
+            if d else edge for d in (-1, 0, 1)]
+    for _ in range(3):
+        near.append(np.nextafter(near[-1], np.inf).astype(f32))
+        near.insert(0, np.nextafter(near[0], -np.inf).astype(f32))
+    vals = np.concatenate([
+        (rng.randn(200000) * 60 * s).astype(f32),
+        torch.from_numpy((rng.randn(50000) * 40 * s).astype(f32)).bfloat16(
+        ).float().numpy(), *near, np.array([np.inf, -np.inf, 1e30, -1e30],
+                                           f32)])
+    got, slow = _quantize_fast_emulated(vals, s)
+    ref = np.clip(np.rint((vals / f32(s)).astype(f32)), -127, 127).astype(
+        np.int8)
+    np.testing.assert_array_equal(got, ref)
+    assert slow > 0  # the boundary values take the division
+    # the product alone rounds some boundary values the other way
+    prod = np.clip(np.rint((vals * (f32(1) / f32(s))).astype(f32)), -127,
+                   127).astype(np.int8)
+    assert (prod != ref).any() or s == 0.5
 
 
 # ---- the serving entry points ----
@@ -427,9 +560,18 @@ def test_upsample2x_argmax_kernel_matches_plain(cuda_device, shape, dt):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 120, 120, 256, 512, 150),
+                                   (1, 40, 40, 256, 512, 153),
+                                   (1, 40, 40, 256, 512, 300),
+                                   (2, 10, 13, 32, 128, 300),
+                                   (1, 8, 8, 288, 256, 20)])
 @pytest.mark.parametrize("dt", [torch.int8, torch.bfloat16])
-def test_head1_correlate_argmax_kernel_matches_plain(cuda_device, dt):
-    x, sx, w1q, s1, b1, txt = _head1_inputs(7, 1, 120, 120, 256, 512, 150)
+def test_head1_correlate_argmax_kernel_matches_plain(cuda_device, dt, shape):
+    """>= 0.999 of the labels equal to the plain twin's (fp32 sums in
+    another order): at 150 labels, two and three label chunks (K = 153,
+    300), a narrow C = 32 with a last step of 4 of 128 pixels, and C = 288
+    (the route of `head1_correlate_argmax_wide.cu`); one launch each."""
+    x, sx, w1q, s1, b1, txt = _head1_inputs(7, *shape)
     dev = cuda_device
     xt = _t(x).to(dev).bfloat16()
     if dt == torch.int8:
@@ -438,7 +580,9 @@ def test_head1_correlate_argmax_kernel_matches_plain(cuda_device, dt):
     args = (xt, torch.tensor(sx, device=dev),
             _t(np.ascontiguousarray(w1q.T)).to(dev), _t(s1).to(dev),
             _t(b1).to(dev), _t(txt).to(dev))
+    before = head1_correlate_argmax_fused.launches
     got = head1_correlate_argmax_fused(*args)
     ref = head1_correlate_argmax_fused_plain(*args)
     torch.cuda.synchronize()
+    assert head1_correlate_argmax_fused.launches == before + 1
     assert float((got == ref).float().mean()) >= 0.999

@@ -35,7 +35,9 @@ from lseg_tpu.ops.pallas_correlation import (
 from lseg_tpu_torch.models.lseg import LSegNet
 from lseg_tpu_torch.ops.head1_correlate import (
     B13_STRIP,
+    HEAD_KG,
     b13_grid,
+    b14_ctas,
     head1_correlate_fused,
     head1_correlate_fused_plain,
     head1_correlate_upsample_argmax,
@@ -170,7 +172,26 @@ def _taps_kernel(o, n):
     return lo, np.float32(1.0 - (src - lo)), np.float32(src - lo)
 
 
-def _b13_walk_emulated(lo, sms, stale_ring=False):
+def _b13_walk_emulated(lo, sms, stale_ring=False, tie_to_later=False):
+    """Kernel B13's walk over the labels in chunks of `HEAD_KG`: the walk
+    of `_b13_walk_best` once a chunk, each output pixel's running (value,
+    label) replaced by a chunk's best only where that is strictly larger
+    (with `tie_to_later`, where it is not smaller: a mutation), so that
+    ties go to the smaller label as in one pass."""
+    k = lo.shape[-1]
+    val = lab = None
+    for kt0 in range(0, k, HEAD_KG):
+        v, i = _b13_walk_best(lo[..., kt0:kt0 + HEAD_KG], sms, stale_ring)
+        if val is None:
+            val, lab = v, i
+            continue
+        win = v >= val if tie_to_later else v > val
+        val = torch.where(win, v, val)
+        lab = torch.where(win, i + kt0, lab)
+    return lab
+
+
+def _b13_walk_best(lo, sms, stale_ring=False):
     """Kernel B13's walk (csrc/head1_correlate_upsample_argmax.cu) in torch
     on the CPU, fed with normalized bf16 logits (N, H, W, K): the grid of
     `b13_grid` (strips of 127 source columns plus the one they share,
@@ -181,11 +202,12 @@ def _b13_walk_emulated(lo, sms, stale_ring=False):
     H - 1 those whose tap is H - 1 itself; each pixel of the strip emits
     the output columns whose left tap it is, its right neighbour read
     within the strip. Rounding as the kernel's: H-blend, W-interp and the
-    first argmax over the K labels."""
+    first argmax over the K labels, returned with its bf16 value."""
     n, h, w, k = lo.shape
     strips, seg, nseg = b13_grid(n, h, w, sms)
     lof = lo.float()
     out = torch.full((n, 2 * h, 2 * w), -1, dtype=torch.int32)
+    best = torch.zeros((n, 2 * h, 2 * w))
     rows = []
     for o in range(2 * h):
         ho_lo, a0, a1 = _taps_kernel(o, h)
@@ -216,9 +238,10 @@ def _b13_walk_emulated(lo, sms, stale_ring=False):
                               + bf(a1) * hb[:, p1].float()).to(torch.bfloat16)
                         out[:, o, j] = torch.argmax(up.float(), dim=-1).to(
                             torch.int32)
+                        best[:, o, j] = up.float().amax(dim=-1)
                 if prev is None or not stale_ring:
                     prev = cur
-    return out
+    return best, out
 
 
 @pytest.mark.parametrize("shape,sms", [
@@ -248,6 +271,179 @@ def test_b13_walk_emulated(shape, sms):
     assert torch.equal(got, ref)
     if b13_grid(shape[0], shape[1], shape[2], sms)[1] > 2 and not neg:
         assert not torch.equal(_b13_walk_emulated(lo, sms, True), ref)
+
+
+@pytest.mark.parametrize("k", [153, 171, 300])
+def test_b13_label_chunks_emulated(k):
+    """Past 152 labels B13 walks once a chunk of 152 and keeps each
+    output pixel's running key: equal to `upsample_argmax_bf16` bit for
+    bit at K = 153 (a chunk of one label), 171 and 300, on two strips and
+    segments of more than two rows. With the later chunks' text a copy of
+    the first chunk's, every label of a later chunk ties one of the first:
+    a walk whose later chunk wins ties differs."""
+    shape, sms = (1, 7, 130, 32, 128, k), 2
+    _, targs = _codes(9, *shape)
+    lo = head1_correlate_fused_plain(*targs)
+    assert torch.equal(_b13_walk_emulated(lo, sms),
+                       upsample_argmax_bf16(lo))
+    txt = targs[-1].clone()
+    txt[HEAD_KG:] = txt[:k - HEAD_KG]
+    lo = head1_correlate_fused_plain(*targs[:-1], txt)
+    ref = upsample_argmax_bf16(lo)
+    assert torch.equal(_b13_walk_emulated(lo, sms), ref)
+    assert not torch.equal(_b13_walk_emulated(lo, sms, tie_to_later=True),
+                           ref)
+
+
+# kernel B14's staging (csrc/head1_correlate_wup.cu): output columns a
+# warp's pass stages, and a warp's staging area in bytes
+_B14_CAP, _B14_REGION = 18, 18 * (2 * HEAD_KG + 16) + 16
+
+
+def _b14_neighbour(stale=False):
+    """The step pixel whose logits kernel B14's thread of consumer warp
+    cw (0..7), lane, row half h takes as its pixel's right neighbour: the
+    rotated shuffle of lane + 4 (lanes 0..3 offering their second row to
+    the first half), the next warp's first pixel from shared memory for
+    the last lanes' second half, its own pixel in the last warp. `stale`
+    (a mutation) takes the edge of the warp itself."""
+    nb = {}
+    for cw in range(8):
+        for lane in range(32):
+            g = lane // 4
+            for h in range(2):
+                src = (lane + 4) % 32
+                sg = src // 4
+                if g < 7 or h == 0:
+                    nb[cw, lane, h] = 16 * cw + sg + (
+                        8 if h == 0 and src < 4 else 8 * h)
+                elif cw + 1 < 8:
+                    nb[cw, lane, h] = 16 * (cw + 1) if not stale else 16 * cw
+                else:
+                    nb[cw, lane, h] = 16 * cw + g + 8
+    return nb
+
+
+def _b14_walk_emulated(lo, sms, stale_neighbour=False):
+    """Kernel B14's persistent walk and output staging in numpy, fed with
+    normalized bf16 logits (N, H, W, K): the grid of `b14_ctas` (a CTA
+    keeps one strip of 127 source columns and takes rows row0, row0 + rs,
+    ..., once a label chunk of 152); in each step each consumer warp's two
+    passes of 8 pixels stage the output columns whose left tap is their
+    pixel at a pitch congruent to the output's row pitch mod 16 bytes, then
+    copy each contiguous range (the pass's columns with one chunk, a column
+    with more) as a 16-byte aligned middle and 2-byte ends. Asserts that
+    no staged byte is written twice, that the staging fits its area, that
+    the bulk copies are 16-byte aligned on both sides and that every output
+    byte is written once; returns the (N, H, 2W, K) bf16 output."""
+    n, h, w, k = lo.shape
+    rows = n * h
+    strips = max(1, -(-(w - 1) // B13_STRIP))
+    grid = min(b14_ctas(w, sms), rows * strips)
+    rs = grid // strips
+    lof = lo.float().reshape(rows, w, k)
+    cols = [_taps_kernel(j, w) for j in range(2 * w)]
+    bf = lambda v: np.float32(torch.tensor(float(v)).to(  # noqa: E731
+        torch.bfloat16).float())
+    out = np.zeros(rows * 2 * w * k * 2, np.uint8)
+    written = np.zeros(out.shape, np.int32)
+    nbr = _b14_neighbour(stale_neighbour)
+    for cta in range(grid):
+        c0 = (cta % strips) * B13_STRIP
+        owns = {}
+        for p in range(128):
+            c = c0 + p
+            js = [j for j, (lo_j, _, _) in enumerate(cols)
+                  if p < B13_STRIP and c <= max(w - 2, 0) and lo_j == c]
+            owns[p] = (js[0], js[-1]) if js else (0, -1)
+        for kt0 in range(0, k, HEAD_KG):
+            kc = min(HEAD_KG, k - kt0)
+            pitch = 2 * k if kc == k else 2 * kc + (2 * (k - kc)) % 16
+            for row in range(cta // strips, rows, rs):
+                def pix(q):  # the step's pixel q (TMA: past W, next row)
+                    m = row * w + c0 + q
+                    if m >= rows * w:
+                        return torch.zeros(k)
+                    return lof[m // w, m % w]
+                for cw in range(8):
+                    for hh in range(2):
+                        first = 16 * cw + 8 * hh
+                        spans = [owns[first + g] for g in range(8)]
+                        jp = min([a for a, b in spans if b >= a],
+                                 default=None)
+                        if jp is None:
+                            continue
+                        jq = max(b for a, b in spans if b >= a)
+                        for r0 in range(jp, jq + 1, _B14_CAP):
+                            nr = min(_B14_CAP, jq - r0 + 1)
+                            g0 = ((row * 2 * w + r0) * k + kt0) * 2
+                            s0 = g0 % 16
+                            region = np.zeros(_B14_REGION, np.uint8)
+                            seen = np.zeros(_B14_REGION, np.int32)
+                            for g in range(8):
+                                p = first + g
+                                q = nbr[cw, 4 * g, hh] if w > 1 else p
+                                a_, b_ = owns[p]
+                                for j in range(max(a_, r0),
+                                               min(b_, r0 + nr - 1) + 1):
+                                    _, a0, a1 = cols[j]
+                                    v = (bf(a0) * pix(p)[kt0:kt0 + kc]
+                                         + bf(a1) * pix(q)[kt0:kt0 + kc])
+                                    raw = v.to(torch.bfloat16).view(
+                                        torch.int16).numpy().view(np.uint8)
+                                    at = s0 + (j - r0) * pitch
+                                    assert at + 2 * kc <= _B14_REGION
+                                    region[at:at + 2 * kc] = raw
+                                    seen[at:at + 2 * kc] += 1
+                            assert seen.max() <= 1
+                            ranges = ([(g0, s0, nr * 2 * k)] if kc == k else
+                                      [(g0 + i * 2 * k, s0 + i * pitch,
+                                        2 * kc) for i in range(nr)])
+                            for ga, sa, ln in ranges:
+                                head = min((16 - ga % 16) % 16, ln)
+                                mid = (ln - head) // 16 * 16
+                                if mid:
+                                    assert (ga + head) % 16 == 0
+                                    assert (sa + head) % 16 == 0
+                                out[ga:ga + ln] = region[sa:sa + ln]
+                                written[ga:ga + ln] += 1
+    assert written.min() == 1 and written.max() == 1
+    return torch.from_numpy(out.view(np.int16).copy()).view(
+        torch.bfloat16).reshape(n, h, 2 * w, k)
+
+
+@pytest.mark.parametrize("w", [1, 2, 127, 128, 240, 255])
+@pytest.mark.parametrize("k", [150, 153, 300])
+def test_b14_walk_emulated(w, k):
+    """Kernel B14's persistent strip walk, neighbour hand-off and staged
+    range copies, fed with `head1_correlate_fused_plain`'s normalized
+    logits, equal `w_interp_bf16` of them bit for bit: at one and two
+    source columns, one strip exactly full (W = 128) and one past it, the
+    flagship width, two full strips, and one, two and two uneven label
+    chunks, on a grid of 6 CTAs (rows shared out unevenly). A hand-off
+    that takes a warp's own edge pixel for the next warp's differs."""
+    shape, sms = (1, 3, w, 32, 128, k), 6
+    _, targs = _codes(10, *shape)
+    lo = head1_correlate_fused_plain(*targs)
+    ref = w_interp_bf16(lo)
+    assert torch.equal(_b14_walk_emulated(lo, sms), ref)
+    if w >= 32 and k == 150:
+        assert not torch.equal(_b14_walk_emulated(lo, sms, True), ref)
+
+
+@pytest.mark.parametrize("fn", [head1_correlate_upsample_argmax,
+                                head1_correlate_wup_fused])
+def test_b13_b14_wrappers_take_300_labels(fn):
+    """Neither wrapper refuses K = 300 (on the CPU each takes its plain
+    twin, as on the card it launches its kernel, chunk by chunk); the
+    output is the plain twin's."""
+    _, targs = _codes(11, 1, 4, 6, 32, 128, 300)
+    twin = {head1_correlate_upsample_argmax:
+            head1_correlate_upsample_argmax_plain,
+            head1_correlate_wup_fused: head1_correlate_wup_fused_plain}[fn]
+    got = fn(*targs)
+    assert got.shape[-1] == (300 if fn is head1_correlate_wup_fused else 12)
+    assert torch.equal(got, twin(*targs))
 
 
 # ---- the head_fused='wup' model ----
@@ -363,7 +559,11 @@ def test_wup_b13_labels_track_wup_logits(wup_tree):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(1, 60, 240, 256, 512, 150),
-                                   (2, 5, 9, 32, 128, 7)])
+                                   (2, 5, 9, 32, 128, 7),
+                                   (1, 12, 240, 256, 512, 236),
+                                   (1, 7, 240, 256, 512, 300),
+                                   (2, 5, 255, 64, 128, 301),
+                                   (1, 6, 20, 288, 256, 9)])
 def test_head1_correlate_wup_kernel_matches_plain(cuda_device, shape):
     """Against the plain twin: the kernel's logits may sit one bf16 ulp
     from the plain ones (fp32 sums in another order), the W-interp
@@ -371,7 +571,10 @@ def test_head1_correlate_wup_kernel_matches_plain(cuda_device, shape):
     zero, and each side rounds its blend once more, so the bound is two
     ulps of the interpolated magnitudes (`w_interp_bf16` of |logits|) +
     1e-3. Against the W-interp of kernel B4's logits on the same inputs
-    (the same tile code): bit for bit."""
+    (the same logits): bit for bit. Beside the flagship: K = 236 and 300
+    at W = 240 (rows the earlier kernel could not hold in shared memory),
+    an odd W of two strips with an odd K of three chunks, and C = 288 (the
+    route of `head1_correlate_wup_wide.cu`)."""
     _, targs = _codes(5, *shape)
     args = [a.to(cuda_device) for a in targs]
     before = head1_correlate_wup_fused.launches
@@ -392,14 +595,18 @@ def test_head1_correlate_wup_kernel_matches_plain(cuda_device, shape):
                                        ((1, 1, 3, 32, 128, 4), False),
                                        ((8, 67, 240, 256, 512, 150), False),
                                        ((1, 9, 130, 128, 256, 4), False),
-                                       ((1, 3, 1, 32, 128, 13), True)])
+                                       ((1, 3, 1, 32, 128, 13), True),
+                                       ((1, 20, 240, 256, 512, 153), False),
+                                       ((2, 9, 130, 256, 512, 300), False),
+                                       ((1, 5, 17, 32, 128, 300), True)])
 def test_head1_correlate_upsample_argmax_kernel_matches_plain(
         cuda_device, shape, neg):
     """>= 0.999 of the labels equal to the plain twin's; all of them equal
     to the plain tail (`upsample_argmax_bf16`) of kernel B4's logits on
     the same inputs, which it rounds op by op. Beside the flagship row
     width: 8 images of 67 rows (segments of 17, the last of 16), two strips
-    whose second owns one column, K = 13 and K = 4, one source column."""
+    whose second owns one column, K = 13 and K = 4, one source column, and
+    two and three label chunks (K = 153, 300; all-negative at 300)."""
     _, targs = _codes(6, *shape, neg=neg)
     args = [a.to(cuda_device) for a in targs]
     before = head1_correlate_upsample_argmax.launches
