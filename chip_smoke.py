@@ -18,8 +18,9 @@ the result line is printed:
    products of `csrc/tf32x3.cuh`); integer warpgroup products (IGMMA)
    and TMA loads in B16's cluster kernel, in the s8 qkv GEMM of B2, B8,
    B9 and B15 (`csrc/qkv_wgmma.cuh`), in B15's projection, in B18's
-   three channel widths and in B13's embed; HGMMA and UTMALDG in the
-   head-pair attention kernels of B2 and B15;
+   three channel widths and in B13's embed, and beside bulk copies
+   (UBLKCP) in B19's kernels; HGMMA and UTMALDG in the head-pair
+   attention kernels of B2 and B15; bulk copies in B3's LN routine;
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the serving path, with its time beside the plain version's
    (B10 in both of its modes, fp32 and compute_dtype=bfloat16; B17 at
@@ -33,9 +34,11 @@ the result line is printed:
    B7, B8, B9, B2 and B15 timed again, one after another, beside SDPA
    and SDPA's backward; the qkv stage of B2, B8, B9 and B15 alone, bit
    for bit against its plain version; B20's device time alone, from
-   `torch.profiler`, beside its host-bound wrapper time; B18 checked and
-   timed at each of the fused decoder's four shapes, its device time
-   from `torch.profiler`, its row a request's seven launches);
+   `torch.profiler`, beside its host-bound wrapper time, and B3's the
+   same way; B18 checked and timed at each of the fused decoder's four
+   shapes, its device time from `torch.profiler`, its row a request's
+   seven launches; B19 at refinenet2's shape (its row) and refinenet1's
+   int8 hand-off (under "handoff"), each with its bound and device time);
 3. serving: the full-width `fast_serving(clip_vitl16_384, quant=False)`
    model (ViT-L/16, bf16) with seeded random weights answers three
    requests through `TextFeatureCache` + `make_predictor`; the kernels'
@@ -140,7 +143,8 @@ is a JSON object with each kernel's launches (on the path of phases 3-6
 that runs it: every kernel runs on a serving path, the training path or
 the probe path), error, times and bound (B10's row also holds its bf16
 mode's under "bf16", B17's its fp32 mode's under "fp32"; the fp32 modes
-of B6 and B7 have rows of their own, with the launches of phase 5b2); the
+of B6 and B7 have rows of their own, with the launches of phase 5b2;
+B19's holds its hand-off shape's under "handoff"); the
 last line is the result object. Needs one
 GPU and no network; imports no JAX and nothing of the JAX package.
 """
@@ -200,9 +204,10 @@ TRAIN_FP32_GRAD_REL = 1e-4
 # qkv GEMM (in every object that compiles it: B2, B8, B9, B15 and the
 # stage's own entry point), B15's projection, B18 (each of its three
 # channel widths) and the embed of B13 (its one- and many-chunk copies),
-# B14 and B5 (their C <= 256 kernels); HGMMA and TMA loads in the head-pair
-# attention of B2 (its cluster kernel) and B15; so a SIMT or mma.sync
-# fallback fails the run.
+# B14 and B5 (their C <= 256 kernels), and B19 (beside its bulk copies);
+# HGMMA and TMA loads in the head-pair attention of B2 (its cluster kernel)
+# and B15; bulk copies in B3's LN routine (in B3, B2 and B9); so a SIMT or
+# mma.sync fallback fails the run.
 WGMMA_TMA = (r"\bHGMMA\.", r"\bUTMALDG\b")
 TF32_MMA = r"\bH(?:G)?MMA\.[\w.]*TF32"
 SASS_REQUIRED = {
@@ -227,6 +232,16 @@ SASS_REQUIRED = {
     "head1_argmax_wgmma_kernel": (r"\bIGMMA\.", r"\bUTMALDG\b"),
     "flash_q8_cluster_kernel": WGMMA_TMA,
     "pair_attention_kernel": WGMMA_TMA,
+    # B19 (its int8 and bf16 outputs): the weight by TMA, the source rows
+    # by bulk copies
+    "upsample_outconv_wgmma_kernelILb1E": (
+        r"\bIGMMA\.", r"\bUTMALDG\b", r"\bUBLKCP\b"),
+    "upsample_outconv_wgmma_kernelILb0E": (
+        r"\bIGMMA\.", r"\bUTMALDG\b", r"\bUBLKCP\b"),
+    # B3's routine at each width (VPL chunks a lane; B2 and B9 compile it
+    # too): its rows by bulk copies
+    **{f"ln_quantize_ring_kernelILi{v}E": (r"\bUBLKCP\b",)
+       for v in range(1, 9)},
 }
 # ln_quantize_rows (B3): the kernel and the plain version sum the row in
 # another order, so a code may sit one level off at a bin edge; the row
@@ -779,9 +794,15 @@ def _int8_kernels(dev, g):
     ms, plain_ms = _timed("ln_quantize_rows", "(8,901,1024)",
                           lambda: ln_quantize_rows(x, ln_g, ln_b),
                           lambda: ln_quantize_rows_plain(x, ln_g, ln_b))
+    # a wrapper call's events time is paced by the host; the kernel's
+    # own time from the profiler over back-to-back calls
+    device_ms = _device_ms(lambda: ln_quantize_rows(x, ln_g, ln_b))
+    print(f"  ln_quantize_rows: device time {device_ms:.5f} ms a call, "
+          f"{ms:.5f} ms a wrapper call")
     results["ln_quantize_rows"] = result(
         err, ms, plain_ms, nbytes(x, ln_g, ln_b, q, s),
         {"fp32": 8 * 8 * 901 * d})  # ~8 operations per element
+    results["ln_quantize_rows"]["device_ms"] = device_ms
 
     # B2 at (8, 901, 1024) and the padded (8, 904, 1024), valid_len 901
     wq = torch.randint(-127, 128, (3 * d, d), device=dev, generator=g,
@@ -1549,15 +1570,22 @@ def _decoder_kernels(dev, g):
         ms, plain_ms = _timed("fused_upsample_outconv", f"{shape} -> {kind}",
                               lambda: fused_upsample_outconv(*args),
                               lambda: fused_upsample_outconv_plain(*args))
+        device_ms = _device_ms(lambda: fused_upsample_outconv(*args))
         up = out.numel()
         # the 1x1 int8 product; fp32 per upsampled value: two H-blends and
         # the W-blend (3 each), quantize 2, epilogue 2 (+ 2 for int8). No
         # single PyTorch call computes it: library call none
         res = result(err, ms, plain_ms, nbytes(x, wq, sw, b, out),
                      {"int8": 2 * up * c, "fp32": 13 * up})
+        res["device_ms"] = device_ms
+        print(f"    device {device_ms:.4f} ms a call")
         if out_scale is None:
             results["fused_upsample_outconv"] = res
+        else:
+            handoff = res
         del x, out
+    # the row is refinenet2's (3h and 3i); refinenet1's hand-off beside it
+    results["fused_upsample_outconv"]["handoff"] = handoff
     return results
 
 

@@ -32,7 +32,7 @@
 //     producer thread (int8 input), or (bf16 input) by the producer
 //     warpgroup's other three warps, which quantize the step's rows into
 //     the codes' layout (128-byte swizzled, K-major, as TMA would have
-//     written them; `code_fast`: the IEEE division only where the
+//     written them; `code_bits_fast`: the IEEE division only where the
 //     reciprocal's product falls near a rounding boundary), then
 //     fence.proxy.async, so that the wgmma that reads
 //     them sees the generic-proxy writes, and arrive on the buffer's
@@ -78,25 +78,8 @@ struct Args {
   int M, C, K, E;
 };
 
-// clip(rint(v / s), -127, 127) with the IEEE quotient (lseg::quantize_code)
-// from the product t with inv = 1 / s (rounded to nearest): t and the
-// rounded quotient differ by at most 1.5 2^-23 |v / s| (2.3e-5 at |v / s|
-// <= 128.5, 1e-4 at 559), so where t lies more than 1e-4 from a
-// half-integer both round to the same integer or both clip. `near` is
-// set where it does not (about 1 value in 5,000, and NaN or inf): there
-// the caller takes the division.
-__device__ __forceinline__ uint32_t code_fast(float v, float inv,
-                                              bool& near) {
-  const float t = __fmul_rn(v, inv);
-  const float f = __fsub_rn(t, floorf(t));
-  near |= !(fabsf(__fsub_rn(f, 0.5f)) > 1e-4f);
-  return static_cast<uint32_t>(static_cast<int>(
-             fminf(fmaxf(rintf(t), -127.0f), 127.0f))) &
-         0xffu;
-}
-
 // the codes of 16 bf16 values (two uint4 of path1), first in the low byte:
-// by `code_fast`, or by the division where one of them lies near a
+// by `code_bits_fast`, or by the division where one of them lies near a
 // rounding boundary
 __device__ __forceinline__ uint4 codes16(const uint4 (&raw)[2], float s,
                                          float inv) {
@@ -108,9 +91,7 @@ __device__ __forceinline__ uint4 codes16(const uint4 (&raw)[2], float s,
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const float* q = v[j / 2] + 4 * (j % 2);
-    w[j] = code_fast(q[0], inv, near) | code_fast(q[1], inv, near) << 8 |
-           code_fast(q[2], inv, near) << 16 |
-           code_fast(q[3], inv, near) << 24;
+    w[j] = lseg::pack_codes_fast(q[0], q[1], q[2], q[3], inv, near);
   }
   if (__builtin_expect(near, 0)) {
 #pragma unroll

@@ -6,23 +6,23 @@
 // scale and bias (D,). Output: int8 codes (rows, D) and fp32 row scales
 // (rows,), the operands of the int8 fc1 product. The normalised bf16
 // tensor never exists in device memory, which is the TPU kernel's reason
-// to exist. The arithmetic is `lseg::ln_quantize_rows_kernel`
-// (ln_quantize.cuh), shared with the prologue of B2.
+// to exist. The arithmetic and the design are
+// `lseg::lnq::ln_quantize_ring_kernel` (ln_quantize.cuh), which B2 and B9
+// launch as their first step too.
 //
 // What bounds it on the card: bytes. At the flagship (8 x 901, 1024) it
 // reads 14.8 MB of bf16 and writes 7.4 MB of int8 plus 29 KB of scales;
-// at 3.35 TB/s that is ~6.6 us, against ~40 FLOP per element. Design: one
-// warp per 1024-wide row, every lane loading four 16-byte chunks once and
-// keeping the row in registers through the mean, the variance, the
-// normalisation, the max and the quantize, so x is read exactly once and
-// each code written once; 8 rows per 256-thread block. Any row count
-// works (the port does not pad T to a multiple of 8).
+// at 3.35 TB/s that is ~6.6 us, against ~15 operations a value. The
+// persistent warps keep their next rows' loads in flight by bulk copies
+// while they reduce, and take the IEEE division only near a rounding
+// boundary. Any row count works (the port does not pad T to a multiple
+// of 8).
 
 #include "ln_quantize.cuh"
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
-// Requires dim % 256 == 0, dim <= 2048, 16-byte aligned x (checked by the
-// wrapper).
+// Requires dim % 256 == 0 and dim <= 2048, or dim an odd multiple of 128
+// up to 896, and 16-byte aligned x, g and b (checked by the wrapper).
 extern "C" int lseg_ln_quantize_rows(const void* x, const void* g,
                                      const void* b, void* q, void* s, int rows,
                                      int dim, float eps, void* stream) {

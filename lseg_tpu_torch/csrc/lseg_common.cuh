@@ -2,7 +2,8 @@
 // index) argmax order of jnp.argmax, the hardware exp2, fragment packing,
 // the mma.sync wrappers (bf16 m16n8k16 and s8 m16n8k32, both with 32-bit
 // accumulators) and the int8 quantize of one value (round half to even,
-// clip to +-127, true IEEE division).
+// clip to +-127, true IEEE division; or the reciprocal's product where it
+// gives the same code, `code_bits_fast`).
 
 #pragma once
 
@@ -106,6 +107,37 @@ __device__ __forceinline__ uint32_t pack_codes(float a, float b, float c,
          ((static_cast<uint32_t>(quantize_code(b, s)) & 0xffu) << 8) |
          ((static_cast<uint32_t>(quantize_code(c, s)) & 0xffu) << 16) |
          ((static_cast<uint32_t>(quantize_code(d, s)) & 0xffu) << 24);
+}
+
+// clip(rint(v / s), -127, 127) with the IEEE quotient (quantize_code)
+// from the product t with inv = 1 / s (rounded to nearest): t and the
+// rounded quotient differ by at most 1.5 2^-23 |v / s| (2.3e-5 at |v / s|
+// <= 128.5), so where t lies more than 1e-4 from a half-integer both round
+// to the same integer or both clip. t is clipped first (rint and the clip
+// commute; a t past +-127 puts the quotient at or past +-127 too, and NaN
+// clips to -127 either way), then rounded by the 1.5 * 2^23 bias, whose
+// bits hold the code in their low byte; `near` is set where t lies within
+// 1e-4 of a half-integer (about 1 value in 5,000), and there the caller
+// takes the division (pack_codes). Every step is an FMA- or ALU-pipe
+// operation: no conversion. B5 (head1_correlate_argmax.cu) and B3
+// (ln_quantize.cuh) quantize through it.
+__device__ __forceinline__ int code_bits_fast(float v, float inv,
+                                              bool& near) {
+  const float t = fminf(fmaxf(__fmul_rn(v, inv), -127.0f), 127.0f);
+  const float m = __fadd_rn(t, 12582912.0f);
+  near |= fabsf(__fsub_rn(t, __fsub_rn(m, 12582912.0f))) >= 0.4999f;
+  return __float_as_int(m);
+}
+
+__device__ __forceinline__ uint32_t pack_codes_fast(float a, float b, float c,
+                                                    float d, float inv,
+                                                    bool& near) {
+  return __byte_perm(
+      __byte_perm(code_bits_fast(a, inv, near), code_bits_fast(b, inv, near),
+                  0x0040),
+      __byte_perm(code_bits_fast(c, inv, near), code_bits_fast(d, inv, near),
+                  0x0040),
+      0x5410);
 }
 
 __device__ __forceinline__ void unpack8(const uint4& raw, float (&v)[8]) {

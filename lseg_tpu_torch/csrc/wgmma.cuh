@@ -1,6 +1,7 @@
 // The Hopper tile engine shared by the attention kernels: warpgroup
-// matrix products (wgmma), the Tensor Memory Accelerator (TMA) tile load,
-// mbarriers, and the host-side tensor-map encoder.
+// matrix products (wgmma), the Tensor Memory Accelerator (TMA) tile load
+// and 1-D bulk copies (also B19's and B3's), mbarriers, and the host-side
+// tensor-map encoder.
 //
 // Tiles are bf16 with 64 columns (128 bytes a row: one head of 64), laid
 // out in shared memory by TMA's 128-byte swizzle and read by wgmma through
@@ -211,6 +212,29 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c),
       "r"(r), "r"(i)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of contiguous device memory at `src` into
+// shared memory at `dst` by one bulk copy, counted on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of shared memory at `src` to device memory at
+// `dst` by one bulk copy of this thread's bulk group (commit and wait with
+// cp.async.bulk.commit_group / wait_group).
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          reinterpret_cast<uint64_t>(dst)),
+      "r"(smem_addr(src)), "r"(bytes)
       : "memory");
 }
 

@@ -3,12 +3,13 @@ of their modes, the fp32 modes of B6 and B7, B16 (`mlp_fused`), the int8
 attention kernels B2, B15, B8 and B9 with each of their stages, B18
 (`fused_rcu`) at the fused decoder's four shapes and the int8 heads B13
 (`head1_correlate_upsample_argmax`), B14 (`head1_correlate_wup_fused`)
-and B5 (`head1_correlate_argmax_fused`) at the flagship head, on one card,
+and B5 (`head1_correlate_argmax_fused`) at the flagship head, B19
+(`fused_upsample_outconv`) and B3 (`ln_quantize_rows`), on one card,
 beside the PyTorch call that computes the same function where there is
 one.
 
     python lseg_tpu_torch/engine/time_gemm.py [--root DIR] [--tag T]
-        [--library] [--only B6_fp32,B16,B2,B15,B8,B9,B18,B13,B14,B5,...]
+        [--library] [--only B6_fp32,B16,B2,B15,B8,B9,B18,B13,B14,B5,B19,B3]
 
 Shapes: B17 at ViT-L/16's fc2, (7208, 4096) . (4096, 1024) with a
 residual, bf16 and fp32; B10 at the streamed head's (8, 240, 240, 512) bf16
@@ -29,7 +30,13 @@ by kernel name; B13, B14 and B5 at (8, 240, 240, 256) codes against K =
 kernel) and `B5_int8_ms` (the codes), and each against K = 300 (two
 label chunks): `B13_300_ms`, `B14_300_ms`, `B5_300_ms` (null where the
 tree's wrapper refuses the shape), with `B13_stages`, `B14_stages` and
-`B5_stages` the device ms a call by kernel name at K = 150. It imports
+`B5_stages` the device ms a call by kernel name at K = 150. B19 at
+refinenet2's (8, 60, 60, 256) -> bf16 and refinenet1's hand-off (8, 120,
+120, 256) -> int8: `B19_r2_ms`, `B19_handoff_ms` and each one's
+`_device_ms` (the kernel alone, `torch.profiler` over 50 calls) and
+`_stages` (every kernel of a call, by name); B3 at
+(8, 901, 1024): `B3_ms`, `B3_device_ms` and `B3_host_us`, the host time
+of a wrapper call. It imports
 the port from `--root`
 (default: the checkout that holds this file), so the same script times an
 older tree's kernels in the same call as this one's: run them in turns
@@ -39,8 +46,8 @@ tree does not have (fp32 B6 and B7 before they were ported) reads null.
 fp32) and the names of the device kernels that one fp32 SDPA call and its
 backward launch (`torch.profiler`), which say which of PyTorch's kernels
 computes them. `--only` times the named rows alone (B17, B10, B6_fp32
-(with B7_fp32), B16, B2, B15, B8, B9, B18, B13, B14, B5). Prints one JSON
-line: the card's name and power limit and
+(with B7_fp32), B16, B2, B15, B8, B9, B18, B13, B14, B5, B19, B3). Prints
+one JSON line: the card's name and power limit and
 each time in ms (CUDA events over 20 calls after 3 warm-ups). Without a
 card it exits 1.
 """
@@ -186,6 +193,64 @@ def decoder_head_rows(row, only, dev, g, ms):
         row["B18_request_ms"] = total
     if only & {"B13", "B14", "B5"}:
         head_rows(row, only, dev, g, ms)
+
+
+# B19's shapes: refinenet2 to bf16 (3h and 3i) and refinenet1's int8
+# hand-off (3i)
+B19_SHAPES = (("r2", (8, 60, 60, 256), False), ("handoff",
+                                                 (8, 120, 120, 256), True))
+
+
+def tail_rows(row, only, dev, g, ms):
+    """B19 at its two shapes and B3 at ViT-L/16's (8, 901, 1024): ms a
+    call (CUDA events over back-to-back wrapper calls), the device ms of
+    the kernel alone (`torch.profiler` over 50 back-to-back calls), and
+    for B3 the host microseconds of a wrapper call (200 calls enqueued
+    without a synchronize)."""
+    import time
+
+    import torch
+
+    def device_ms(fn, kernel, calls=50):
+        """Device ms a call of the kernels whose names hold `kernel`."""
+        return sum(v for k, v in device_stages(fn, calls).items()
+                   if kernel in k)
+
+    if "B19" in only:
+        from lseg_tpu_torch.ops.decoder import fused_upsample_outconv
+
+        c = 256
+        wq = torch.randint(-127, 128, (c, c), device=dev, generator=g,
+                           dtype=torch.int8)
+        sw = 0.01 * torch.rand(c, device=dev, generator=g) + 1e-3
+        b = 0.1 * torch.randn(c, device=dev, generator=g)
+        for name, shape, int8 in B19_SHAPES:
+            x = torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+            s_in = x.float().abs().amax() / 127.0
+            out_scale = torch.tensor(0.05, device=dev) if int8 else None
+            fn = lambda: fused_upsample_outconv(  # noqa: E731
+                x, wq, sw, b, s_in, out_scale)
+            row[f"B19_{name}_ms"] = ms(fn)
+            row[f"B19_{name}_device_ms"] = device_ms(fn, "outconv")
+            row[f"B19_{name}_stages"] = device_stages(fn)
+    if "B3" in only:
+        from lseg_tpu_torch.ops.ln_quant import ln_quantize_rows
+
+        d = 1024
+        x = torch.randn(8, 901, d, device=dev, generator=g).to(
+            torch.bfloat16)
+        ln_g = 1.0 + 0.1 * torch.randn(d, device=dev, generator=g)
+        ln_b = 0.1 * torch.randn(d, device=dev, generator=g)
+        fn = lambda: ln_quantize_rows(x, ln_g, ln_b)  # noqa: E731
+        row["B3_ms"] = ms(fn)
+        row["B3_device_ms"] = device_ms(fn, "ln_quantize")
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        row["B3_host_us"] = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
 
 
 def int8_attention_rows(row, only, dev, g, ms):
@@ -382,6 +447,8 @@ def main(argv=None) -> int:
         int8_attention_rows(row, only, dev, g, ms)
     if only & {"B18", "B13", "B14", "B5"}:
         decoder_head_rows(row, only, dev, g, ms)
+    if only & {"B19", "B3"}:
+        tail_rows(row, only, dev, g, ms)
     print(json.dumps(row), flush=True)
     return 0
 

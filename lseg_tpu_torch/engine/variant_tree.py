@@ -54,6 +54,16 @@ Variants:
   pixel as the right neighbour of their second row, a mutation;
 - `b5_unmasked_padding`: B5's labels past K (zero text rows) competing in
   the argmax, a mutation (the all-negative case catches it);
+- `b19_timeline`: B19 summing, per consumer warpgroup, its time waiting
+  for source rows, in its pair's H-blends and W-blends, its products and
+  its epilogues (`--timeline b19`); `b19_wide_timeline`: the earlier B19
+  kernel (`fused_upsample_outconv_wide.cu`) summing, per CTA, its tiles'
+  blend and their products and epilogues (`--timeline b19_wide`);
+- `b19_stale_ring`: B19's tiles reading their top source row from the
+  ring slot one load back, a mutation (phase 2 catches it);
+- `b3_no_division`: B3's codes by the reciprocal's product alone, without
+  the IEEE division near a half-integer, a mutation (the CPU emulation
+  `test_b3_fast_codes_are_the_division` holds its arithmetic);
 - `b14_timeline`, `b5_timeline`: B14 summing, per CTA, its steps' time on
   the logits and on the outputs (W-interp, staging, copies); B5 its
   steps' wait for the codes and the rest of each step (`--timeline b14`,
@@ -99,6 +109,11 @@ Cuts, whose outputs are wrong by design (only their time is read):
   (72 registers for the producer warpgroup, 216 for the consumers)
   instead of four (56, 224);
 - `b5_no_prefetch`: B5 without its L2 prefetch of the bf16 rows;
+- `b19_no_hblend`: B19's H-blend copying the top row instead of blending;
+- `b19_no_wblend`: B19's W-blend and codes replaced by one xor of the
+  loaded H-blends (loads and stores stay);
+- `b19_no_epilogue`: B19's epilogue staging one xor of two accumulators
+  instead of y and its codes (the staging and the stores stay);
 - `b14_no_copy`: B14 staging its outputs without copying them out;
 - `b14_no_stage`: B14 without its W-interp and staging (its hand-off of
   the neighbours and its copies of the unwritten staging stay).
@@ -327,6 +342,103 @@ VARIANTS = {
          "    lseg_b13_stamps[b][1] = sum_logits;\n"
          "    lseg_b13_stamps[b][2] = sum_rows;\n"
          "    lseg_b13_stamps[b][3] = steps;\n  }\n}\n"),
+    ]),
+    "b19_timeline": ("fused_upsample_outconv.cu", [
+        ('#include "wgmma_gemm.cuh"\n', '#include "wgmma_gemm.cuh"\n'
+         "__device__ unsigned long long lseg_b19_stamps[1024][4][7];\n"
+         "#define NOW(v) asm volatile(\"mov.u64 %0, %%globaltimer;\" : "
+         "\"=l\"(v) :: \"memory\")\n"
+         "extern \"C\" int lseg_b19_timeline(void* dst) {\n"
+         "  return static_cast<int>(cudaMemcpyFromSymbol(dst, "
+         "lseg_b19_stamps, sizeof(lseg_b19_stamps)));\n}\n"),
+        ("  uint32_t seen = 0, rel = 0;  // next load to wait for, to release\n",
+         "  unsigned long long t_a, t_b, t_c, t_d, t_e, t_start, s_wait = 0, "
+         "s_hblend = 0, s_wblend = 0, s_mma = 0, s_epi = 0, n_tiles = 0;\n"
+         "  NOW(t_start);\n"
+         "  uint32_t seen = 0, rel = 0;  // next load to wait for, to release\n"),
+        ("    wait_upto(f, g);\n",
+         "    NOW(t_a);\n    wait_upto(f, g);\n    NOW(t_b);\n"
+         "    s_wait += t_b - t_a;\n"),
+        ("    wg::named_sync(pair_bar, PAIR_THREADS);  // hb whole; rows read\n",
+         "    wg::named_sync(pair_bar, PAIR_THREADS);  // hb whole; rows read\n"
+         "    NOW(t_c);\n    s_hblend += t_c - t_b;\n"),
+        ("    wg::named_sync(pair_bar, PAIR_THREADS);  // the codes are whole\n",
+         "    wg::named_sync(pair_bar, PAIR_THREADS);  // the codes are whole\n"
+         "    NOW(t_d);\n    s_wblend += t_d - t_c;\n"),
+        ("    product(acc, codes, sm.w + half * NH * 128);\n",
+         "    product(acc, codes, sm.w + half * NH * 128);\n    NOW(t_e);\n"
+         "    s_mma += t_e - t_d;\n"),
+        ("                   col / wk.S * wk.H2 + jo, t, wg_bar);\n",
+         "                   col / wk.S * wk.H2 + jo, t, wg_bar);\n"
+         "    NOW(t_a);\n    s_epi += t_a - t_e;\n    ++n_tiles;\n"),
+        ("  if (t == 0) asm volatile(\"cp.async.bulk.wait_group 0;\\n\" ::: "
+         "\"memory\");\n}\n",
+         "  if (t == 0) asm volatile(\"cp.async.bulk.wait_group 0;\\n\" ::: "
+         "\"memory\");\n  if (t == 0 && blockIdx.x < 1024) {\n    NOW(t_a);\n"
+         "    unsigned long long* r = lseg_b19_stamps[blockIdx.x][tid / 128];\n"
+         "    r[0] = t_a - t_start;\n    r[1] = s_wait;\n    r[2] = s_hblend;\n"
+         "    r[3] = s_wblend;\n    r[4] = s_mma;\n    r[5] = s_epi;\n"
+         "    r[6] = n_tiles;\n  }\n}\n"),
+    ]),
+    "b19_wide_timeline": ("fused_upsample_outconv_wide.cu", [
+        ('#include "lseg_common.cuh"\n', '#include "lseg_common.cuh"\n'
+         "__device__ unsigned long long lseg_b19_wide_stamps[1024][4];\n"
+         "#define NOW(v) asm volatile(\"mov.u64 %0, %%globaltimer;\" : "
+         "\"=l\"(v) :: \"memory\")\n"
+         "extern \"C\" int lseg_b19_wide_timeline(void* dst) {\n"
+         "  return static_cast<int>(cudaMemcpyFromSymbol(dst, "
+         "lseg_b19_wide_stamps, sizeof(lseg_b19_wide_stamps)));\n}\n"),
+        ("  const int groups = C / 8;  // 8 channels (16 bytes of bf16) per "
+         "item\n",
+         "  const int groups = C / 8;  // 8 channels (16 bytes of bf16) per "
+         "item\n  unsigned long long t_a, t_b, t_c, t_start, s_blend = 0, "
+         "s_rest = 0, n_tiles = 0;\n  NOW(t_start);\n"),
+        ("    const int p0 = tile * BM;\n",
+         "    const int p0 = tile * BM;\n    NOW(t_a);\n"),
+        ("      *reinterpret_cast<uint2*>(As + pl * ld + cg) = codes;\n    }\n"
+         "    __syncthreads();\n",
+         "      *reinterpret_cast<uint2*>(As + pl * ld + cg) = codes;\n    }\n"
+         "    __syncthreads();\n    NOW(t_b);\n    s_blend += t_b - t_a;\n"),
+        ("    __syncthreads();  // the next tile rewrites As\n  }\n}\n",
+         "    __syncthreads();  // the next tile rewrites As\n    NOW(t_c);\n"
+         "    s_rest += t_c - t_b;\n    ++n_tiles;\n  }\n"
+         "  if (threadIdx.x == 0 && blockIdx.x < 1024) {\n    NOW(t_a);\n"
+         "    lseg_b19_wide_stamps[blockIdx.x][0] = t_a - t_start;\n"
+         "    lseg_b19_wide_stamps[blockIdx.x][1] = s_blend;\n"
+         "    lseg_b19_wide_stamps[blockIdx.x][2] = s_rest;\n"
+         "    lseg_b19_wide_stamps[blockIdx.x][3] = n_tiles;\n  }\n}\n"),
+    ]),
+    "b19_stale_ring": ("fused_upsample_outconv.cu", [
+        ("    hblend_strip(hb, sm.ring[f % RING], sm.ring[g % RING],",
+         "    hblend_strip(hb, sm.ring[(f + RING - 1) % RING],\n"
+         "                 sm.ring[g % RING],"),
+    ]),
+    "b19_no_wblend": ("fused_upsample_outconv.cu", [
+        ("      const uint4 u = blend8(ha[k], hc[k], __int_as_float(tp[k].z),\n"
+         "                             __int_as_float(tp[k].w));\n"
+         "      uint2 q = make_uint2(codes4(u.x, u.y, inv_in), "
+         "codes4(u.z, u.w, inv_in));\n",
+         "      uint2 q = make_uint2(ha[k].x ^ hc[k].y, ha[k].z ^ hc[k].w);\n"),
+    ]),
+    "b19_no_hblend": ("fused_upsample_outconv.cu", [
+        ("        blend8(*reinterpret_cast<const uint4*>(top + off),\n"
+         "               *reinterpret_cast<const uint4*>(bot + off), w0, w1);\n",
+         "        *reinterpret_cast<const uint4*>(top + off);\n"),
+    ]),
+    "b19_no_epilogue": ("fused_upsample_outconv.cu", [
+        ("        if constexpr (INT8) {\n"
+         "          *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>(\n"
+         "              __byte_perm(code_bits(y0, inv_out), code_bits(y1, "
+         "inv_out),\n                          0x0040));\n"
+         "        } else {\n"
+         "          *reinterpret_cast<uint32_t*>(dst) = lseg::pack_f32(y0, y1);"
+         "\n        }\n",
+         "        *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>(\n"
+         "            acc[nt][2 * h] ^ acc[nt][2 * h + 1]);\n"),
+    ]),
+    "b3_no_division": ("ln_quantize.cuh", [
+        ("      if (__builtin_expect(near, 0)) {\n",
+         "      if (false && near) {\n"),
     ]),
     "b14_timeline": ("head1_correlate_wup.cu", [
         ('#include "head1_wgmma.cuh"\n', '#include "head1_wgmma.cuh"\n'
@@ -677,6 +789,109 @@ def read_b5_timeline() -> dict:
         ("codes_wait_us", "step_us"))
 
 
+def _b19_operands(shape, int8):
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    c = shape[-1]
+    x = torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+    wq = torch.randint(-127, 128, (c, c), device=dev, generator=g,
+                       dtype=torch.int8)
+    sw = 0.01 * torch.rand(c, device=dev, generator=g) + 1e-3
+    b = 0.1 * torch.randn(c, device=dev, generator=g)
+    return (x, wq, sw, b, x.float().abs().amax() / 127.0,
+            torch.tensor(0.05, device=dev) if int8 else None)
+
+
+# B19's two shapes: refinenet1's int8 hand-off and refinenet2 to bf16
+B19_TIMELINE_SHAPES = (("handoff", (8, 120, 120, 256), True),
+                       ("r2", (8, 60, 60, 256), False))
+
+
+def read_b19_timeline() -> dict:
+    """Run this checkout's B19 (a `b19_timeline` copy) at its two shapes
+    on the card; per shape, the median over the consumer warpgroups of the
+    microseconds of the walk and of its summed phases: waiting for source
+    rows (`wait_us`), the H-blend of a tile's strip (`hblend_us`), the
+    W-blend and codes (`wblend_us`), the product (`mma_us`), the epilogue
+    with its staged stores (`epilogue_us`); and the median tiles a
+    warpgroup."""
+    import ctypes
+
+    import torch
+
+    from lseg_tpu_torch.ops._build import load_kernels
+    from lseg_tpu_torch.ops.decoder import fused_upsample_outconv
+
+    out = {}
+    for name, shape, int8 in B19_TIMELINE_SHAPES:
+        ops = _b19_operands(shape, int8)
+        for _ in range(3):
+            fused_upsample_outconv(*ops)
+        torch.cuda.synchronize()
+        raw = torch.zeros(1024 * 4 * 7, dtype=torch.int64)
+        rc = load_kernels().lseg_b19_timeline(
+            ctypes.c_void_p(raw.data_ptr()))
+        if rc != 0:
+            raise RuntimeError(f"lseg_b19_timeline: cudaError {rc}")
+        t = raw.view(-1, 7)
+        t = t[t[:, 6] > 0].double()
+        med = t.median(0).values / 1e3
+        out[name] = {"warpgroups": int(t.shape[0]),
+                     **{f"{k}_us": float(v) for k, v in zip(
+                         ("walk", "wait", "hblend", "wblend", "mma",
+                          "epilogue"), med[:6])},
+                     "tiles": float(t[:, 6].median())}
+    return out
+
+
+def read_b19_wide_timeline() -> dict:
+    """Run this checkout's earlier B19 kernel (a `b19_wide_timeline` copy
+    of fused_upsample_outconv_wide.cu, called at Co = 256 through its
+    entry point) at B19's two shapes; per shape, the median over the CTAs
+    of the microseconds of a CTA, of its tiles' blend and codes, and of
+    their products and epilogues, and the median tiles a CTA."""
+    import ctypes
+
+    import torch
+
+    from lseg_tpu_torch.ops._build import load_kernels
+    from lseg_tpu_torch.ops.decoder import _scales, interp_taps
+
+    lib = load_kernels()
+    out = {}
+    for name, shape, int8 in B19_TIMELINE_SHAPES:
+        x, wq, sw, b, s_in, out_scale = _b19_operands(shape, int8)
+        n, h, w, c = shape
+        th, tw = interp_taps(h, x.device), interp_taps(w, x.device)
+        inv_in, sc, inv_out = _scales(s_in, sw, out_scale)
+        y = torch.empty((n, 2 * h, 2 * w, c), device=x.device,
+                        dtype=torch.int8 if int8 else torch.bfloat16)
+        for _ in range(3):
+            rc = lib.lseg_fused_upsample_outconv_wide(
+                x.data_ptr(), th.data_ptr(), tw.data_ptr(), wq.data_ptr(),
+                sc.data_ptr(), b.data_ptr(), inv_in.data_ptr(),
+                inv_out.data_ptr(), y.data_ptr(), n, h, w, c, c, int(int8),
+                torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"lseg_fused_upsample_outconv_wide: "
+                                   f"cudaError {rc}")
+        torch.cuda.synchronize()
+        raw = torch.zeros(1024 * 4, dtype=torch.int64)
+        rc = lib.lseg_b19_wide_timeline(ctypes.c_void_p(raw.data_ptr()))
+        if rc != 0:
+            raise RuntimeError(f"lseg_b19_wide_timeline: cudaError {rc}")
+        t = raw.view(1024, 4)
+        t = t[t[:, 3] > 0].double()
+        med = t.median(0).values / 1e3
+        out[name] = {"ctas": int(t.shape[0]), "cta_us": float(med[0]),
+                     "blend_us": float(med[1]),
+                     "product_epilogue_us": float(med[2]),
+                     "tiles": float(t[:, 3].median())}
+    return out
+
+
 def make(name: str, dest: Path) -> None:
     """Copy the checkout to `dest` and apply variant `name`; raises
     KeyError for an unknown variant, ValueError for a substitution that
@@ -700,16 +915,19 @@ def main(argv=None) -> int:
     ap.add_argument("name", nargs="?", choices=sorted(VARIANTS))
     ap.add_argument("dest", nargs="?", type=Path)
     ap.add_argument("--timeline", nargs="?", const="b16",
-                    choices=("b16", "b18", "b13", "b14", "b5"),
-                    help="B16's (B18's, B13's, B14's, B5's) phase times, run "
-                         "from a b16_timeline (b18_timeline, ...) copy")
+                    choices=("b16", "b18", "b13", "b14", "b5", "b19",
+                             "b19_wide"),
+                    help="B16's (B18's, B13's, B14's, B5's, B19's) phase "
+                         "times, run from a b16_timeline (b18_timeline, "
+                         "...) copy")
     args = ap.parse_args(argv)
     if args.timeline:
         import json
 
         read = {"b16": read_timeline, "b18": read_b18_timeline,
                 "b13": read_b13_timeline, "b14": read_b14_timeline,
-                "b5": read_b5_timeline}[args.timeline]
+                "b5": read_b5_timeline, "b19": read_b19_timeline,
+                "b19_wide": read_b19_wide_timeline}[args.timeline]
         print(json.dumps(read()), flush=True)
         return 0
     if args.name is None or args.dest is None:

@@ -21,6 +21,7 @@ one source alone into a small library of its own (the toolchain probe,
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -106,9 +107,13 @@ SIGNATURES = {
     # x, w1, d1, e1, s1_inv, w2, d2, e2, s2_inv, out, n, h, w, c, tile
     # rows, tile columns, stream
     "lseg_fused_rcu": (_P,) * 10 + (_I,) * 6 + (_P,),
-    # x, th, tw, wq, sc, bias, inv_in, inv_out, out, n, h, w, c, co,
-    # out_int8, stream
-    "lseg_fused_upsample_outconv": (_P,) * 9 + (_I,) * 6 + (_P,),
+    # x, th, tw, wq, sw, bias, s_in, out_scale (null: bf16 out), out, n, h,
+    # w, c, co, stream
+    "lseg_fused_upsample_outconv": (_P,) * 9 + (_I,) * 5 + (_P,),
+    # the Co other than 128 and 256 route of B19
+    # (fused_upsample_outconv_wide.cu): x, th, tw, wq, sc, bias, inv_in,
+    # inv_out, out, n, h, w, c, co, out_int8, stream
+    "lseg_fused_upsample_outconv_wide": (_P,) * 9 + (_I,) * 6 + (_P,),
     # x, w, b, resid, w_split (fp32 scratch), out, m, k, n, x_bf16,
     # resid_kind, out_bf16, stream
     "lseg_dense_residual": (_P,) * 6 + (_I,) * 6 + (_P,),
@@ -317,6 +322,25 @@ def check_operands(name: str, operands: dict) -> None:
                                    or v.device != dev):
             raise ValueError(f"{name}: {arg} must be contiguous, 16-byte "
                              f"aligned and on {dev}")
+
+
+def on_device(dev: torch.device):
+    """A context in which a launch goes to `dev`: none where `dev` is the
+    current device already (entering `torch.cuda.device` costs host time
+    on every call), else `torch.cuda.device(dev)`."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def stream_handle(dev: torch.device) -> int:
+    """The raw handle of `dev`'s current stream, from PyTorch's C binding
+    where the build has one (no Stream object a call), else from
+    `torch.cuda.current_stream`."""
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if get is not None:
+        return get(dev.index)
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def check_launch(lib: ctypes.CDLL, name: str, rc: int) -> None:

@@ -18,6 +18,12 @@ the whole-image form of the TPU kernel's arithmetic (`pallas_decoder.py` ·
     y  = (q . wq) * (s_in * sw) + b                           int32 -> fp32
     out = bf16(y), or int8 clip(round-half-even(y * (1 / out_scale)), +-127)
 
+On the card, C = Co = 256 (the decoder's `features`) takes the persistent
+wgmma kernel of `csrc/fused_upsample_outconv.cu` (`b19_tile_takes`), which
+walks strips of 64 output columns down the output rows and forms the
+scales itself; any other width takes the earlier kernel of
+`csrc/fused_upsample_outconv_wide.cu`, with the scales formed here.
+
 The taps are the rows of the port's `ops.resize._interp_matrix`, each
 rounded to bf16 on its own (bf16(1 - f) != 1 - bf16(f)), the reference's
 bf16 interp operator: every blend is one fp32 sum of two exact products of
@@ -38,6 +44,8 @@ from lseg_tpu_torch.ops._build import (
     check_no_grad,
     check_operands,
     load_kernels,
+    on_device,
+    stream_handle,
 )
 from lseg_tpu_torch.ops.quant import int8_mm
 from lseg_tpu_torch.ops.resize import _interp_matrix
@@ -63,6 +71,14 @@ def interp_taps(n: int, device) -> torch.Tensor:
     t1 = np.where(hi > lo, ab[idx, hi], 0.0)
     return torch.from_numpy(np.stack([lo, ab[idx, lo], t1]).astype(
         np.float32)).to(device)
+
+
+def b19_tile_takes(c: int, co: int) -> bool:
+    """Whether the wgmma kernel takes C input and Co output channels: the
+    decoder's 256 and 256 (a lane's 8 channels, its weight resident in
+    shared memory, each warpgroup computing half of Co); the earlier
+    kernel takes every other width."""
+    return c == 256 and co == 256
 
 
 def _check(x, wq, sw, b, s_in, out_scale):
@@ -135,7 +151,9 @@ def fused_upsample_outconv(x: torch.Tensor, wq: torch.Tensor,
                            out_scale: torch.Tensor = None) -> torch.Tensor:
     """Kernel wrapper (B19): the arguments of
     `fused_upsample_outconv_plain` -> (N, 2H, 2W, Co) bf16 or int8.
-    C % 32 == 0, C <= 256 and Co % 128 == 0; H, W >= 2."""
+    C % 32 == 0, C <= 256 and Co % 128 == 0; H, W >= 2. C = Co = 256
+    takes the wgmma kernel (`b19_tile_takes`), other widths the earlier
+    one."""
     check_no_grad("fused_upsample_outconv", x, sw, b, s_in, out_scale)
     co = _check(x, wq, sw, b, s_in, out_scale)
     if x.device.type == "cpu":
@@ -150,18 +168,25 @@ def fused_upsample_outconv(x: torch.Tensor, wq: torch.Tensor,
                          f"Co={co}, H={h}, W={w}")
     lib = load_kernels()
     th, tw = interp_taps(h, x.device), interp_taps(w, x.device)
-    inv_in, sc, inv_out = _scales(s_in, sw, out_scale)
     out = torch.empty((n, 2 * h, 2 * w, co), device=x.device,
                       dtype=torch.bfloat16 if out_scale is None
                       else torch.int8)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lseg_fused_upsample_outconv(
-            x.data_ptr(), th.data_ptr(), tw.data_ptr(), wq.data_ptr(),
-            sc.data_ptr(), b.data_ptr(), inv_in.data_ptr(),
-            inv_out.data_ptr(), out.data_ptr(), n, h, w, c, co,
-            int(out_scale is not None), stream)
-    check_launch(lib, "lseg_fused_upsample_outconv", rc)
+    if b19_tile_takes(c, co):
+        name = "lseg_fused_upsample_outconv"
+        args = (x.data_ptr(), th.data_ptr(), tw.data_ptr(), wq.data_ptr(),
+                sw.data_ptr(), b.data_ptr(), s_in.data_ptr(),
+                None if out_scale is None else out_scale.data_ptr(),
+                out.data_ptr(), n, h, w, c, co)
+    else:
+        name = "lseg_fused_upsample_outconv_wide"
+        inv_in, sc, inv_out = _scales(s_in, sw, out_scale)
+        args = (x.data_ptr(), th.data_ptr(), tw.data_ptr(), wq.data_ptr(),
+                sc.data_ptr(), b.data_ptr(), inv_in.data_ptr(),
+                inv_out.data_ptr(), out.data_ptr(), n, h, w, c, co,
+                int(out_scale is not None))
+    with on_device(x.device):
+        rc = getattr(lib, name)(*args, stream_handle(x.device))
+    check_launch(lib, name, rc)
     fused_upsample_outconv.launches += 1
     return out
 

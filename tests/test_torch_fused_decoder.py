@@ -371,6 +371,211 @@ def test_tail_taps_round_each_tap_to_bf16():
     assert taps is decoder.interp_taps(60, torch.device("cpu"))
 
 
+# ---- B19's walk on the card (csrc/fused_upsample_outconv.cu), emulated ----
+
+B19_RING, B19_CARD_SMS = 3, 132
+# the output columns of a tile's strip, and the source columns (with the
+# halo column) a strip may read, as the kernel's ring slots hold them
+B19_STRIP = 64
+B19_SOURCE_COLUMNS = B19_STRIP // 2 + 2
+
+
+def _b19_source_columns(w):
+    """The most source columns any strip of B19_STRIP output columns of a
+    width-w row reads: its first column's left tap to its last column's
+    right tap."""
+    lo = decoder.interp_taps(w, torch.device("cpu")).numpy()[0].astype(int)
+    hi = np.minimum(lo + 1, w - 1)
+    return max(int(hi[min(i + B19_STRIP, 2 * w) - 1] - lo[i]) + 1
+               for i in range(0, 2 * w, B19_STRIP))
+
+
+def _bf16_rn(a):
+    """fp32 -> the nearest bf16 (ties to even) as fp32, the card's
+    __float2bfloat16_rn on finite values."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    u = (u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1))) & np.uint32(
+        0xFFFF0000)
+    return u.view(np.float32)
+
+
+def _blend_rn(a, wa, b, wb):
+    """bf16(a * wa + b * wb): two exact fp32 products, one fp32 sum."""
+    return _bf16_rn((a * wa).astype(np.float32) + (b * wb).astype(np.float32))
+
+
+def _code_bits(v, inv):
+    """The kernel's codes: the low byte of 1.5 * 2^23 + clip(v * inv)."""
+    t = np.clip((v * inv).astype(np.float32), np.float32(-127),
+                np.float32(127))
+    bits = (t + np.float32(12582912.0)).astype(np.float32).view(np.int32)
+    return (bits & 0xFF).astype(np.uint8).view(np.int8)
+
+
+class _B19Ring:
+    """The source-row ring of one CTA: its loads in order, each slot
+    refilled with the load RING later once both pairs released the load
+    it holds; a pair releases only loads it has waited for."""
+
+    def __init__(self, x, loads):
+        self.x, self.loads = x, loads
+        self.slots = np.full((B19_RING, B19_SOURCE_COLUMNS,
+                              x.shape[-1]), np.nan, np.float32)
+        self.held = [None] * B19_RING
+        self.rel, self.seen, self.filled = [0, 0], [0, 0], 0
+        self._fill()
+
+    def _fill(self):
+        while self.filled < len(self.loads) and (
+                self.filled < B19_RING or min(self.rel) > self.filled
+                - B19_RING):
+            img, r, s0, ncols = self.loads[self.filled]
+            s = self.filled % B19_RING
+            self.slots[s, :ncols] = self.x[img, r, s0:s0 + ncols]
+            self.held[s] = self.filled
+            self.filled += 1
+
+    def release(self, pair, upto):
+        assert upto <= self.seen[pair]
+        self.rel[pair] = max(self.rel[pair], upto)
+        self._fill()
+
+    def wait_upto(self, pair, f, g):
+        while self.seen[pair] <= g:
+            self.release(pair, min(self.seen[pair], f))
+            assert self.filled > self.seen[pair], "a wait that never ends"
+            self.seen[pair] += 1
+        self.release(pair, min(self.seen[pair], f))
+
+
+def _b19_walk_emulated(x, wq, sw, b, s_in, out_scale=None,
+                       grid=B19_CARD_SMS, stale_ring=False):
+    """Kernel B19's walk in numpy: x (N, H, W, C) fp32 on the bf16 grid, wq
+    (Co, C) int8. The CTAs' contiguous tile ranges (tiles of 64 output
+    columns of one output row, strip by strip, row by row), the source-row
+    loads of each strip's columns with the halo column into a ring of
+    B19_RING slots (`_B19Ring`); the two pairs' every-other tiles, each
+    waiting for its rows lo and hi = min(lo + 1, H - 1) and releasing, after
+    its H-blend, the rows its next tile does not read; the H-blend of each
+    source column of the strip, the W-blend from it, the codes, the exact
+    product and the epilogue with the scales formed as the kernel forms
+    them. `stale_ring` reads each tile's top row from the slot one load
+    back."""
+    f32 = np.float32
+    n, h, w, c = x.shape
+    th = decoder.interp_taps(h, torch.device("cpu")).numpy()
+    tw = decoder.interp_taps(w, torch.device("cpu")).numpy()
+    h2, w2 = 2 * h, 2 * w
+    strips = -(-w2 // B19_STRIP)
+    total = n * strips * h2
+    grid = min(grid, total)
+    inv_in = f32(1.0) / f32(s_in)
+    sc = (f32(s_in) * sw).astype(f32)
+    inv_out = None if out_scale is None else f32(1.0) / f32(out_scale)
+    lo = th[0].astype(int)
+    hi = np.minimum(lo + 1, h - 1)
+    out = np.zeros((n, h2, w2, wq.shape[0]),
+                   np.int8 if inv_out is not None else f32)
+    for cta in range(grid):
+        t0, t1 = total * cta // grid, total * (cta + 1) // grid
+        loads, first = [], {}
+        for col in range(t0 // h2, (t1 - 1) // h2 + 1):
+            jf = max(t0, col * h2) - col * h2
+            jl = min(t1, (col + 1) * h2) - 1 - col * h2
+            first[col] = (len(loads), lo[jf])
+            i0 = (col % strips) * B19_STRIP
+            s0 = int(tw[0][i0])
+            ncols = min(int(tw[0][min(i0 + B19_STRIP, w2) - 1]) + 1,
+                        w - 1) - s0 + 1
+            assert ncols <= B19_SOURCE_COLUMNS
+            loads += [(col // strips, r, s0, ncols)
+                      for r in range(lo[jf], hi[jl] + 1)]
+        ring = _B19Ring(x, loads)
+
+        def first_load(tau):
+            base, rf = first[tau // h2]
+            return base + lo[tau % h2] - rf
+
+        for tau in range(t0, t1):
+            pair = (tau - t0) % 2
+            col, jo = divmod(tau, h2)
+            f = first_load(tau)
+            g = f + hi[jo] - lo[jo]
+            ring.wait_upto(pair, f, g)
+            top = (f - 1 if stale_ring and f else f) % B19_RING
+            assert ring.held[g % B19_RING] == g
+            assert stale_ring or ring.held[top] == f
+            hb = _blend_rn(ring.slots[top], th[1][jo],
+                           ring.slots[g % B19_RING], th[2][jo])
+            ring.release(pair, min(ring.seen[pair], first_load(tau + 2)
+                                   if tau + 2 < t1 else len(loads)))
+            img = col // strips
+            i0 = (col % strips) * B19_STRIP
+            io = np.arange(i0, min(i0 + B19_STRIP, w2))
+            s0 = int(tw[0][i0])
+            wo = tw[0][io].astype(int)
+            ub = _blend_rn(hb[wo - s0], tw[1][io, None],
+                           hb[np.minimum(wo + 1, w - 1) - s0],
+                           tw[2][io, None])
+            q = _code_bits(ub, inv_in)
+            acc = q.astype(np.float64) @ wq.astype(np.float64).T
+            y = (acc.astype(f32) * sc).astype(f32) + b
+            out[img, jo, io] = (_bf16_rn(y) if inv_out is None
+                                else _code_bits(y, inv_out))
+    return out
+
+
+@pytest.mark.parametrize("shape,out_int8,grid", [
+    ((1, 2, 2, 256), True, B19_CARD_SMS),
+    ((1, 20, 16, 256), False, B19_CARD_SMS),
+    ((1, 20, 16, 256), True, 5),
+    ((1, 15, 9, 256), True, B19_CARD_SMS),
+    ((1, 15, 9, 256), False, 3),
+    ((2, 60, 60, 256), False, B19_CARD_SMS),
+    ((1, 120, 120, 256), True, B19_CARD_SMS)])
+def test_b19_walk_emulated(shape, out_int8, grid):
+    """The wgmma kernel's walk and arithmetic (C = Co = 256), emulated: its
+    segments of tiles (one CTA an SM of the card, or a few CTAs whose
+    ranges cross strips and images), its strips of 64 output columns (the
+    last one partial at 2W = 18, 30, 120, 240), the source-row ring, its
+    slots and its releases, the halo column, the edge clamp
+    hi = min(lo + 1, H - 1), the codes by the 1.5 * 2^23 bias and 1 / s_in,
+    s_in * sw and 1 / out_scale formed in the kernel: bit for bit the plain
+    twin's. Where a CTA walks more than one tile, a tile reading its top
+    row from a stale slot differs."""
+    x, wq, sw, b, s_in = _tail_inputs(sum(shape), *shape, 256)
+    wq = np.ascontiguousarray(wq[0, 0].T)
+    out_scale = np.float32(0.05) if out_int8 else None
+    got = _b19_walk_emulated(x, wq, sw, b, s_in, out_scale, grid)
+    ref = fused_upsample_outconv_plain(
+        _t(x).bfloat16(), _t(wq), _t(sw), _t(b), torch.tensor(s_in),
+        None if out_scale is None else torch.tensor(out_scale))
+    np.testing.assert_array_equal(got, ref.float().numpy().astype(got.dtype))
+    n, h, w, _ = shape
+    if n * -(-2 * w // B19_STRIP) * 2 * h > grid:
+        # a CTA walks more than one tile, so its ring turns
+        stale = _b19_walk_emulated(x, wq, sw, b, s_in, out_scale, grid,
+                                   stale_ring=True)
+        assert not np.array_equal(stale, got)
+
+
+def test_b19_routes_by_shape():
+    """The wrapper's choice of kernel on the card: the wgmma tile takes C
+    = Co = 256, the decoder's features; every other width the wrapper
+    takes (C % 32 == 0, C <= 256, Co % 128 == 0) goes to the earlier
+    kernel. Every width's strips read at most B19_SOURCE_COLUMNS source
+    columns, the ring slot's size."""
+    assert decoder.b19_tile_takes(256, 256)
+    assert not decoder.b19_tile_takes(32, 256)
+    assert not decoder.b19_tile_takes(128, 256)
+    assert not decoder.b19_tile_takes(256, 128)
+    assert not decoder.b19_tile_takes(256, 384)
+    assert not decoder.b19_tile_takes(256, 512)
+    assert not decoder.b19_tile_takes(288, 256)
+    assert max(_b19_source_columns(w) for w in range(2, 300)) == \
+        B19_SOURCE_COLUMNS
+
+
 # ---- the shape gates ----
 
 _SIZES = (1, 2, 3, 4, 5, 7, 8, 12, 15, 16, 30, 32, 60, 64, 120, 128, 240)
@@ -764,6 +969,33 @@ def test_fused_rcu_kernel_matches_plain(cuda_device, shape):
 def test_fused_upsample_outconv_kernel_matches_plain(cuda_device, shape,
                                                      out_int8):
     x, wq, sw, b, s_in = _tail_inputs(2, *shape, 256)
+    args = _on(cuda_device, (_t(x).bfloat16(),
+                             _t(np.ascontiguousarray(wq[0, 0].T)), _t(sw),
+                             _t(b), torch.tensor(s_in),
+                             torch.tensor(0.05) if out_int8 else None))
+    before = fused_upsample_outconv.launches
+    got = fused_upsample_outconv(*args)
+    ref = fused_upsample_outconv_plain(*args)
+    torch.cuda.synchronize()
+    assert fused_upsample_outconv.launches == before + 1
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,co,out_int8", [
+    ((8, 120, 120, 256), 256, True),   # refinenet1's int8 hand-off
+    ((1, 15, 9, 256), 256, False),     # odd W
+    ((1, 60, 60, 256), 256, False),    # N = 1
+    ((2, 7, 33, 256), 256, True),      # a partial last strip
+    ((1, 15, 9, 64), 256, False),      # the earlier kernel: C = 64
+    ((1, 20, 17, 32), 256, True),      # C = 32
+    ((1, 20, 17, 256), 128, True),     # Co = 128
+    ((1, 16, 16, 256), 384, False)])   # Co = 384
+def test_b19_kernel_shapes_match_plain(cuda_device, shape, co, out_int8):
+    """Bit for bit at the shapes the wgmma tile takes (C = Co = 256) and
+    at the narrower and wider ones the wrapper routes to the earlier
+    kernel; one launch each."""
+    x, wq, sw, b, s_in = _tail_inputs(3, *shape, co)
     args = _on(cuda_device, (_t(x).bfloat16(),
                              _t(np.ascontiguousarray(wq[0, 0].T)), _t(sw),
                              _t(b), torch.tensor(s_in),

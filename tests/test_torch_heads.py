@@ -296,18 +296,21 @@ def test_b5_label_chunks_emulated(k, case):
 
 
 def _quantize_fast_emulated(v, s):
-    """Kernel B5's `code_fast` in numpy float32 (IEEE round to nearest, as
-    the card's `_rn` operations): the product with the rounded reciprocal,
-    the division where it lies within 1e-4 of a half-integer (the kernel
-    takes the division for all 16 values of a group that holds one)."""
+    """Kernel B5's `code_bits_fast` (lseg_common.cuh) in numpy float32
+    (IEEE round to nearest, as the card's `_rn` operations): the product
+    with the rounded reciprocal clipped to +-127 (fmaxf and fminf, NaN to
+    -127), rounded by the 1.5 * 2^23 bias; the division where the clipped
+    product lies within 1e-4 of a half-integer (the kernel takes the
+    division for all 16 values of a group that holds one)."""
     f32 = np.float32
+    big = f32(12582912.0)
     v = v.astype(f32)
     inv = f32(1.0) / f32(s)
-    t = (v * inv).astype(f32)
-    frac = (t - np.floor(t)).astype(f32)
-    near = ~(np.abs((frac - f32(0.5)).astype(f32)) > f32(1e-4))
-    r = np.where(near, np.rint((v / f32(s)).astype(f32)), np.rint(t))
-    return np.clip(r, -127, 127).astype(np.int8), int(near.sum())
+    t = np.fmin(np.fmax((v * inv).astype(f32), f32(-127)), f32(127))
+    r = ((t + big).astype(f32) - big).astype(f32)
+    near = np.abs((t - r).astype(f32)) >= f32(0.4999)
+    div = np.clip(np.rint((v / f32(s)).astype(f32)), -127, 127)
+    return np.where(near, div, r).astype(np.int8), int(near.sum())
 
 
 @pytest.mark.parametrize("s", [0.0123, 1.0 / 127.0, 3.7e-3, 0.5])

@@ -117,6 +117,161 @@ def test_ln_quantize_rows_kernel_matches_plain(cuda_device, t):
     torch.testing.assert_close(s, sp, rtol=1e-5, atol=0)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [640, 768, 1024, 2048])
+def test_ln_quantize_rows_kernel_widths(cuda_device, d):
+    """B3 at an odd multiple of 128 (640), ViT-B's 768, ViT-L's 1024 and
+    the widest, 2048, at one row and at 7209 (a partial last ring on the
+    persistent warps): within chip_smoke.py's LNQ_* gate over both calls
+    (codes one level apart at most, 99.9% equal, scales to 1e-5)."""
+    qs, qps = [], []
+    for t in (1, 7209):
+        x, g, b = _ln_inputs(d + t, n=1, t=t, d=d)
+        xt = _t(x).to(cuda_device, torch.bfloat16)
+        gt, bt = _t(g).to(cuda_device), _t(b).to(cuda_device)
+        before = ln_quantize_rows.launches
+        q, s = ln_quantize_rows(xt, gt, bt)
+        qp, sp = ln_quantize_rows_plain(xt, gt, bt)
+        torch.cuda.synchronize()
+        assert ln_quantize_rows.launches == before + 1
+        torch.testing.assert_close(s, sp, rtol=1e-5, atol=0)
+        qs.append(q.flatten())
+        qps.append(qp.flatten())
+    diff = (torch.cat(qs).int() - torch.cat(qps).int()).abs()
+    assert int(diff.max()) <= 1
+    assert float((diff == 0).float().mean()) >= 0.999
+
+
+# ---- B3's walk on the card (csrc/ln_quantize.cuh), emulated ----
+
+def _b3_slots(d):
+    return 3 if d <= 1024 else 2
+
+
+def _b3_codes(xn, s, fallback=True):
+    """B3's codes of rows xn (rows, D) fp32 with row scales s (rows, 1), as
+    `code_bits_fast` (lseg_common.cuh) gives them: each lane's chunk of CH
+    values (CH = 8, or 4 at an odd multiple of 128) takes the product with
+    the rounded reciprocal 1 / s, clipped to +-127 and rounded by the
+    1.5 * 2^23 bias, and the IEEE division for the whole chunk where one
+    clipped product lies within 1e-4 of a half-integer; without
+    `fallback`, never."""
+    f32 = np.float32
+    big = f32(12582912.0)
+    ch = 8 if xn.shape[1] % 256 == 0 else 4
+    inv = (f32(1.0) / s).astype(f32)
+    t = np.fmin(np.fmax((xn * inv).astype(f32), f32(-127)), f32(127))
+    r = ((t + big).astype(f32) - big).astype(f32)
+    near = np.abs((t - r).astype(f32)) >= f32(0.4999)
+    near = near.reshape(len(xn), -1, ch).any(-1, keepdims=True)
+    near = np.broadcast_to(near, near.shape[:2] + (ch,)).reshape(xn.shape)
+    div = np.clip(np.rint((xn / s).astype(f32)), -127, 127)
+    return np.where(near & fallback, div, r).astype(np.int8)
+
+
+def _b3_walk_emulated(x, g, b, eps=1e-6, ctas=396, skip_partial=False):
+    """B3's walk and arithmetic in numpy: x (rows, D) fp32 on the bf16 grid.
+    Warp gw of TW = 8 ctas takes rows gw, gw + TW, ... through its ring of
+    slots; each lane sums its chunks (32 i + lane) CH in order, the warp
+    joins the lanes by the xor butterfly; LayerNorm in the kernel's
+    rounding steps (rsqrt to fp32 rounding); the scale s = max|xn| / 127
+    by division; the codes by `_b3_codes`. Returns (codes, scales, xn)
+    with unwalked rows zero; `skip_partial` walks no row of a warp's last
+    ring where it is not full."""
+    f32 = np.float32
+    rows, d = x.shape
+    ch = 8 if d % 256 == 0 else 4
+    lanes = x.reshape(rows, d // (32 * ch), 32, ch)
+
+    def warp_sum(per_value):
+        acc = np.zeros((rows, 32), f32)
+        for i in range(per_value.shape[1]):
+            for j in range(ch):
+                acc = (acc + per_value[:, i, :, j]).astype(f32)
+        for o in (16, 8, 4, 2, 1):
+            acc = (acc + acc[:, np.arange(32) ^ o]).astype(f32)
+        assert (acc == acc[:, :1]).all()
+        return acc[:, :1, None, None]
+
+    mu = (warp_sum(lanes) / f32(d)).astype(f32)
+    xc = (lanes - mu).astype(f32)
+    var = (warp_sum((xc * xc).astype(f32)) / f32(d)).astype(f32)
+    r = (1.0 / np.sqrt((var + f32(eps)).astype(np.float64))).astype(f32)
+    xn = (((xc * r).astype(f32) * g.reshape(-1, 32, ch)).astype(f32)
+          + b.reshape(-1, 32, ch)).astype(f32).reshape(rows, d)
+    s = (np.maximum(np.abs(xn).max(1, keepdims=True), f32(1e-8))
+         / f32(127)).astype(f32)
+    q = _b3_codes(xn, s)
+    tw = 8 * min(-(-rows // 8), ctas)
+    ns = _b3_slots(d)
+    walked = np.zeros(rows, int)
+    for gw in range(min(tw, rows)):
+        mine = np.arange(gw, rows, tw)
+        keep = len(mine) - len(mine) % ns if skip_partial else len(mine)
+        walked[mine[:keep]] += 1
+    assert walked.max() <= 1
+    done = walked.astype(bool)
+    return np.where(done[:, None], q, 0), np.where(done[:, None], s, 0), xn
+
+
+@pytest.mark.parametrize("d", [640, 768, 1024])
+def test_b3_walk_emulated(d):
+    """B3's persistent walk over 1, 7, 901, 7208 and 7209 rows (a card's
+    396 CTAs and 2 CTAs): every row once, its codes the IEEE division's
+    given xn and s bit for bit, and within chip_smoke.py's LNQ_* gate of
+    the plain twin over the five calls; a walk that skips a warp's last
+    partial ring differs."""
+    diffs = []
+    for rows in (1, 7, 901, 7208, 7209):
+        x, g, b = _ln_inputs(rows + d, n=1, t=rows, d=d)
+        x = _f32(jnp.asarray(x[0], jnp.bfloat16))
+        for ctas in (396, 2):
+            q, s, xn = _b3_walk_emulated(x, g, b, ctas=ctas)
+            div = np.clip(np.rint((xn / s).astype(np.float32)), -127, 127)
+            np.testing.assert_array_equal(q, div.astype(np.int8))
+            qs, _, _ = _b3_walk_emulated(x, g, b, ctas=ctas,
+                                         skip_partial=True)
+            if rows % (8 * min(-(-rows // 8), ctas)) or rows < 8 * ctas:
+                assert not np.array_equal(qs, q)
+        qp, sp = ln_quantize_rows_plain(_t(x)[None].bfloat16(), _t(g), _t(b))
+        np.testing.assert_allclose(s, sp[0].numpy(), rtol=1e-5, atol=0)
+        diffs.append(np.abs(q.astype(int) - qp[0].numpy().astype(int))
+                     .flatten())
+    diff = np.concatenate(diffs)
+    assert diff.max() <= 1 and np.mean(diff == 0) >= 0.999
+
+
+@pytest.mark.parametrize("d", [640, 1024])
+def test_b3_fast_codes_are_the_division(d):
+    """B3's codes of values placed a few ulps either side of every
+    half-integer quotient up to the clip and past it, and of random ones,
+    as `test_b5_fast_quantize_is_the_division` places them: the product
+    with the reciprocal falls back to the division chunk by chunk, and the
+    codes equal the division's bit for bit; without the fallback (the
+    `b3_no_division` variant) they do not."""
+    f32 = np.float32
+    rng = np.random.RandomState(d)
+    bare = False
+    for s in (0.0123, 1.0 / 127.0, 3.7e-3, 0.5):
+        k = np.arange(-140, 141).astype(f32) + f32(0.5)
+        edge = (k * f32(s)).astype(f32)
+        vals = [edge]
+        for _ in range(3):
+            vals.append(np.nextafter(vals[-1], np.inf).astype(f32))
+            vals.insert(0, np.nextafter(vals[0], -np.inf).astype(f32))
+        vals = np.concatenate(vals + [(rng.randn(20 * d) * 60 * s
+                                       ).astype(f32)])
+        vals = np.resize(rng.permutation(vals), (len(vals) // d + 1) * d)
+        xn = vals.reshape(-1, d).astype(f32)
+        sc = np.full((len(xn), 1), f32(s))
+        div = np.clip(np.rint((xn / sc).astype(f32)), -127, 127)
+        np.testing.assert_array_equal(_b3_codes(xn, sc), div.astype(np.int8))
+        # (a power-of-two scale makes the product the quotient)
+        bare |= not np.array_equal(_b3_codes(xn, sc, fallback=False),
+                                   div.astype(np.int8))
+    assert bare
+
+
 # ---- B2: LN1 + int8 qkv + attention + int8 output ----
 
 @pytest.mark.parametrize("valid_len", [None, 29])
