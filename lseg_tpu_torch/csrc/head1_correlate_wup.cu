@@ -99,29 +99,6 @@ __device__ __forceinline__ float bf_hi(uint32_t w) {
   return __uint_as_float(w & 0xffff0000u);
 }
 
-// `len` bytes (even) of shared memory at `s` to device memory at `g`, with
-// s = g mod 16: the 16-byte aligned middle as one bulk copy of this
-// thread's bulk group, the ends as 2-byte stores.
-__device__ __forceinline__ void put_range(uint8_t* g, const uint8_t* s,
-                                          int len) {
-  const uintptr_t ga = reinterpret_cast<uintptr_t>(g);
-  int head = static_cast<int>((16 - ga % 16) % 16);
-  if (head > len) head = len;
-  const int mid = (len - head) / 16 * 16;
-  if (mid > 0)
-    asm volatile(
-        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
-            g + head),
-        "r"(wg::smem_addr(s + head)), "r"(mid)
-        : "memory");
-  for (int b = 0; b < head; b += 2)
-    *reinterpret_cast<uint16_t*>(g + b) =
-        *reinterpret_cast<const uint16_t*>(s + b);
-  for (int b = head + mid; b < len; b += 2)
-    *reinterpret_cast<uint16_t*>(g + b) =
-        *reinterpret_cast<const uint16_t*>(s + b);
-}
-
 struct Args {
   const float* sc;
   const float* b1;
@@ -276,9 +253,9 @@ __global__ void __launch_bounds__(hw::THREADS, 1) head1_wup_wgmma_kernel(
         __syncwarp();
         if (kc == K) {  // one chunk: the columns are one range
           if (lane == 0)
-            put_range(reinterpret_cast<uint8_t*>(gout), s0, nr * 2 * K);
+            hw::put_range(reinterpret_cast<uint8_t*>(gout), s0, nr * 2 * K);
         } else if (lane < nr) {  // a range a column
-          put_range(reinterpret_cast<uint8_t*>(gout + lane * K),
+          hw::put_range(reinterpret_cast<uint8_t*>(gout + lane * K),
                     s0 + lane * pitch, 2 * kc);
         }
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");

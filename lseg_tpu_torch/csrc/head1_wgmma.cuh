@@ -1,17 +1,18 @@
 // The int8 head1 tile of kernels B13 (head1_correlate_upsample_argmax.cu),
-// B14 (head1_correlate_wup.cu) and B5 (head1_correlate_argmax.cu) on the
-// Hopper engines: a step takes 128 pixels, 64 a consumer warpgroup, and
-// gives each pixel's correlate sums (or normalized logits) against a chunk
-// of up to KG = 152 labels in registers, with the bits of B4's tile
-// (head1_tile.cuh) for the same inputs. More labels take more chunks.
+// B14 (head1_correlate_wup.cu), B5 (head1_correlate_argmax.cu) and B4
+// (head1_correlate.cu) on the Hopper engines: a step takes 128 pixels, 64
+// a consumer warpgroup, and gives each pixel's correlate sums (or the
+// logits, normalized or not) against a chunk of up to KG = 152 labels in
+// registers, with the bits of the SIMT-staged B4 tile (head1_tile.cuh)
+// for the same inputs. More labels take more chunks.
 //
 //   embed      e = (codes . w^T) * sc + b in fp32, one quarter of 128 head1
 //              channels at a time: s8 wgmma m64n128k32 (IGMMA, exact
 //              int32), codes and weight both by TMA, K-major with the
 //              128-byte swizzle (two 128-byte k-chunks: C <= 256, columns
 //              past C zero-filled by TMA, so their products add 0);
-//   dequant    e per element as B4 rounds it, the row sums of e^2 in B4's
-//              order, and bf16(e) packed straight into mma.sync A
+//   dequant    e per element as the SIMT tile rounds it, the row sums of
+//              e^2 in its order, and bf16(e) packed straight into mma.sync A
 //              fragments (which are wgmma's register A operand): the wgmma
 //              accumulator of a warp's 16 rows is mma.sync's m16n8 C
 //              layout, so e never goes to shared memory;
@@ -20,20 +21,22 @@
 //              quarter: 152 labels x 128 channels, two TMA boxes of 64
 //              channels, rows past K zero-filled), eight k16 products a
 //              quarter, 19 label tiles of 8 in registers;
-//   logits     bf16(acc * rsqrt(max(sum e^2, 1e-24))).
+//   logits     bf16(acc * rsqrt(max(sum e^2, 1e-24))) (`logits`), or
+//              bf16(acc) (`logits_raw`).
 //
-// Why the bits are B4's: the int32 sums are exact in any order; e is the
+// Why the bits are the SIMT tile's (the mma.sync B4 kernel of
+// head1_correlate_wide.cu): the int32 sums are exact in any order; e is the
 // same `_rn` steps; a thread (g, t4) of warp w holds, in each quarter e0,
 // the columns e0 + 64 wc + 8 nt + 2 t4 + {0, 1} (wc = nt' / 8 of the
-// wgmma layout's nt' = 0..15), the columns B4's warp (w, wc) lane (g, t4)
-// holds, so its partial sums of e^2 per column half run over the same
-// values in the same order (`add_sq2`, no contraction in either), and are
-// joined as B4 joins them: lanes t4 ^ 1, then t4 ^ 2, then half 0 + half
+// wgmma layout's nt' = 0..15), the columns that tile's warp (w, wc) lane
+// (g, t4) holds, so its partial sums of e^2 per column half run over the
+// same values in the same order (`add_sq2`, no contraction in either), and
+// are joined as it joins them: lanes t4 ^ 1, then t4 ^ 2, then half 0 + half
 // 1; the correlate accumulates each logit over the k16 steps of E in
 // ascending order into one fp32 accumulator, and wgmma sums a k16 step to
-// the bits of B4's mma.sync m16n8k16 (the probe of head1_sum_probe.cu:
+// the bits of its mma.sync m16n8k16 (the probe of head1_sum_probe.cu:
 // all 69,120,000 sums of the flagship's operands equal); the norm and the
-// last product round as B4's.
+// last product round as there.
 //
 // `Pipe` is the shared memory of a walk of steps (the step's codes and the
 // ring of quarters), `load_step` the producer thread's part of a step and
@@ -156,8 +159,8 @@ __device__ __forceinline__ void mma_rs152(float (&d)[KT][4],
 // ascending order, labels 8 lt .. 8 lt + 7, each step one m64n152k16
 // product reading the text from its two swizzled boxes at `tst`, waited
 // for. The probe of head1_sum_probe.cu found wgmma's k16 sums bit-equal to
-// mma.sync's (B4's) on the flagship's operands, 69,120,000 of them, so
-// the logits keep B4's bits.
+// mma.sync's (the SIMT tile's) on the flagship's operands, 69,120,000 of
+// them, so the logits keep that tile's bits.
 __device__ __forceinline__ void correlate(float (&acc)[KT][4],
                                           const uint32_t (&af)[8][4],
                                           const uint8_t* tst) {
@@ -190,6 +193,18 @@ __device__ __forceinline__ void logits(const float (&acc)[KT][4],
       out[h][lt] = pack_f32(__fmul_rn(acc[lt][2 * h], inv),
                             __fmul_rn(acc[lt][2 * h + 1], inv));
   }
+}
+
+// The logits without the norm (B4's lowres mode): bf16(acc) of rows g
+// (h = 0) and g + 8 (h = 1), labels 8 lt + 2 t4 + {0, 1}, packed as bf16
+// pairs.
+__device__ __forceinline__ void logits_raw(const float (&acc)[KT][4],
+                                           uint32_t (&out)[2][KT]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int lt = 0; lt < KT; ++lt)
+      out[h][lt] = pack_f32(acc[lt][2 * h], acc[lt][2 * h + 1]);
 }
 
 // The shared memory of a walk: NB buffers of a step's codes (two 64-pixel
@@ -318,6 +333,30 @@ __device__ __forceinline__ void step_sums(Pipe<NB>& p, const float* sc,
     __syncwarp();
     if (threadIdx.x % 32 == 0) p.r.release(it);
   }
+}
+
+// `len` bytes (even) of shared memory at `s` to device memory at `g`, with
+// s = g mod 16: the 16-byte aligned middle as one bulk copy of this
+// thread's bulk group, the ends as 2-byte stores (B14's and B4's staged
+// outputs).
+__device__ __forceinline__ void put_range(uint8_t* g, const uint8_t* s,
+                                          int len) {
+  const uintptr_t ga = reinterpret_cast<uintptr_t>(g);
+  int head = static_cast<int>((16 - ga % 16) % 16);
+  if (head > len) head = len;
+  const int mid = (len - head) / 16 * 16;
+  if (mid > 0)
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+            g + head),
+        "r"(wg::smem_addr(s + head)), "r"(mid)
+        : "memory");
+  for (int b = 0; b < head; b += 2)
+    *reinterpret_cast<uint16_t*>(g + b) =
+        *reinterpret_cast<const uint16_t*>(s + b);
+  for (int b = head + mid; b < len; b += 2)
+    *reinterpret_cast<uint16_t*>(g + b) =
+        *reinterpret_cast<const uint16_t*>(s + b);
 }
 
 // The x2 align-corners interp operator of `in` source points (lseg_tpu's

@@ -20,8 +20,11 @@ calibration), `fused_decoder` (`fast_cal` with `decoder_fused_rcu` and
 hands int8 codes to the B5 head), `fused_argmax` (`fast_cal` with
 `head_fused=True` alone: bf16 path1 into B5) and `wup` (`fast_cal` with
 `head_fused='wup'`, whose call is `model(x, txt)`, the full-resolution
-logits of kernel B14 and the bf16 H-interp). Needs a CUDA device: without
-one it exits with an error.
+logits of kernel B14 and the bf16 H-interp). `streamed` is the `fast_bf16`
+model through `make_predictor(model, use_pallas=True)`, the streamed
+label head of kernels B10 and B11 (its call and the encoder are that
+predictor and the model's `vit`). Needs a CUDA device: without one it
+exits with an error.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import sys
 import torch
 
 from lseg_tpu_torch import fast_serving, get_config
+from lseg_tpu_torch.engine.serve import make_predictor
 from lseg_tpu_torch.models.layers import random_init_
 from lseg_tpu_torch.models.lseg import LSegNet
 from lseg_tpu_torch.ops.quant import calibrate_act_scales, quantize_tree
@@ -54,7 +58,7 @@ INT8_PATHS = {
 }
 # paths whose call is the logits, `model(x, txt)`
 LOGITS_PATHS = {"wup"}
-PATHS = ("fast_bf16", *INT8_PATHS)
+PATHS = ("fast_bf16", "streamed", *INT8_PATHS)
 BATCH, SIZE, LABELS = 8, 480, 150
 CALLS, TOP, SEED = 3, 30, 0
 
@@ -64,7 +68,7 @@ def build_model(path: str, device):
     base = get_config("clip_vitl16_384")
     g = torch.Generator(device=device).manual_seed(SEED)
     fast = fast_serving(base, quant=False)
-    if path == "fast_bf16":
+    if path in ("fast_bf16", "streamed"):
         return random_init_(LSegNet(fast, torch.bfloat16, device), g)
     cfg = fast_serving(base, "static_cal")
     vit_kw, cfg_kw = INT8_PATHS[path]
@@ -119,8 +123,12 @@ def main(argv=None) -> int:
         LABELS, model.cfg.out_c, device=dev, generator=g), dim=-1)
 
     argmax = args.path not in LOGITS_PATHS
+    predict = (make_predictor(model, use_pallas=True)
+               if args.path == "streamed" else None)
 
     def call():
+        if args.path == "streamed":
+            return predict(x, txt)
         with torch.inference_mode():
             return model(x, txt, return_argmax=argmax)
 

@@ -4,12 +4,14 @@ attention kernels B2, B15, B8 and B9 with each of their stages, B18
 (`fused_rcu`) at the fused decoder's four shapes and the int8 heads B13
 (`head1_correlate_upsample_argmax`), B14 (`head1_correlate_wup_fused`)
 and B5 (`head1_correlate_argmax_fused`) at the flagship head, B19
-(`fused_upsample_outconv`) and B3 (`ln_quantize_rows`), on one card,
+(`fused_upsample_outconv`), B3 (`ln_quantize_rows`), B4
+(`head1_correlate_fused`) and B11 (`upsample2x_argmax`), on one card,
 beside the PyTorch call that computes the same function where there is
 one.
 
     python lseg_tpu_torch/engine/time_gemm.py [--root DIR] [--tag T]
-        [--library] [--only B6_fp32,B16,B2,B15,B8,B9,B18,B13,B14,B5,B19,B3]
+        [--library]
+        [--only B6_fp32,B16,B2,B15,B8,B9,B18,B13,B14,B5,B19,B3,B4,B11]
 
 Shapes: B17 at ViT-L/16's fc2, (7208, 4096) . (4096, 1024) with a
 residual, bf16 and fp32; B10 at the streamed head's (8, 240, 240, 512) bf16
@@ -46,7 +48,8 @@ tree does not have (fp32 B6 and B7 before they were ported) reads null.
 fp32) and the names of the device kernels that one fp32 SDPA call and its
 backward launch (`torch.profiler`), which say which of PyTorch's kernels
 computes them. `--only` times the named rows alone (B17, B10, B6_fp32
-(with B7_fp32), B16, B2, B15, B8, B9, B18, B13, B14, B5, B19, B3). Prints
+(with B7_fp32), B16, B2, B15, B8, B9, B18, B13, B14, B5, B19, B3, B4,
+B11). Prints
 one JSON line: the card's name and power limit and
 each time in ms (CUDA events over 20 calls after 3 warm-ups). Without a
 card it exits 1.
@@ -253,6 +256,51 @@ def tail_rows(row, only, dev, g, ms):
         torch.cuda.synchronize()
 
 
+def head_logit_rows(row, only, dev, g, ms):
+    """B4 (`head1_correlate_fused`) at its two model shapes, the lowres
+    head (8, 120, 120, 256) codes without the norm and the H/2 logits
+    (8, 240, 240, 256) with it, each against K = 150 and 300; B11
+    (`upsample2x_argmax`) at the streamed head's (8, 240, 240, 150) fp32
+    logits and in bf16: ms a call (CUDA events) and the device ms of the
+    kernel alone (`torch.profiler` over 20 calls)."""
+    import torch
+
+    def device_ms(fn, kernel, calls=20):
+        """Device ms a call of the kernels whose names hold `kernel`."""
+        return sum(v for k, v in device_stages(fn, calls).items()
+                   if kernel in k)
+
+    if "B4" in only:
+        from lseg_tpu_torch.ops.head1_correlate import head1_correlate_fused
+
+        e, c = 512, 256
+        w1q = torch.randint(-127, 128, (e, c), device=dev, generator=g,
+                            dtype=torch.int8)
+        s1 = 1e-3 * torch.rand(e, device=dev, generator=g) + 1e-4
+        b1 = 0.1 * torch.randn(e, device=dev, generator=g)
+        sx = torch.tensor(0.02, device=dev)
+        for name, side, normalize in (("lowres", 120, False),
+                                      ("h2", 240, True)):
+            xq = torch.randint(-127, 128, (8, side, side, c), device=dev,
+                               generator=g, dtype=torch.int8)
+            for k in (150, 300):
+                txt = torch.randn(k, e, device=dev, generator=g)
+                tag = f"B4_{name}" + ("" if k == 150 else f"_{k}")
+                fn = lambda: head1_correlate_fused(  # noqa: E731
+                    xq, sx, w1q, s1, b1, txt, 1.0 / 0.07, normalize)
+                row[f"{tag}_ms"] = ms(fn)
+                row[f"{tag}_device_ms"] = device_ms(fn, "head1_correlate")
+            del xq
+    if "B11" in only:
+        from lseg_tpu_torch.ops.upsample_argmax import upsample2x_argmax
+
+        x = torch.randn(8, 240, 240, 150, device=dev, generator=g)
+        for name, lg in (("fp32", x), ("bf16", x.to(torch.bfloat16))):
+            fn = lambda: upsample2x_argmax(lg)  # noqa: E731
+            row[f"B11_{name}_ms"] = ms(fn)
+            row[f"B11_{name}_device_ms"] = device_ms(fn, "upsample2x_argmax")
+
+
 def int8_attention_rows(row, only, dev, g, ms):
     """B2, B15, B8 and B9 at (8, 901, 1024), 16 heads: ms a call, and
     each stage's device ms a call."""
@@ -449,6 +497,8 @@ def main(argv=None) -> int:
         decoder_head_rows(row, only, dev, g, ms)
     if only & {"B19", "B3"}:
         tail_rows(row, only, dev, g, ms)
+    if only & {"B4", "B11"}:
+        head_logit_rows(row, only, dev, g, ms)
     print(json.dumps(row), flush=True)
     return 0
 

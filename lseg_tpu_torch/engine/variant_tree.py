@@ -64,6 +64,12 @@ Variants:
 - `b3_no_division`: B3's codes by the reciprocal's product alone, without
   the IEEE division near a half-integer, a mutation (the CPU emulation
   `test_b3_fast_codes_are_the_division` holds its arithmetic);
+- `b11_timeline`: B11 summing, per consumer group, its time waiting for
+  source rows, in its H-blends and in its W-blends (`--timeline b11`);
+- `b11_stale_ring`: B11's groups blending their top source row from the
+  ring slot one load back, a mutation (phase 2 catches it);
+- `b4_last_chunk_dropped`: B4 leaving out the row copies of a step's last
+  label chunk (K > 152), a mutation (phase 2's K = 300 check catches it);
 - `b14_timeline`, `b5_timeline`: B14 summing, per CTA, its steps' time on
   the logits and on the outputs (W-interp, staging, copies); B5 its
   steps' wait for the codes and the rest of each step (`--timeline b14`,
@@ -114,6 +120,9 @@ Cuts, whose outputs are wrong by design (only their time is read):
   loaded H-blends (loads and stores stay);
 - `b19_no_epilogue`: B19's epilogue staging one xor of two accumulators
   instead of y and its codes (the staging and the stores stay);
+- `b11_no_hblend`: B11 without its H-blend (the rows are waited for and
+  released, the W-blend reads the unwritten buffer); `b11_no_wblend`: B11
+  storing a constant label instead of its W-blend and argmax;
 - `b14_no_copy`: B14 staging its outputs without copying them out;
 - `b14_no_stage`: B14 without its W-interp and staging (its hand-off of
   the neighbours and its copies of the unwritten staging stay).
@@ -507,6 +516,59 @@ VARIANTS = {
          "            if (MULTI && ch > 0 && (static_cast<uint32_t>(*op) >> 16) "
          "> (best >> 16))\n              best = static_cast<uint32_t>(*op);"),
     ]),
+    "b11_stale_ring": ("upsample2x_argmax.cu", [
+        ("    hblend(hb, reinterpret_cast<const T*>(ring + (l0 % RING) * a.slot),",
+         "    hblend(hb, reinterpret_cast<const T*>(\n"
+         "               ring + ((l0 + RING - 1) % RING) * a.slot),"),
+    ]),
+    "b11_timeline": ("upsample2x_argmax.cu", [
+        ('#include "wgmma.cuh"\n', '#include "wgmma.cuh"\n'
+         "__device__ unsigned long long lseg_b11_stamps[512][2][5];\n"
+         "#define NOW(v) asm volatile(\"mov.u64 %0, %%globaltimer;\" : "
+         "\"=l\"(v) :: \"memory\")\n"
+         "extern \"C\" int lseg_b11_timeline(void* dst) {\n"
+         "  return static_cast<int>(cudaMemcpyFromSymbol(dst, "
+         "lseg_b11_stamps, sizeof(lseg_b11_stamps)));\n}\n"),
+        ("  uint32_t waited = 0, released = 0;  // this group's loads so far\n",
+         "  uint32_t waited = 0, released = 0;  // this group's loads so far\n"
+         "  unsigned long long t_a, t_b, t_c, t_d, t_start, s_wait = 0, "
+         "s_h = 0, s_w = 0, n_rows = 0;\n  NOW(t_start);\n"),
+        ("    const uint32_t l0 = base + (i0 - first), l1 = base + (i1 - first);"
+         "\n",
+         "    const uint32_t l0 = base + (i0 - first), l1 = base + (i1 - first);"
+         "\n    NOW(t_a);\n"),
+        ("    hblend(hb, reinterpret_cast<const T*>(ring + (l0 % RING) * a.slot),",
+         "    NOW(t_b);\n    s_wait += t_b - t_a;\n"
+         "    hblend(hb, reinterpret_cast<const T*>(ring + (l0 % RING) * a.slot),"),
+        ("    wg::named_sync(1 + grp, GROUP);\n"
+         "    // release the rows this group's next tile does not read\n",
+         "    wg::named_sync(1 + grp, GROUP);\n    NOW(t_c);\n"
+         "    s_h += t_c - t_b;\n"
+         "    // release the rows this group's next tile does not read\n"),
+        ("    wg::named_sync(1 + grp, GROUP);  // before the next H-blend\n",
+         "    wg::named_sync(1 + grp, GROUP);  // before the next H-blend\n"
+         "    NOW(t_d);\n    s_w += t_d - t_c;\n    ++n_rows;\n"),
+        ("  // the rows this group never read: waited for in order, then "
+         "released,\n",
+         "  if (t == 0 && blockIdx.x < 512) {\n    NOW(t_a);\n"
+         "    unsigned long long* r = lseg_b11_stamps[blockIdx.x][grp];\n"
+         "    r[0] = t_a - t_start;\n    r[1] = s_wait;\n    r[2] = s_h;\n"
+         "    r[3] = s_w;\n    r[4] = n_rows;\n  }\n"
+         "  // the rows this group never read: waited for in order, then "
+         "released,\n"),
+    ]),
+    "b11_no_hblend": ("upsample2x_argmax.cu", [
+        ("    hblend(hb, reinterpret_cast", "    if (st.nc < 0) hblend(hb, "
+         "reinterpret_cast"),
+    ]),
+    "b11_no_wblend": ("upsample2x_argmax.cu", [
+        ("      lab = best_of(hb + off0, hb + off1, a0, a1, a.K, pb, pe, tail, "
+         "best);", "      lab = off0 + off1;"),
+    ]),
+    "b4_last_chunk_dropped": ("head1_correlate.cu", [
+        ("      } else if (lane < rows) {  // a range a row",
+         "      } else if (lane < rows && ch + 1 < chunks) {"),
+    ]),
     "b5_no_prefetch": ("head1_correlate_argmax.cu", [
         ("  if (m0 >= M) return;\n", "  if (m0 >= 0) return;\n"),
     ]),
@@ -846,6 +908,43 @@ def read_b19_timeline() -> dict:
     return out
 
 
+def read_b11_timeline() -> dict:
+    """Run this checkout's B11 (a `b11_timeline` copy) at the streamed
+    head's (8, 240, 240, 150) logits in fp32 and bf16; per dtype, the
+    median over the consumer groups of the microseconds of the walk and
+    of its summed phases: waiting for the two source rows (`wait_us`),
+    the H-blend into the group's buffer with its barrier (`hblend_us`),
+    the W-blend and argmax of a row with its barrier (`wblend_us`); and
+    the median output rows a group."""
+    import ctypes
+
+    import torch
+
+    from lseg_tpu_torch.ops._build import load_kernels
+    from lseg_tpu_torch.ops.upsample_argmax import upsample2x_argmax
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(8, 240, 240, 150, device="cuda", generator=g)
+    out = {}
+    for name, lg in (("fp32", x), ("bf16", x.to(torch.bfloat16))):
+        for _ in range(3):
+            upsample2x_argmax(lg)
+        torch.cuda.synchronize()
+        raw = torch.zeros(512 * 2 * 5, dtype=torch.int64)
+        rc = load_kernels().lseg_b11_timeline(
+            ctypes.c_void_p(raw.data_ptr()))
+        if rc != 0:
+            raise RuntimeError(f"lseg_b11_timeline: cudaError {rc}")
+        t = raw.view(-1, 5)
+        t = t[t[:, 4] > 0].double()
+        med = t.median(0).values / 1e3
+        out[name] = {"groups": int(t.shape[0]),
+                     **{f"{k}_us": float(v) for k, v in zip(
+                         ("walk", "wait", "hblend", "wblend"), med[:4])},
+                     "rows": float(t[:, 4].median())}
+    return out
+
+
 def read_b19_wide_timeline() -> dict:
     """Run this checkout's earlier B19 kernel (a `b19_wide_timeline` copy
     of fused_upsample_outconv_wide.cu, called at Co = 256 through its
@@ -916,7 +1015,7 @@ def main(argv=None) -> int:
     ap.add_argument("dest", nargs="?", type=Path)
     ap.add_argument("--timeline", nargs="?", const="b16",
                     choices=("b16", "b18", "b13", "b14", "b5", "b19",
-                             "b19_wide"),
+                             "b19_wide", "b11"),
                     help="B16's (B18's, B13's, B14's, B5's, B19's) phase "
                          "times, run from a b16_timeline (b18_timeline, "
                          "...) copy")
@@ -927,7 +1026,8 @@ def main(argv=None) -> int:
         read = {"b16": read_timeline, "b18": read_b18_timeline,
                 "b13": read_b13_timeline, "b14": read_b14_timeline,
                 "b5": read_b5_timeline, "b19": read_b19_timeline,
-                "b19_wide": read_b19_wide_timeline}[args.timeline]
+                "b19_wide": read_b19_wide_timeline,
+                "b11": read_b11_timeline}[args.timeline]
         print(json.dumps(read()), flush=True)
         return 0
     if args.name is None or args.dest is None:

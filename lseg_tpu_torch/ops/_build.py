@@ -60,8 +60,11 @@ SIGNATURES = {
     # n, t, dim, valid_len, scale, eps, stream
     "lseg_flash_attention_ln_qkv_q8": (_P,) * 11 + (
         _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _P),
+    # xq, w, sc, b1, tn, out, m, c, e, k, normalize, ctas, stream
+    "lseg_head1_correlate": (_P,) * 6 + (_I,) * 6 + (_P,),
+    # B4's C > 256 route and mma.sync yardstick (head1_correlate_wide.cu):
     # xq, w, sc, b1, tn, out, m, c, e, k, normalize, stream
-    "lseg_head1_correlate": (_P,) * 6 + (_I,) * 5 + (_P,),
+    "lseg_head1_correlate_wide": (_P,) * 6 + (_I,) * 5 + (_P,),
     # qkv, out, dout, lse, dqkv, dr (scratch), n, t, dim, valid_len,
     # scale, stream
     "lseg_flash_attention_flat_bwd": (_P,) * 6 + (_I,) * 4 + (
@@ -71,8 +74,9 @@ SIGNATURES = {
         ctypes.c_float, _P),
     # x, t, tn (scratch), out, m, c, k, kp, x_bf16, out_bf16, scale, stream
     "lseg_fused_correlate": (_P,) * 4 + (_I,) * 6 + (ctypes.c_float, _P),
-    # x, out, n, h, w, k, x_bf16, stream
-    "lseg_upsample2x_argmax": (_P,) * 2 + (_I,) * 5 + (_P,),
+    # x, taps, out, n, h, w, k, x_bf16, cw, q, pitch, slot, hbb, bulk,
+    # sms, stream
+    "lseg_upsample2x_argmax": (_P,) * 3 + (_I,) * 12 + (_P,),
     # x, sx, w, sc, b1, tn, out, m, c, e, k, x_bf16, ctas, stream
     "lseg_head1_correlate_argmax": (_P,) * 7 + (_I,) * 6 + (_P,),
     # the C > 256 routes of B14 and B5 (head1_correlate_*_wide.cu):

@@ -10,17 +10,20 @@ B4 replaces `lseg_tpu/ops/pallas_correlation.py` · `head1_correlate_fused`
 (`csrc/head1_correlate_upsample_argmax.cu`); B5 replaces
 `head1_correlate_argmax_fused_t` and its row-major form B12
 `head1_correlate_argmax_fused` (CUDA:
-`lseg_tpu_torch/csrc/head1_correlate_argmax.cu`). B4 runs on the
-SIMT-staged tile of `csrc/head1_tile.cuh`; B13, B14 and B5 on the wgmma +
-TMA tile of `csrc/head1_wgmma.cuh`, whose logits are B4's bit for bit:
-B13 walks down strips of source rows (`b13_grid`), B14 and B5 take
-persistent grids of 128-pixel steps (`b14_ctas`), and all three walk the
-labels in chunks of at most 152. Path1 wider than 256 channels (no
-registered config: `features` is 256) takes B14's and B5's earlier
-kernels on B4's tile (`csrc/head1_correlate_wup_wide.cu`,
-`csrc/head1_correlate_argmax_wide.cu`); B13 refuses it. The
-sources' headers say what bounds each on the card and how the (M, 512)
-pixel-embedding map stays out of device memory.
+`lseg_tpu_torch/csrc/head1_correlate_argmax.cu`). All four run on the
+wgmma + TMA tile of `csrc/head1_wgmma.cuh`, whose logits are those of
+the mma.sync B4 kernel on the SIMT-staged tile of `csrc/head1_tile.cuh`
+bit for bit: B13 walks down strips of source rows (`b13_grid`), B4, B14 and B5
+take persistent grids of 128-pixel steps (`b14_ctas`), and all four walk
+the labels in chunks of at most 152. Path1 wider than 256 channels (no
+registered config: `features` is 256) takes the earlier kernels on B4's
+SIMT tile (`csrc/head1_correlate_wide.cu`,
+`csrc/head1_correlate_wup_wide.cu`,
+`csrc/head1_correlate_argmax_wide.cu`); B13 refuses it. The mma.sync B4
+kernel stays callable at any C as `head1_correlate_fused_mma`, the
+yardstick the checks on the card hold the wgmma head kernels against; no
+model path calls it. The sources' headers say what bounds each on the card
+and how the (M, 512) pixel-embedding map stays out of device memory.
 
 `head1_correlate_fused`, `head1_correlate_wup_fused`,
 `head1_correlate_upsample_argmax` and `head1_correlate_argmax_fused` are
@@ -137,29 +140,68 @@ def head1_correlate_fused(xq: torch.Tensor, sx, w1q: torch.Tensor,
     """Kernel wrapper: (N, H, W, C) int8 codes, fp32 scalar activation
     scale, head1 int8 kernel (E, C[, 1, 1]), fp32 (E,) scales and bias,
     (K, E) text features -> (N, H, W, K) bf16. C % 32 == 0,
-    E % 128 == 0."""
+    E % 128 == 0; a persistent grid of one CTA an SM (C > 256: the mma.sync
+    kernel, `head1_correlate_wide.cu`)."""
     check_no_grad("head1_correlate_fused", sx, s1, b1, text_features)
     if xq.device.type == "cpu":
         return head1_correlate_fused_plain(xq, sx, w1q, s1, b1,
                                            text_features, logit_scale,
                                            normalize)
-    (n, h, w, c, e), ops = _int8_operands("head1_correlate_fused", xq, sx,
-                                          w1q, s1, b1, text_features,
-                                          logit_scale)
-    k = text_features.shape[0]
-    lib = load_kernels()
-    out = torch.empty((n, h, w, k), dtype=torch.bfloat16, device=xq.device)
-    with torch.cuda.device(xq.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lseg_head1_correlate(*[v.data_ptr() for v in ops],
-                                      out.data_ptr(), n * h * w, c, e, k,
-                                      int(normalize), stream)
-    check_launch(lib, "lseg_head1_correlate", rc)
+    out = _head1_logits("head1_correlate_fused", xq, sx, w1q, s1, b1,
+                        text_features, logit_scale, normalize,
+                        wide=b4_wide(xq.shape[-1]))
     head1_correlate_fused.launches += 1
     return out
 
 
 head1_correlate_fused.launches = 0
+
+
+def b4_wide(c: int) -> bool:
+    """Whether B4's wrapper routes path1 of C channels to the mma.sync kernel
+    (`csrc/head1_correlate_wide.cu`): past the wgmma tile's two 128-byte
+    k-chunks of codes, as B14's and B5's wrappers route."""
+    return c > WGMMA_MAX_C
+
+
+def _head1_logits(name, xq, sx, w1q, s1, b1, text_features, logit_scale,
+                  normalize, wide):
+    """B4's logits on the card: the wgmma + TMA kernel
+    (`lseg_head1_correlate`, C <= 256) or the mma.sync kernel
+    (`lseg_head1_correlate_wide`)."""
+    (n, h, w, c, e), ops = _int8_operands(name, xq, sx, w1q, s1, b1,
+                                          text_features, logit_scale)
+    k = text_features.shape[0]
+    lib = load_kernels()
+    out = torch.empty((n, h, w, k), dtype=torch.bfloat16, device=xq.device)
+    entry = "lseg_head1_correlate_wide" if wide else "lseg_head1_correlate"
+    grid = () if wide else (_sms(xq.device),)
+    with torch.cuda.device(xq.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, entry)(*[v.data_ptr() for v in ops],
+                                 out.data_ptr(), n * h * w, c, e, k,
+                                 int(normalize), *grid, stream)
+    check_launch(lib, entry, rc)
+    return out
+
+
+def head1_correlate_fused_mma(xq: torch.Tensor, sx, w1q: torch.Tensor,
+                              s1: torch.Tensor, b1: torch.Tensor,
+                              text_features: torch.Tensor,
+                              logit_scale: float = 1.0 / 0.07,
+                              normalize: bool = True) -> torch.Tensor:
+    """The mma.sync B4 kernel (`csrc/head1_correlate_wide.cu`, on the
+    SIMT-staged tile) at any C, on the card only: the independent
+    yardstick that the checks hold the wgmma head kernels (B4, B13, B14)
+    against bit for bit. No model path calls it; its own launch count."""
+    check_no_grad("head1_correlate_fused_mma", sx, s1, b1, text_features)
+    out = _head1_logits("head1_correlate_fused_mma", xq, sx, w1q, s1, b1,
+                        text_features, logit_scale, normalize, wide=True)
+    head1_correlate_fused_mma.launches += 1
+    return out
+
+
+head1_correlate_fused_mma.launches = 0
 
 
 def _quantize(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:

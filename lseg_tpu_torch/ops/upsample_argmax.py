@@ -11,10 +11,17 @@ stay out of device memory.
 `upsample2x_argmax` is the wrapper: on a CUDA tensor it launches the
 kernel (or raises), on a CPU tensor it runs `upsample2x_argmax_plain`,
 which rounds at the same points and so agrees with the kernel bit for
-bit.
+bit. The kernel reads its taps from the tables of `b11_taps` (built from
+the plain version's `_h_taps` and `_w_taps`, cached on the card by shape
+and dtype) and walks the geometry of `b11_geometry`: strips of output
+columns, their source columns rounded out to 16 bytes, the blended row's
+pitch and the shared-memory budget.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import numpy as np
 import torch
@@ -25,7 +32,14 @@ from lseg_tpu_torch.ops._build import (
     load_kernels,
 )
 
-_MAX_K = 1536  # the kernel's blended source columns fit in shared memory
+_MAX_K = 1536  # the widths the wrapper has always taken
+# the kernel's shared memory (csrc/upsample2x_argmax.cu): RING source-row
+# slots, two blended rows (one a consumer group), 2 RING barriers and each
+# group's 128 pixels' (value, label) of the labels' second half, within one
+# SM's 227 KB; strips of at most 128 output columns (a group's pixels)
+B11_RING, B11_HB, B11_EXTRA_BYTES = 3, 2, 2 * 3 * 8 + 2 * 128 * 8
+B11_SMEM_LIMIT = 232448
+B11_WIDTHS = (128, 96, 64, 48, 32, 16, 8, 4, 2)
 
 
 def _h_taps(h: int):
@@ -55,6 +69,76 @@ def _w_taps(w: int):
     frac = src - lo
     return lo, lo + 1, (1.0 - frac).astype(np.float32), frac.astype(
         np.float32)
+
+
+def _round_to(a: np.ndarray, bf16: bool) -> np.ndarray:
+    """fp32 weights rounded to the logits' dtype, back in fp32."""
+    a = a.astype(np.float32)
+    if not bf16:
+        return a
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+def b11_taps(h: int, w: int, dtype: torch.dtype) -> torch.Tensor:
+    """Kernel B11's tap tables: int32 (3, 2h + 2w), per output row (the
+    first 2h columns) and per output column (the last 2w) the lower
+    source index (`_h_taps`'s i0, `_w_taps`'s lo; the upper one is the
+    next, clamped to the edge) and the bits of the two fp32 weights, each
+    rounded to `dtype` as the plain version rounds them."""
+    bf16 = dtype == torch.bfloat16
+    i0, _, w0, w1 = _h_taps(h)
+    lo, _, a0, a1 = _w_taps(w)
+    idx = np.concatenate([i0, lo]).astype(np.int32)
+    wa = _round_to(np.concatenate([w0, a0]), bf16).view(np.int32)
+    wb = _round_to(np.concatenate([w1, a1]), bf16).view(np.int32)
+    return torch.from_numpy(np.stack([idx, wa, wb]))
+
+
+@functools.lru_cache(maxsize=64)
+def _device_taps(h, w, dtype, device) -> torch.Tensor:
+    return b11_taps(h, w, dtype).to(device)
+
+
+def _ceil16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+@functools.lru_cache(maxsize=64)
+def b11_geometry(w: int, k: int, esize: int, aligned: bool = True) -> dict:
+    """Kernel B11's walk at W source columns, K labels of `esize` bytes:
+    `cw` output columns a strip (the widest of `B11_WIDTHS` whose buffers
+    fit), `strips`, each strip's first source column `c0` and column count
+    `ncols` in its ring slot, `q` (a strip's edges rounded out to q
+    columns, the columns of 16 bytes; 1 without bulk copies), `bulk` (every
+    strip of every row starts and ends on 16 bytes: W % q == 0 on an
+    aligned tensor), `pitch` (the blended row's, in elements: the least
+    P >= K with P = 2 mod 4), the bytes of a ring `slot` and of an `hb`
+    buffer, and `smem`."""
+    q = 16 // math.gcd(16, k * esize)
+    bulk = aligned and w % q == 0
+    if not bulk:
+        q = 1
+    pitch = k + (2 - k) % 4
+    lo = _w_taps(w)[0]
+    for cw in B11_WIDTHS:
+        strips = -(-2 * w // cw)
+        c0s, ncols = [], []
+        for s in range(strips):
+            j1 = min(s * cw + cw, 2 * w) - 1
+            c0 = int(lo[s * cw]) // q * q
+            chi = min(int(lo[j1]) + 1, w - 1)
+            c1 = min(-(-(chi + 1) // q) * q, w)
+            c0s.append(c0)
+            ncols.append(c1 - c0)
+        nc = max(ncols)
+        slot = _ceil16(nc * k * esize)
+        hb = _ceil16(nc * pitch * esize)
+        smem = B11_RING * slot + B11_HB * hb + B11_EXTRA_BYTES
+        if smem <= B11_SMEM_LIMIT:
+            return {"cw": cw, "strips": strips, "c0": tuple(c0s),
+                    "ncols": tuple(ncols), "q": q, "bulk": bulk,
+                    "pitch": pitch, "slot": slot, "hb": hb, "smem": smem}
+    raise ValueError(f"upsample2x_argmax kernel: K={k} does not fit")
 
 
 def upsample2x_argmax_plain(logits: torch.Tensor) -> torch.Tensor:
@@ -99,15 +183,21 @@ def upsample2x_argmax(logits: torch.Tensor) -> torch.Tensor:
                          f"{tuple(logits.shape)}")
     if not logits.is_contiguous():
         raise ValueError("upsample2x_argmax: logits must be contiguous")
+    geo = b11_geometry(w, k, logits.element_size(),
+                       logits.data_ptr() % 16 == 0)
+    taps = _device_taps(h, w, logits.dtype, logits.device)
     lib = load_kernels()
     out = torch.empty((n, 2 * h, 2 * w), dtype=torch.int32,
                       device=logits.device)
     with torch.cuda.device(logits.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lseg_upsample2x_argmax(logits.data_ptr(), out.data_ptr(),
-                                        n, h, w, k,
-                                        int(logits.dtype == torch.bfloat16),
-                                        stream)
+        sms = torch.cuda.get_device_properties(
+            logits.device).multi_processor_count
+        rc = lib.lseg_upsample2x_argmax(
+            logits.data_ptr(), taps.data_ptr(), out.data_ptr(), n, h, w, k,
+            int(logits.dtype == torch.bfloat16), geo["cw"], geo["q"],
+            geo["pitch"], geo["slot"], geo["hb"], int(geo["bulk"]), sms,
+            stream)
     check_launch(lib, "lseg_upsample2x_argmax", rc)
     upsample2x_argmax.launches += 1
     return out

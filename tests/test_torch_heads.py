@@ -24,6 +24,7 @@ from torch_parity import (  # noqa: F401
 )
 
 from lseg_tpu.config import fast_serving
+from lseg_tpu.ops.resize import _interp_matrix as j_interp_matrix
 from lseg_tpu.ops.pallas_correlation import (
     fused_correlate as j_fused_correlate,
 )
@@ -54,6 +55,11 @@ from lseg_tpu_torch.ops.head1_correlate import (
 )
 from lseg_tpu_torch.ops.quant import int8_mm
 from lseg_tpu_torch.ops.upsample_argmax import (
+    B11_RING,
+    _h_taps,
+    _w_taps,
+    b11_geometry,
+    b11_taps,
     upsample2x_argmax,
     upsample2x_argmax_plain,
 )
@@ -160,6 +166,252 @@ def test_upsample2x_argmax_plain_ties_and_edges():
         np.testing.assert_array_equal(
             got.numpy(), np.asarray(j_up_argmax(lj, tile_o=8,
                                                 interpret=True)))
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (2, 3), (7, 9), (33, 64),
+                                 (240, 240)])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_b11_taps_tables_match_interp_operator(h, w, dt):
+    """Kernel B11's tap tables hold the plain version's taps (`_h_taps`,
+    `_w_taps`), the weights rounded to the logits' dtype as the plain
+    version rounds them; the column taps are the two non-zero entries of
+    each row of the reference's (2W, W) align-corners operator
+    (`lseg_tpu/ops/resize.py` `_interp_matrix`) exactly, the row taps
+    (the TPU kernel's fp32 source position) its first non-zero column and
+    its weights to within the fp32 position's rounding."""
+    tab = b11_taps(h, w, dt)
+    assert tab.dtype == torch.int32 and tab.shape == (3, 2 * h + 2 * w)
+    idx = tab[0].numpy()
+    wts = tab[1:].numpy().view(np.float32)
+
+    def rounded(a):
+        return torch.from_numpy(a).to(dt).float().numpy()
+
+    i0, _, w0, w1 = _h_taps(h)
+    lo, hi, a0, a1 = _w_taps(w)
+    np.testing.assert_array_equal(idx, np.concatenate([i0, lo]))
+    np.testing.assert_array_equal(wts[0], rounded(np.concatenate([w0, a0])))
+    np.testing.assert_array_equal(wts[1], rounded(np.concatenate([w1, a1])))
+    o = np.arange(2 * w)
+    aw = np.asarray(j_interp_matrix(w, 2 * w, True), np.float32)
+    assert np.count_nonzero(aw, axis=1).max() <= 2
+    np.testing.assert_array_equal(a0, aw[o, lo])
+    np.testing.assert_array_equal(a1, np.where(hi > lo, aw[o, hi], 0))
+    o = np.arange(2 * h)
+    ah = np.asarray(j_interp_matrix(h, 2 * h, True), np.float64)
+    np.testing.assert_array_equal(i0, np.argmax(ah > 0, axis=1))
+    tol = h * 2.0 ** -22
+    assert np.abs(w0 - ah[o, i0]).max() <= tol
+    nxt = np.where(i0 + 1 < h, ah[o, np.minimum(i0 + 1, h - 1)], 0)
+    assert np.abs(w1 - nxt).max() <= tol
+
+
+def _argmax_better(v, i, bv, bi):
+    """`lseg::argmax_better` on arrays: (v, i) beats (bv, bi) in
+    jnp.argmax's order (the larger value, NaN above every number, ties
+    and NaNs to the smaller label)."""
+    vn, bn = np.isnan(v), np.isnan(bv)
+    with np.errstate(invalid="ignore"):
+        num = (v > bv) | ((v == bv) & (i < bi))
+    return np.where(vn | bn, vn & (~bn | (i < bi)), num)
+
+
+def _b11_half(v, k, pb, pe, tail, tie_to_later):
+    """One thread's walk of kernel B11 (`best_of`) over the label pairs
+    [pb, pe) and, with `tail`, label K - 1 of each pixel's fp32 values
+    (rows of `v`): blocks of 8 pairs, an even-k and an odd-k chain whose
+    label moves only on a strictly larger value (with `tie_to_later`, also
+    on an equal one: a mutation) beside the values' NaN-propagating max,
+    the chains joined in jnp.argmax's order; where a max is NaN, the first
+    NaN of the range. Returns (best value, label)."""
+    p = v.shape[0]
+    better = np.greater_equal if tie_to_later else np.greater
+    bv = [np.full(p, -np.inf, np.float32), np.full(p, -np.inf, np.float32)]
+    none = 2 ** 31 - 1
+    bi = [np.full(p, 2 * pb if pe > pb else (k - 1 if tail else none)),
+          np.full(p, 2 * pb + 1 if pe > pb else none)]
+
+    def step(c, kk):
+        with np.errstate(invalid="ignore"):
+            moved = better(v[:, kk], bv[c])
+        bv[c] = np.maximum(bv[c], v[:, kk])  # NaN propagates
+        return moved
+
+    p0 = pb
+    while p0 + 8 <= pe:
+        j = [np.full(p, -1), np.full(p, -1)]
+        for u in range(8):
+            for c in range(2):
+                j[c] = np.where(step(c, 2 * (p0 + u) + c), u, j[c])
+        for c in range(2):
+            bi[c] = np.where(j[c] >= 0, 2 * (p0 + j[c]) + c, bi[c])
+        p0 += 8
+    for q in range(p0, pe):
+        for c in range(2):
+            bi[c] = np.where(step(c, 2 * q + c), 2 * q + c, bi[c])
+    if tail:
+        bi[0] = np.where(step(0, k - 1), k - 1, bi[0])
+    odd = _argmax_better(bv[1], bi[1], bv[0], bi[0])
+    val, lab = np.where(odd, bv[1], bv[0]), np.where(odd, bi[1], bi[0])
+    hit = np.isnan(bv[0]) | np.isnan(bv[1])
+    if hit.any():
+        nan = np.isnan(v[:, 2 * pb:k if tail else 2 * pe])
+        lab = np.where(hit, 2 * pb + np.argmax(nan, axis=1), lab)
+    return np.where(hit, np.float32(np.nan), val), lab
+
+
+def _b11_keys(v, k, split, tie_to_later=False):
+    """Kernel B11's label of each pixel: `split` threads a pixel (two for
+    fp32 logits, one for bf16) each take a contiguous share of the label
+    pairs (`_b11_half`, the last one the odd label), joined in jnp.argmax's
+    order."""
+    kp = k // 2
+    hp = -(-kp // split)
+    val = lab = None
+    for h in range(split):
+        pb = min(h * hp, kp)
+        hv, hl = _b11_half(v, k, pb, min(pb + hp, kp),
+                           k % 2 == 1 and h == split - 1, tie_to_later)
+        if val is None:
+            val, lab = hv, hl
+            continue
+        win = _argmax_better(hv, hl, val, lab)
+        val, lab = np.where(win, hv, val), np.where(win, hl, lab)
+    return lab
+
+
+def _b11_walk_emulated(lg, ctas, stale_ring=False, tie_to_later=False):
+    """Kernel B11 (csrc/upsample2x_argmax.cu) in numpy: the geometry of
+    `b11_geometry` and the tables of `b11_taps`; `ctas` CTAs each take a
+    contiguous range of the tiles (image, strip, output row); its
+    producer loads the range's source rows in order, each as the strip's
+    columns, into a ring of `B11_RING` slots, refilling a slot only once
+    both consumer groups have released its load (asserted); the groups
+    take every other tile, wait for its two rows, H-blend them into their
+    buffer of rows at the geometry's pitch, release the rows their next
+    tile does not read, and take an output column a thread (two for fp32,
+    `_b11_keys`).
+    `stale_ring` (a mutation) blends the top row from the slot one load
+    back."""
+    n, h, w, k = lg.shape
+    geo = b11_geometry(w, k, lg.element_size())
+    tab = b11_taps(h, w, lg.dtype).numpy()
+    wts = tab[1:].view(np.float32)
+    th, tw = tab[0, :2 * h], tab[0, 2 * h:]
+    cw, strips, pitch = geo["cw"], geo["strips"], geo["pitch"]
+    h2, w2 = 2 * h, 2 * w
+    x = lg.float().numpy().reshape(n * h, w * k)
+    tiles = n * strips * h2
+    grid = min(tiles, ctas)
+    out = np.full((n, h2, w2), -1, np.int64)
+    pix, lab_at = [], []  # each pixel's blended taps and its output place
+    for b in range(grid):
+        t0, t1 = tiles * b // grid, tiles * (b + 1) // grid
+        cols = range(t0 // h2, (t1 - 1) // h2 + 1)
+        first = {c: th[max(t0, c * h2) - c * h2] for c in cols}
+        last = {c: min(th[min(t1, (c + 1) * h2) - 1 - c * h2] + 1, h - 1)
+                for c in cols}
+        loads = [(c, r) for c in cols for r in range(first[c], last[c] + 1)]
+        base, acc = {}, 0
+        for c in cols:
+            base[c] = acc
+            acc += last[c] - first[c] + 1
+        ring, held = [None] * B11_RING, [-1] * B11_RING
+        issued, waited, released = 0, [0, 0], [0, 0]
+
+        def issue_to(ld):
+            nonlocal issued
+            for i in range(issued, ld + 1):
+                assert min(released) > i - B11_RING  # both released
+                c, r = loads[i]
+                s, c0 = c % strips, geo["c0"][c % strips]
+                img = c // strips
+                ring[i % B11_RING] = x[img * h + r, c0 * k:(
+                    c0 + geo["ncols"][s]) * k]
+                held[i % B11_RING] = i
+            issued = max(issued, ld + 1)
+
+        for tau in range(t0, t1):
+            g = (tau - t0) % 2
+            c, o = tau // h2, tau % h2
+            s, c0 = c % strips, geo["c0"][c % strips]
+            nc = geo["ncols"][s]
+            i0 = th[o]
+            l0 = base[c] + i0 - first[c]
+            l1 = base[c] + min(i0 + 1, h - 1) - first[c]
+            issue_to(l1)
+            waited[g] = max(waited[g], l1 + 1)
+            top_slot = (l0 + B11_RING - 1) % B11_RING if stale_ring else (
+                l0 % B11_RING)
+            if not stale_ring:
+                assert held[l0 % B11_RING] == l0
+            assert held[l1 % B11_RING] == l1
+            top, bot = ring[top_slot], ring[l1 % B11_RING]
+            if top is None or top.shape != bot.shape:
+                top = np.zeros_like(bot)
+            hbv = (wts[0, o] * top).astype(np.float32) + (
+                wts[1, o] * bot).astype(np.float32)
+            hbv = torch.from_numpy(hbv).to(lg.dtype).float().numpy()
+            hb = np.zeros(nc * pitch, np.float32)
+            hb.reshape(nc, pitch)[:, :k] = hbv.reshape(nc, k)
+            keep = waited[g]
+            if tau + 2 < t1:
+                c2, o2 = (tau + 2) // h2, (tau + 2) % h2
+                keep = min(keep, base[c2] + th[o2] - first[c2])
+            released[g] = max(released[g], keep)
+            for t in range(min(cw, w2 - s * cw)):
+                j = s * cw + t
+                off0 = (tw[j] - c0) * pitch
+                off1 = off0 + (pitch if w > 1 else 0)
+                a0, a1 = wts[0, 2 * h + j], wts[1, 2 * h + j]
+                pix.append((a0 * hb[off0:off0 + k]).astype(np.float32)
+                           + (a1 * hb[off1:off1 + k]).astype(np.float32))
+                lab_at.append((c // strips, o, j))
+        assert len(loads) == issued
+    with np.errstate(invalid="ignore"):
+        labs = _b11_keys(np.stack(pix), k, lg.element_size() // 2,
+                         tie_to_later)
+    for (img, o, j), lab in zip(lab_at, labs):
+        assert out[img, o, j] == -1  # each output pixel once
+        out[img, o, j] = lab
+    assert (out >= 0).all()
+    return torch.from_numpy(out.astype(np.int32))
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1), (1, 1, 5, 3), (2, 7, 9, 21),
+                                   (1, 60, 64, 150), (1, 33, 240, 151)])
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+def test_b11_walk_emulated(shape, dt):
+    """Kernel B11's decomposition, emulated (`_b11_walk_emulated`: strips,
+    the CTAs' ranges of rows with the boundary row each re-reads, the
+    ring's slots reused, the tap tables, each thread's ascending-k keys)
+    equals `upsample2x_argmax_plain` bit for bit: on random logits, on
+    logits whose labels repeat every 6 (ties within an even- or odd-k
+    chain), all-negative ones and ones holding NaNs; at one pixel, one
+    source row, a width whose strips cannot go by bulk copy (W = 9, 84 or
+    42 bytes a column), a 64-column image of one strip and the flagship
+    width with an odd K (its columns rounded to 16 bytes). Where a CTA
+    walks several rows (H >= 7), a top row taken from the slot one load
+    back differs, and so do chains that move on ties."""
+    rng = np.random.RandomState(17)
+    x = rng.randn(*shape).astype(np.float32)
+    ties = x[..., np.arange(shape[-1]) % 6]
+    nan = x.copy()
+    nan.reshape(-1)[rng.randint(0, nan.size, 3)] = np.nan
+    tdt = DTYPES[dt][1]
+    for a in (x, ties, -(np.abs(x) + 0.5), nan):
+        lg = torch.from_numpy(a).to(tdt)
+        assert torch.equal(_b11_walk_emulated(lg, 3),
+                           upsample2x_argmax_plain(lg))
+    if shape[1] >= 7:
+        lg = torch.from_numpy(x).to(tdt)
+        ref = upsample2x_argmax_plain(lg)
+        assert not torch.equal(_b11_walk_emulated(lg, 3, stale_ring=True),
+                               ref)
+        lg = torch.from_numpy(ties).to(tdt)
+        assert not torch.equal(
+            _b11_walk_emulated(lg, 3, tie_to_later=True),
+            upsample2x_argmax_plain(lg))
 
 
 # ---- B5 / B12: int8 head1 + correlation + argmax ----
@@ -550,12 +802,22 @@ def test_fused_correlate_kernel_matches_plain(cuda_device, shape, k, dt):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(2, 240, 240, 150), (1, 7, 1, 21),
-                                   (1, 1, 9, 3)])
+                                   (1, 1, 9, 3), (2, 5, 1, 7), (2, 1, 9, 4),
+                                   (1, 33, 240, 151), (1, 6, 10, 1536)])
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_upsample2x_argmax_kernel_matches_plain(cuda_device, shape, dt):
+    """Every label equal to the plain version's: at the flagship width,
+    W = 1, H = 1, K = 151 (strips rounded out to 16 bytes, hb at a pitch
+    of 154) and K = 1536 (the widest the wrapper takes: strips of 8 or 16
+    output columns), on random, all-negative, tied (labels repeating
+    every 6) and NaN-holding logits."""
     g = torch.Generator(device=cuda_device).manual_seed(1)
     x = torch.randn(shape, device=cuda_device, generator=g).to(dt)
-    for lg in (x, -(x.abs() + 0.5)):
+    nan = x.clone()
+    nan.view(-1)[torch.randint(0, x.numel(), (3,), device=cuda_device,
+                               generator=g)] = float("nan")
+    ties = x[..., torch.arange(shape[-1], device=cuda_device) % 6]
+    for lg in (x, -(x.abs() + 0.5), ties.contiguous(), nan):
         got = upsample2x_argmax(lg)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, upsample2x_argmax_plain(lg),

@@ -22,8 +22,13 @@ from lseg_tpu_torch.ops.flash_attention import (
     flash_attention_ln_qkv_fused_q8_plain,
     qkv_int8_gemm,
 )
+from lseg_tpu_torch.ops import head1_correlate as hc
+from lseg_tpu_torch.ops._build import SIGNATURES
 from lseg_tpu_torch.ops.head1_correlate import (
+    HEAD_KG,
+    b4_wide,
     head1_correlate_fused,
+    head1_correlate_fused_mma,
     head1_correlate_fused_plain,
 )
 from lseg_tpu_torch.ops.ln_quant import (
@@ -465,12 +470,189 @@ def test_head1_correlate_plain_matches_pallas(normalize):
     np.testing.assert_array_equal(wrapped.float().numpy(), got)
 
 
+# kernel B4's output staging (csrc/head1_correlate.cu): rows a consumer
+# warp takes of a 128-pixel step, and a warp's staging area in bytes
+_B4_WROWS, _B4_REGION = 16, 16 * (2 * HEAD_KG + 16) + 16
+
+
+def _put_range(out, written, g, region, s, length):
+    """`put_range` of head1_wgmma.cuh: `length` bytes of the staging at s
+    to the output at byte g (s = g mod 16), the 16-byte aligned middle as
+    one bulk copy (asserted aligned on both sides), the ends as 2-byte
+    stores; counts each output byte it writes."""
+    assert s % 16 == g % 16 and length % 2 == 0
+    head = min((16 - g % 16) % 16, length)
+    mid = (length - head) // 16 * 16
+    if mid:
+        assert (g + head) % 16 == 0 and (s + head) % 16 == 0
+    assert g + length <= out.size  # nothing past the output's end
+    out[g:g + length] = region[s:s + length]
+    written[g:g + length] += 1
+
+
+def _b4_steps_emulated(lo, ctas, last_chunk_dropped=False,
+                       skip_tail_rows=False):
+    """Kernel B4's persistent walk and output path in numpy, fed with the
+    (M, K) bf16 logits: min(ctas, steps) CTAs, CTA b taking the 128-pixel
+    steps b, b + ctas, ...; per step and label chunk of 152 each of the
+    eight consumer warps stages its 16 rows (lane (g, t4) holding rows g
+    and g + 8, label pairs 8 w + 2 t4 of the chunk) in its own area, the
+    first byte at the output's address mod 16 and rows at a pitch
+    congruent to the output's row pitch mod 16, and copies out the rows
+    below M: one range of the warp's rows with one chunk, a range a row
+    with more (`_put_range`). Asserts that no staged byte is written twice
+    and that the staging fits its area. Returns the output (M, K) bf16
+    and how many times each of its bytes was written. `last_chunk_dropped`
+    and `skip_tail_rows` (mutations) leave out the last chunk's row copies
+    and the last row below M of a ragged warp."""
+    m, k = lo.shape
+    raw = lo.contiguous().view(torch.int16).numpy().view(np.uint8)
+    raw = raw.reshape(m, 2 * k)
+    out = np.zeros(m * k * 2, np.uint8)
+    written = np.zeros(out.shape, np.int32)
+    steps = -(-m // 128)
+    grid = min(ctas, steps)
+    chunks = -(-k // HEAD_KG)
+    for b in range(grid):
+        for m0 in range(128 * b, 128 * steps, 128 * grid):
+            for ch in range(chunks):
+                kt0 = ch * HEAD_KG
+                kc = min(HEAD_KG, k - kt0)
+                pitch = 2 * k if kc == k else 2 * kc + (2 * (k - kc)) % 16
+                for cwarp in range(8):
+                    r0 = m0 + _B4_WROWS * cwarp
+                    rows = max(0, min(_B4_WROWS, m - r0))
+                    if skip_tail_rows and 0 < rows < _B4_WROWS:
+                        rows -= 1
+                    g0 = (r0 * k + kt0) * 2  # output base 16-byte aligned
+                    s0 = g0 % 16
+                    region = np.zeros(_B4_REGION, np.uint8)
+                    seen = np.zeros(_B4_REGION, np.int32)
+                    for lane in range(32):
+                        g, t4 = lane // 4, lane % 4
+                        for h in range(2):
+                            r = r0 + g + 8 * h
+                            for w in range(HEAD_KG // 8):
+                                kk = 8 * w + 2 * t4
+                                for e in range(2):
+                                    if kk + e >= kc:
+                                        continue
+                                    at = s0 + (g + 8 * h) * pitch + 2 * (
+                                        kk + e)
+                                    assert at + 2 <= _B4_REGION
+                                    if r < m:
+                                        v = raw[r, 2 * (kt0 + kk + e):][:2]
+                                        region[at:at + 2] = v
+                                    seen[at:at + 2] += 1
+                    assert seen.max() <= 1
+                    if kc == k:
+                        if rows:
+                            _put_range(out, written, g0, region, s0,
+                                       rows * 2 * k)
+                    elif not (last_chunk_dropped and ch + 1 == chunks):
+                        for lane in range(rows):
+                            _put_range(out, written, g0 + lane * 2 * k,
+                                       region, s0 + lane * pitch, 2 * kc)
+    got = torch.from_numpy(out.view(np.int16).copy()).view(
+        torch.bfloat16).reshape(m, k)
+    return got, written
+
+
+@pytest.mark.parametrize("k", [1, 150, 153, 300])
+@pytest.mark.parametrize("normalize", [False, True])
+def test_b4_steps_emulated(k, normalize):
+    """Kernel B4's persistent walk of 128-pixel steps and label chunks of
+    152, its per-warp staging and range copies, fed with the plain twin's
+    logits in both modes, give those logits bit for bit at K = 1, 150, 153
+    and 300 with M = 286 (two CTAs, a last step of 30 pixels, so that a
+    warp holds 14 rows and two warps none): every byte of the (M, K)
+    output written once, none past row M. A walk that drops the last
+    chunk's copies (K > 152) or a ragged warp's last row leaves bytes
+    unwritten."""
+    xq, sx, w1q, s1, b1, txt = _head1_inputs(6, 2, 13, 11, 32, 128, k)
+    w_oihw = np.ascontiguousarray(w1q.T).reshape(w1q.shape[1], -1, 1, 1)
+    lo = head1_correlate_fused_plain(
+        _t(xq), torch.tensor(sx), _t(w_oihw), _t(s1), _t(b1), _t(txt),
+        1.0 / 0.07, normalize).reshape(-1, k)
+    got, written = _b4_steps_emulated(lo, 2)
+    assert written.min() == 1 and written.max() == 1
+    assert torch.equal(got, lo)
+    _, tail = _b4_steps_emulated(lo, 2, skip_tail_rows=True)
+    assert tail.min() == 0
+    if k > HEAD_KG:
+        _, dropped = _b4_steps_emulated(lo, 2, last_chunk_dropped=True)
+        assert dropped.min() == 0
+
+
+class _FakeLib:
+    """Records the kernel entry a wrapper calls and its arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+@pytest.mark.parametrize("c,entry", [(32, "lseg_head1_correlate"),
+                                     (256, "lseg_head1_correlate"),
+                                     (288, "lseg_head1_correlate_wide")])
+def test_b4_routes_by_width(monkeypatch, c, entry):
+    """On the card B4's wrapper takes the wgmma + TMA kernel for path1 of
+    up to 256 channels (its persistent grid: the card's SMs as the
+    entry's `ctas`) and the mma.sync kernel beyond, as B14's and B5's wrappers
+    route; the entries' arguments match their `SIGNATURES`. Run on the
+    CPU with the library, the launch check and the stream stubbed."""
+    import contextlib
+
+    lib = _FakeLib()
+    monkeypatch.setattr(hc, "load_kernels", lambda: lib)
+    monkeypatch.setattr(hc, "check_launch", lambda *a: None)
+    monkeypatch.setattr(hc, "_sms", lambda dev: 132)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 7})())
+
+    def operands(name, xq, sx, w1q, s1, b1, txt, scale):
+        dims, w1q, sc, tn = hc._prepare(xq, sx, w1q, s1, b1, txt, scale)
+        return dims, (xq, w1q, sc, b1.float().contiguous(), tn)
+
+    monkeypatch.setattr(hc, "_int8_operands", operands)
+    xq, sx, w1q, s1, b1, txt = _head1_inputs(7, 1, 3, 5, c, 128, 9)
+    args = (_t(xq), torch.tensor(sx), _t(np.ascontiguousarray(w1q.T)),
+            _t(s1), _t(b1), _t(txt), 1.0 / 0.07, True)
+    assert b4_wide(c) == (entry.endswith("_wide"))
+    out = hc._head1_logits("head1_correlate_fused", *args,
+                           wide=b4_wide(c))
+    assert out.shape == (1, 3, 5, 9)
+    hc._head1_logits("head1_correlate_fused_mma", *args, wide=True)
+    (name, got), (mma, mma_args) = lib.calls
+    assert name == entry and mma == "lseg_head1_correlate_wide"
+    for n, a in ((name, got), (mma, mma_args)):
+        assert len(a) == len(SIGNATURES[n])
+        assert a[6:10] == (15, c, 128, 9) and a[10] == 1 and a[-1] == 7
+    if entry == "lseg_head1_correlate":
+        assert got[11] == 132  # the persistent grid's cap
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,k,normalize", [
     ((2, 120, 120, 256), 150, False), ((1, 240, 240, 256), 150, True),
-    ((1, 7, 9, 256), 21, True)])
+    ((1, 7, 9, 256), 21, True), ((1, 7, 9, 256), 1, False),
+    ((1, 13, 11, 256), 153, True), ((1, 13, 11, 256), 300, False),
+    ((2, 13, 11, 256), 300, True), ((1, 7, 9, 288), 150, True),
+    ((1, 7, 9, 288), 150, False)])
 def test_head1_correlate_kernel_matches_plain(cuda_device, shape, k,
                                              normalize):
+    """Within one bf16 ulp + 1e-3 of the plain twin (fp32 sums in another
+    order), in both modes: at the flagship shapes, K = 1, 153 and 300
+    (two label chunks), ragged M (63, 143 and 286 pixels, no multiple of
+    the 128-pixel step) and C = 288 (the route of
+    `head1_correlate_wide.cu`)."""
     n, h, w, c = shape
     xq, sx, w1q, s1, b1, txt = _head1_inputs(5, n, h, w, c, 512, k)
     dev = cuda_device
@@ -483,3 +665,33 @@ def test_head1_correlate_kernel_matches_plain(cuda_device, shape, k,
     ulp = torch.exp2(torch.floor(torch.log2(
         ref.abs().clamp_min(torch.finfo(torch.float32).tiny))) - 7)
     assert bool(((got - ref).abs() <= ulp + 1e-3).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,k", [
+    ((2, 120, 120, 256), 150), ((1, 240, 240, 256), 150),
+    ((1, 60, 60, 256), 300), ((1, 13, 11, 256), 150),
+    ((1, 13, 11, 256), 153), ((2, 13, 11, 32), 1)])
+@pytest.mark.parametrize("normalize", [False, True])
+def test_b4_matches_mma_kernel_bit_for_bit(cuda_device, shape, k,
+                                           normalize):
+    """The wgmma + TMA kernel B4 equals the mma.sync B4 kernel
+    (`head1_correlate_fused_mma`) bit for bit in both modes: at the
+    lowres and H/2 flagship shapes, at K = 300 (two chunks), at ragged M
+    (143 and 286 pixels), at K = 153 (a last chunk of one label) and K =
+    1 at C = 32 (one k-chunk of codes). One launch of each."""
+    n, h, w, c = shape
+    xq, sx, w1q, s1, b1, txt = _head1_inputs(8, n, h, w, c, 512, k)
+    dev = cuda_device
+    args = (_t(xq).to(dev), torch.tensor(sx, device=dev),
+            _t(np.ascontiguousarray(w1q.T)).to(dev), _t(s1).to(dev),
+            _t(b1).to(dev), _t(txt).to(dev), 1.0 / 0.07, normalize)
+    before = (head1_correlate_fused.launches,
+              head1_correlate_fused_mma.launches)
+    got = head1_correlate_fused(*args)
+    ref = head1_correlate_fused_mma(*args)
+    torch.cuda.synchronize()
+    assert (head1_correlate_fused.launches,
+            head1_correlate_fused_mma.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    assert torch.equal(got, ref)
