@@ -20,14 +20,20 @@ the result line is printed:
    B9 and B15 (`csrc/qkv_wgmma.cuh`), in B15's projection, in B18's
    three channel widths and in B13's embed, and beside bulk copies
    (UBLKCP) in B19's kernels and B4's two copies; HGMMA and UTMALDG in
-   the head-pair attention kernels of B2 and B15; bulk copies in B3's LN
-   routine and in B11's fp32 and bf16 kernels;
+   the head-pair attention kernels of B2 and B15 and in B1's three copies
+   (k-chunks of 16, 32 and 48 floats); IGMMA and UTMALDG in B20's
+   cluster kernel; bulk copies in B3's LN routine and in B11's fp32 and
+   bf16 kernels;
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the serving path, with its time beside the plain version's
-   (B10 in both of its modes, fp32 and compute_dtype=bfloat16; B17 at
+   (B1 at the flagship, 384x480, a ragged M, ViT-B/32's P = 32 and D =
+   768, and two shapes of its wide route, its device time alone from
+   `torch.profiler` beside its wrapper time; B10 in both of its modes,
+   fp32 and compute_dtype=bfloat16; B17 at
    ViT-L/16's fc2 shape in bf16 and fp32 and its proj shape, and at the
    reference test's fp32 shape, with and without a residual; B20 at the
-   reference probe's shape in both scale block shapes; B6's per-row
+   reference probe's shape in both scale block shapes, and at M = 1001,
+   K = 64, 192 and 256, bit for bit; B6's per-row
    log-sum-exp against the plain one; the fp32 modes of B6 and B7, an
    fp32 model's route, at the flagship shape and a masked ragged one,
    beside SDPA in fp32; B16 as one kernel launch a call (counted by
@@ -35,8 +41,8 @@ the result line is printed:
    B7, B8, B9, B2 and B15 timed again, one after another, beside SDPA
    and SDPA's backward; the qkv stage of B2, B8, B9 and B15 alone, bit
    for bit against its plain version; B20's device time alone, from
-   `torch.profiler`, beside its host-bound wrapper time, and B3's the
-   same way; B18 checked and timed at each of the fused decoder's four
+   `torch.profiler`, beside its host-bound wrapper time, and B3's and
+   B1's the same way; B18 checked and timed at each of the fused decoder's four
    shapes, its device time from `torch.profiler`, its row a request's
    seven launches; B19 at refinenet2's shape (its row) and refinenet1's
    int8 hand-off (under "handoff"), each with its bound and device time;
@@ -214,8 +220,9 @@ TRAIN_FP32_GRAD_REL = 1e-4
 # channel widths) and the embed of B13 (its one- and many-chunk copies),
 # B14 and B5 (their C <= 256 kernels), and B19 (beside its bulk copies);
 # HGMMA and TMA loads in the head-pair attention of B2 (its cluster kernel)
-# and B15; bulk copies in B3's LN routine (in B3, B2 and B9); so a SIMT or
-# mma.sync fallback fails the run.
+# and B15, and in each chunk width's copy of B1's kernel; IGMMA and TMA
+# loads in B20's cluster kernel; bulk copies in B3's LN routine (in B3, B2
+# and B9); so a SIMT or mma.sync fallback fails the run.
 WGMMA_TMA = (r"\bHGMMA\.", r"\bUTMALDG\b")
 TF32_MMA = r"\bH(?:G)?MMA\.[\w.]*TF32"
 SASS_REQUIRED = {
@@ -240,6 +247,11 @@ SASS_REQUIRED = {
     "head1_argmax_wgmma_kernel": (r"\bIGMMA\.", r"\bUTMALDG\b"),
     "flash_q8_cluster_kernel": WGMMA_TMA,
     "pair_attention_kernel": WGMMA_TMA,
+    # B1 (its k-chunks of 16, 32 and 48 floats): the image's segments and
+    # the weight by TMA
+    **{f"patch_embed_tma_kernelILi{L}E": WGMMA_TMA for L in (16, 32, 48)},
+    # B20: x by TMA, the cluster's int32 partials over DSM
+    "int8_sliced_scale_kernel": (r"\bIGMMA\.", r"\bUTMALDG\b"),
     # B19 (its int8 and bf16 outputs): the weight by TMA, the source rows
     # by bulk copies
     "upsample_outconv_wgmma_kernelILb1E": (
@@ -511,6 +523,7 @@ def phase_kernels(dev):
         flash_attention_flat_plain,
     )
     from lseg_tpu_torch.ops.patch_embed import (
+        b1_plan,
         patch_embed,
         patch_embed_plain,
     )
@@ -519,30 +532,45 @@ def phase_kernels(dev):
     g = torch.Generator(device=dev).manual_seed(SEED)
     results = {}
 
-    w = (0.05 * torch.randn(768, 1024, device=dev, generator=g)
-         ).to(torch.bfloat16)
-    b = torch.randn(1024, device=dev, generator=g)
-    for shape in ((8, 480, 480, 3), (2, 384, 480, 3)):
+    # B1 at the flagship, the demo's 384x480, a ragged M, ViT-B/32's patch
+    # and width, and two shapes of the wide route (P*C = 42; gw = 130)
+    for shape, p, d in (((8, 480, 480, 3), 16, 1024),
+                        ((2, 384, 480, 3), 16, 1024),
+                        ((3, 48, 80, 3), 16, 128),
+                        ((2, 384, 384, 3), 32, 768),
+                        ((1, 224, 224, 3), 14, 64),
+                        ((1, 32, 2080, 3), 16, 64)):
+        w = (0.05 * torch.randn(p * p * 3, d, device=dev, generator=g)
+             ).to(torch.bfloat16)
+        b = torch.randn(d, device=dev, generator=g)
         x = torch.randn(shape, device=dev, generator=g)
-        out = patch_embed(x, w, b, 16)
-        err = check_close(f"patch_embed {shape}", out,
-                          patch_embed_plain(x, w, b, 16), PATCH_RTOL,
+        route = "tma" if b1_plan(shape[2], 3, p) else "wide"
+        out = patch_embed(x, w, b, p)
+        err = check_close(f"patch_embed {shape} P={p} D={d} ({route})", out,
+                          patch_embed_plain(x, w, b, p), PATCH_RTOL,
                           PATCH_ATOL)
-        if shape[0] == 8:
-            ms = cuda_time_ms(lambda: patch_embed(x, w, b, 16))
-            plain_ms = cuda_time_ms(lambda: patch_embed_plain(x, w, b, 16))
-            print(f"  patch_embed (8,480,480,3)->(8,900,1024): "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            # the library call: a stride-16 convolution on the same image
-            # and weight, NCHW bf16 (the layout change is not timed)
-            xc = x.permute(0, 3, 1, 2).to(torch.bfloat16)
-            wc = w.reshape(16, 16, 3, 1024).permute(3, 2, 0, 1).contiguous()
-            bc = b.to(torch.bfloat16)
-            lib_ms = cuda_time_ms(lambda: torch.nn.functional.conv2d(
-                xc, wc, bc, stride=16))
-            results["patch_embed"] = result(
-                err, ms, plain_ms, nbytes(x, w, b, out),
-                {"bf16": 2 * 8 * 900 * 768 * 1024}, lib_ms)
+        if shape[0] != 8:
+            continue
+        ms = cuda_time_ms(lambda: patch_embed(x, w, b, 16))
+        plain_ms = cuda_time_ms(lambda: patch_embed_plain(x, w, b, 16))
+        # a wrapper call may be paced by the host: the kernel's device time
+        # alone, from the profiler over back-to-back calls
+        device_ms = _device_ms(lambda: patch_embed(x, w, b, 16))
+        print(f"  patch_embed (8,480,480,3)->(8,900,1024): kernel {ms:.4f} "
+              f"ms (device time {device_ms:.5f} ms, torch.profiler), plain "
+              f"{plain_ms:.4f} ms")
+        # the library call: a stride-16 convolution on the same image and
+        # weight, NCHW bf16 (the layout change is not timed)
+        xc = x.permute(0, 3, 1, 2).to(torch.bfloat16)
+        wc = w.reshape(16, 16, 3, 1024).permute(3, 2, 0, 1).contiguous()
+        bc = b.to(torch.bfloat16)
+        lib_ms = cuda_time_ms(lambda: torch.nn.functional.conv2d(
+            xc, wc, bc, stride=16))
+        results["patch_embed"] = result(
+            err, ms, plain_ms, nbytes(x, w, b, out),
+            {"bf16": 2 * 8 * 900 * 768 * 1024}, lib_ms)
+        results["patch_embed"]["device_ms"] = device_ms
+        del xc
 
     scale = 64 ** -0.5
     for n, t, vl in ((8, 901, None), (8, 904, 901), (2, 721, None)):
@@ -1746,6 +1774,16 @@ def _probe_path_kernels(dev, g):
         del c
     del args, out
 
+    # B20 bit for bit: M not a multiple of its 64-row tile, K = 64 (two
+    # ranks of its cluster without k-steps), 192, 256; then the reference
+    # probe's shape in both scale block shapes (the timed one last)
+    for n, t, d in ((1, 1001, 1024), (2, 904, 64), (1, 77, 192),
+                    (2, 904, 256)):
+        args = probe.b20_inputs("rows", dev, g, n=n, t=t, d=d)
+        check_close(f"int8_matmul_sliced_scale ({n},{t},{d})",
+                    int8_matmul_sliced_scale(*args),
+                    int8_matmul_sliced_scale_plain(*args), probe.B20_RTOL,
+                    probe.B20_ATOL)
     for variant in ("sliced", "rows"):
         args = probe.b20_inputs(variant, dev, g)
         out = int8_matmul_sliced_scale(*args)

@@ -5,13 +5,13 @@ attention kernels B2, B15, B8 and B9 with each of their stages, B18
 (`head1_correlate_upsample_argmax`), B14 (`head1_correlate_wup_fused`)
 and B5 (`head1_correlate_argmax_fused`) at the flagship head, B19
 (`fused_upsample_outconv`), B3 (`ln_quantize_rows`), B4
-(`head1_correlate_fused`) and B11 (`upsample2x_argmax`), on one card,
-beside the PyTorch call that computes the same function where there is
-one.
+(`head1_correlate_fused`), B11 (`upsample2x_argmax`), B1 (`patch_embed`)
+and B20 (`int8_matmul_sliced_scale`), on one card, beside the PyTorch
+call that computes the same function where there is one.
 
     python lseg_tpu_torch/engine/time_gemm.py [--root DIR] [--tag T]
         [--library]
-        [--only B6_fp32,B16,B2,B15,B8,B9,B18,B13,B14,B5,B19,B3,B4,B11]
+        [--only B6_fp32,B16,B2,B15,B8,B9,B18,B13,B14,B5,B19,B3,B4,B11,B1,B20]
 
 Shapes: B17 at ViT-L/16's fc2, (7208, 4096) . (4096, 1024) with a
 residual, bf16 and fp32; B10 at the streamed head's (8, 240, 240, 512) bf16
@@ -38,18 +38,26 @@ refinenet2's (8, 60, 60, 256) -> bf16 and refinenet1's hand-off (8, 120,
 `_device_ms` (the kernel alone, `torch.profiler` over 50 calls) and
 `_stages` (every kernel of a call, by name); B3 at
 (8, 901, 1024): `B3_ms`, `B3_device_ms` and `B3_host_us`, the host time
-of a wrapper call. It imports
+of a wrapper call. B1 at the flagship (8, 480, 480, 3) -> (8, 900, 1024)
+and at ViT-B/32's (8, 480, 480, 3) -> (8, 225, 768): `B1_ms`,
+`B1_device_ms` (the kernel alone, `torch.profiler` over 20 calls),
+`B1_host_us` (the host time of a wrapper call), the same for ViT-B/32
+(`B1_b32_...`), and `B1_conv2d_ms`, the stride-16 bf16
+`F.conv2d` on the same image and weight (its layout change not timed);
+B20 at the reference probe's (2, 904, 1024) . (1024, 128): `B20_ms`
+(a wrapper call, host-paced) and `B20_device_ms` (every kernel a call
+launches, `torch.profiler` over 50 calls). It imports
 the port from `--root`
 (default: the checkout that holds this file), so the same script times an
 older tree's kernels in the same call as this one's: run them in turns
 (old, new, new, old) and compare only within one call. A mode an older
 tree does not have (fp32 B6 and B7 before they were ported) reads null.
 `--library` adds the PyTorch calls (`torch.addmm`, `torch.matmul`, SDPA in
-fp32) and the names of the device kernels that one fp32 SDPA call and its
+fp32; B1's `F.conv2d` is always timed) and the names of the device kernels that one fp32 SDPA call and its
 backward launch (`torch.profiler`), which say which of PyTorch's kernels
 computes them. `--only` times the named rows alone (B17, B10, B6_fp32
 (with B7_fp32), B16, B2, B15, B8, B9, B18, B13, B14, B5, B19, B3, B4,
-B11). Prints
+B11, B1, B20). Prints
 one JSON line: the card's name and power limit and
 each time in ms (CUDA events over 20 calls after 3 warm-ups). Without a
 card it exits 1.
@@ -301,6 +309,54 @@ def head_logit_rows(row, only, dev, g, ms):
             row[f"B11_{name}_device_ms"] = device_ms(fn, "upsample2x_argmax")
 
 
+def embed_probe_rows(row, only, dev, g, ms):
+    """B1 (`patch_embed`) at the flagship and at ViT-B/32's patch, with
+    the stride-P bf16 convolution beside it; B20
+    (`int8_matmul_sliced_scale`) at the reference probe's shape: ms a call
+    (CUDA events), the device ms of every kernel a call launches
+    (`torch.profiler`) and, for B1, the host us of a wrapper call."""
+    import time
+
+    import torch
+
+    def device_ms(fn, calls):
+        return sum(device_stages(fn, calls).values())
+
+    if "B1" in only:
+        from lseg_tpu_torch.ops.patch_embed import patch_embed
+
+        x = torch.randn(8, 480, 480, 3, device=dev, generator=g)
+        for tag, p, d in (("B1", 16, 1024), ("B1_b32", 32, 768)):
+            w = (0.05 * torch.randn(p * p * 3, d, device=dev, generator=g)
+                 ).to(torch.bfloat16)
+            b = torch.randn(d, device=dev, generator=g)
+            fn = lambda: patch_embed(x, w, b, p)  # noqa: E731
+            row[f"{tag}_ms"] = ms(fn)
+            row[f"{tag}_device_ms"] = device_ms(fn, 20)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                fn()
+            row[f"{tag}_host_us"] = (time.perf_counter() - t0) / 50 * 1e6
+            torch.cuda.synchronize()
+            if p == 16:
+                xc = x.permute(0, 3, 1, 2).to(torch.bfloat16)
+                wc = w.reshape(p, p, 3, d).permute(3, 2, 0, 1).contiguous()
+                bc = b.to(torch.bfloat16)
+                row["B1_conv2d_ms"] = ms(lambda: torch.nn.functional.conv2d(
+                    xc, wc, bc, stride=p))
+                del xc
+    if "B20" in only:
+        from lseg_tpu_torch import probe
+        from lseg_tpu_torch.ops.scaled_int8 import int8_matmul_sliced_scale
+
+        args = probe.b20_inputs("sliced", dev, g)
+        fn = lambda: int8_matmul_sliced_scale(*args)  # noqa: E731
+        row["B20_ms"] = ms(fn)
+        row["B20_device_ms"] = device_ms(fn, 50)
+        row["B20_stages"] = device_stages(fn, 50)
+
+
 def int8_attention_rows(row, only, dev, g, ms):
     """B2, B15, B8 and B9 at (8, 901, 1024), 16 heads: ms a call, and
     each stage's device ms a call."""
@@ -499,6 +555,8 @@ def main(argv=None) -> int:
         tail_rows(row, only, dev, g, ms)
     if only & {"B4", "B11"}:
         head_logit_rows(row, only, dev, g, ms)
+    if only & {"B1", "B20"}:
+        embed_probe_rows(row, only, dev, g, ms)
     print(json.dumps(row), flush=True)
     return 0
 

@@ -16,7 +16,8 @@ MLP, (8, 901, 1024) codes and H = 4096, and prints one JSON line: the
 median over the CTAs of the microseconds between the kernel's phase
 points (`TIMELINE_PHASES`), and the spread of the CTAs' start times;
 `--timeline b18`, from a `b18_timeline` copy, does the same for B18 at
-(8, 120, 120, 256) and (8, 15, 15, 256) (`B18_PHASES`).
+(8, 120, 120, 256) and (8, 15, 15, 256) (`B18_PHASES`); `--timeline b1`
+(and b13, b14, b5, b19, b19_wide, b11) from that kernel's copy.
 Variants:
 
 - `head1_correlate_mma_sync`: the correlate of B13, B14 and B5 on
@@ -70,6 +71,15 @@ Variants:
   ring slot one load back, a mutation (phase 2 catches it);
 - `b4_last_chunk_dropped`: B4 leaving out the row copies of a step's last
   label chunk (K > 152), a mutation (phase 2's K = 300 check catches it);
+- `b1_timeline`: B1 summing, per CTA, a converter thread's waits (for
+  the fp32 segments and a free stage) and the rest of its walk, the
+  weight loader's waits for free stages, and its first consumer
+  warpgroup's waits for converted stages, main loop and epilogue
+  (`--timeline b1`);
+- `b1_stale_stage`: B1's consumers reading a stage's A one stage ahead,
+  before its converted A is published, a mutation (phase 2 catches it);
+- `b20_drop_peer`: B20 summing three of the cluster's four int32
+  partials (the last peer's dropped), a mutation (phase 2 catches it);
 - `b14_timeline`, `b5_timeline`: B14 summing, per CTA, its steps' time on
   the logits and on the outputs (W-interp, staging, copies); B5 its
   steps' wait for the codes and the rest of each step (`--timeline b14`,
@@ -557,6 +567,67 @@ VARIANTS = {
          "  // the rows this group never read: waited for in order, then "
          "released,\n"),
     ]),
+    "b1_stale_stage": ("patch_embed.cu", [
+        ("    const uint64_t da = wg::desc(sm.stage[s] + c * 64 * 128);",
+         "    const uint64_t da =\n"
+         "        wg::desc(sm.stage[(s + 1) % STAGES] + c * 64 * 128);"),
+    ]),
+    "b1_timeline": ("patch_embed.cu", [
+        ('#include "wgmma_gemm.cuh"\n', '#include "wgmma_gemm.cuh"\n'
+         "__device__ unsigned long long lseg_b1_stamps[1024][8];\n"
+         "#define NOW(v) asm volatile(\"mov.u64 %0, %%globaltimer;\" : "
+         "\"=l\"(v) :: \"memory\")\n"
+         "extern \"C\" int lseg_b1_timeline(void* dst) {\n"
+         "  void* p = nullptr;\n"
+         "  cudaError_t e = cudaMemcpyFromSymbol(dst, lseg_b1_stamps, "
+         "sizeof(lseg_b1_stamps));\n"
+         "  if (e == cudaSuccess) e = cudaGetSymbolAddress(&p, "
+         "lseg_b1_stamps);\n"
+         "  if (e == cudaSuccess) e = cudaMemset(p, 0, "
+         "sizeof(lseg_b1_stamps));\n"
+         "  return static_cast<int>(e);\n}\n"),
+        ("        const int s = sm.ring.acquire(kc, (BN / 64) * L * 128);\n",
+         "        unsigned long long t_p, t_q;\n        NOW(t_p);\n"
+         "        const int s = sm.ring.acquire(kc, (BN / 64) * L * 128);\n"
+         "        NOW(t_q);\n"
+         "        if (blockIdx.x < 1024) lseg_b1_stamps[blockIdx.x][6] += "
+         "t_q - t_p;\n"),
+        ("      for (int kc = 0; kc < a.n_k; ++kc) {\n"
+         "        const int r = sm.raw.wait(kc);\n"
+         "        const int s = sm.ring.wait_free(kc);\n",
+         "      unsigned long long t_a, t_b, t_l0, t_end, s_wait = 0;\n"
+         "      NOW(t_l0);\n"
+         "      for (int kc = 0; kc < a.n_k; ++kc) {\n        NOW(t_a);\n"
+         "        const int r = sm.raw.wait(kc);\n"
+         "        const int s = sm.ring.wait_free(kc);\n"
+         "        NOW(t_b);\n        s_wait += t_b - t_a;\n"),
+        ("          sm.raw.release(kc);\n        }\n      }\n",
+         "          sm.raw.release(kc);\n        }\n      }\n"
+         "      NOW(t_end);\n"
+         "      if (threadIdx.x == 32 && blockIdx.x < 1024) {\n"
+         "        lseg_b1_stamps[blockIdx.x][1] = s_wait;\n"
+         "        lseg_b1_stamps[blockIdx.x][2] = t_end - t_l0 - s_wait;\n"
+         "      }\n"),
+        ("  for (int kc = 0; kc < a.n_k; ++kc) {\n"
+         "    const int s = sm.ring.wait(kc);\n",
+         "  unsigned long long t0c, t_x, t_y, t_l, t_e, s_cw = 0;\n"
+         "  NOW(t0c);\n"
+         "  for (int kc = 0; kc < a.n_k; ++kc) {\n    NOW(t_x);\n"
+         "    const int s = sm.ring.wait(kc);\n"
+         "    NOW(t_y);\n    s_cw += t_y - t_x;\n"),
+        ("  wg::wait<0>();\n  gm::fence_acc(acc);\n\n",
+         "  wg::wait<0>();\n  gm::fence_acc(acc);\n  NOW(t_l);\n\n"),
+        ("    gm::tma_store_drain();\n  }\n}\n",
+         "    gm::tma_store_drain();\n  }\n  NOW(t_e);\n"
+         "  if (tid == 0 && c == 0 && blockIdx.x < 1024) {\n"
+         "    unsigned long long* r = lseg_b1_stamps[blockIdx.x];\n"
+         "    r[0] = t_e - t0c;\n    r[3] = s_cw;\n    r[4] = t_l - t0c;\n"
+         "    r[5] = t_e - t_l;\n  }\n}\n"),
+    ]),
+    "b20_drop_peer": ("int8_sliced_scale.cu", [
+        ("    for (int p = 0; p < SPLIT; ++p) {\n",
+         "    for (int p = 0; p < SPLIT - 1; ++p) {\n"),
+    ]),
     "b11_no_hblend": ("upsample2x_argmax.cu", [
         ("    hblend(hb, reinterpret_cast", "    if (st.nc < 0) hblend(hb, "
          "reinterpret_cast"),
@@ -945,6 +1016,50 @@ def read_b11_timeline() -> dict:
     return out
 
 
+def read_b1_timeline() -> dict:
+    """Run this checkout's B1 (a `b1_timeline` copy) at the flagship (8,
+    480, 480, 3) -> (8, 900, 1024) and at ViT-B/32's (8, 480, 480, 3) ->
+    (8, 225, 768) (the stamps read, then zeroed, after each); per shape,
+    the median over the CTAs of the microseconds of the first consumer
+    warpgroup from its first wait to its stores (`cta_us`), of its waits
+    for converted stages (`consumer_wait_us`), its main loop
+    (`mainloop_us`) and its epilogue with the wait for its stage
+    (`epilogue_us`); of the first converter thread's waits for a chunk's
+    fp32 segments and a free stage (`converter_wait_us`) and the rest of
+    its walk (`convert_us`: rounding them into the stage's A, the fence
+    and the arrivals); and of the weight loader's waits for free stages
+    (`producer_wait_us`)."""
+    import ctypes
+
+    import torch
+
+    from lseg_tpu_torch.ops._build import load_kernels
+    from lseg_tpu_torch.ops.patch_embed import patch_embed
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(8, 480, 480, 3, device="cuda", generator=g)
+    out = {}
+    for name, p, d in (("flagship", 16, 1024), ("b32", 32, 768)):
+        w = (0.05 * torch.randn(p * p * 3, d, device="cuda", generator=g)
+             ).to(torch.bfloat16)
+        b = torch.randn(d, device="cuda", generator=g)
+        for _ in range(3):
+            patch_embed(x, w, b, p)
+        torch.cuda.synchronize()
+        raw = torch.zeros(1024 * 8, dtype=torch.int64)
+        rc = load_kernels().lseg_b1_timeline(ctypes.c_void_p(raw.data_ptr()))
+        if rc != 0:
+            raise RuntimeError(f"lseg_b1_timeline: cudaError {rc}")
+        t = raw.view(1024, 8)
+        t = t[t[:, 4] > 0].double()
+        med = t.median(0).values / 1e3
+        out[name] = {"ctas": int(t.shape[0]), **{
+            f"{k}_us": float(v) for k, v in zip(
+                ("cta", "converter_wait", "convert", "consumer_wait",
+                 "mainloop", "epilogue", "producer_wait"), med)}}
+    return out
+
+
 def read_b19_wide_timeline() -> dict:
     """Run this checkout's earlier B19 kernel (a `b19_wide_timeline` copy
     of fused_upsample_outconv_wide.cu, called at Co = 256 through its
@@ -1015,7 +1130,7 @@ def main(argv=None) -> int:
     ap.add_argument("dest", nargs="?", type=Path)
     ap.add_argument("--timeline", nargs="?", const="b16",
                     choices=("b16", "b18", "b13", "b14", "b5", "b19",
-                             "b19_wide", "b11"),
+                             "b19_wide", "b11", "b1"),
                     help="B16's (B18's, B13's, B14's, B5's, B19's) phase "
                          "times, run from a b16_timeline (b18_timeline, "
                          "...) copy")
@@ -1027,7 +1142,8 @@ def main(argv=None) -> int:
                 "b13": read_b13_timeline, "b14": read_b14_timeline,
                 "b5": read_b5_timeline, "b19": read_b19_timeline,
                 "b19_wide": read_b19_wide_timeline,
-                "b11": read_b11_timeline}[args.timeline]
+                "b11": read_b11_timeline,
+                "b1": read_b1_timeline}[args.timeline]
         print(json.dumps(read()), flush=True)
         return 0
     if args.name is None or args.dest is None:

@@ -48,6 +48,9 @@ _I = ctypes.c_int
 SIGNATURES = {
     # x, w, bias, out, n, h, w, c, patch, dim, stream
     "lseg_patch_embed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # the same, B1's route for the shapes the TMA kernel does not take
+    # (patch_embed_wide.cu)
+    "lseg_patch_embed_wide": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # qkv, out, lse (or null), n, t, dim, valid_len, scale, stream
     "lseg_flash_attention_flat": (_P,) * 3 + (_I,) * 4 + (ctypes.c_float,
                                                          _P),
@@ -121,7 +124,7 @@ SIGNATURES = {
     # x, w, b, resid, w_split (fp32 scratch), out, m, k, n, x_bf16,
     # resid_kind, out_bf16, stream
     "lseg_dense_residual": (_P,) * 6 + (_I,) * 6 + (_P,),
-    # x, w_t, sw, out, m, k, stream
+    # x, w, sw, out, m, k, stream
     "lseg_int8_sliced_scale": (_P,) * 4 + (_I,) * 2 + (_P,),
 }
 

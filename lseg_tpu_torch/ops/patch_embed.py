@@ -2,8 +2,15 @@
 
 Replaces `lseg_tpu/ops/pallas_patch.py` · `patch_embed_fused`. The CUDA
 kernel is `lseg_tpu_torch/csrc/patch_embed.cu`; its header says what
-bounds it on the card (bytes of the image and weights) and how the
-design keeps the patchified image out of device memory.
+bounds it on the card (bytes of the image and weights, and the bf16
+products) and how the design keeps the patchified image out of device
+memory: output tiles of R whole grid rows against `B1_TILE[1]` channels
+in a `B1_TILE[0]`-row wgmma tile, K walked in k-chunks of L floats of one
+patch row, each chunk's segments of the tile's tokens loaded by one TMA
+box and rounded to bf16 in shared memory (`b1_plan` gives L and R).
+Shapes whose patch row is not cut into equal chunks of 16, 32 or 48
+floats, or whose grid is wider than 128 patches, take the port's first
+B1 kernel, `csrc/patch_embed_wide.cu`.
 
 `patch_embed` is the wrapper: on a CUDA tensor it launches the kernel
 (or raises), on a CPU tensor it runs `patch_embed_plain`, the plain
@@ -19,7 +26,27 @@ from lseg_tpu_torch.ops._build import (
     check_launch,
     check_no_grad,
     load_kernels,
+    on_device,
+    stream_handle,
 )
+
+# the TMA kernel's wgmma tile (rows, channels) and its widest k-chunk
+B1_TILE = (128, 256)
+B1_MAX_CHUNK = 48
+
+
+def b1_plan(w: int, c: int, patch: int):
+    """(L, R) of the TMA kernel for an image W wide with C channels: its
+    k-chunks are L floats of one patch row (P*C cut into the fewest equal
+    chunks of at most 48 floats), its tiles R = 128 // gw whole grid rows;
+    None where L is not a multiple of 16 or gw > 128 (the wide kernel's
+    shapes)."""
+    pc, gw = patch * c, w // patch
+    split = -(-pc // B1_MAX_CHUNK)
+    chunk = pc // split
+    if gw > B1_TILE[0] or pc % split or chunk % 16:
+        return None
+    return chunk, B1_TILE[0] // gw
 
 
 def patchify(x: torch.Tensor, patch: int) -> torch.Tensor:
@@ -67,19 +94,21 @@ def patch_embed(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if d % 64:
         raise ValueError(f"patch_embed kernel needs dim % 64 == 0, got {d}")
     for name, t in (("x", x), ("weight", weight), ("bias", bias)):
-        if not t.is_contiguous():
-            raise ValueError(f"patch_embed: {name} must be contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"patch_embed: {name} must be contiguous and "
+                             f"16-byte aligned")
         if t.device != x.device:
             raise ValueError(f"patch_embed: {name} is on {t.device}")
     lib = load_kernels()
     out = torch.empty((n, (h // patch) * (w // patch), d),
                       dtype=torch.bfloat16, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lseg_patch_embed(x.data_ptr(), weight.data_ptr(),
-                                  bias.data_ptr(), out.data_ptr(), n, h, w,
-                                  c, patch, d, stream)
-    check_launch(lib, "lseg_patch_embed", rc)
+    entry = ("lseg_patch_embed" if b1_plan(w, c, patch) is not None
+             else "lseg_patch_embed_wide")
+    with on_device(x.device):
+        rc = getattr(lib, entry)(x.data_ptr(), weight.data_ptr(),
+                                 bias.data_ptr(), out.data_ptr(), n, h, w, c,
+                                 patch, d, stream_handle(x.device))
+    check_launch(lib, entry, rc)
     patch_embed.launches += 1
     return out
 

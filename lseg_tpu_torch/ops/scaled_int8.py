@@ -9,7 +9,9 @@ floats in two block shapes (`SCALE_SHAPES`), so one kernel serves all
 four. The port launches it on the probe path, `python -m
 lseg_tpu_torch.probe <variant>`. The CUDA source is
 `lseg_tpu_torch/csrc/int8_sliced_scale.cu`; its header says what bounds it
-on the card.
+on the card and how the work is cut: M in tiles of 64 rows, K over a
+cluster of `B20_SPLIT` CTAs whose int32 partials are summed over
+distributed shared memory (`b20_k_ranges`).
 
 `int8_matmul_sliced_scale` is the wrapper: on a CUDA tensor it launches
 the kernel (or raises), on a CPU tensor it runs
@@ -24,10 +26,14 @@ from lseg_tpu_torch.ops._build import (
     check_launch,
     check_operands,
     load_kernels,
+    on_device,
+    stream_handle,
 )
 from lseg_tpu_torch.ops.quant import int8_mm
 
 SLICE = 128
+# B20's cut of the product: tiles of 64 rows, K over a cluster of four
+B20_ROWS, B20_SPLIT = 64, 4
 # the reference's variant -> the shape of its scale block (and array)
 SCALE_SHAPES = {"sliced": (1, 1, 3 * SLICE), "rows": (3, SLICE),
                 "rows1d": (3, SLICE), "bcast": (1, 1, 3 * SLICE)}
@@ -46,6 +52,19 @@ def _check(x, w, sw):
         "x": (x, torch.int8), "w": (w, torch.int8),
         "sw": (sw, torch.float32)})
     return x.shape
+
+
+def b20_k_ranges(k: int):
+    """The kernel's split of K: [k0, k1) of each CTA of a cluster, in
+    k-steps of 32 codes, the first ranks taking ceil(steps / 4) each (a
+    range may be empty)."""
+    steps = k // 32
+    per = -(-steps // B20_SPLIT)
+    ranges = []
+    for rank in range(B20_SPLIT):
+        s0 = min(rank * per, steps)
+        ranges.append((32 * s0, 32 * min(s0 + per, steps)))
+    return ranges
 
 
 def int8_matmul_sliced_scale_plain(x: torch.Tensor, w: torch.Tensor,
@@ -76,15 +95,13 @@ def int8_matmul_sliced_scale(x: torch.Tensor, w: torch.Tensor,
     if d % 64 or not 0 < d <= 1024:
         raise ValueError(f"int8_matmul_sliced_scale kernel needs D % 64 == 0 "
                          f"and 0 < D <= 1024, got {d}")
-    w_t = w.t().contiguous()  # the (128, D) column-major B of the tile
     if lib is None:
         lib = load_kernels()
     out = torch.empty((n, t, SLICE), dtype=torch.bfloat16, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lseg_int8_sliced_scale(x.data_ptr(), w_t.data_ptr(),
+    with on_device(x.device):
+        rc = lib.lseg_int8_sliced_scale(x.data_ptr(), w.data_ptr(),
                                         sw.data_ptr(), out.data_ptr(), n * t,
-                                        d, stream)
+                                        d, stream_handle(x.device))
     check_launch(lib, "lseg_int8_sliced_scale", rc)
     int8_matmul_sliced_scale.launches += 1
     return out

@@ -2,6 +2,9 @@
 plain versions of the two kernels against the Pallas kernels run in
 interpret mode. Kernel-vs-plain checks on the card are marked `gpu`."""
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,7 +21,16 @@ from lseg_tpu_torch.ops.flash_attention import (
     flash_attention_flat,
     flash_attention_flat_plain,
 )
-from lseg_tpu_torch.ops.patch_embed import patch_embed, patch_embed_plain
+from lseg_tpu_torch.ops.patch_embed import (
+    B1_MAX_CHUNK,
+    B1_TILE,
+    b1_plan,
+    patch_embed,
+    patch_embed_plain,
+    patchify,
+)
+
+REPO = Path(__file__).resolve().parent.parent
 
 
 def _t(a):
@@ -83,6 +95,153 @@ def test_patch_embed_plain_matches_pallas(shape, dim):
     r = np.asarray(ref.astype(jnp.float32))
     np.testing.assert_allclose(got.float().numpy(), r, rtol=2 ** -8,
                                atol=1e-6)
+
+
+def test_patch_embed_plain_matches_pallas_p32():
+    """ViT-B/32's patch: P = 32 (K = 3072 rows of the weight) and D =
+    768. Both round the operands to bf16 and sum in fp32 in another
+    order, so an output may round one bf16 ulp apart: 2^(e - 8) for |ref|
+    in [2^(e-1), 2^e), which is up to 2^-7 of the value at the bottom of a
+    binade (the P = 16 test's rtol of 2^-8 is half an ulp there)."""
+    rng = np.random.RandomState(5)
+    x = rng.randn(2, 64, 96, 3).astype(np.float32)
+    k = (rng.randn(32, 32, 3, 768) * 0.02).astype(np.float32)
+    b = rng.randn(768).astype(np.float32)
+    ref = j_patch(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b), 32, 768,
+                  interpret=True)
+    got = patch_embed_plain(_t(x), _t(k.reshape(-1, 768)), _t(b), 32)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape == (
+        2, 6, 768)
+    r = np.asarray(ref.astype(jnp.float32))
+    ulp = np.ldexp(1.0, np.frexp(r)[1] - 8)
+    assert (np.abs(got.float().numpy() - r) <= ulp + 1e-6).all()
+
+
+# ---- B1's decomposition on the card, emulated in fp64 ----
+
+def _b1_inputs(seed, shape, patch, dim):
+    """An fp32 image and its bf16-rounded copy in fp64, a bf16 weight and
+    an fp32 bias."""
+    rng = np.random.RandomState(seed)
+    x = _t(rng.randn(*shape).astype(np.float32))
+    w = _t((rng.randn(patch * patch * shape[3], dim) * 0.05).astype(
+        np.float32)).to(torch.bfloat16)
+    b = _t(rng.randn(dim).astype(np.float32))
+    return x, w, b
+
+
+def _b1_plain64(x, w, b, patch):
+    """patch_embed_plain's arithmetic in fp64, before its one cast: bf16
+    operands, exact products, the bias added to the sum."""
+    xp = patchify(x, patch).to(torch.bfloat16).double()
+    y = xp @ w.double() + b.double()
+    return y.reshape(-1, w.shape[1]).numpy()
+
+
+def _b1_emulate(x, w, b, patch, mutation=None):
+    """The TMA kernel's walk in fp64 (products of bf16 values are exact
+    there), from `b1_plan`'s (L, R): tiles of R whole grid rows of one
+    image (the last of an image cut short) against B1_TILE[1] channels;
+    k-chunks of L floats of one patch row, each chunk's A the TMA box of
+    the image (L floats x gw patch columns x that patch row x R grid rows,
+    zeros past the image's grid) rounded to bf16, against weight rows
+    i * P*C + j * L ..; the bias added in the epilogue; the store box of R
+    grid rows clipped at the image's grid and at D. The output is indexed
+    by token, with a tile's worth of NaN rows past M: a store of a grid
+    row past the image shows there.
+
+    Mutations: "wrong_patch_row" loads the image's box of the next patch
+    row for each chunk (the weight's rows unchanged); "padded_token_written"
+    stores the tile's grid rows past the image's grid."""
+    n, h, wd, c = x.shape
+    k_total, d = w.shape
+    chunk, rows = b1_plan(wd, c, patch)
+    bn = B1_TILE[1]
+    gh, gw, pc = h // patch, wd // patch, patch * c
+    tokens = gh * gw
+    m = n * tokens
+    # the image as the TMA map's 5-D view: (N, gh, P, gw, P*C)
+    img5 = x.to(torch.bfloat16).double().numpy().reshape(n, gh, patch, gw, pc)
+    wt = w.double().numpy()
+    out = np.full((m + rows * gw, d), np.nan)
+    for im in range(n):
+        for pr0 in range(0, gh, rows):
+            live = min(rows, gh - pr0)
+            for n0 in range(0, d, bn):
+                acc = np.zeros((rows * gw, bn))
+                for i in range(patch):
+                    for j in range(pc // chunk):
+                        ii = (i + 1) % patch if mutation == "wrong_patch_row" \
+                            else i
+                        box = np.zeros((rows, gw, chunk))
+                        box[:live] = img5[im, pr0:pr0 + live, ii, :,
+                                          j * chunk:(j + 1) * chunk]
+                        a = box.reshape(rows * gw, chunk)
+                        wk = np.zeros((chunk, bn))
+                        k0 = i * pc + j * chunk
+                        cols = min(bn, d - n0)
+                        wk[:, :cols] = wt[k0:k0 + chunk, n0:n0 + cols]
+                        acc += a @ wk
+                y = acc + np.pad(b.double().numpy()[n0:n0 + bn],
+                                 (0, max(0, n0 + bn - d)))
+                stored = rows if mutation == "padded_token_written" else live
+                t0 = im * tokens + pr0 * gw
+                cols = min(bn, d - n0)
+                out[t0:t0 + stored * gw, n0:n0 + cols] = y[:stored * gw,
+                                                            :cols]
+    return out, m
+
+
+_B1_SHAPES = [((1, 480, 480, 3), 16, 1024),   # the flagship's grid 30 x 30
+              ((1, 384, 480, 3), 16, 1024),   # the demo's 24 x 30
+              ((3, 48, 80, 3), 16, 128),      # M = 45, R = 25 > gh = 3
+              ((2, 128, 128, 3), 16, 192),    # gw = 8: R = 16 > gh, D 192
+              ((1, 384, 384, 3), 32, 768)]    # ViT-B/32: L = 48 of 96
+
+
+@pytest.mark.parametrize("shape,patch,dim", _B1_SHAPES)
+def test_b1_tiles_emulated(shape, patch, dim):
+    x, w, b = _b1_inputs(6, shape, patch, dim)
+    got, m = _b1_emulate(x, w, b, patch)
+    np.testing.assert_allclose(got[:m], _b1_plain64(x, w, b, patch),
+                               rtol=1e-9, atol=1e-9)
+    assert np.isnan(got[m:]).all()  # no grid row past the image written
+
+
+@pytest.mark.parametrize("mutation", ["wrong_patch_row",
+                                      "padded_token_written"])
+def test_b1_emulation_catches_mutations(mutation):
+    """Each mutation of the walk differs from the plain sums (a last tile
+    of the image cut short: gh = 30 against R = 4 grid rows)."""
+    x, w, b = _b1_inputs(7, (1, 480, 480, 3), 16, 128)
+    got, m = _b1_emulate(x, w, b, 16, mutation)
+    ok = (np.allclose(got[:m], _b1_plain64(x, w, b, 16), rtol=1e-9,
+                      atol=1e-9) and np.isnan(got[m:]).all())
+    assert not ok
+
+
+@pytest.mark.parametrize("w,c,patch,plan", [
+    (480, 3, 16, (48, 4)), (384, 3, 16, (48, 5)), (480, 3, 32, (48, 8)),
+    (224, 3, 14, None),        # P*C = 42: no chunk a multiple of 16
+    (2080, 3, 16, None),       # gw = 130 > 128
+    (64, 4, 8, (32, 16)), (64, 1, 16, (16, 32)), (96, 4, 16, (32, 21))])
+def test_b1_plan(w, c, patch, plan):
+    assert b1_plan(w, c, patch) == plan
+
+
+def test_b1_tile_matches_the_kernel_source():
+    """B1_TILE, B1_MAX_CHUNK and `b1_plan`'s cut are those that
+    csrc/patch_embed.cu compiles and its launcher takes."""
+    src = (REPO / "lseg_tpu_torch" / "csrc" / "patch_embed.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (BM|BN|MAX_L) = (\d+);", src)}
+    assert (consts["BM"], consts["BN"]) == B1_TILE
+    assert consts["MAX_L"] == B1_MAX_CHUNK
+    for line in ("const int split = (pc + MAX_L - 1) / MAX_L;",
+                 "const int L = pc / split;",
+                 "if (pc % split || L % 16) return",
+                 "w_img / patch > BM)", "a.rows = BM / gw;"):
+        assert line in src, line
 
 
 @pytest.mark.parametrize("case", ["ragged", "valid_len", "bf16"])
@@ -178,15 +337,26 @@ def test_wrappers_reject_bad_input():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(2, 480, 480, 3), (1, 384, 480, 3)])
-def test_patch_embed_kernel_matches_plain_on_gpu(cuda_device, shape):
+@pytest.mark.parametrize("shape,patch,dim", [
+    ((2, 480, 480, 3), 16, 1024), ((1, 384, 480, 3), 16, 1024),
+    ((8, 480, 480, 3), 16, 1024),    # the flagship
+    ((3, 48, 80, 3), 16, 128),       # ragged M = 45
+    ((1, 176, 208, 3), 16, 768),     # M = 143: a tile and a ragged one
+    ((2, 384, 384, 3), 32, 768),     # ViT-B/32: K = 3072, D = 768
+    ((1, 224, 224, 3), 14, 64),      # P * C = 42: the wide kernel
+    ((1, 32, 2080, 3), 16, 64)])     # gw = 130 > 128: the wide kernel
+def test_patch_embed_kernel_matches_plain_on_gpu(cuda_device, shape, patch,
+                                                 dim):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     x = torch.randn(shape, device=cuda_device, generator=g)
-    w = (0.05 * torch.randn(768, 1024, device=cuda_device, generator=g)
+    w = (0.05 * torch.randn(patch * patch * shape[3], dim,
+                            device=cuda_device, generator=g)
          ).to(torch.bfloat16)
-    b = torch.randn(1024, device=cuda_device, generator=g)
-    got = patch_embed(x, w, b, 16)
-    ref = patch_embed_plain(x, w, b, 16)
+    b = torch.randn(dim, device=cuda_device, generator=g)
+    before = patch_embed.launches
+    got = patch_embed(x, w, b, patch)
+    assert patch_embed.launches == before + 1
+    ref = patch_embed_plain(x, w, b, patch)
     # one bf16 ulp, plus the fp32 reordering error where the sum cancels
     torch.testing.assert_close(got.float(), ref.float(), rtol=2 ** -7,
                                atol=1e-4)

@@ -29,7 +29,11 @@ from lseg_tpu_torch.ops.fused_correlate import (
     fused_correlate_plain,
 )
 from lseg_tpu_torch.ops.scaled_int8 import (
+    B20_ROWS,
+    B20_SPLIT,
     SCALE_SHAPES,
+    SLICE,
+    b20_k_ranges,
     int8_matmul_sliced_scale,
     int8_matmul_sliced_scale_plain,
 )
@@ -270,6 +274,67 @@ def test_probe_scale_shapes_match_the_reference_probe(variant, monkeypatch,
     assert probe.KERNELS[variant] == "int8_matmul_sliced_scale"
 
 
+def _b20_emulate(x, w, sw, drop=None):
+    """The kernel's cut in numpy: tiles of B20_ROWS rows (zeros past M),
+    K split over the cluster's CTAs by `b20_k_ranges`, each CTA's int32
+    partial of the tile summed (leaving out rank `drop`), then the `_rn`
+    epilogue in fp32, ((0 + acc s0) + acc s1) + acc s2, rounded to bf16."""
+    m, k = x.shape
+    xi, wi = x.astype(np.int64), w.astype(np.int64)
+    acc = np.zeros((m, SLICE), np.int64)
+    for m0 in range(0, m, B20_ROWS):
+        tile = np.zeros((B20_ROWS, k), np.int64)
+        tile[:min(B20_ROWS, m - m0)] = xi[m0:m0 + B20_ROWS]
+        parts = [tile[:, k0:k1] @ wi[k0:k1] for k0, k1 in b20_k_ranges(k)]
+        total = sum(p for r, p in enumerate(parts) if r != drop)
+        acc[m0:m0 + B20_ROWS] = total[:min(B20_ROWS, m - m0)]
+    assert (np.abs(acc) < 2 ** 31).all()
+    a = acc.astype(np.int32).astype(np.float32)
+    s = sw.reshape(3, SLICE).astype(np.float32)
+    v = (np.float32(0) + a * s[0]) + a * s[1]
+    v = v + a * s[2]
+    return torch.from_numpy(v).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("m,k", [(1808, 1024), (1001, 1024), (1808, 64),
+                                 (77, 256), (130, 192)])
+def test_b20_split_k_emulated(m, k):
+    """Four int32 K-partials a tile, summed, then the `_rn` epilogue: the
+    plain twin bit for bit (by value), at the reference's M = 2 x 904,
+    M not a multiple of 64 and K = 64 (two ranks with no k-steps), 192,
+    256 and 1024."""
+    rng = np.random.RandomState(8)
+    x = rng.randint(-128, 128, (m, k)).astype(np.int8)
+    w = rng.randint(-128, 128, (k, SLICE)).astype(np.int8)
+    sw = (1e-3 * (rng.rand(3, SLICE) - 0.25)).astype(np.float32)
+    ranges = b20_k_ranges(k)
+    assert len(ranges) == B20_SPLIT and ranges[0][0] == 0
+    assert all(a1 == b0 for (_, a1), (b0, _) in zip(ranges, ranges[1:]))
+    assert ranges[-1][1] == k and all(k1 - k0 <= 256 for k0, k1 in ranges)
+    ref = int8_matmul_sliced_scale_plain(_t(x)[None], _t(w), _t(sw))[0]
+    got = _b20_emulate(x, w, sw)
+    assert torch.equal(got.float(), ref.float())
+    # a dropped peer's partial shows wherever that peer had k-steps
+    for rank, (k0, k1) in enumerate(ranges):
+        if k1 > k0:
+            dropped = _b20_emulate(x, w, sw, drop=rank)
+            assert not torch.equal(dropped.float(), ref.float())
+
+
+def test_b20_cut_matches_the_kernel_source():
+    """B20_ROWS and B20_SPLIT are the tile and cluster size that
+    csrc/int8_sliced_scale.cu compiles, and its K split is
+    `b20_k_ranges`'."""
+    src = (_build.CSRC / probe.B20_SOURCE).read_text()
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (BM|SPLIT|MAX_BOXES) = (\d+);", src)}
+    assert (consts["BM"], consts["SPLIT"]) == (B20_ROWS, B20_SPLIT)
+    assert consts["MAX_BOXES"] * 128 == 1024 // B20_SPLIT
+    assert "const int per = (steps + SPLIT - 1) / SPLIT;" in src
+    assert "const int s0 = min(rank * per, steps), s1 = min(s0 + per, " \
+           "steps);" in src
+
+
 def test_int8_sliced_scale_checks_shapes():
     x, w, sw = (_t(a) for a in _b20_inputs("rows"))
     with pytest.raises(ValueError, match="scales"):
@@ -428,6 +493,21 @@ def test_int8_sliced_scale_kernel_matches_plain(cuda_device, variant):
     args = probe.b20_inputs(variant, cuda_device, g)
     _close(int8_matmul_sliced_scale(*args),
            int8_matmul_sliced_scale_plain(*args), 0.0, 0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,t,d", [(2, 904, 1024), (1, 1001, 1024),
+                                   (2, 904, 64), (2, 904, 256),
+                                   (1, 77, 192), (1, 1, 1024)])
+def test_int8_sliced_scale_kernel_shapes(cuda_device, n, t, d):
+    """B20 bit for bit at M = 1808, M not a multiple of its 64-row tile,
+    K = 64 (two ranks of the cluster without k-steps), 192, 256, 1024."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    args = probe.b20_inputs("rows", cuda_device, g, n=n, t=t, d=d)
+    before = int8_matmul_sliced_scale.launches
+    got = int8_matmul_sliced_scale(*args)
+    assert int8_matmul_sliced_scale.launches == before + 1
+    _close(got, int8_matmul_sliced_scale_plain(*args), 0.0, 0.0)
 
 
 @pytest.mark.gpu
