@@ -146,7 +146,36 @@ the result line is printed:
    (each from the probe's own one-source library), `dense` (B17 at fc2)
    and `ln_qkv` (B9), each against its plain twin; the launch counters
    must show exactly B9, B17 and B20, the kernels that no model path of
-   the reference runs.
+   the reference runs;
+7. evaluation, at the published widths from reference checkpoints: (a)
+   `testing.write_reference_ckpt` (seed 0) and `write_reference_vocab`
+   write a full-width lang-seg `.ckpt` and a BPE vocabulary into a
+   temporary directory, `load_reference_checkpoint` reads them back, and
+   every loaded tensor must equal the written one (read by `torch.load`)
+   bit for bit through the key maps; the writer's 0.1 randn weights drive
+   the decoder's activations to ~1e10 at these widths, so (a2) the fp32
+   model of phase 3b and a CLIP text tower, seeded `random_init_` as in
+   phases 3-6, are written as a lang-seg `.ckpt` through the inverse of
+   the key maps, read back and held bit for bit the same way, and (b)-(g)
+   run on them; (b) the ADE20K-150 text matrix from the loaded text
+   tower through `TextFeatureCache`; (c) the calibrated fast_cal model
+   with its plain twins, calibrated on the two 480x480 center crops that
+   (f) calibrates on; (d) `MultiScaleEvaluator` with `ADE20K_PROTOCOL` (6
+   scales + flip) on one 512x683 image, 18 crops in 5 chunks of batch 8:
+   the kernel path must launch B1 = 5, B2 = B3 = 120 and B4 = 5 (its
+   normalized H/2 mode) and nothing else, its (512, 683, 150) sums must
+   stay within SERVE_RATIO times the plain twins' distance from the fp32
+   sums plus TTA_FLOOR, and a repeated image must give the same sums bit
+   for bit; (e) `SingleScaleEvaluator(flip=True).logits` at batch 8,
+   480x480, on `fast_serving(cfg, quant=False)` (B1 = 2, B6 = 48): the
+   flip-merged logits within SERVE_RATIO times the plain twin's distance
+   from the fp32 model's plus two SERVE_FLOORs, and the pixAcc and mIoU
+   against the fp32 model's labels within METRIC_FLOOR of the plain
+   twin's; (f) `evaluate.build` and `evaluate.run` with `--fast --int8
+   --int8-cal 2` over two ADE-shaped samples in memory, whose label map
+   of the image of (d) must equal (d)'s argmax; (g) seconds per image of
+   the protocol on the kernel path after one warm-up image, with peak
+   memory and the card's name and power limit.
 
 Phase 2 also times, for each kernel, the PyTorch library call that
 computes the same function where there is one, and computes its bound
@@ -155,8 +184,8 @@ modes the smaller of the fp32-FMA bound and the split-TF32 bound, both
 kept under "bounds"). The line before the last
 is a JSON object with each kernel's launches (on the path of phases 3-6
 that runs it: every kernel runs on a serving path, the training path or
-the probe path), error, times and bound (B10's row also holds its bf16
-mode's under "bf16", B17's its fp32 mode's under "fp32"; the fp32 modes
+the probe path; phase 7 adds no row), error, times and bound (B10's row
+also holds its bf16 mode's under "bf16", B17's its fp32 mode's under "fp32"; the fp32 modes
 of B6 and B7 have rows of their own, with the launches of phase 5b2;
 B19's holds its hand-off shape's under "handoff"); the
 last line is the result object. Needs one
@@ -168,6 +197,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -352,6 +382,17 @@ TF32_SPLIT_PRODUCTS = 3
 # most twice what the plain bf16 path strays from the fp32 model, plus a
 # floor of one bf16 ulp at the logit scale (|logit| <= 1/0.07).
 SERVE_RATIO, SERVE_FLOOR = 2.0, 0.0625
+# Phase 7's 6-scale + flip sums: each pixel's sum holds, for each of the 6
+# scales, a canvas average of (logits + flipped-back logits), so 12 served
+# logits' worth of rounding; each may carry SERVE_FLOOR, as a served logit
+# does above.
+TTA_FLOOR = 2 * 6 * SERVE_FLOOR
+# Phase 7's single-scale metrics, the targets the fp32 model's labels: the
+# kernel path's pixAcc and mIoU within this of the plain twin's. On an
+# H100 the sound kernels' labels differ from the plain twin's on 0.04% of
+# the valid pixels, and the gaps measure 1.1e-4 (pixAcc) and 1.8e-4
+# (mIoU): the floor is 2.5 times that share and 6-10 times those gaps.
+METRIC_FLOOR = 0.001
 # The kernels that no model path of the reference runs: B9, B17 and B20.
 # The probe path (phase 6) launches them, and exactly them; every other
 # kernel must run on a serving path or the training path.
@@ -760,36 +801,41 @@ def _flash_fp32(dev, g, scale):
     return results
 
 
-def _device_kernels(fn):
-    """Names of the device kernels one call of `fn` launches, one entry
-    per launch (`torch.profiler`)."""
+def _profiled(fn, calls: int = 1, tries: int = 3):
+    """The device events (no copies or fills) of `calls` back-to-back
+    calls of `fn` after a warm-up, from `torch.profiler`. A trace without
+    device time is taken again, up to `tries` times: the profiler on the
+    card's machine has once returned an empty trace for a call whose
+    output had just been checked."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.device_time_total > 0 and "Memcpy" not in e.name
-            and "Memset" not in e.name]
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "Memcpy" not in e.name and "Memset" not in e.name]
+        if any(e.device_time_total > 0 for e in events):
+            break
+        print(f"  torch.profiler: trace {attempt + 1} of {tries} holds no "
+              f"device time ({len(events)} device events); taken again")
+    return events
+
+
+def _device_kernels(fn):
+    """Names of the device kernels one call of `fn` launches, one entry
+    per launch (`torch.profiler`)."""
+    return [e.name for e in _profiled(fn) if e.device_time_total > 0]
 
 
 def _device_ms(fn, calls: int = 50) -> float:
     """Device time a call of `fn` (the kernels it launches, summed), from
     `torch.profiler` over `calls` back-to-back calls after a warm-up."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and "Memcpy" not in e.name and "Memset" not in e.name)
+    us = sum(e.device_time_total for e in _profiled(fn, calls))
     if us <= 0:
         fail("torch.profiler saw no device time")
     return us / calls / 1e3
@@ -2143,10 +2189,10 @@ def _int8_logits_gate(tag, model, plain, ref32, request, cache, **kw):
              f"{d_ref} + {SERVE_FLOOR}")
 
 
-def _quantized(cfg, dev, ref32, g, mlp_act_scale=True):
+def _quantized(cfg, dev, ref32, g, mlp_act_scale=True, images=None):
     """`cfg`'s int8 model from the fp32 model's weights (`quantize_tree`),
     calibrated on one seeded batch of 8 without text, as the reference's
-    bench.py does; and its plain twin."""
+    bench.py does (or on `images`); and its plain twin."""
     from lseg_tpu_torch.models.lseg import LSegNet
     from lseg_tpu_torch.ops.quant import calibrate_act_scales, quantize_tree
 
@@ -2156,7 +2202,9 @@ def _quantized(cfg, dev, ref32, g, mlp_act_scale=True):
     model = LSegNet(cfg, torch.bfloat16, dev).eval()
     model.load_state_dict(state)
     del state
-    calibrate_act_scales(model, _images(g, dev, 8, 480, 480), None)
+    if images is None:
+        images = _images(g, dev, 8, 480, 480)
+    calibrate_act_scales(model, images, None)
     plain = LSegNet(cfg, torch.bfloat16, dev, plain=True).eval()
     plain.load_state_dict(model.state_dict())
     torch.cuda.synchronize()
@@ -2165,7 +2213,8 @@ def _quantized(cfg, dev, ref32, g, mlp_act_scale=True):
     if not scales or any(float(v) == 1.0 or not torch.isfinite(v)
                          for v in scales):
         fail("calibration left an act_scale at its placeholder")
-    print(f"  quantize_tree + calibrate_act_scales (one batch of 8): "
+    print(f"  quantize_tree + calibrate_act_scales (one batch of "
+          f"{len(images)}): "
           f"{time.perf_counter() - t0:.2f} s, {len(scales)} act scales in "
           f"[{min(float(v) for v in scales):.4g}, "
           f"{max(float(v) for v in scales):.4g}]")
@@ -2717,6 +2766,340 @@ def phase_probe(dev):
     return launches
 
 
+def _check_loaded(what, loaded, key_map, written):
+    """Every tensor of a loaded state_dict against the written lang-seg
+    tensor its key map names, through the map's layout change, bit for
+    bit."""
+    if set(loaded) != set(key_map):
+        fail(f"{what}: loaded keys differ from the key map: "
+             f"{sorted(set(loaded) ^ set(key_map))[:5]}")
+    for name, (ref, fn) in key_map.items():
+        want = torch.from_numpy(fn(written[ref].numpy()))
+        got = loaded[name]
+        if got.dtype != torch.float32 or not torch.equal(got, want):
+            fail(f"{what}: {name} differs from the written {ref}")
+    n = sum(t.numel() for t in loaded.values())
+    print(f"  {what}: {len(loaded)} tensors, {n / 1e6:.1f} M values, each "
+          f"equal bit for bit to the written one")
+
+
+def _check_written(path, cfg, state, text_state):
+    """Both loaded state_dicts against the `.ckpt` at `path` as
+    `torch.load` reads it, bit for bit through the key maps."""
+    from lseg_tpu_torch.utils.checkpoint_convert import (
+        lseg_key_map,
+        text_key_map,
+    )
+
+    written = {k[len("net."):]: v for k, v in torch.load(
+        path, map_location="cpu", weights_only=True)["state_dict"].items()}
+    _check_loaded("LSegNet state", state, lseg_key_map(cfg), written)
+    _check_loaded("text state", text_state, text_key_map(written), written)
+
+
+def _write_lang_seg_ckpt(path, cfg, state, text_state):
+    """The port's `state` (LSegNet) and `text_state` (CLIPTextEncoder)
+    written as a lang-seg Lightning `.ckpt`: each tensor under the
+    reference key the loader's key maps name, through the inverse of the
+    map's layout change (the patch embed's rows back to a conv weight)."""
+    import numpy as np
+
+    from lseg_tpu_torch.utils.checkpoint_convert import (
+        lseg_key_map,
+        patch_rows,
+        text_key_map,
+    )
+
+    p = cfg.vit.patch_size
+    sd = {}
+    for what, st, key_map in (
+            ("LSegNet state", state, lseg_key_map(cfg)),
+            ("text state", text_state, text_key_map({}, cfg.text.layers))):
+        if set(st) != set(key_map):
+            fail(f"{what}: keys differ from the key map: "
+                 f"{sorted(set(st) ^ set(key_map))[:5]}")
+        for name, (ref, fn) in key_map.items():
+            a = st[name].detach().float().cpu().numpy()
+            if fn is patch_rows:
+                a = a.reshape(p, p, -1, a.shape[1]).transpose(3, 2, 0, 1)
+            elif fn(a) is not a:
+                fail(f"{what}: no inverse for the layout change of {name}")
+            sd[f"net.{ref}"] = torch.from_numpy(np.ascontiguousarray(a))
+    torch.save({"state_dict": sd}, path)
+
+
+def _eval_sample(g, dev, h, w):
+    """An ADE20K-shaped sample: a normalized image in [-1, 1] and a target
+    of 150 classes with void (-1)."""
+    image = torch.rand(h, w, 3, device=dev, generator=g) * 2.0 - 1.0
+    target = torch.randint(-1, 150, (h, w), device=dev, generator=g)
+    return {"image": image, "target": target}
+
+
+def _center_crop(sample, crop):
+    h, w = sample["image"].shape[:2]
+    y, x = (h - crop) // 2, (w - crop) // 2
+    return {k: v[y:y + crop, x:x + crop] for k, v in sample.items()}
+
+
+def _tta_sums(tag, logits_fn, image, txt, counters=None, expected=None):
+    from lseg_tpu_torch.engine.tta import ADE20K_PROTOCOL, MultiScaleEvaluator
+
+    ev = MultiScaleEvaluator(logits_fn, txt.shape[0], ADE20K_PROTOCOL)
+    if counters is not None:
+        for fn in counters.values():
+            fn.launches = 0
+    t0 = time.perf_counter()
+    sums = ev(image, txt, return_logits=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if (sums.shape != (*image.shape[:2], txt.shape[0])
+            or not torch.isfinite(sums).all()):
+        fail(f"TTA {tag}: sums {tuple(sums.shape)} not finite or misshaped")
+    line = f"  TTA {tag}: sums {tuple(sums.shape)}, {dt:.3f} s (first image)"
+    if counters is not None:
+        launches = {k: fn.launches for k, fn in counters.items()}
+        want = {k: expected.get(k, 0) for k in counters}
+        line += f", launches { {k: v for k, v in launches.items() if v} }"
+        if launches != want:
+            print(line)
+            fail(f"TTA {tag}: expected launches {want}, got {launches}")
+    print(line)
+    return ev, sums
+
+
+def phase_evaluation(dev):
+    """A reference checkpoint written and read back through the loader at
+    the published widths, then the evaluation path on it: 6-scale + flip
+    TTA on the fast_cal kernel path against its plain twins and fp32,
+    single-scale flip metrics on fast_bf16, and `evaluate.run`."""
+    from lseg_tpu_torch import evaluate, fast_serving, get_config, get_labels
+    from lseg_tpu_torch.engine.eval_single import SingleScaleEvaluator
+    from lseg_tpu_torch.engine.serve import make_logits_fn
+    from lseg_tpu_torch.models.clip_text import CLIPTextEncoder
+    from lseg_tpu_torch.models.layers import random_init_
+    from lseg_tpu_torch.models.lseg import LSegNet
+    from lseg_tpu_torch.ops.metrics import SegmentationMetric
+    from lseg_tpu_torch.testing import (
+        write_reference_ckpt,
+        write_reference_vocab,
+    )
+    from lseg_tpu_torch.text.cache import TextFeatureCache
+    from lseg_tpu_torch.text.tokenizer import ClipBPETokenizer
+    from lseg_tpu_torch.utils.checkpoint_convert import (
+        load_reference_checkpoint,
+    )
+
+    print("[7] evaluation: a reference checkpoint through the loader, "
+          "6-scale + flip TTA, single-scale eval, evaluate.run")
+    t_phase = time.perf_counter()
+    cfg = get_config("clip_vitl16_384")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, vocab = os.path.join(tmp, "ref.ckpt"), os.path.join(
+            tmp, "bpe_vocab.txt.gz")
+        # a. write, load, hold bit for bit
+        t0 = time.perf_counter()
+        write_reference_ckpt(ckpt, cfg, seed=SEED)
+        write_reference_vocab(vocab)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state, text_state = load_reference_checkpoint(ckpt, cfg)
+        t_load = time.perf_counter() - t0
+        print(f"  reference .ckpt (ViT-L/16, features {cfg.features}, out_c "
+              f"{cfg.out_c}, text {cfg.text.width} x {cfg.text.layers}): "
+              f"{os.path.getsize(ckpt) / 2**30:.3f} GiB, written in "
+              f"{t_write:.2f} s, loaded by load_reference_checkpoint in "
+              f"{t_load:.2f} s")
+        _check_written(ckpt, cfg, state, text_state)
+
+        # a2. the same file format from phase 3's weight regime: the
+        # writer's 0.1 randn drives the decoder's activations to ~1e10 at
+        # these widths, so the evaluation below runs on seeded lecun-normal
+        # weights (random_init_, as phases 3-6), written as a lang-seg
+        # .ckpt and read back through the same loader
+        g = torch.Generator(device=dev).manual_seed(SEED + 7)
+        fast = fast_serving(cfg, quant=False)
+        ref_cfg = dataclasses.replace(fast, head_dtype="float32",
+                                      vit=dataclasses.replace(
+                                          fast.vit, attn_impl="xla",
+                                          attn_scores_dtype="float32",
+                                          patch_fused=False))
+        ref32 = random_init_(LSegNet(ref_cfg, torch.float32, dev), g).eval()
+        text = random_init_(CLIPTextEncoder(cfg.text, device=dev), g)
+        t0 = time.perf_counter()
+        _write_lang_seg_ckpt(ckpt, cfg, ref32.state_dict(),
+                             text.state_dict())
+        t_write = time.perf_counter() - t0
+        del text
+        t0 = time.perf_counter()
+        state, text_state = load_reference_checkpoint(ckpt, cfg)
+        print(f"  phase 3's regime as a lang-seg .ckpt: written in "
+              f"{t_write:.2f} s, loaded in {time.perf_counter() - t0:.2f} s")
+        _check_written(ckpt, cfg, state, text_state)
+        ref32.load_state_dict(state)
+
+        # b. the ADE20K-150 text matrix from the loaded text tower
+        tok = ClipBPETokenizer.from_file(vocab, cfg.text.context_length)
+        cache = TextFeatureCache(cfg.text, text_state, tok, device=dev)
+        ade = get_labels("ade20k")
+        txt = cache(ade)
+        if txt.shape != (150, cfg.out_c) or not torch.isfinite(txt).all():
+            fail(f"text features {tuple(txt.shape)} not finite")
+
+        # c. the calibrated fast_cal model with its plain twins from the
+        # loaded fp32 model, calibrated on the two center crops that
+        # evaluate.run calibrates on in f
+        samples = [_eval_sample(g, dev, 512, 683),
+                   _eval_sample(g, dev, 480, 640)]
+        crops = [_center_crop(s, 480) for s in samples]
+        model_q, plain_q = _quantized(
+            fast_serving(cfg, "static_cal"), dev, ref32, g,
+            images=torch.stack([c["image"] for c in crops]))
+
+        # d. 6-scale + flip TTA on one 512x683 image: kernel, plain, fp32
+        image = samples[0]["image"]
+        blocks = cfg.vit.hooks[-1] + 1
+        chunks = 5  # 18 crops, 4 a chunk, each run with its flips
+        ev_k, sums_k = _tta_sums(
+            "fast_cal kernel path", make_logits_fn(model_q), image, txt,
+            _kernel_counters(),
+            {"patch_embed": chunks, "ln_quantize_rows": chunks * blocks,
+             "flash_attention_ln_qkv_fused_q8": chunks * blocks,
+             "head1_correlate_fused": chunks})
+        _, sums_p = _tta_sums("fast_cal plain path", make_logits_fn(plain_q),
+                              image, txt)
+        _, sums_r = _tta_sums("fp32 reference", make_logits_fn(ref32), image,
+                              txt)
+        d_kernel = float((sums_k - sums_p).abs().max())
+        d_ref = float((sums_p - sums_r).abs().max())
+        labels_k = sums_k.argmax(-1)
+        print(f"  TTA sums: |kernel - plain| max {d_kernel:.6g}, |plain int8 "
+              f"- fp32| max {d_ref:.6g}, max |sum| "
+              f"{float(sums_r.abs().max()):.4g}; label agreement kernel vs "
+              f"plain {_agree(labels_k, sums_p.argmax(-1)):.4f}, plain vs "
+              f"fp32 {_agree(sums_p.argmax(-1), sums_r.argmax(-1)):.4f} "
+              f"(not gated)")
+        if d_kernel > SERVE_RATIO * d_ref + TTA_FLOOR:
+            fail(f"TTA: kernel path deviates {d_kernel} > {SERVE_RATIO} * "
+                 f"{d_ref} + {TTA_FLOOR}")
+        del sums_p, sums_r
+        again = ev_k(image, txt, return_logits=True)
+        if not torch.equal(again, sums_k):
+            fail("TTA: the kernel path's sums differ on a repeated image")
+        del again
+
+        # e. single-scale flip at batch 8 on fast_bf16: the flip-merged
+        # logits and the metrics of the kernel path against its plain twin
+        model_b = LSegNet(fast, torch.bfloat16, dev).eval()
+        model_b.load_state_dict(state)
+        plain_b = LSegNet(fast, torch.bfloat16, dev, plain=True).eval()
+        plain_b.load_state_dict(state)
+        images = _images(g, dev, 8, 480, 480)
+        logits_r = SingleScaleEvaluator(make_logits_fn(ref32), 150,
+                                        flip=True).logits(images, txt)
+        targets = logits_r.argmax(-1)
+        targets[:, :16] = -1  # a void band
+        counters = _kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        logits_k = SingleScaleEvaluator(make_logits_fn(model_b), 150,
+                                        flip=True).logits(images, txt)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        want = {k: 0 for k in counters}
+        want.update({"patch_embed": 2, "flash_attention_flat": 2 * blocks})
+        print(f"  single-scale launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        if launches != want:
+            fail(f"single-scale: expected launches {want}, got {launches}")
+        logits_p = SingleScaleEvaluator(make_logits_fn(plain_b), 150,
+                                        flip=True).logits(images, txt)
+        d_kernel = float((logits_k - logits_p).abs().max())
+        d_ref = float((logits_p - logits_r).abs().max())
+        valid = targets >= 0
+        lab_k, lab_p = logits_k.argmax(-1), logits_p.argmax(-1)
+        print(f"  single-scale flip-merged logits {tuple(logits_k.shape)}: "
+              f"|kernel - plain| max {d_kernel:.6g}, |plain bf16 - fp32| "
+              f"max {d_ref:.6g}, max |logit| "
+              f"{float(logits_r.abs().max()):.4g}; label agreement kernel "
+              f"vs plain {_agree(lab_k[valid], lab_p[valid]):.4f}, plain vs "
+              f"fp32 {_agree(lab_p[valid], targets[valid]):.4f}")
+        if d_kernel > SERVE_RATIO * d_ref + 2 * SERVE_FLOOR:
+            fail(f"single-scale: kernel path deviates {d_kernel} > "
+                 f"{SERVE_RATIO} * {d_ref} + {2 * SERVE_FLOOR}")
+        metrics = {}
+        for tag, logits in (("fast_bf16 kernel path", logits_k),
+                            ("fast_bf16 plain path", logits_p)):
+            metric = SegmentationMetric(150)
+            metric.update(logits, targets)
+            metrics[tag] = metric.get()
+            print(f"  single-scale {tag}, against the fp32 model's labels: "
+                  f"pixAcc {metrics[tag][0]:.6f} mIoU {metrics[tag][1]:.6f}")
+        for what, k, p in zip(("pixAcc", "mIoU"), *metrics.values()):
+            print(f"  {what}: |kernel - plain| {abs(k - p):.6f} (gate <= "
+                  f"{METRIC_FLOOR})")
+            if abs(k - p) > METRIC_FLOOR:
+                fail(f"single-scale {what}: kernel {k} vs plain {p}")
+        del model_b, plain_b, ref32, plain_q, logits_k, logits_p, logits_r
+
+        # f. evaluate.run over the two samples in memory
+        args = evaluate.parse_args([
+            "--weights", ckpt, "--bpe_vocab", vocab, "--fast", "--int8",
+            "--int8-cal", "2", "--logdir", os.path.join(tmp, "logs"),
+            "--device", str(dev)])
+        t0 = time.perf_counter()
+        model_e, txt_e, labels = evaluate.build(args)
+        print(f"  evaluate.build: {time.perf_counter() - t0:.2f} s")
+        if not torch.equal(txt_e, txt):
+            fail("evaluate.build: text features differ from the cache's")
+        preds = {}
+        pa, miou, per_class = evaluate.run(
+            args, model_e, txt_e, labels, samples, cal_dataset=crops,
+            sink=preds.__setitem__)
+        if len(per_class) != 150 or not 0.0 <= pa <= 1.0:
+            fail(f"evaluate.run: pixAcc {pa}, {len(per_class)} IoUs")
+        same = torch.equal(preds[0], labels_k.to(torch.int32))
+        print(f"  evaluate.run on the image of d: labels equal d's argmax "
+              f"{same} (agreement {_agree(preds[0], labels_k):.6f})")
+        if not same:
+            fail("evaluate.run: labels differ from the TTA argmax of d")
+        del model_e
+
+        # g. seconds per image of the protocol on the kernel path
+        ev_k(image, txt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        reps = 3
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            labels_t = ev_k(image, txt)
+        torch.cuda.synchronize()
+        per_image = (time.perf_counter() - t0) / reps
+        peak = torch.cuda.max_memory_allocated()
+        # the protocol's five batch-8 forwards alone, on crops of the image
+        batch = torch.cat([image[None, :480, :480]] * 4)
+        batch = torch.cat([batch, batch.flip(2)])
+        fwd = make_logits_fn(model_q)
+        fwd(batch, txt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps * chunks):
+            fwd(batch, txt)
+        torch.cuda.synchronize()
+        forwards = (time.perf_counter() - t0) / reps
+        if not torch.equal(labels_t, labels_k.to(torch.int32)):
+            fail("TTA: a repeated image gave other labels")
+        print(f"  TTA 6 scales + flip, fast_cal kernel path, 512x683, "
+              f"K=150: {per_image:.4f} s/image (mean of {reps} after one "
+              f"warm-up image; its {chunks} batch-8 forwards alone "
+              f"{forwards:.4f} s), peak memory {peak / 2**30:.3f} GiB "
+              f"({resident / 2**30:.3f} GiB resident before; the canvases "
+              f"alone 6 x 910 x 910 x 150 x 4 B = "
+              f"{6 * 910 * 910 * 150 * 4 / 2**30:.3f} GiB); {card_line()}")
+        del model_q
+    print(f"  phase 7: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is False)")
@@ -2759,6 +3142,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_t, launches_t32 = phase_training(dev, cache, ade)
     launches_p = phase_probe(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_evaluation(dev)
     # each kernel's launches on the path that runs it: B1 and B6 on the
     # bf16 path (phase 3), B10 and B11 on the streamed head (phase 3c),
     # B2, B3 and B4 on the int8 path (phase 3b, which also checked B1 per

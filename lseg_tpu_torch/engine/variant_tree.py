@@ -78,6 +78,9 @@ Variants:
   (`--timeline b1`);
 - `b1_stale_stage`: B1's consumers reading a stage's A one stage ahead,
   before its converted A is published, a mutation (phase 2 catches it);
+- `b6_last_keys_dropped`: B6 (its own kernel only, not the attention
+  interior that B2, B8 and B9 share) masking the last 64 valid keys of
+  each image, a mutation (phase 7's single-scale gate is run against it);
 - `b20_drop_peer`: B20 summing three of the cluster's four int32
   partials (the last peer's dropped), a mutation (phase 2 catches it);
 - `b14_timeline`, `b5_timeline`: B14 summing, per CTA, its steps' time on
@@ -703,6 +706,11 @@ VARIANTS = {
          "#pragma unroll\n    for (int lt = 0; lt < KT; ++lt)\n"
          "      mma_bf16_16816(acc[lt], af[kk], ld_u32(tb + lt * 1024 + c0),\n"
          "                     ld_u32(tb + lt * 1024 + c1));\n  }\n"),
+    ]),
+    "b6_last_keys_dropped": ("flash_flat.cuh", [
+        ("  attend(sm.t, sm.b, &map, k_col, v_col, img, n_kt, valid_len,\n",
+         "  attend(sm.t, sm.b, &map, k_col, v_col, img, n_kt, "
+         "valid_len - BKV,\n"),
     ]),
     "b6_fp32_no_alo_bhi": ("tf32x3.cuh", [
         ("  mma(d, a.lo, b.hi[0], b.hi[1]);\n", ""),

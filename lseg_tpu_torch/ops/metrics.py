@@ -1,5 +1,5 @@
 """Segmentation metrics (torch port of `lseg_tpu/ops/metrics.py`:
-`seg_update` and `SegmentationMetric`).
+`seg_update` and `SegmentationMetric` with its per-class IoU).
 
 PyTorch-Encoding semantics: pixels whose target is `ignore_index` are
 dropped; pixAcc = correct / labeled; IoU_k = inter_k / union_k and mIoU
@@ -77,3 +77,7 @@ class SegmentationMetric:
         pix_acc = self.total_correct / (eps + self.total_label)
         iou = self.total_inter / (eps + self.total_union)
         return float(pix_acc), float(np.mean(iou))
+
+    def per_class_iou(self) -> np.ndarray:
+        eps = np.spacing(1.0)
+        return self.total_inter / (eps + self.total_union)

@@ -7,15 +7,17 @@ the reference's `train.py`.
 
 The model is `LSegNet(cfg, dtype, remat=True)` with fp32 master
 parameters, flat flash attention (`--flash-attn`, on by default: kernels
-B6 forward and B7 backward) where the backbone allows it, seeded random
-weights, and the label embeddings from `--text_features` (a (K, out_c)
-.npy) or, without one, fixed random embeddings (smoke mode).
-`--dataset synthetic` trains the tiny test config on colored shapes.
-`--device` defaults to `cuda`; without a card the command exits unless
-it is given `--device cpu`.
-Loading a reference checkpoint (`--ckpt`) or embedding the labels with
-the text tower of one (`--bpe_vocab`) is not ported yet (ROADMAP A14)
-and raises.
+B6 forward and B7 backward) where the backbone allows it, and seeded
+random weights, or those of `--ckpt`: a reference `.ckpt` (lang-seg's
+keys, `utils.checkpoint_convert`) or an `.npz` in the JAX package's
+export layout (`train.checkpoint.import_params`). The label embeddings
+come from `--text_features` (a (K, out_c) .npy), else from the text tower
+of the `--ckpt` reference checkpoint with the BPE vocabulary `--bpe_vocab`
+(an `.npz` holds no text tower), else
+they are fixed random embeddings (smoke mode). `--dataset synthetic`
+trains the tiny test config on colored shapes. `--device` defaults to
+`cuda`; without a card the command exits unless it is given
+`--device cpu`.
 """
 
 from __future__ import annotations
@@ -111,19 +113,41 @@ def build_dataset(args):
     return train, val, get_labels(label_set, args.label_dir)
 
 
-def get_text_features(args, cfg, labels, device) -> torch.Tensor:
+def get_text_features(args, cfg, labels, device,
+                      text_state=None) -> torch.Tensor:
     if args.text_features:
         return torch.from_numpy(np.load(args.text_features)).float().to(
             device)
     if args.ckpt and args.bpe_vocab:
-        raise NotImplementedError(
-            "embedding the labels with the text tower of a reference "
-            "checkpoint is not ported yet (ROADMAP A14); pass "
-            "--text_features")
+        if text_state is None:
+            raise SystemExit(
+                f"--bpe_vocab: {args.ckpt} is an .npz export, which holds no "
+                f"text tower; pass a reference .ckpt or --text_features")
+        from lseg_tpu_torch.text.cache import TextFeatureCache
+        from lseg_tpu_torch.text.tokenizer import ClipBPETokenizer
+
+        tok = ClipBPETokenizer.from_file(args.bpe_vocab,
+                                         cfg.text.context_length)
+        cache = TextFeatureCache(cfg.text, text_state, tok, device=device)
+        return cache(tuple(labels)).float()
     print("WARNING: no text tower provided; using fixed random label "
           "embeddings (smoke mode)")
     g = torch.Generator().manual_seed(0)
     return torch.randn(len(labels), cfg.out_c, generator=g).to(device)
+
+
+def load_weights(path: str, cfg):
+    """(`LSegNet` state_dict, `CLIPTextEncoder` state_dict) from a
+    reference `.ckpt`, or (state_dict, None) from an `.npz` export."""
+    if path.endswith(".npz"):
+        from lseg_tpu_torch.train.checkpoint import import_params
+
+        return import_params(path), None
+    from lseg_tpu_torch.utils.checkpoint_convert import (
+        load_reference_checkpoint,
+    )
+
+    return load_reference_checkpoint(path, cfg)
 
 
 class _Overfit:
@@ -146,10 +170,6 @@ def main(argv=None):
         args.base_size = 2048 if args.dataset == "citys" else 520
     if args.crop_size is None:
         args.crop_size = 768 if args.dataset == "citys" else 480
-    if args.ckpt:
-        raise NotImplementedError(
-            "initialising from a reference .ckpt / .npz is not ported yet "
-            "(ROADMAP A14)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
@@ -183,8 +203,13 @@ def main(argv=None):
     model = LSegNet(cfg, dtype, device, remat=True,
                     param_dtype=torch.float32)
     random_init_(model, torch.Generator(device).manual_seed(0))
+    text_state = None
+    if args.ckpt:
+        state, text_state = load_weights(args.ckpt, cfg)
+        model.load_state_dict(state)
+        del state
     enable_grads(model)
-    text_features = get_text_features(args, cfg, labels, device)
+    text_features = get_text_features(args, cfg, labels, device, text_state)
 
     steps_per_epoch = max(len(train_ds) // args.batch_size, 1)
     opt = make_optimizer(model, args.base_lr,

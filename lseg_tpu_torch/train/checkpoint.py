@@ -9,6 +9,10 @@ place with `os.replace`, the metrics first, so a checkpoint file never
 exists half written or without its metrics. The newest checkpoint is
 always kept, and beside it the best MAX_TO_KEEP by BEST_METRIC (a
 missing metric counts as 0, ties go to the newer).
+
+`export_params` / `import_params` write and read the JAX package's raw
+export: an `.npz` of flat `'params/...'` and `'batch_stats/...'` keys in
+flax's layouts, so that weights cross between the two packages.
 """
 
 from __future__ import annotations
@@ -19,7 +23,10 @@ import re
 from pathlib import Path
 from typing import List, Optional
 
+import numpy as np
 import torch
+
+from lseg_tpu_torch.utils.convert import from_jax_variables, to_jax_variables
 
 _NAME = re.compile(r"ckpt_(\d+)\.pt")
 MAX_TO_KEEP = 3
@@ -93,3 +100,33 @@ class CheckpointManager:
         state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
         return state
+
+
+def export_params(path: str, model) -> None:
+    """Raw-params export of an `LSegNet` (float or quantized tree) as the
+    JAX package's `.npz` of flat 'a/b/c' keys."""
+    flat = {}
+
+    def visit(prefix, tree):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                visit(f"{prefix}/{k}" if prefix else k, v)
+        else:
+            flat[prefix] = np.asarray(tree)
+
+    visit("", to_jax_variables(model.state_dict(), model.cfg.vit.hooks))
+    np.savez(path, **flat)
+
+
+def import_params(path: str) -> dict:
+    """Inverse of `export_params` (and of the JAX package's): .npz ->
+    `LSegNet` state_dict."""
+    flat = np.load(path)
+    out: dict = {}
+    for key in flat.files:
+        parts = key.split("/")
+        node = out
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = flat[key]
+    return from_jax_variables(out)

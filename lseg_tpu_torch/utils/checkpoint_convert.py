@@ -1,0 +1,270 @@
+"""Load reference (PyTorch-Lightning / raw `state_dict`) LSeg checkpoints
+into the port (torch port of `lseg_tpu/utils/checkpoint_convert.py`).
+
+The reference ships Lightning `.ckpt` dicts whose `state_dict` holds keys
+under a `net.` prefix, plus raw `torch.save(state_dict)` exports. The
+reader below is a copy of the JAX package's, verbatim apart from its
+imports: it unpacks the zip archive into numpy arrays without
+`torch.load`, so a Lightning checkpoint whose pickled `hyper_parameters`
+name classes of lang-seg's own modules (not importable here) still loads:
+the unpickler stubs every class it does not know.
+
+The port's modules keep PyTorch's layouts (Linear `(out, in)`, Conv2d
+OIHW, ConvTranspose2d `(in, out, k, k)`, the fused qkv / in-projection
+stacked `(3 D, D)`), so the map from lang-seg's keys to
+`LSegNet.state_dict()` is a renaming, as the JAX package's `convert_lseg`
+followed by `utils.convert.from_jax_variables` is in two steps: the
+transposes into flax's layouts and back cancel. Only the patch embedding
+changes layout (`(D, C, p, p)` -> the `(p * p * C, D)` rows of the
+patchify product). The per-block ViT weights keep their block index; the
+`act_postprocess` pipelines map as lang-seg builds them (0 = readout,
+3 = 1x1 conv, 4 = resample); BatchNorm running statistics become the
+buffers of the port's `BatchNorm`. Tensors the reference trains but never
+uses (`refinenet4.resConfUnit1`, the ViT blocks after the last hook and
+its final norm, `logit_scale`) are dropped, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import io
+import pickle
+import zipfile
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from lseg_tpu_torch.config import LSegConfig
+
+# ---------------------------------------------------------------------------
+# torch-free .pt/.ckpt reader
+# ---------------------------------------------------------------------------
+
+_DTYPES = {
+    "FloatStorage": np.float32,
+    "DoubleStorage": np.float64,
+    "HalfStorage": np.float16,
+    "LongStorage": np.int64,
+    "IntStorage": np.int32,
+    "ShortStorage": np.int16,
+    "CharStorage": np.int8,
+    "ByteStorage": np.uint8,
+    "BoolStorage": np.bool_,
+    "BFloat16Storage": None,  # handled specially
+}
+
+
+class _TorchUnpickler(pickle.Unpickler):
+    """Minimal unpickler for torch checkpoint archives: resolves storages
+    from the zip and rebuilds tensors as numpy arrays."""
+
+    def __init__(self, data: bytes, archive: zipfile.ZipFile, prefix: str):
+        super().__init__(io.BytesIO(data))
+        self.archive = archive
+        self.prefix = prefix
+
+    def find_class(self, module, name):
+        if module == "torch._utils" and name in (
+            "_rebuild_tensor_v2", "_rebuild_tensor",
+        ):
+            return _rebuild_tensor
+        if module == "torch" and name.endswith("Storage"):
+            return _StorageType(name)
+        if module == "collections" and name == "OrderedDict":
+            return dict
+        if module == "torch.serialization":
+            return lambda *a, **k: None
+        if module == "torch" and name in ("float32", "float16", "bfloat16",
+                                          "int64", "float64"):
+            return name
+        # Anything else (Lightning callbacks etc.) -> inert stub
+        return _Stub
+
+    def persistent_load(self, pid):
+        typename, storage_type, key, _location, numel = (
+            pid[0], pid[1], pid[2], pid[3], pid[4]
+        )
+        assert typename == "storage", typename
+        name = f"{self.prefix}data/{key}"
+        raw = self.archive.read(name)
+        if storage_type.name == "BFloat16Storage":
+            u16 = np.frombuffer(raw, dtype=np.uint16, count=numel)
+            arr = (u16.astype(np.uint32) << 16).view(np.float32)
+        else:
+            arr = np.frombuffer(
+                raw, dtype=_DTYPES[storage_type.name], count=numel
+            )
+        return arr
+
+
+class _StorageType:
+    def __init__(self, name):
+        self.name = name
+
+
+class _Stub:
+    def __init__(self, *a, **k):
+        pass
+
+    def __setstate__(self, state):
+        self.state = state
+
+
+def _rebuild_tensor(storage, storage_offset, size, stride, *args):
+    arr = storage[storage_offset: storage_offset + int(np.prod(size))
+                  if size else storage_offset + 1]
+    if not size:
+        return arr.reshape(())
+    return np.lib.stride_tricks.as_strided(
+        arr, shape=size,
+        strides=[s * arr.itemsize for s in stride],
+    ).copy()
+
+
+def load_torch_file(path: str) -> Dict[str, np.ndarray]:
+    """Load a torch-serialized checkpoint (zip format) as numpy arrays,
+    without importing torch."""
+    with zipfile.ZipFile(path) as zf:
+        pkl_name = next(
+            n for n in zf.namelist() if n.endswith("data.pkl")
+        )
+        prefix = pkl_name[: -len("data.pkl")]
+        obj = _TorchUnpickler(zf.read(pkl_name), zf, prefix).load()
+    return obj
+
+
+def extract_state_dict(ckpt: Any) -> Dict[str, np.ndarray]:
+    """Pull the flat name->tensor dict out of a Lightning ckpt or raw
+    state_dict, normalizing away `net.` / `module.` prefixes."""
+    if isinstance(ckpt, dict) and "state_dict" in ckpt:
+        ckpt = ckpt["state_dict"]
+    out = {}
+    for k, v in ckpt.items():
+        if not isinstance(v, np.ndarray):
+            continue
+        for pre in ("net.", "module.", "model."):
+            if k.startswith(pre):
+                k = k[len(pre):]
+        out[k] = v
+    return out
+
+
+# ---------------------------------------------------------------------------
+# lang-seg keys -> the port's state_dict
+# ---------------------------------------------------------------------------
+
+def _same(a: np.ndarray) -> np.ndarray:
+    return a
+
+
+def patch_rows(w: np.ndarray) -> np.ndarray:
+    """Conv2d patch weight (D, C, p, p) -> the port's (p * p * C, D)."""
+    return w.transpose(2, 3, 1, 0).reshape(-1, w.shape[0])
+
+
+# port name -> (reference key, layout change)
+KeyMap = Dict[str, Tuple[str, Callable[[np.ndarray], np.ndarray]]]
+
+
+def _module(out: KeyMap, port: str, ref: str, leaves=("weight", "bias")):
+    for leaf in leaves:
+        out[f"{port}.{leaf}"] = (f"{ref}.{leaf}", _same)
+
+
+_BN = ("weight", "bias", "running_mean", "running_var")
+
+
+def lseg_key_map(cfg: LSegConfig) -> KeyMap:
+    """Every entry of a ViT `LSegNet(cfg).state_dict()` (float tree) and
+    the lang-seg key it comes from."""
+    if not cfg.is_vit:
+        raise NotImplementedError("the ResNet backbone is not ported yet")
+    if cfg.arch_option not in (0,):
+        raise NotImplementedError(
+            "config options not ported yet: arch_option (head blocks 1/2)")
+    vit = cfg.vit
+    m = "pretrained.model"
+    out: KeyMap = {
+        "vit.cls_token": (f"{m}.cls_token", _same),
+        "vit.pos_embed": (f"{m}.pos_embed", _same),
+        "vit.patch_embed.weight": (f"{m}.patch_embed.proj.weight",
+                                   patch_rows),
+        "vit.patch_embed.bias": (f"{m}.patch_embed.proj.bias", _same),
+    }
+    for i in range(vit.hooks[-1] + 1):
+        for sub in ("norm1", "attn.qkv", "attn.proj", "norm2", "mlp.fc1",
+                    "mlp.fc2"):
+            _module(out, f"vit.blocks.{i}.{sub}", f"{m}.blocks.{i}.{sub}")
+    for i in range(1, 5):
+        ref = f"pretrained.act_postprocess{i}"
+        if cfg.readout == "project":
+            _module(out, f"reassemble{i}.readout.project",
+                    f"{ref}.0.project.0")
+        _module(out, f"reassemble{i}.proj", f"{ref}.3")
+        if vit.resample[i - 1] != 1:
+            _module(out, f"reassemble{i}.resample", f"{ref}.4")
+        _module(out, f"scratch.layer{i}_rn", f"scratch.layer{i}_rn",
+                ("weight",))
+        fusion = f"scratch.refinenet{i}"
+        for r, unit in ((1, "resConfUnit1"), (2, "resConfUnit2")):
+            if r == 1 and i == 4:
+                continue  # fusion block 4 has no skip input
+            for c in (1, 2):
+                _module(out, f"refinenet{i}.rcu{r}.conv{c}",
+                        f"{fusion}.{unit}.conv{c}",
+                        ("weight",) if cfg.use_bn else ("weight", "bias"))
+                if cfg.use_bn:
+                    _module(out, f"refinenet{i}.rcu{r}.bn{c}",
+                            f"{fusion}.{unit}.bn{c}", _BN)
+        _module(out, f"refinenet{i}.out_conv", f"{fusion}.out_conv")
+    _module(out, "head1", "scratch.head1")
+    return out
+
+
+def text_key_map(sd: Dict[str, np.ndarray],
+                 layers: Optional[int] = None) -> KeyMap:
+    """Every entry of `CLIPTextEncoder.state_dict()` and the
+    `clip_pretrained.*` key it comes from; `layers` defaults to the
+    number of residual blocks in `sd`."""
+    base = "clip_pretrained"
+    if layers is None:
+        layers = 1 + max(
+            int(k.split(".")[3])
+            for k in sd
+            if k.startswith(f"{base}.transformer.resblocks.")
+        )
+    out: KeyMap = {
+        "token_embedding": (f"{base}.token_embedding.weight", _same),
+        "positional_embedding": (f"{base}.positional_embedding", _same),
+        "text_projection": (f"{base}.text_projection", _same),
+    }
+    _module(out, "ln_final", f"{base}.ln_final")
+    for i in range(layers):
+        ref = f"{base}.transformer.resblocks.{i}"
+        for port, sub in (("ln_1", "ln_1"), ("attn.out_proj",
+                                             "attn.out_proj"),
+                          ("ln_2", "ln_2"), ("c_fc", "mlp.c_fc"),
+                          ("c_proj", "mlp.c_proj")):
+            _module(out, f"resblocks.{i}.{port}", f"{ref}.{sub}")
+        for leaf in ("weight", "bias"):
+            out[f"resblocks.{i}.attn.in_proj.{leaf}"] = (
+                f"{ref}.attn.in_proj_{leaf}", _same)
+    return out
+
+
+def apply_key_map(sd: Dict[str, np.ndarray],
+                  key_map: KeyMap) -> Dict[str, torch.Tensor]:
+    """{port name: fp32 tensor} from the reference tensors."""
+    return {name: torch.from_numpy(np.array(
+        fn(sd[ref]).astype(np.float32), order="C"))
+        for name, (ref, fn) in key_map.items()}
+
+
+def load_reference_checkpoint(
+    path: str, cfg: LSegConfig
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """One-call loader: reference .ckpt path -> (LSegNet state_dict,
+    CLIPTextEncoder state_dict)."""
+    sd = extract_state_dict(load_torch_file(path))
+    return (apply_key_map(sd, lseg_key_map(cfg)),
+            apply_key_map(sd, text_key_map(sd)))

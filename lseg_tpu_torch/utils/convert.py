@@ -28,6 +28,10 @@ The rules:
 - the patch-embed kernel (p, p, C, D) flattens to (p*p*C, D);
 - LayerNorm/BatchNorm `scale` -> `weight`, batch stats `mean`/`var` ->
   `running_mean`/`running_var`; raw parameters keep their names.
+
+`to_jax_variables` is the inverse: a port `state_dict` back to the JAX
+tree (`.npz` export and import, `train.checkpoint`), for the float and
+the quantized trees alike.
 """
 
 from __future__ import annotations
@@ -123,4 +127,59 @@ def from_jax_text_params(params) -> Dict[str, torch.Tensor]:
     rest = dict(params)
     _stacked(rest.pop("resblocks"), "resblocks", ("resblocks",), 0, out)
     _plain(rest, out)
+    return out
+
+
+def _jax_leaf(path: tuple, a: np.ndarray) -> Tuple[str, np.ndarray]:
+    """(JAX leaf name, array in the JAX layout) of one port entry."""
+    leaf = path[-1]
+    if leaf == "weight" and a.ndim == 1:
+        return "scale", a
+    if leaf not in ("weight", "weight_q"):
+        return leaf, a
+    name = "kernel" if leaf == "weight" else "kernel_q"
+    if "patch_embed" in path:
+        p = int(round((a.shape[0] / 3) ** 0.5))
+        return name, a.reshape(p, p, 3, a.shape[-1])
+    if a.ndim == 2:
+        return name, a.T
+    if path[-2:-1] == ("resample",) and a.shape[-1] != 3:
+        return name, a.transpose(0, 2, 3, 1)   # TokenUpsample
+    return name, a.transpose(2, 3, 1, 0)       # OIHW -> HWIO
+
+
+def _put(tree: dict, path: tuple, a) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = a
+
+
+def to_jax_variables(state, hooks) -> dict:
+    """Port `LSegNet` state_dict -> {'params', 'batch_stats'} of numpy
+    arrays (int8 leaves int8, the rest fp32), the ViT blocks stacked into
+    the scan segments that end at `hooks`."""
+    params: dict = {}
+    stats: dict = {}
+    blocks: Dict[tuple, list] = {}
+    for name, t in state.items():
+        a = t.detach().cpu()
+        a = (a.numpy() if a.dtype == torch.int8
+             else a.float().numpy())
+        path = tuple(name.split("."))
+        if path[-1] in ("running_mean", "running_var"):
+            _put(stats, path[:-1] + (path[-1][len("running_"):],), a)
+            continue
+        leaf, a = _jax_leaf(path, a)
+        if path[:2] == ("vit", "blocks"):
+            k = int(path[2])
+            seg = next(s for s, h in enumerate(hooks) if k <= h)
+            key = ("vit", f"seg{seg}", "blocks") + path[3:-1] + (leaf,)
+            blocks.setdefault(key, []).append((k, a))
+        else:
+            _put(params, path[:-1] + (leaf,), a)
+    for key, items in blocks.items():
+        _put(params, key, np.stack([a for _, a in sorted(items)]))
+    out = {"params": params}
+    if stats:
+        out["batch_stats"] = stats
     return out

@@ -1,10 +1,14 @@
 """The port stands alone: no module of `lseg_tpu_torch`, and not
 `chip_smoke.py`, imports `lseg_tpu` or `jax`; and its own copies of the
-framework-free modules (config, labels, tokenizer) have not drifted from
-the JAX package's."""
+framework-free modules (config, labels, tokenizer, the data readers,
+`utils/sinks.py`) and pieces (the checkpoint reader, the reference-file
+writers, the TTA protocol and plan) have not drifted from the JAX
+package's: each equals its original apart from its import statements."""
 
 import ast
 import dataclasses
+import importlib
+import inspect
 import os
 import subprocess
 import sys
@@ -123,3 +127,50 @@ def test_tokenizer_copy_matches_reference():
         got = ClipBPETokenizer.for_tests(n)(labels)
         ref = JTokenizer.for_tests(n)(labels)
         assert got.tolist() == ref.tolist()
+
+
+def _without_imports(src: str) -> str:
+    """`src` minus the lines of its import statements (at any depth)."""
+    drop = set()
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            drop.update(range(node.lineno, node.end_lineno + 1))
+    return "\n".join(line for i, line in enumerate(src.splitlines(), 1)
+                     if i not in drop)
+
+
+@pytest.mark.parametrize("module", [
+    "data/labels", "data/transforms", "data/synthetic", "data/ade20k",
+    "data/voc", "data/coco", "data/cityscapes", "utils/sinks",
+    "text/tokenizer"])
+def test_module_copy_matches_reference(module):
+    ref = (REPO / "lseg_tpu" / f"{module}.py").read_text()
+    got = (REPO / "lseg_tpu_torch" / f"{module}.py").read_text()
+    assert _without_imports(got) == _without_imports(ref)
+
+
+_PIECES = {
+    "utils.checkpoint_convert": ("_TorchUnpickler", "_StorageType", "_Stub",
+                                 "_rebuild_tensor", "load_torch_file",
+                                 "extract_state_dict"),
+    "testing": ("write_reference_ckpt", "write_reference_vocab",
+                "tiny_vit_config"),
+    "engine.tta": ("TTAProtocol", "TTAPlan", "make_plan", "_resize_np",
+                   "build_pyramid"),
+}
+
+
+@pytest.mark.parametrize("module,name", [
+    (m, n) for m, names in _PIECES.items() for n in names])
+def test_copied_piece_matches_reference(module, name):
+    ref = getattr(importlib.import_module(f"lseg_tpu.{module}"), name)
+    got = getattr(importlib.import_module(f"lseg_tpu_torch.{module}"), name)
+    assert _without_imports(inspect.getsource(got)) == _without_imports(
+        inspect.getsource(ref))
+
+
+def test_checkpoint_reader_dtypes_match_reference():
+    from lseg_tpu.utils import checkpoint_convert as ref
+    from lseg_tpu_torch.utils import checkpoint_convert as got
+
+    assert got._DTYPES == ref._DTYPES
