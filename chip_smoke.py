@@ -175,7 +175,30 @@ the result line is printed:
    --int8-cal 2` over two ADE-shaped samples in memory, whose label map
    of the image of (d) must equal (d)'s argmax; (g) seconds per image of
    the protocol on the kernel path after one warm-up image, with peak
-   memory and the card's name and power limit.
+   memory and the card's name and power limit;
+8. the other backbones and heads, at full width with seeded weights,
+   480x480: (8a) B4 (lowres and H/2), B14 and B10 (fp32 mode) at E = 640
+   and 768 (B4 and B14 also bit for bit against the mma.sync B4 kernel's
+   logits), B2 and B3 at D = 768, T = 226, each against its plain twin
+   with its time and bound; then, answering an ADE-150 request at batch 8
+   and a 5-label one at batch 1 with launch counts per request, each
+   call's half-res (or full-resolution) logits held against its plain
+   twin and an fp32 model as in 3b, labels of the lowres and streamed
+   heads against their heads' plain twins on the same inputs (>= 0.999),
+   and ms/batch and peak memory of the kernel and plain paths:
+   `clip_vitb16_384` on fast_cal through `model(x, txt,
+   return_argmax=True)` (B1 1, B2 = B3 = 12, B4 1) and on fast_bf16
+   through `make_predictor` (B1 1, B6 12); `clip_vitb32_384` and
+   `clipRN50x4_vitb32_384` on fast_cal (B1 at P = 32, B2 and B3 at T =
+   226, B4 at E = 512 and 640); `clipRN50x16_vitl16_384` on fast_cal (B4
+   at E = 768), its 'wup' logits call (B14) and the streamed
+   `make_predictor(use_pallas=True)` on the int8 model (B10 + B11);
+   `clip_resnet101` on fast_cal (the ResNet in cuDNN, the int8 decoder,
+   B4 1) and streamed (B10 + B11); `clip_vitl16_384` with the
+   arch_option 1 and 2 head blocks at block_depth 2 on fast_bf16 through
+   `make_predictor`'s full-forward branch (B1 1, B6 24; the head blocks
+   plain). The phase fails unless its counted runs launched exactly
+   B1, B2, B3, B4, B6, B10, B11 and B14.
 
 Phase 2 also times, for each kernel, the PyTorch library call that
 computes the same function where there is one, and computes its bound
@@ -187,8 +210,10 @@ that runs it: every kernel runs on a serving path, the training path or
 the probe path; phase 7 adds no row), error, times and bound (B10's row
 also holds its bf16 mode's under "bf16", B17's its fp32 mode's under "fp32"; the fp32 modes
 of B6 and B7 have rows of their own, with the launches of phase 5b2;
-B19's holds its hand-off shape's under "handoff"); the
-last line is the result object. Needs one
+B19's holds its hand-off shape's under "handoff"; each row also holds
+its launches in phase 8 under "backbone_launches", and the rows of B2,
+B3, B4, B10 and B14 phase 8a's numbers under "widths"); the last line is
+the result object. Needs one
 GPU and no network; imports no JAX and nothing of the JAX package.
 """
 
@@ -2164,9 +2189,11 @@ def phase_serving_int8(dev, cache, requests):
     return model, plain, ref32, launches
 
 
-def _int8_logits_gate(tag, model, plain, ref32, request, cache, **kw):
+def _int8_logits_gate(tag, model, plain, ref32, request, cache,
+                      what="int8", **kw):
     """Logits of `model(images, txt, **kw)` on the kernel path vs the plain
-    path vs the fp32 model: d_kernel <= 2 d_ref + floor."""
+    path (`what`: its kind, for the printout) vs the fp32 model: d_kernel
+    <= 2 d_ref + floor."""
     _, labels, images = request
     txt = cache(labels)
     with torch.inference_mode():
@@ -2181,7 +2208,7 @@ def _int8_logits_gate(tag, model, plain, ref32, request, cache, **kw):
     agree = _agree(lk.argmax(-1), lp.argmax(-1))
     agree_ref = _agree(lp.argmax(-1), lr.argmax(-1))
     print(f"  {tag} logits {tuple(lk.shape)}: |kernel - plain| max "
-          f"{d_kernel:.6g}, |plain int8 - fp32| max {d_ref:.6g}, max "
+          f"{d_kernel:.6g}, |plain {what} - fp32| max {d_ref:.6g}, max "
           f"|logit| {float(lr.abs().max()):.4g}; label agreement kernel vs "
           f"plain {agree:.4f}, plain vs fp32 {agree_ref:.4f} (not gated)")
     if d_kernel > SERVE_RATIO * d_ref + SERVE_FLOOR:
@@ -3100,6 +3127,447 @@ def phase_evaluation(dev):
     print(f"  phase 7: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---- phase 8: the other backbones and heads ----
+
+FIVE_LABELS = ("plant", "grass", "cat", "stone", "other")
+# text-width kernels of phase 8a: E = 640 (RN50x4's CLIP) and 768
+# (RN50x16's), and ViT-B's D = 768 at ViT-B/32's T = 226 (480 x 480)
+BACKBONE_TEXT_WIDTHS = (640, 768)
+VITB32_TOKENS = 226
+# the kernels phase 8's counted runs launch, and no other
+BACKBONE_KERNELS = {"patch_embed", "flash_attention_flat", "ln_quantize_rows",
+                    "flash_attention_ln_qkv_fused_q8",
+                    "head1_correlate_fused", "head1_correlate_wup_fused",
+                    "fused_correlate", "upsample2x_argmax"}
+
+
+def _backbone_width_kernels(dev, g):
+    """8a: B4 (lowres and H/2), B14 and B10 (fp32 mode, the streamed head)
+    at E = 640 and 768, and B2 and B3 at D = 768, T = 226, each against
+    its plain twin under phase 2's tolerances (B4 and B14 also bit for bit
+    against the mma.sync B4 kernel's logits), with its time beside the
+    plain twin's and its bound. Returns {kernel: {shape tag: row}}."""
+    from lseg_tpu_torch.ops.flash_attention import (
+        flash_attention_ln_qkv_fused_q8,
+        flash_attention_ln_qkv_fused_q8_plain,
+    )
+    from lseg_tpu_torch.ops.fused_correlate import (
+        fused_correlate,
+        fused_correlate_plain,
+    )
+    from lseg_tpu_torch.ops.head1_correlate import (
+        head1_correlate_fused,
+        head1_correlate_fused_mma,
+        head1_correlate_fused_plain,
+        head1_correlate_wup_fused,
+        head1_correlate_wup_fused_plain,
+        w_interp_bf16,
+    )
+    from lseg_tpu_torch.ops.ln_quant import (
+        ln_quantize_rows,
+        ln_quantize_rows_plain,
+    )
+
+    print("[8a] the kernels at the new widths")
+    rows = {}
+    sx = torch.tensor(0.02, device=dev)
+    for e in BACKBONE_TEXT_WIDTHS:
+        w1q = torch.randint(-127, 128, (e, 256), device=dev, generator=g,
+                            dtype=torch.int8)
+        s1 = 1e-3 * torch.rand(e, device=dev, generator=g) + 1e-4
+        b1 = 0.1 * torch.randn(e, device=dev, generator=g)
+        txt = torch.randn(150, e, device=dev, generator=g)
+        for shape, normalize in (((8, 120, 120, 256), False),
+                                 ((8, 240, 240, 256), True)):
+            xq = torch.randint(-127, 128, shape, device=dev, generator=g,
+                               dtype=torch.int8)
+            args = (xq, sx, w1q, s1, b1, txt, 1.0 / 0.07, normalize)
+            name = f"{shape} E={e} ->K=150 normalize={normalize}"
+            got = head1_correlate_fused(*args)
+            if not torch.equal(got, head1_correlate_fused_mma(*args)):
+                fail(f"head1_correlate_fused {name}: differs from the "
+                     f"mma.sync B4 kernel")
+            err = check_close(f"head1_correlate_fused {name}", got,
+                              head1_correlate_fused_plain(*args), HEAD1_RTOL,
+                              HEAD1_ATOL)
+            del got
+            ms, plain_ms = _timed("head1_correlate_fused", name,
+                                  lambda: head1_correlate_fused(*args),
+                                  lambda: head1_correlate_fused_plain(*args))
+            m = xq.numel() // 256
+            rows.setdefault("head1_correlate_fused", {})[
+                f"E{e}_{'h2' if normalize else 'lowres'}"] = result(
+                err, ms, plain_ms, nbytes(xq, w1q, s1, b1, txt) + m * 300,
+                {"int8": 2 * m * 256 * e, "bf16": 2 * m * e * 150})
+        # B14 on two images of the H/2 rows of a 480 x 480 crop
+        xq = torch.randint(-127, 128, (2, 240, 240, 256), device=dev,
+                           generator=g, dtype=torch.int8)
+        args = (xq, sx, w1q, s1, b1, txt, 1.0 / 0.07)
+        name = f"(2, 240, 240, 256) E={e} ->K=150"
+        got = head1_correlate_wup_fused(*args)
+        if not torch.equal(got, w_interp_bf16(head1_correlate_fused_mma(
+                *args, True))):
+            fail(f"head1_correlate_wup_fused {name}: differs from the "
+                 f"W-interp of the mma.sync B4 kernel's logits")
+        env = w_interp_bf16(head1_correlate_fused_plain(*args).abs()).float()
+        err = check_close(f"head1_correlate_wup_fused {name}", got,
+                          head1_correlate_wup_fused_plain(*args), WUP_RTOL,
+                          HEAD1_ATOL, magnitude=env)
+        del got, env
+        ms, plain_ms = _timed("head1_correlate_wup_fused", name,
+                              lambda: head1_correlate_wup_fused(*args),
+                              lambda: head1_correlate_wup_fused_plain(*args))
+        m = xq.numel() // 256
+        rows.setdefault("head1_correlate_wup_fused", {})[f"E{e}"] = result(
+            err, ms, plain_ms, nbytes(xq, w1q, s1, b1, txt) + 2 * m * 300,
+            {"int8": 2 * m * 256 * e, "bf16": 2 * m * e * 150})
+        del xq
+        # B10, the streamed head's fp32 mode, on bf16 embeddings at H/2
+        emb = torch.randn(8, 240, 240, e, device=dev, generator=g
+                          ).to(torch.bfloat16)
+        name = f"(8, 240, 240, {e}) bf16 ->K=150"
+        logits = fused_correlate(emb, txt)
+        err = check_close(f"fused_correlate {name}", logits,
+                          fused_correlate_plain(emb, txt), CORR_RTOL,
+                          CORR_ATOL)
+        ms, plain_ms = _timed("fused_correlate", name,
+                              lambda: fused_correlate(emb, txt),
+                              lambda: fused_correlate_plain(emb, txt))
+        rows.setdefault("fused_correlate", {})[f"E{e}"] = result(
+            err, ms, plain_ms, nbytes(emb, txt, logits),
+            {"fp32": 2 * emb.numel() * 150})
+        del emb, logits
+    # B2 and B3 at ViT-B's width and ViT-B/32's tokens, batch 8
+    d, t = 768, VITB32_TOKENS
+    x = torch.randn(8, t, d, device=dev, generator=g).to(torch.bfloat16)
+    ln_g = 1 + 0.1 * torch.randn(d, device=dev, generator=g)
+    ln_b = 0.1 * torch.randn(d, device=dev, generator=g)
+    # phase 2's weight scales: scores of a few units, as a model's
+    wq = torch.randint(-127, 128, (3 * d, d), device=dev, generator=g,
+                       dtype=torch.int8)
+    sw = 1e-3 * torch.rand(3 * d, device=dev, generator=g)
+    bias = 0.05 * torch.randn(3 * d, device=dev, generator=g)
+    args = (x, ln_g, ln_b, wq, sw, bias, 12, 64 ** -0.5)
+    name = f"(8, {t}, {d}) 12 heads"
+    oq, os_ = flash_attention_ln_qkv_fused_q8(*args)
+    pq, ps = flash_attention_ln_qkv_fused_q8_plain(*args)
+    got, ref = oq.float() * os_, pq.float() * ps
+    err = float((got - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    print(f"  flash_attention_ln_qkv_fused_q8 {name}: dequant max_abs "
+          f"{err:.6g} = {rel:.4g} of max|plain| (tol {LNQKV_REL:g})")
+    if not torch.isfinite(got).all() or rel > LNQKV_REL:
+        fail(f"flash_attention_ln_qkv_fused_q8 {name}: kernel disagrees "
+             f"with its plain version")
+    ms, plain_ms = _timed("flash_attention_ln_qkv_fused_q8", name,
+                          lambda: flash_attention_ln_qkv_fused_q8(*args),
+                          lambda: flash_attention_ln_qkv_fused_q8_plain(*args))
+    rows["flash_attention_ln_qkv_fused_q8"] = {"D768_T226": result(
+        err, ms, plain_ms, nbytes(x, ln_g, ln_b, wq, sw, bias, oq, os_),
+        {"int8": 2 * 8 * t * d * 3 * d, "bf16": 4 * 8 * 12 * t * t * 64})}
+    q, s = ln_quantize_rows(x, ln_g, ln_b)
+    qp, sp = ln_quantize_rows_plain(x, ln_g, ln_b)
+    diff = (q.int() - qp.int()).abs()
+    equal = float((diff == 0).float().mean())
+    s_rel = float(((s - sp).abs() / sp.abs()).max())
+    print(f"  ln_quantize_rows (8, {t}, {d}): codes max diff "
+          f"{int(diff.max())}, equal {equal:.6f}, scale max rel {s_rel:.3g}")
+    if (int(diff.max()) > LNQ_MAX_CODE_DIFF or equal < LNQ_MIN_EQUAL
+            or s_rel > LNQ_SCALE_RTOL):
+        fail(f"ln_quantize_rows (8, {t}, {d}): kernel disagrees with its "
+             f"plain version")
+    ms, plain_ms = _timed("ln_quantize_rows", f"(8, {t}, {d})",
+                          lambda: ln_quantize_rows(x, ln_g, ln_b),
+                          lambda: ln_quantize_rows_plain(x, ln_g, ln_b))
+    rows["ln_quantize_rows"] = {"D768_T226": result(
+        float(diff.max()), ms, plain_ms, nbytes(x, ln_g, ln_b, q, s),
+        {"fp32": 8 * 8 * t * d})}
+    return rows
+
+
+def _text_cache(dev, g, text_cfg):
+    from lseg_tpu_torch.models.clip_text import CLIPTextEncoder
+    from lseg_tpu_torch.models.layers import random_init_
+    from lseg_tpu_torch.text.cache import TextFeatureCache
+    from lseg_tpu_torch.text.tokenizer import ClipBPETokenizer
+
+    text = random_init_(CLIPTextEncoder(text_cfg, device=dev), g)
+    return TextFeatureCache(text_cfg, text.state_dict(),
+                            ClipBPETokenizer.for_tests(context_length=77),
+                            device=dev)
+
+
+def _ref32_model(cfg, dev, g):
+    """The fp32 twin of `cfg`'s fast function (einsum attention with fp32
+    scores, the patch matmul form, fp32 head) with seeded weights: the
+    source of the served trees and the reference of d_ref."""
+    from lseg_tpu_torch import fast_serving
+    from lseg_tpu_torch.models.layers import random_init_
+    from lseg_tpu_torch.models.lseg import LSegNet
+
+    fast = fast_serving(cfg, quant=False)
+    vit = fast.vit and dataclasses.replace(
+        fast.vit, attn_impl="xla", attn_scores_dtype="float32",
+        patch_fused=False)
+    ref_cfg = dataclasses.replace(fast, head_dtype="float32", vit=vit)
+    return random_init_(LSegNet(ref_cfg, torch.float32, dev), g).eval()
+
+
+def _path1_of(model, call):
+    """(call's result, refinenet1's output in that call)."""
+    seen = {}
+    hook = model.refinenet1.register_forward_hook(
+        lambda mod, args, out: seen.__setitem__("path1", out))
+    try:
+        out = call()
+    finally:
+        hook.remove()
+    return out, seen["path1"]
+
+
+def _lowres_labels_gate(tag, model, requests, cache):
+    """The served labels of the lowres argmax head (B4 unnormalized at H/4,
+    the logit upsample, the argmax) against the same head on B4's plain
+    twin on the same path1."""
+    from lseg_tpu_torch.ops.head1_correlate import head1_correlate_fused_plain
+    from lseg_tpu_torch.ops.resize import upsample2x
+
+    h1 = model.head1
+    for name, labels, images in requests:
+        txt = cache(labels)
+        pred, path1 = _path1_of(model, lambda: _argmax_call(model)(images,
+                                                                   txt))
+        with torch.inference_mode():
+            xq, sx = model._head1_codes(path1)
+            s_lo = head1_correlate_fused_plain(
+                xq.contiguous(), sx, h1.weight_q, h1.scale, h1.bias, txt,
+                model.cfg.logit_scale, False)
+            twin = torch.argmax(upsample2x(
+                s_lo, align_corners=True, compute_dtype=torch.bfloat16
+            ).float(), dim=-1).to(torch.int32)
+        eq = _agree(pred[:, ::2, ::2], twin)
+        print(f"  {tag} {name}: labels vs the lowres head on B4's plain twin"
+              f" on the same path1 {eq:.6f} (gate >= {HEAD_SERVE_MIN_EQUAL})")
+        if eq < HEAD_SERVE_MIN_EQUAL:
+            fail(f"{tag} {name}: labels disagree with B4's plain twin")
+
+
+def _streamed_labels_gate(tag, model, preds, requests, cache):
+    """The streamed head's served labels against the plain twins of B10
+    and B11 on the same embeddings."""
+    from lseg_tpu_torch.ops.fused_correlate import fused_correlate_plain
+    from lseg_tpu_torch.ops.upsample_argmax import upsample2x_argmax_plain
+
+    for (name, labels, images), pred in zip(requests, preds):
+        txt = cache(labels)
+        with torch.inference_mode():
+            twin = upsample2x_argmax_plain(fused_correlate_plain(
+                model(images, None), txt, model.cfg.logit_scale))
+        eq = _agree(pred, twin)
+        print(f"  {tag} {name}: labels vs B10 + B11 plain twins on the same "
+              f"embeddings {eq:.6f} (gate >= {HEAD_SERVE_MIN_EQUAL})")
+        if eq < HEAD_SERVE_MIN_EQUAL:
+            fail(f"{tag} {name}: labels disagree with the plain twins")
+
+
+def _backbone_numbers(tag, call, plain_call, requests, cache):
+    """ms/batch and peak memory of `call` and its plain twin on the
+    batch-8 ADE-150 request, in turns: kernel, plain, kernel."""
+    _, labels, images = requests[0]
+    txt = cache(labels)
+    _measure(f"{tag} kernel path", lambda: call(images, txt))
+    _measure(f"{tag} plain path", lambda: plain_call(images, txt))
+    _measure(f"{tag} kernel path (again)", lambda: call(images, txt))
+
+
+def _free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _add(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_backbones(dev):
+    """Phase 8: each registered backbone family other than ViT-L/16 with
+    CLIP ViT-B/32 text, at full width with seeded weights, through the
+    calls a user makes, each against its plain twin; returns the kernels'
+    launches summed over its counted runs."""
+    from lseg_tpu_torch import (
+        CLIP_TEXT_VITB32,
+        fast_serving,
+        get_config,
+        get_labels,
+    )
+    from lseg_tpu_torch.config import CLIP_TEXT_RN50X4, CLIP_TEXT_RN50X16
+    from lseg_tpu_torch.engine.serve import make_predictor
+    from lseg_tpu_torch.models.lseg import LSegNet
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    widths = _backbone_width_kernels(dev, g)
+    print("[8] the other backbones and heads at full width, 480x480, with "
+          "seeded weights")
+    caches = {512: _text_cache(dev, g, CLIP_TEXT_VITB32),
+              640: _text_cache(dev, g, CLIP_TEXT_RN50X4),
+              768: _text_cache(dev, g, CLIP_TEXT_RN50X16)}
+    ade = get_labels("ade20k")
+    requests = [("ade20k-150 b8 480x480", ade, _images(g, dev, 8, 480, 480)),
+                ("5 labels b1 480x480", list(FIVE_LABELS),
+                 _images(g, dev, 1, 480, 480))]
+    total = {}
+    vitl = {"patch_embed": 1, "ln_quantize_rows": 24,
+            "flash_attention_ln_qkv_fused_q8": 24}
+    vitb = {"patch_embed": 1, "ln_quantize_rows": 12,
+            "flash_attention_ln_qkv_fused_q8": 12}
+
+    def fast_cal(name, blocks, seed):
+        """`name`'s fast_cal model from seeded fp32 weights through the
+        argmax call: launches, the half-res logits gate and the lowres
+        label gate, the numbers."""
+        base = get_config(name)
+        cfg = fast_serving(base, "static_cal")
+        cache = caches[cfg.out_c]
+        vit = cfg.vit
+        print(f"  {name}: "
+              + (f"ViT P={vit.patch_size} D={vit.embed_dim} "
+                 f"{vit.num_heads} heads, blocks run {vit.hooks[-1] + 1}, "
+                 f"attn {vit.attn_impl}" if vit else
+                 f"ResNet layers {cfg.resnet.layers}")
+              + f"; features {cfg.features}, out_c {cfg.out_c}, text width "
+              f"{cfg.text.width}; head_fused {cfg.head_fused}, "
+              f"decoder_conv_first {cfg.decoder_conv_first}")
+        gen = torch.Generator(device=dev).manual_seed(SEED + seed)
+        ref32 = _ref32_model(base, dev, gen)
+        model, plain = _quantized(cfg, dev, ref32, gen)
+        _, launches = _serve_requests(
+            f"{name} fast_cal", _argmax_call(model), requests, cache,
+            _kernel_counters(), {**blocks, "head1_correlate_fused": 1})
+        _add(total, launches)
+        _lowres_labels_gate(f"{name} fast_cal", model, requests, cache)
+        _int8_logits_gate(f"{name} fast_cal half-res", model, plain, ref32,
+                          requests[1], cache, return_halfres=True)
+        _backbone_numbers(f"{name} fast_cal", _argmax_call(model),
+                          _argmax_call(plain), requests, cache)
+        return cfg, cache, ref32, model, plain
+
+    def streamed(name, model, plain, cache, blocks):
+        predict = make_predictor(model, use_pallas=True)
+        preds, launches = _serve_requests(
+            f"{name} streamed", predict, requests, cache, _kernel_counters(),
+            {**blocks, "fused_correlate": 1, "upsample2x_argmax": 1})
+        _add(total, launches)
+        _streamed_labels_gate(f"{name} streamed", model, preds, requests,
+                              cache)
+        _backbone_numbers(f"{name} streamed", predict,
+                          make_predictor(plain, use_pallas=True), requests,
+                          cache)
+
+    # ViT-B/16: fast_cal, then the fast_bf16 predictor on the same weights
+    cfg, cache, ref32, model, plain = fast_cal("clip_vitb16_384", vitb, 81)
+    bcfg = fast_serving(get_config("clip_vitb16_384"), quant=False)
+    print(f"  clip_vitb16_384 fast_bf16: attn {bcfg.vit.attn_impl}, "
+          f"patch_fused {bcfg.vit.patch_fused}")
+    bf16 = LSegNet(bcfg, torch.bfloat16, dev).eval()
+    bf16.load_state_dict(ref32.state_dict())
+    bf16_plain = LSegNet(bcfg, torch.bfloat16, dev, plain=True).eval()
+    bf16_plain.load_state_dict(ref32.state_dict())
+    _, launches = _serve_requests(
+        "clip_vitb16_384 fast_bf16", make_predictor(bf16), requests, cache,
+        _kernel_counters(), {"patch_embed": 1, "flash_attention_flat": 12})
+    _add(total, launches)
+    _int8_logits_gate("clip_vitb16_384 fast_bf16 half-res", bf16,
+                      bf16_plain, ref32, requests[1], cache, what="bf16",
+                      return_halfres=True)
+    _backbone_numbers("clip_vitb16_384 fast_bf16", make_predictor(bf16),
+                      make_predictor(bf16_plain), requests, cache)
+    del cfg, ref32, model, plain, bf16, bf16_plain
+    _free()
+
+    # ViT-B/32 (B1 at P = 32, B2 and B3 at T = 226), with ViT-B/32's and
+    # with RN50x4's CLIP text (B4 at E = 640)
+    for name, seed in (("clip_vitb32_384", 82), ("clipRN50x4_vitb32_384", 83)):
+        fast_cal(name, vitb, seed)
+        _free()
+
+    # ViT-L/16 with RN50x16's CLIP text (E = 768): fast_cal, the 'wup'
+    # logits call (B14), the streamed predictor on the int8 model (B10 +
+    # B11 on its unfused head1 embeddings)
+    name = "clipRN50x16_vitl16_384"
+    cfg, cache, ref32, model, plain = fast_cal(name, vitl, 84)
+    wcfg = dataclasses.replace(cfg, head_fused="wup")
+    wup = LSegNet(wcfg, torch.bfloat16, dev).eval()
+    wup.load_state_dict(model.state_dict())
+    wup_plain = LSegNet(wcfg, torch.bfloat16, dev, plain=True).eval()
+    wup_plain.load_state_dict(model.state_dict())
+    _, launches = _serve_requests(
+        f"{name} 'wup'",
+        lambda images, txt: _logits_call(wup)(images, txt).argmax(-1).to(
+            torch.int32), requests, cache, _kernel_counters(),
+        {**vitl, "head1_correlate_wup_fused": 1})
+    _add(total, launches)
+    _int8_logits_gate(f"{name} 'wup' full-resolution", wup, wup_plain, ref32,
+                      requests[1], cache)
+    _backbone_numbers(f"{name} 'wup' logits", _logits_call(wup),
+                      _logits_call(wup_plain), requests, cache)
+    del wup, wup_plain
+    _free()
+    streamed(name, model, plain, cache, vitl)
+    del cfg, ref32, model, plain
+    _free()
+
+    # ResNet-101: fast_cal (no ViT knob; the int8 decoder and the lowres
+    # B4 head), the streamed predictor on the int8 model
+    name = "clip_resnet101"
+    cfg, cache, ref32, model, plain = fast_cal(name, {}, 85)
+    streamed(name, model, plain, cache, {})
+    del cfg, ref32, model, plain
+    _free()
+
+    # ViT-L/16 with the arch_option 1 and 2 head blocks, block_depth 2,
+    # on fast_bf16: make_predictor's full-forward branch (B1, B6; the head
+    # blocks stay plain)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 86)
+    ref32 = None
+    for option in (1, 2):
+        name = f"clip_vitl16_384 arch_option={option} block_depth=2"
+        base = get_config("clip_vitl16_384", arch_option=option,
+                          block_depth=2)
+        bcfg = fast_serving(base, quant=False)
+        if ref32 is None:
+            ref32 = _ref32_model(base, dev, gen)
+            state = ref32.state_dict()
+        else:
+            ref32 = _ref32_model(base, dev, gen)
+            ref32.load_state_dict(state)
+        model = LSegNet(bcfg, torch.bfloat16, dev).eval()
+        model.load_state_dict(state)
+        plain = LSegNet(bcfg, torch.bfloat16, dev, plain=True).eval()
+        plain.load_state_dict(state)
+        print(f"  {name}: attn {bcfg.vit.attn_impl}, activation "
+              f"{bcfg.activation}, head block "
+              f"{type(model.head_block).__name__}")
+        _, launches = _serve_requests(
+            f"{name} fast_bf16", make_predictor(model), requests,
+            caches[512], _kernel_counters(),
+            {"patch_embed": 1, "flash_attention_flat": 24})
+        _add(total, launches)
+        _int8_logits_gate(f"{name} full-resolution", model, plain, ref32,
+                          requests[1], caches[512], what="bf16")
+        _backbone_numbers(f"{name} fast_bf16", make_predictor(model),
+                          make_predictor(plain), requests, caches[512])
+        del model, plain
+        _free()
+    del ref32, state, requests, caches
+    _free()
+    print(f"  phase 8 launches: { {k: v for k, v in total.items() if v} }, "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"  {card_line()}")
+    return total, widths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is False)")
@@ -3145,6 +3613,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_evaluation(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_b, widths = phase_backbones(dev)
+    ran = {k for k, v in launches_b.items() if v}
+    if ran != BACKBONE_KERNELS:
+        fail(f"phase 8 launched {sorted(ran)}, expected "
+             f"{sorted(BACKBONE_KERNELS)}")
     # each kernel's launches on the path that runs it: B1 and B6 on the
     # bf16 path (phase 3), B10 and B11 on the streamed head (phase 3c),
     # B2, B3 and B4 on the int8 path (phase 3b, which also checked B1 per
@@ -3255,7 +3730,9 @@ def main() -> int:
         # max_abs_err of the label kernels (B11, B5, B13): the fraction of
         # labels that differ from the plain version's
         rows.append({"name": k, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": launches[k], **res})
+                     "replaces": rep, "launches": launches[k], **res,
+                     "backbone_launches": launches_b.get(k, 0),
+                     **({"widths": widths[k]} if k in widths else {})})
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": rows}))

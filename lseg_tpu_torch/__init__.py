@@ -4,8 +4,9 @@ The JAX package `lseg_tpu` stays the reference; this package mirrors its
 module names (`ops/`, `models/`, `text/`, `engine/`, `utils/`) so each
 counterpart is easy to find. It imports `torch` and never `jax`, and
 nothing of `lseg_tpu`: the framework-free modules it needs are its own
-copies (`config`, `testing.tiny_vit_config`, `data/` with the packaged
-`label_files/`, `utils/sinks`, `text/tokenizer`). The model reads its
+copies (`config`, `testing.tiny_vit_config` and `tiny_rn_config`,
+`data/` with the packaged `label_files/`, `utils/sinks`,
+`text/tokenizer`). The model reads its
 config by attribute only, so a config object of either package serves.
 
 Hand-written Hopper kernels live in `csrc/` and are built with `nvcc`

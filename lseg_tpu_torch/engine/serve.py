@@ -18,7 +18,10 @@ The streamed `use_pallas=True` head never writes full-resolution logits:
 kernel B10 (`ops.fused_correlate`) normalises and correlates in fp32, and
 kernel B11 (`ops.upsample_argmax`) upsamples and takes the argmax in one
 pass, so only the (N, H, W) labels leave it. A `plain=True` model runs
-both kernels' plain twins.
+both kernels' plain twins. A model with the `arch_option` 1 / 2 head
+blocks (which sit between the correlation and the upsample) takes its
+full forward, `LSegNet(x, text)`, and the argmax of those logits, with
+either head, as the reference's predictor does.
 
 `make_logits_fn` returns the (N, H, W, K) fp32 logits of the full
 `LSegNet.forward`, the TTA evaluator's crop forward: on an int8 config
@@ -71,6 +74,9 @@ def make_predictor(model: LSegNet, state=None,
     def predict(images, text_features):
         images = torch.as_tensor(images, dtype=torch.float32, device=device)
         text_features = torch.as_tensor(text_features, device=device)
+        if cfg.arch_option in (1, 2):
+            out = model(images, text_features)
+            return torch.argmax(out, dim=-1).to(torch.int32)
         emb = model(images, None)  # (N, H/2, W/2, C)
         if use_pallas:
             logits = corr(emb.contiguous(), text_features, cfg.logit_scale)

@@ -152,7 +152,8 @@ def build(args):
         state = {k: v.to(device) for k, v in state.items()}
         cal = bool(args.int8_cal)
         state = quantize_tree(state, decoder=True, act_scale=cal,
-                              mlp_act_scale=cal and cfg.vit.mlp_act_cal)
+                              mlp_act_scale=cal and cfg.vit is not None
+                              and cfg.vit.mlp_act_cal)
     model = LSegNet(cfg, torch.bfloat16, device)
     model.load_state_dict(state)
     del state

@@ -7,8 +7,9 @@ NCHW views of the channels-last tensors.
 readout dense and the reassemble, scratch, RCU and out_conv convolutions
 for their pre-quantized int8 twins (`ops.quant`), with dynamic or
 calibrated activation scales, and run the fusion x2 upsample in the model
-dtype. The spatial-regularisation head blocks (`arch_option` 1/2) are not
-ported yet.
+dtype. `DepthwiseHeadBlock` and `BottleneckHeadBlock` are the spatial
+regularisation blocks that `arch_option` 2 and 1 put between the
+correlation and the output upsample.
 
 The fused int8 decoder of the serving config (`quant='static_cal'`, bf16):
 `decoder_fused_rcu` runs a whole ResidualConvUnit as kernel B18
@@ -329,3 +330,51 @@ class Scratch(nn.Module):
     def forward(self, layers: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         return [getattr(self, f"layer{i + 1}_rn")(x)
                 for i, x in enumerate(layers)]
+
+
+_ACTIVATIONS = {
+    "relu": torch.relu,
+    "lrelu": lambda x: F.leaky_relu(x, 0.01),
+    "tanh": torch.tanh,
+}
+
+
+class DepthwiseHeadBlock(nn.Module):
+    """arch_option 2: one shared 3x3 single-channel conv (weight (1, 1, 3,
+    3), bias (1,)) applied depthwise over all K class channels of the
+    (N, H, W, K) logits, in fp32, then the activation unless `act=False`
+    (reference: lang-seg `lseg_net.py:29-58`)."""
+
+    def __init__(self, activation: str = "relu", device=None):
+        super().__init__()
+        self.activation = _ACTIVATIONS[activation]
+        self.weight = nn.Parameter(torch.empty(
+            (1, 1, 3, 3), dtype=torch.float32, device=device),
+            requires_grad=False)
+        self.bias = nn.Parameter(torch.empty(
+            (1,), dtype=torch.float32, device=device), requires_grad=False)
+
+    def reset_parameters(self, generator=None):
+        lecun_normal_(self.weight, 9, generator)
+        self.bias.zero_()
+
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
+        k = x.shape[-1]
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.expand(k, 1, 3, 3),
+                     padding=1, groups=k)
+        return y.permute(0, 2, 3, 1) + self.bias
+
+    def forward(self, x: torch.Tensor, act: bool = True) -> torch.Tensor:
+        y = self._conv(x)
+        return self.activation(y) if act else y
+
+
+class BottleneckHeadBlock(DepthwiseHeadBlock):
+    """arch_option 1: the depthwise block plus each pixel's max over the
+    K channels as a residual, before the activation (reference: lang-seg
+    `lseg_net.py:61-79`)."""
+
+    def forward(self, x: torch.Tensor, act: bool = True) -> torch.Tensor:
+        y = self._conv(x) + x.amax(dim=-1, keepdim=True)
+        return self.activation(y) if act else y
+

@@ -1,13 +1,19 @@
-"""The LSeg network (torch port of `lseg_tpu/models/lseg.py`, ViT
-backbones).
+"""The LSeg network (torch port of `lseg_tpu/models/lseg.py`).
 
     taps   = DenseViT(x)                      # 4 tapped token sequences
     layers = Reassemble_i(taps_i)             # multi-res pyramid
+             (or ResNetBackbone(x)            # ResNet-101 stages)
     rn     = Scratch(layers)                  # common width
     path   = refinenet4..1 cascade            # H/32 -> H/2
     img    = head1(path1)                     # (N, H/2, W/2, out_c)
     out    = correlate(img, text)             # (N, H/2, W/2, K)
+    out    = [head_block x block_depth]       # arch_option 1 / 2
     out    = x2 bilinear (align_corners=True) # (N, H, W, K)
+
+`arch_option` 1 and 2 apply their head block (`models.blocks`) in fp32
+between the correlation and the output upsample, `block_depth - 1` times
+with the activation and once without, as the reference; such a model
+never takes the fused heads below (the reference's gate).
 
 The int8 fast config (`fast_serving(cfg, 'static' | 'static_cal')`) sets
 `head_fused='lowres'` and `decoder_conv_first`: with text features the
@@ -52,12 +58,15 @@ from torch import nn
 from lseg_tpu_torch import LSegConfig
 from lseg_tpu_torch.models.blocks import (
     QUANT_MODES,
+    BottleneckHeadBlock,
+    DepthwiseHeadBlock,
     FeatureFusionBlock,
     Reassemble,
     Scratch,
     conv,
 )
 from lseg_tpu_torch.models.layers import set_param_dtype_
+from lseg_tpu_torch.models.resnet import ResNetBackbone
 from lseg_tpu_torch.models.vit import DenseViT
 from lseg_tpu_torch.ops.correlation import correlate
 from lseg_tpu_torch.ops.head1_correlate import (
@@ -85,10 +94,9 @@ def _check_supported(cfg: LSegConfig) -> None:
     """Raise for the options whose reference path runs a kernel (or a
     module) the port does not have yet."""
     if not cfg.is_vit:
-        raise NotImplementedError("the ResNet backbone is not ported yet")
+        return
     vit = cfg.vit
     unported = {
-        "arch_option (head blocks 1/2)": cfg.arch_option not in (0,),
         "vit.quant_int8 dynamic": vit.quant_int8 in (True, "dynamic"),
         # int8 q.k^T inside the int8 attention (the reference measured it
         # worse: config.py's note on attn_variant)
@@ -131,13 +139,17 @@ class LSegNet(nn.Module):
         self.calibrating = False
         vit = cfg.vit
         q = cfg.decoder_quant
-        self.vit = DenseViT(vit, dtype, device, plain, remat)
-        for i in range(4):
-            self.add_module(f"reassemble{i + 1}", Reassemble(
-                vit.post_channels[i], vit.resample[i], vit.embed_dim,
-                cfg.readout, dtype, q, device))
-        self.scratch = Scratch(vit.post_channels, cfg.features, dtype, q,
-                               device)
+        if cfg.is_vit:
+            self.vit = DenseViT(vit, dtype, device, plain, remat)
+            for i in range(4):
+                self.add_module(f"reassemble{i + 1}", Reassemble(
+                    vit.post_channels[i], vit.resample[i], vit.embed_dim,
+                    cfg.readout, dtype, q, device))
+            pyramid = vit.post_channels
+        else:
+            self.resnet = ResNetBackbone(cfg.resnet, dtype, device)
+            pyramid = cfg.resnet.stage_channels
+        self.scratch = Scratch(pyramid, cfg.features, dtype, q, device)
         for i in range(1, 5):
             self.add_module(f"refinenet{i}", FeatureFusionBlock(
                 cfg.features, cfg.use_bn, dtype, with_skip=i != 4, quant=q,
@@ -146,6 +158,10 @@ class LSegNet(nn.Module):
                 rcu_fused=cfg.decoder_fused_rcu, plain=plain))
         self.head1 = conv(cfg.features, cfg.out_c, 1, q, dtype,
                           device=device)
+        if cfg.arch_option in (1, 2):
+            block = (BottleneckHeadBlock if cfg.arch_option == 1
+                     else DepthwiseHeadBlock)
+            self.head_block = block(cfg.activation, device)
         if param_dtype is not None:
             set_param_dtype_(self, param_dtype)
         self.eval()
@@ -196,9 +212,12 @@ class LSegNet(nn.Module):
     def forward(self, x: torch.Tensor, text_features: torch.Tensor = None,
                 return_halfres: bool = False, return_argmax: bool = False):
         cfg = self.cfg
-        taps, grid = self.vit(x)
-        layers = [getattr(self, f"reassemble{i + 1}")(taps[i], grid)
-                  for i in range(4)]
+        if cfg.is_vit:
+            taps, grid = self.vit(x)
+            layers = [getattr(self, f"reassemble{i + 1}")(taps[i], grid)
+                      for i in range(4)]
+        else:
+            layers = self.resnet(x)
         rn = self.scratch(layers)
         path = self.refinenet4(rn[3])
         path = self.refinenet3(path, rn[2])
@@ -207,6 +226,7 @@ class LSegNet(nn.Module):
         use_head_fused = (
             bool(cfg.head_fused) and cfg.decoder_quant in QUANT_MODES
             and cfg.head_dtype == "bfloat16"
+            and cfg.arch_option not in (1, 2)
             and text_features is not None and not self.calibrating)
         use_lowres_head = (use_head_fused and cfg.head_fused == "lowres"
                            and cfg.decoder_conv_first and return_argmax)
@@ -250,6 +270,11 @@ class LSegNet(nn.Module):
         out = correlate(image_features, text_features,
                         logit_scale=cfg.logit_scale, compute_dtype=hd,
                         defer_pixel_norm=cfg.head_dtype == "bfloat16")
+        if cfg.arch_option in (1, 2):
+            out = out.float()
+            for _ in range(cfg.block_depth - 1):
+                out = self.head_block(out, act=True)
+            out = self.head_block(out, act=False).to(hd)
         if return_argmax:
             pred = torch.argmax(out.float(), dim=-1).to(torch.int32)
             return pred if return_halfres else _nearest2x(pred)

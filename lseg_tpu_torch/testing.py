@@ -1,6 +1,6 @@
-"""Tiny model config for the tests and the synthetic training smoke run,
+"""Tiny model configs for the tests and the synthetic training smoke run,
 and the writers of a reference-format checkpoint and BPE vocabulary
-(copies of `lseg_tpu/testing.py` · `tiny_vit_config`,
+(copies of `lseg_tpu/testing.py` · `tiny_vit_config`, `tiny_rn_config`,
 `write_reference_ckpt` and `write_reference_vocab`, verbatim apart from
 their imports; the writers use only numpy and torch).
 
@@ -14,6 +14,7 @@ from __future__ import annotations
 from lseg_tpu_torch.config import (
     CLIPTextConfig,
     LSegConfig,
+    ResNetConfig,
     ViTConfig,
 )
 
@@ -46,6 +47,19 @@ def tiny_vit_config(**kw) -> LSegConfig:
             resample=(4.0, 2.0, 1.0, 0.5),
             pretrain_grid=4,
         ),
+        text=TINY_TEXT,
+    )
+    return dataclasses.replace(base, **kw) if kw else base
+
+
+def tiny_rn_config(**kw) -> LSegConfig:
+    import dataclasses
+
+    base = LSegConfig(
+        backbone="tiny_rn",
+        features=32,
+        out_c=64,
+        resnet=ResNetConfig(layers=(1, 1, 1, 1)),
         text=TINY_TEXT,
     )
     return dataclasses.replace(base, **kw) if kw else base

@@ -114,7 +114,9 @@ def export_params(path: str, model) -> None:
         else:
             flat[prefix] = np.asarray(tree)
 
-    visit("", to_jax_variables(model.state_dict(), model.cfg.vit.hooks))
+    vit = model.cfg.vit
+    visit("", to_jax_variables(model.state_dict(),
+                               vit.hooks if vit is not None else ()))
     np.savez(path, **flat)
 
 

@@ -18,10 +18,19 @@ transposes into flax's layouts and back cancel. Only the patch embedding
 changes layout (`(D, C, p, p)` -> the `(p * p * C, D)` rows of the
 patchify product). The per-block ViT weights keep their block index; the
 `act_postprocess` pipelines map as lang-seg builds them (0 = readout,
-3 = 1x1 conv, 4 = resample); BatchNorm running statistics become the
-buffers of the port's `BatchNorm`. Tensors the reference trains but never
-uses (`refinenet4.resConfUnit1`, the ViT blocks after the last hook and
-its final norm, `logit_scale`) are dropped, as in the JAX package.
+3 = 1x1 conv, 4 = resample); the ResNet-101 stages as lang-seg repackages
+torchvision's (`pretrained.layer1` = Sequential(conv1, bn1, relu, maxpool,
+layer1), so its indices 0, 1 and 4; `pretrained.layer2..4` the bare
+layers); BatchNorm running statistics become the buffers of the port's
+`BatchNorm`. Tensors the reference trains but never uses
+(`refinenet4.resConfUnit1`, the ViT blocks after the last hook and its
+final norm, `logit_scale`) are dropped, as in the JAX package.
+
+Two initialisations of the reference have key maps of their own, each the
+JAX package's converter followed by `from_jax_variables`:
+`torchvision_resnet_key_map` (a torchvision resnet50/101 `state_dict`
+into `ResNetBackbone`) and `clip_visual_key_map` (the CLIP visual tower
+transplanted into `DenseViT`).
 """
 
 from __future__ import annotations
@@ -174,35 +183,66 @@ def _module(out: KeyMap, port: str, ref: str, leaves=("weight", "bias")):
 _BN = ("weight", "bias", "running_mean", "running_var")
 
 
-def lseg_key_map(cfg: LSegConfig) -> KeyMap:
-    """Every entry of a ViT `LSegNet(cfg).state_dict()` (float tree) and
-    the lang-seg key it comes from."""
-    if not cfg.is_vit:
-        raise NotImplementedError("the ResNet backbone is not ported yet")
-    if cfg.arch_option not in (0,):
-        raise NotImplementedError(
-            "config options not ported yet: arch_option (head blocks 1/2)")
-    vit = cfg.vit
+def _resnet_blocks(out: KeyMap, port: str, layers, stage_prefix,
+                   has_down: Callable[[str, int], bool]) -> None:
+    """The bottleneck blocks of `ResNetBackbone` under `port` from the
+    torchvision block keys `{stage_prefix(stage)}.{b}.*`; `has_down(key,
+    b)` says whether block b has a projection shortcut."""
+    for stage, n_blocks in enumerate(layers):
+        for b in range(n_blocks):
+            ref = f"{stage_prefix(stage)}.{b}"
+            mod = f"{port}layer{stage + 1}_block{b}"
+            for c in (1, 2, 3):
+                _module(out, f"{mod}.conv{c}", f"{ref}.conv{c}", ("weight",))
+                _module(out, f"{mod}.bn{c}", f"{ref}.bn{c}", _BN)
+            if has_down(ref, b):
+                _module(out, f"{mod}.down_conv", f"{ref}.downsample.0",
+                        ("weight",))
+                _module(out, f"{mod}.down_bn", f"{ref}.downsample.1", _BN)
+
+
+def _vit_key_map(out: KeyMap, vit) -> None:
     m = "pretrained.model"
-    out: KeyMap = {
+    out.update({
         "vit.cls_token": (f"{m}.cls_token", _same),
         "vit.pos_embed": (f"{m}.pos_embed", _same),
         "vit.patch_embed.weight": (f"{m}.patch_embed.proj.weight",
                                    patch_rows),
         "vit.patch_embed.bias": (f"{m}.patch_embed.proj.bias", _same),
-    }
+    })
     for i in range(vit.hooks[-1] + 1):
         for sub in ("norm1", "attn.qkv", "attn.proj", "norm2", "mlp.fc1",
                     "mlp.fc2"):
             _module(out, f"vit.blocks.{i}.{sub}", f"{m}.blocks.{i}.{sub}")
+
+
+def lseg_key_map(cfg: LSegConfig) -> KeyMap:
+    """Every entry of an `LSegNet(cfg).state_dict()` (float tree) and the
+    lang-seg key it comes from. A ResNet model takes every stage's
+    blocks from `cfg.resnet.layers` (the reference's converter reads
+    ResNet-101's (3, 4, 23, 3)), each stage's first block with its
+    projection shortcut."""
+    vit = cfg.vit
+    out: KeyMap = {}
+    if cfg.is_vit:
+        _vit_key_map(out, vit)
+    else:
+        _module(out, "resnet.conv1", "pretrained.layer1.0", ("weight",))
+        _module(out, "resnet.bn1", "pretrained.layer1.1", _BN)
+        _resnet_blocks(
+            out, "resnet.", cfg.resnet.layers,
+            lambda s: "pretrained.layer1.4" if s == 0
+            else f"pretrained.layer{s + 1}",
+            lambda ref, b: b == 0)
     for i in range(1, 5):
-        ref = f"pretrained.act_postprocess{i}"
-        if cfg.readout == "project":
-            _module(out, f"reassemble{i}.readout.project",
-                    f"{ref}.0.project.0")
-        _module(out, f"reassemble{i}.proj", f"{ref}.3")
-        if vit.resample[i - 1] != 1:
-            _module(out, f"reassemble{i}.resample", f"{ref}.4")
+        if cfg.is_vit:
+            ref = f"pretrained.act_postprocess{i}"
+            if cfg.readout == "project":
+                _module(out, f"reassemble{i}.readout.project",
+                        f"{ref}.0.project.0")
+            _module(out, f"reassemble{i}.proj", f"{ref}.3")
+            if vit.resample[i - 1] != 1:
+                _module(out, f"reassemble{i}.resample", f"{ref}.4")
         _module(out, f"scratch.layer{i}_rn", f"scratch.layer{i}_rn",
                 ("weight",))
         fusion = f"scratch.refinenet{i}"
@@ -218,6 +258,68 @@ def lseg_key_map(cfg: LSegConfig) -> KeyMap:
                             f"{fusion}.{unit}.bn{c}", _BN)
         _module(out, f"refinenet{i}.out_conv", f"{fusion}.out_conv")
     _module(out, "head1", "scratch.head1")
+    if cfg.arch_option in (1, 2):
+        # one shared 3x3 single-channel conv, (1, 1, 3, 3) on both sides
+        _module(out, "head_block", "scratch.head_block.depthwise.depthwise")
+    return out
+
+
+def torchvision_resnet_key_map(
+    sd: Dict[str, np.ndarray], layers=(3, 4, 23, 3), prefix: str = "",
+) -> KeyMap:
+    """Every entry of `ResNetBackbone(ResNetConfig(layers)).state_dict()`
+    and the key of a torchvision resnet50/101 `state_dict` (bare naming
+    under `prefix`: conv1, bn1, layer{1..4}.{b}.*) it comes from; a block
+    takes its projection shortcut where `sd` holds one (JAX package:
+    `convert_torchvision_resnet`)."""
+    out: KeyMap = {}
+    _module(out, "conv1", f"{prefix}conv1", ("weight",))
+    _module(out, "bn1", f"{prefix}bn1", _BN)
+    _resnet_blocks(out, "", layers, lambda s: f"{prefix}layer{s + 1}",
+                   lambda ref, b: f"{ref}.downsample.0.weight" in sd)
+    return out
+
+
+def _zeros_like_rows(w: np.ndarray) -> np.ndarray:
+    return np.zeros((w.shape[0],), np.float32)
+
+
+def _token(a: np.ndarray) -> np.ndarray:
+    return a.reshape(1, 1, -1)
+
+
+def _batched(a: np.ndarray) -> np.ndarray:
+    return a[None]
+
+
+def clip_visual_key_map(sd: Dict[str, np.ndarray], cfg: LSegConfig,
+                        prefix: str = "clip_pretrained.visual") -> KeyMap:
+    """The CLIP visual tower's weights for `DenseViT(cfg.vit)` (the
+    reference's 'clip' / 'clip_fixed' transplant init; JAX package:
+    `convert_clip_visual_to_vit`): class_embedding -> cls_token, conv1 ->
+    patch_embed (bias zero: CLIP's conv1 has none), in_proj -> qkv,
+    ln_1 / ln_2 -> norm1 / norm2, the MLP's c_fc / c_proj -> fc1 / fc2.
+    The position embedding comes along where the grids agree; otherwise
+    the map leaves `pos_embed` out and the model keeps its own. Names are
+    the `DenseViT` module's own (load with `strict=False`)."""
+    vit = cfg.vit
+    out: KeyMap = {
+        "cls_token": (f"{prefix}.class_embedding", _token),
+        "patch_embed.weight": (f"{prefix}.conv1.weight", patch_rows),
+        "patch_embed.bias": (f"{prefix}.conv1.weight", _zeros_like_rows),
+    }
+    pos = sd.get(f"{prefix}.positional_embedding")
+    if pos is not None and pos.shape[0] == 1 + vit.pretrain_grid ** 2:
+        out["pos_embed"] = (f"{prefix}.positional_embedding", _batched)
+    for i in range(vit.hooks[-1] + 1):
+        ref = f"{prefix}.transformer.resblocks.{i}"
+        for port, sub in (("norm1", "ln_1"), ("attn.proj", "attn.out_proj"),
+                          ("norm2", "ln_2"), ("mlp.fc1", "mlp.c_fc"),
+                          ("mlp.fc2", "mlp.c_proj")):
+            _module(out, f"blocks.{i}.{port}", f"{ref}.{sub}")
+        for leaf in ("weight", "bias"):
+            out[f"blocks.{i}.attn.qkv.{leaf}"] = (
+                f"{ref}.attn.in_proj_{leaf}", _same)
     return out
 
 

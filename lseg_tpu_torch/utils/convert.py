@@ -105,10 +105,11 @@ def _plain(tree, out: Dict[str, torch.Tensor]) -> None:
 
 
 def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
-    """`LSegNet` variables ({'params', 'batch_stats'}) -> state_dict."""
+    """`LSegNet` variables ({'params', 'batch_stats'}; ViT or ResNet
+    backbone) -> state_dict."""
     out: Dict[str, torch.Tensor] = {}
     params = dict(variables["params"])
-    vit = dict(params.pop("vit"))
+    vit = dict(params.pop("vit", {}))
     segs = sorted((k for k in vit if re.fullmatch(r"seg\d+", k)),
                   key=lambda k: int(k[3:]))
     start = 0
@@ -154,10 +155,10 @@ def _put(tree: dict, path: tuple, a) -> None:
     tree[path[-1]] = a
 
 
-def to_jax_variables(state, hooks) -> dict:
+def to_jax_variables(state, hooks=()) -> dict:
     """Port `LSegNet` state_dict -> {'params', 'batch_stats'} of numpy
     arrays (int8 leaves int8, the rest fp32), the ViT blocks stacked into
-    the scan segments that end at `hooks`."""
+    the scan segments that end at `hooks` (none for a ResNet model)."""
     params: dict = {}
     stats: dict = {}
     blocks: Dict[tuple, list] = {}

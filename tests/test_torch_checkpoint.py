@@ -3,6 +3,7 @@ export / import against the JAX package's, on files written by the JAX
 package's `write_reference_ckpt` / `write_reference_vocab` at the tiny
 config's widths; and the training CLI's `--ckpt` / `--bpe_vocab`."""
 
+import dataclasses
 import os
 import pickle
 import subprocess
@@ -15,11 +16,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import jax_lseg_variables, tiny_parity_config
+from torch_parity import (
+    jax_lseg_variables,
+    seeded_variables,
+    tiny_parity_config,
+    tiny_text_config,
+    tiny_vitb_config,
+)
 
 from lseg_tpu.models.lseg import LSegNet as JNet
 from lseg_tpu.ops.quant import quantize_tree as j_quantize_tree
 from lseg_tpu.testing import (
+    TINY_TEXT,
+    tiny_rn_config,
     tiny_vit_config,
     write_reference_ckpt,
     write_reference_vocab,
@@ -36,9 +45,12 @@ from lseg_tpu_torch.text.cache import TextFeatureCache
 from lseg_tpu_torch.text.tokenizer import ClipBPETokenizer
 from lseg_tpu_torch.train import checkpoint as tckpt
 from lseg_tpu_torch.utils.checkpoint_convert import (
+    apply_key_map,
+    clip_visual_key_map,
     extract_state_dict,
     load_reference_checkpoint,
     load_torch_file,
+    torchvision_resnet_key_map,
 )
 from lseg_tpu_torch.utils.convert import (
     from_jax_text_params,
@@ -152,6 +164,8 @@ def _trees(kind, loaded):
     if kind == "float":
         (jvars, _), _ = loaded
         return jvars, tiny_vit_config()
+    if kind == "resnet":
+        return seeded_variables(tiny_rn_config()), tiny_rn_config()
     cfg = tiny_parity_config()
     return _jax_int8_tree(cfg), fast_serving(cfg, "static_cal")
 
@@ -161,7 +175,7 @@ def _leaves(tree):
             for k, a in jax.tree_util.tree_leaves_with_path(tree)}
 
 
-@pytest.mark.parametrize("kind", ["float", "int8"])
+@pytest.mark.parametrize("kind", ["float", "int8", "resnet"])
 def test_jax_npz_export_imports_into_the_port(kind, loaded, tmp_path):
     jvars, _ = _trees(kind, loaded)
 
@@ -174,7 +188,7 @@ def test_jax_npz_export_imports_into_the_port(kind, loaded, tmp_path):
     _assert_same(tckpt.import_params(path), from_jax_variables(jvars))
 
 
-@pytest.mark.parametrize("kind", ["float", "int8"])
+@pytest.mark.parametrize("kind", ["float", "int8", "resnet"])
 def test_port_npz_export_imports_into_jax(kind, loaded, tmp_path):
     jvars, cfg = _trees(kind, loaded)
     model = LSegNet(cfg)
@@ -222,3 +236,202 @@ def test_train_cli_takes_ckpt_and_bpe_vocab(suffix, files, loaded,
     assert ("no text tower" in proc.stdout) == (suffix == ".npz")
     rows = (tmp_path / "run" / "lseg" / "metrics.csv").read_text()
     assert len(rows.splitlines()) > 1
+
+
+# ---- the other backbones and heads, and the two transplant inits ----
+
+def _rewrite(path, edit):
+    """Load the lang-seg `.ckpt` at `path`, `edit(state_dict)` in place,
+    save it back."""
+    ck = torch.load(path, weights_only=True)
+    edit(ck["state_dict"])
+    torch.save(ck, path)
+
+
+def _bn_keys(sd, key, c, rng):
+    sd[f"{key}.weight"] = torch.from_numpy(
+        (1 + 0.1 * rng.randn(c)).astype(np.float32))
+    sd[f"{key}.bias"] = torch.from_numpy(0.1 * rng.randn(c).astype(
+        np.float32))
+    sd[f"{key}.running_mean"] = torch.from_numpy(
+        0.1 * rng.randn(c).astype(np.float32))
+    sd[f"{key}.running_var"] = torch.from_numpy(
+        (1 + 0.1 * np.abs(rng.randn(c))).astype(np.float32))
+    sd[f"{key}.num_batches_tracked"] = torch.tensor(7)
+
+
+def _torchvision_blocks(sd, stage_prefix, layers, rng):
+    """torchvision Bottleneck keys (conv1-3, bn1-3, the shortcut's
+    downsample.0/1 on each stage's first block) at ResNet's widths."""
+    def conv(key, o, i, k):
+        sd[key] = torch.from_numpy(
+            (rng.randn(o, i, k, k) * 0.05).astype(np.float32))
+
+    cin = 64
+    for s, n in enumerate(layers):
+        p = 64 * 2 ** s
+        for b in range(n):
+            key = f"{stage_prefix(s)}.{b}"
+            conv(f"{key}.conv1.weight", p, cin, 1)
+            conv(f"{key}.conv2.weight", p, p, 3)
+            conv(f"{key}.conv3.weight", 4 * p, p, 1)
+            for c, w in ((1, p), (2, p), (3, 4 * p)):
+                _bn_keys(sd, f"{key}.bn{c}", w, rng)
+            if b == 0:
+                conv(f"{key}.downsample.0.weight", 4 * p, cin, 1)
+                _bn_keys(sd, f"{key}.downsample.1", 4 * p, rng)
+            cin = 4 * p
+
+
+def test_lseg_key_map_resnet101_equals_the_jax_path(tmp_path):
+    """A lang-seg ResNet-101 checkpoint: `write_reference_ckpt`'s decoder
+    and text tower, its ViT replaced by the repackaged torchvision stages
+    (`pretrained.layer1` = (conv1, bn1, relu, maxpool, layer1), then
+    `pretrained.layer2..4`) and the scratch's 3x3s widened to their
+    channels. The port's loader equals the JAX package's `convert_lseg` +
+    `from_jax_variables` bit for bit, and the state loads strictly into a
+    ResNet-101 `LSegNet` (decoder width 32)."""
+    from lseg_tpu.config import get_config as j_get_config
+
+    cfg = dataclasses.replace(j_get_config("clip_resnet101", features=32),
+                              out_c=64, text=TINY_TEXT)
+    path = str(tmp_path / "rn.ckpt")
+    write_reference_ckpt(path, tiny_vit_config())
+    rng = np.random.RandomState(0)
+
+    def edit(sd):
+        for k in [k for k in sd if k.startswith("net.pretrained.")]:
+            del sd[k]
+        sd["net.pretrained.layer1.0.weight"] = torch.from_numpy(
+            (rng.randn(64, 3, 7, 7) * 0.05).astype(np.float32))
+        _bn_keys(sd, "net.pretrained.layer1.1", 64, rng)
+        _torchvision_blocks(
+            sd, lambda s: "net.pretrained.layer1.4" if s == 0
+            else f"net.pretrained.layer{s + 1}", cfg.resnet.layers, rng)
+        for i in range(4):
+            sd[f"net.scratch.layer{i + 1}_rn.weight"] = torch.from_numpy(
+                (rng.randn(32, 256 * 2 ** i, 3, 3) * 0.05).astype(
+                    np.float32))
+
+    _rewrite(path, edit)
+    (jvars, jtext), (state, text) = j_load(path, cfg), \
+        load_reference_checkpoint(path, cfg)
+    assert "resnet" in jvars["batch_stats"]
+    _assert_same(state, from_jax_variables(jvars))
+    _assert_same(text, from_jax_text_params(jtext["params"]))
+    LSegNet(cfg).load_state_dict(state, strict=True)
+
+
+@pytest.mark.parametrize("option", [1, 2])
+def test_lseg_key_map_head_block_equals_the_jax_path(option, tmp_path):
+    """An arch_option checkpoint: `write_reference_ckpt` plus the head
+    block's shared depthwise 3x3 (`scratch.head_block.depthwise.
+    depthwise`, (1, 1, 3, 3) and (1,)), loaded as the JAX package loads
+    it, bit for bit, and strictly into the port's model."""
+    cfg = tiny_vit_config(arch_option=option, block_depth=2)
+    path = str(tmp_path / "arch.ckpt")
+    write_reference_ckpt(path, cfg)
+    key = "net.scratch.head_block.depthwise.depthwise"
+
+    def edit(sd):
+        sd[f"{key}.weight"] = torch.randn(1, 1, 3, 3)
+        sd[f"{key}.bias"] = torch.randn(1)
+
+    _rewrite(path, edit)
+    (jvars, _), (state, _) = j_load(path, cfg), load_reference_checkpoint(
+        path, cfg)
+    _assert_same(state, from_jax_variables(jvars))
+    assert state["head_block.weight"].shape == (1, 1, 3, 3)
+    LSegNet(cfg).load_state_dict(state, strict=True)
+
+
+@pytest.mark.parametrize("width", [640, 768])
+def test_loader_at_rn50x_text_widths(width, tmp_path):
+    """The lang-seg loader at RN50x4's and RN50x16's text widths (head1
+    and the text tower at E = 640 / 768), bit for bit the JAX path."""
+    cfg = tiny_vit_config(text=tiny_text_config(width), out_c=width)
+    path = str(tmp_path / f"w{width}.ckpt")
+    write_reference_ckpt(path, cfg)
+    (jvars, jtext), (state, text) = j_load(path, cfg), \
+        load_reference_checkpoint(path, cfg)
+    _assert_same(state, from_jax_variables(jvars))
+    _assert_same(text, from_jax_text_params(jtext["params"]))
+    assert text["text_projection"].shape == (width, width)
+
+
+def _unprefixed(state, prefix):
+    return {k[len(prefix):]: t for k, t in state.items()}
+
+
+@pytest.mark.parametrize("layers,prefix", [((1, 1, 1, 1), ""),
+                                           ((2, 1, 2, 1), "backbone.")])
+def test_torchvision_resnet_key_map_equals_jax(layers, prefix):
+    """`torchvision_resnet_key_map` equals the JAX package's
+    `convert_torchvision_resnet` + `from_jax_variables` bit for bit
+    (torchvision's `num_batches_tracked` and `fc` dropped), and loads
+    strictly into `ResNetBackbone`."""
+    from lseg_tpu.config import ResNetConfig
+    from lseg_tpu.utils.checkpoint_convert import (
+        convert_torchvision_resnet,
+    )
+    from lseg_tpu_torch.models.resnet import ResNetBackbone
+
+    rng = np.random.RandomState(1)
+    tsd = {f"{prefix}conv1.weight": torch.from_numpy(
+        (rng.randn(64, 3, 7, 7) * 0.05).astype(np.float32))}
+    _bn_keys(tsd, f"{prefix}bn1", 64, rng)
+    _torchvision_blocks(tsd, lambda s: f"{prefix}layer{s + 1}", layers, rng)
+    tsd[f"{prefix}fc.weight"] = torch.randn(10, 2048)
+    sd = {k: t.numpy() for k, t in tsd.items()}
+    p, s = convert_torchvision_resnet(sd, layers, prefix)
+    want = _unprefixed(from_jax_variables(
+        {"params": {"resnet": p}, "batch_stats": {"resnet": s}}), "resnet.")
+    got = apply_key_map(sd, torchvision_resnet_key_map(sd, layers, prefix))
+    _assert_same(got, want)
+    ResNetBackbone(ResNetConfig(layers)).load_state_dict(got, strict=True)
+
+
+@pytest.mark.parametrize("grid_match", [True, False])
+def test_clip_visual_key_map_equals_jax(grid_match):
+    """`clip_visual_key_map` on a CLIP ViT-B/32-shaped visual tower
+    equals the JAX package's `convert_clip_visual_to_vit` +
+    `from_jax_variables` bit for bit: class_embedding, conv1 (zero bias),
+    in_proj, the MLP, and the position embedding where the grids agree
+    (left out, as the reference leaves it, where they do not)."""
+    from lseg_tpu.utils.checkpoint_convert import convert_clip_visual_to_vit
+    from lseg_tpu_torch.models.vit import DenseViT
+
+    cfg = tiny_vitb_config(32)
+    vit = cfg.vit
+    d, p = vit.embed_dim, vit.patch_size
+    g = vit.pretrain_grid if grid_match else vit.pretrain_grid + 4
+    rng = np.random.RandomState(2)
+    pre = "clip_pretrained.visual"
+
+    def t(*shape):
+        return (rng.randn(*shape) * 0.05).astype(np.float32)
+
+    sd = {f"{pre}.class_embedding": t(d), f"{pre}.conv1.weight": t(d, 3, p, p),
+          f"{pre}.positional_embedding": t(1 + g * g, d),
+          f"{pre}.ln_pre.weight": t(d), f"{pre}.proj": t(d, 64)}
+    for i in range(vit.depth):
+        b = f"{pre}.transformer.resblocks.{i}"
+        for ln in ("ln_1", "ln_2"):
+            sd[f"{b}.{ln}.weight"], sd[f"{b}.{ln}.bias"] = 1 + t(d), t(d)
+        sd[f"{b}.attn.in_proj_weight"] = t(3 * d, d)
+        sd[f"{b}.attn.in_proj_bias"] = t(3 * d)
+        sd[f"{b}.attn.out_proj.weight"] = t(d, d)
+        sd[f"{b}.attn.out_proj.bias"] = t(d)
+        sd[f"{b}.mlp.c_fc.weight"], sd[f"{b}.mlp.c_fc.bias"] = (
+            t(4 * d, d), t(4 * d))
+        sd[f"{b}.mlp.c_proj.weight"], sd[f"{b}.mlp.c_proj.bias"] = (
+            t(d, 4 * d), t(d))
+    want = _unprefixed(from_jax_variables(
+        {"params": {"vit": convert_clip_visual_to_vit(sd, cfg)}}), "vit.")
+    got = apply_key_map(sd, clip_visual_key_map(sd, cfg))
+    _assert_same(got, want)
+    assert ("pos_embed" in got) == grid_match
+    missing, unexpected = DenseViT(vit).load_state_dict(got, strict=False)
+    assert unexpected == [] and missing == ([] if grid_match
+                                            else ["pos_embed"])
+

@@ -154,7 +154,7 @@ _PIECES = {
                                  "_rebuild_tensor", "load_torch_file",
                                  "extract_state_dict"),
     "testing": ("write_reference_ckpt", "write_reference_vocab",
-                "tiny_vit_config"),
+                "tiny_vit_config", "tiny_rn_config"),
     "engine.tta": ("TTAProtocol", "TTAPlan", "make_plan", "_resize_np",
                    "build_pyramid"),
 }

@@ -117,13 +117,10 @@ def _option_cases():
     (or a module) the port does not have yet."""
     import dataclasses
 
-    from lseg_tpu.testing import tiny_rn_config
-
     base = tiny_parity_config()
     return {
-        "arch_option": dataclasses.replace(base, arch_option=1,
-                                           block_depth=1),
-        "ResNet": tiny_rn_config(),
+        "vit.quant_int8 dynamic": dataclasses.replace(
+            base, vit=dataclasses.replace(base.vit, quant_int8="dynamic")),
         "attn_variant i8qk": dataclasses.replace(
             base, vit=dataclasses.replace(base.vit, attn_variant="i8qk")),
     }

@@ -34,6 +34,45 @@ def tiny_parity_config():
     return cfg
 
 
+def tiny_vitb_config(patch: int):
+    """A ViT-B-shaped parity config at width 128 (two heads of 64): 12
+    blocks tapped at (2, 5, 8, 11); patch 32 takes ViT-B/32's resample
+    (8, 4, 2, 1), patch 16 ViT-B/16's (4, 2, 1, 0.5). The pretraining
+    grid (3 or 4) differs from the 64 x 96 input's grid, so the position
+    embedding is resized."""
+    resample = (8.0, 4.0, 2.0, 1.0) if patch == 32 else (4.0, 2.0, 1.0, 0.5)
+    cfg = tiny_vit_config(vit=ViTConfig(
+        patch_size=patch, embed_dim=128, num_heads=2, depth=12,
+        hooks=(2, 5, 8, 11), post_channels=(16, 32, 64, 64),
+        resample=resample, pretrain_grid=3 if patch == 32 else 4))
+    assert flat_flash_eligible(cfg.vit.embed_dim, cfg.vit.num_heads,
+                               cfg.vit.tp_layout)
+    return cfg
+
+
+def tiny_text_config(width: int):
+    """The CLIP text tower at the RN50x4 (640, ten heads) or RN50x16 (768,
+    twelve heads) widths, two layers, the tiny vocabulary and context."""
+    from lseg_tpu.config import CLIPTextConfig
+
+    return CLIPTextConfig(vocab_size=1024, context_length=16, width=width,
+                          layers=2, heads=width // 64, embed_dim=width)
+
+
+def seeded_variables(cfg, seed=0):
+    """JAX variables of `cfg` without running JAX's init (op by op, 20-30
+    s at these sizes): the port's seeded `random_init_` carried into the
+    JAX tree by `to_jax_variables`, then perturbed as
+    `jax_lseg_variables`' are."""
+    from lseg_tpu_torch.models.layers import random_init_
+    from lseg_tpu_torch.models.lseg import LSegNet
+    from lseg_tpu_torch.utils.convert import to_jax_variables
+
+    model = random_init_(LSegNet(cfg), torch.Generator().manual_seed(seed))
+    hooks = cfg.vit.hooks if cfg.vit is not None else ()
+    return perturb(to_jax_variables(model.state_dict(), hooks), seed + 1)
+
+
 def tiny_fast_config():
     """`fast_serving(quant=False)`: flashflat, patch kernel, tanh GELU,
     bf16 head."""
