@@ -198,7 +198,34 @@ the result line is printed:
    arch_option 1 and 2 head blocks at block_depth 2 on fast_bf16 through
    `make_predictor`'s full-forward branch (B1 1, B6 24; the head blocks
    plain). The phase fails unless its counted runs launched exactly
-   B1, B2, B3, B4, B6, B10, B11 and B14.
+   B1, B2, B3, B4, B6, B10, B11 and B14;
+9. few-shot / zero-shot transfer (the reference's test_zs.py) on a
+   written PASCAL-5i tree (ten VOC-sized JPEGs of fold 0's five classes,
+   masks with a 255 band), batch 8 at 480x480, one ['others', class] pair
+   per image from `TextFeatureCache.pair_features`: (E1) test_zs's model,
+   `get_config(clip_vitl16_384)` in bf16 loaded from a lang-seg `.ckpt`
+   of seeded weights, and `get_config(clip_resnet101)` on ImageNet-
+   normalised episodes, through `make_episodic_predictor`: the labels
+   against the model's own argmax head given each image's pair, at half
+   resolution, and against the argmax of its logits (>= 0.999), no kernel
+   launched; (E2) the same predictor on fast_cal's embeddings (B1 = 1,
+   B2 = B3 = blocks a batch), its half-res pair logits against its plain
+   twins as in 3b, and its labels equal to the plain twins' (>= 0.999)
+   on the pixels where the plain twin's margin between 'others' and the
+   class exceeds that logits bound (random-weight near-ties below it may
+   flip with a code); (E3) `make_episodic_train_step` on the training
+   CLI's configuration (flashflat, remat, bf16 on fp32 masters): one
+   step's loss and ViT gradients against the plain twin as in 5b, then
+   five steps on the same episodes with the loss falling, ms/step and
+   peak memory, B6 = 2 x blocks and B7 = blocks a step; (E4) `python -m
+   lseg_tpu_torch.test_zs` in a process of its own on the default device
+   over the protocol's 1000 episodes, its printed and logged line equal
+   to E1's predictor through the in-process `EpisodicEvaluator` (each
+   distinct episode decoded once), whose meter must equal a numpy
+   recount of its labels with the ignore region folded in, and the
+   command's seconds per 1000 episodes. The phase fails
+   unless its counted runs (E2's batch, E3's kernel steps) launched
+   exactly B1, B2, B3, B6 and B7.
 
 Phase 2 also times, for each kernel, the PyTorch library call that
 computes the same function where there is one, and computes its bound
@@ -211,7 +238,8 @@ the probe path; phase 7 adds no row), error, times and bound (B10's row
 also holds its bf16 mode's under "bf16", B17's its fp32 mode's under "fp32"; the fp32 modes
 of B6 and B7 have rows of their own, with the launches of phase 5b2;
 B19's holds its hand-off shape's under "handoff"; each row also holds
-its launches in phase 8 under "backbone_launches", and the rows of B2,
+its launches in phase 8 under "backbone_launches" and in phase 9 under
+"fewshot_launches", and the rows of B2,
 B3, B4, B10 and B14 phase 8a's numbers under "widths"); the last line is
 the result object. Needs one
 GPU and no network; imports no JAX and nothing of the JAX package.
@@ -3568,6 +3596,541 @@ def phase_backbones(dev):
     return total, widths
 
 
+
+# Phase 9: few-shot and zero-shot transfer (the JAX package's test_zs.py)
+FEWSHOT_BATCH = 8
+# Fold 0 of PASCAL-5i: classes 0-4 (1-based 1-5 in the masks); two images
+# a class, written interleaved so that consecutive episodes differ in
+# class and a pair rolled by one image is a wrong pair
+FEWSHOT_CLASSES, FEWSHOT_PER_CLASS = 5, 2
+FEWSHOT_KERNELS = {"patch_embed", "flash_attention_ln_qkv_fused_q8",
+                   "ln_quantize_rows", "flash_attention_flat",
+                   "flash_attention_flat_bwd"}
+
+
+def _fewshot_tree(root):
+    """A PASCAL-5i tree under `root`: VOC-sized JPEGs (375 x 500, smooth
+    seeded colour fields), `SegmentationClassAug` masks holding the class
+    (1-based) in a box with a 255 band along its left edge and the image's
+    top rows, and `splits/pascal/val/fold0.txt`. Returns (datapath,
+    splits_dir)."""
+    import numpy as np
+    from PIL import Image
+
+    img_dir = os.path.join(root, "VOC2012", "JPEGImages")
+    ann_dir = os.path.join(root, "VOC2012", "SegmentationClassAug")
+    splits = os.path.join(root, "splits", "pascal", "val")
+    for d in (img_dir, ann_dir, splits):
+        os.makedirs(d)
+    rng = np.random.RandomState(SEED + 9)
+    h, w = 375, 500
+    lines = []
+    for j in range(FEWSHOT_PER_CLASS):
+        for c in range(FEWSHOT_CLASSES):
+            name = f"2008_{c:03d}{j:03d}"
+            low = rng.randint(0, 255, (12, 16, 3)).astype(np.uint8)
+            Image.fromarray(low).resize((w, h), Image.BILINEAR).save(
+                os.path.join(img_dir, name + ".jpg"), quality=90)
+            mask = np.zeros((h, w), np.uint8)
+            y, x = rng.randint(10, h // 2), rng.randint(0, w // 2)
+            mask[y:y + h // 2, x:x + w // 2] = c + 1
+            mask[y:y + h // 2, x:x + 6] = 255
+            mask[:5] = 255
+            Image.fromarray(mask).save(os.path.join(ann_dir, name + ".png"))
+            lines.append(f"{name}__{c + 1}")
+    with open(os.path.join(splits, "fold0.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return root, os.path.join(root, "splits")
+
+
+def _episode_batch(ds, dev, n=FEWSHOT_BATCH):
+    """The first `n` episodes of `ds` on the card, and their class ids."""
+    import numpy as np
+
+    eps = [ds[i] for i in range(n)]
+    batch = {k: torch.from_numpy(np.stack([e[k] for e in eps])).to(dev)
+             for k in ("query_img", "query_mask", "query_ignore")}
+    return batch, [int(e["class_id"]) for e in eps]
+
+
+def _pairs(cache, labels, class_ids):
+    return torch.stack([cache.pair_features(labels[c]) for c in class_ids])
+
+
+def _idle(tag, counters, fn):
+    """`fn()` with every kernel's counter at 0 before; all must stay 0."""
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    ran = {k: c.launches for k, c in counters.items() if c.launches}
+    if ran:
+        fail(f"{tag}: kernels launched {ran}, expected none")
+    return out
+
+
+def _zero_shot_gate(tag, model, images, pairs, counters):
+    """E1: the episodic predictor's labels against the model's own argmax
+    head given each image's pair, at the head's half resolution
+    (`return_argmax=True, return_halfres=True`), and the full-resolution
+    labels against the argmax of the model's own logits; no kernel may
+    launch. The model's head takes one label set for its batch, so it runs
+    once per pair on the whole batch and image i is read from the run with
+    pair i: the same batch gives the same embeddings, where a batch of one
+    would round its products otherwise."""
+    from lseg_tpu_torch.engine.episodic import (
+        make_episodic_predictor,
+        pair_logits,
+    )
+
+    scale = model.cfg.logit_scale
+    predict = make_episodic_predictor(model)
+    n = images.shape[0]
+    with torch.inference_mode():
+        pred = _idle(f"{tag} predictor", counters,
+                     lambda: predict(images, pairs))
+        half = pair_logits(model(images, None), pairs, scale).argmax(-1)
+        own = torch.stack([model(images, pairs[i], return_argmax=True,
+                                 return_halfres=True)[i] for i in range(n)])
+        full = torch.stack([model(images, pairs[i])[i].argmax(-1)
+                            for i in range(n)])
+    if pred.shape != images.shape[:3] or pred.dtype != torch.int32:
+        fail(f"{tag}: labels {tuple(pred.shape)} {pred.dtype}")
+    eq_half, eq_full = _agree(half, own), _agree(pred, full)
+    nearest = _agree(pred, own.repeat_interleave(2, 1).repeat_interleave(
+        2, 2))
+    fg = float((pred == 1).float().mean())
+    print(f"  E1 {tag}: labels {tuple(pred.shape)}, foreground share "
+          f"{fg:.4f}; half-res labels vs the model's argmax head with each "
+          f"image's pair {eq_half:.6f}, full-res labels vs the argmax of its "
+          f"logits {eq_full:.6f} (gates >= {HEAD_SERVE_MIN_EQUAL}); vs the "
+          f"head's nearest x2 {nearest:.6f} (not gated); 0 kernel launches")
+    if eq_half < HEAD_SERVE_MIN_EQUAL or eq_full < HEAD_SERVE_MIN_EQUAL:
+        fail(f"{tag}: episodic labels disagree with the model's own head")
+    return predict
+
+
+def _timed_batches(tag, fn):
+    """ms a batch (CUDA events, 5 calls after 2) and peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    ms = cuda_time_ms(fn, warmup=2, iters=5)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {tag}: {ms:.3f} ms/batch of {FEWSHOT_BATCH}, peak memory "
+          f"{peak / 2**30:.3f} GiB ({resident / 2**30:.3f} GiB resident)")
+    return ms
+
+
+class _RecountingEpisodes:
+    """A dataset proxy that remembers the episodes of the batch being
+    read, and a predictor proxy that recounts, in numpy, each batch's
+    {bg, fg} areas from its labels with the ignore region folded in, into
+    float64 per-class buffers: an independent count of what the
+    evaluator's meter must hold. A zero-shot PASCAL episode is its query
+    image alone (`img_metadata[i % len]`, no support drawn), so episode i
+    repeats every len(img_metadata): the proxy decodes each once and holds
+    its first repeat equal, array for array, to a fresh decode."""
+
+    def __init__(self, ds, predict):
+        import numpy as np
+
+        if ds.shot != 0:
+            fail("E4: episodes repeat only with no support set")
+        self.ds, self.inner = ds, predict
+        self.class_ids = ds.class_ids
+        n = max(self.class_ids) + 1
+        self.inter = np.zeros((2, n))
+        self.union = np.zeros((2, n))
+        self.pending = []
+        self.decoded, self.checked = {}, set()
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        import numpy as np
+
+        key = i % len(self.ds.img_metadata)
+        ep = self.decoded.get(key)
+        if ep is None:
+            ep = self.decoded[key] = self.ds[i]
+        elif key not in self.checked:
+            fresh = self.ds[i]
+            if fresh.keys() != ep.keys() or not all(
+                    np.array_equal(fresh[k], ep[k]) for k in ep):
+                fail(f"E4: episode {i} differs from episode {key}")
+            self.checked.add(key)
+        self.pending.append(ep)
+        return ep
+
+    def predict(self, images, pairs):
+        import numpy as np
+
+        pred = self.inner(images, pairs)
+        labels = pred.cpu().numpy()
+        for ep, p in zip(self.pending, labels):
+            valid = ~ep["query_ignore"]
+            for r in (0, 1):
+                pm, tm = (p == r) & valid, (ep["query_mask"] == r) & valid
+                inter = float(np.sum(pm & tm))
+                self.inter[r, int(ep["class_id"])] += inter
+                self.union[r, int(ep["class_id"])] += (
+                    float(np.sum(pm)) + float(np.sum(tm)) - inter)
+        self.pending = []
+        return pred
+
+    def metrics(self):
+        import numpy as np
+
+        sel = np.asarray(self.class_ids)
+        miou = 100 * float(np.mean(self.inter[1, sel]
+                                   / np.maximum(self.union[1, sel], 1.0)))
+        fb = 100 * float(np.mean(self.inter[:, sel].sum(1)
+                                 / self.union[:, sel].sum(1)))
+        return miou, fb
+
+
+def _test_zs_cli(datapath, splits, ckpt, vocab, logpath):
+    """E4: `python -m lseg_tpu_torch.test_zs` in a process of its own on
+    the default device; returns its result line and its seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "lseg_tpu_torch.test_zs", "--dataset",
+           "pascal", "--fold", "0", "--datapath", datapath, "--splits_dir",
+           splits, "--weights", ckpt, "--bpe_vocab", vocab, "--backbone",
+           "clip_vitl16_384", "--logpath", logpath]
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                          text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-2000:], proc.stderr[-4000:])
+        fail(f"test_zs exited {proc.returncode}")
+    lines = proc.stdout.strip().splitlines()
+    print(f"  E4 python -m lseg_tpu_torch.test_zs (default device, "
+          f"clip_vitl16_384, 1000 episodes, batch 8): {dt:.2f} s in its own "
+          f"process; last lines: {lines[-2:]}")
+    return lines[-1], dt
+
+
+def _fewshot_train(dev, batch, pairs, counters):
+    """E3: episodic training on the training CLI's configuration (ViT-L/16
+    flashflat, remat, bf16 on fp32 masters) at batch 8: one step from the
+    same weights on the kernel path, its plain twin and an fp32 model
+    (loss and ViT gradients, `GRAD_RATIO` d_ref + `GRAD_FLOOR`), then five
+    more kernel steps on the same episodes with ms/step and peak memory;
+    every kernel step launches B6 = 2 x blocks, B7 = blocks. Returns the
+    six kernel steps' launches."""
+    from lseg_tpu_torch import get_config
+    from lseg_tpu_torch.models.layers import random_init_
+    from lseg_tpu_torch.models.lseg import LSegNet
+    from lseg_tpu_torch.train.episodic import make_episodic_train_step
+    from lseg_tpu_torch.train.optim import make_optimizer
+    from lseg_tpu_torch.train.step import TrainState, enable_grads
+
+    base = get_config("clip_vitl16_384")
+    cfg = dataclasses.replace(base, vit=dataclasses.replace(
+        base.vit, attn_impl="flashflat"))
+    blocks = cfg.vit.hooks[-1] + 1
+    g = torch.Generator(device=dev).manual_seed(SEED + 93)
+    init = random_init_(LSegNet(cfg, torch.float32, dev), g)
+    init_state = {n: t.clone() for n, t in init.state_dict().items()}
+    del init
+    step = make_episodic_train_step(cfg.logit_scale)
+    expect = {k: 0 for k in counters}
+    expect.update({"flash_attention_flat": 2 * blocks,
+                   "flash_attention_flat_bwd": blocks})
+    models, losses, states = {}, {}, {}
+    launches = {k: 0 for k in counters}
+    for name, dtype, plain in (("kernel", torch.bfloat16, False),
+                               ("plain", torch.bfloat16, True),
+                               ("fp32", torch.float32, True)):
+        m = LSegNet(cfg, dtype, dev, plain=plain, remat=True,
+                    param_dtype=torch.float32)
+        m.load_state_dict(init_state)
+        enable_grads(m)
+        states[name] = TrainState(m, make_optimizer(
+            m, 0.004, 100, batch_size=FEWSHOT_BATCH))
+        for c in counters.values():
+            c.launches = 0
+        _, metrics = step(states[name], batch, pairs)
+        got = {k: c.launches for k, c in counters.items()}
+        want = expect if name == "kernel" else {k: 0 for k in counters}
+        if got != want:
+            fail(f"E3 {name} step: launches {got}, expected {want}")
+        if name == "kernel":
+            launches = got
+        losses[name] = float(metrics["loss"])
+        models[name] = m
+        if name == "kernel":
+            inter = metrics["inter"].cpu()
+    torch.cuda.synchronize()
+    if not all(v == v and abs(v) != float("inf") for v in losses.values()):
+        fail(f"E3: a loss is not finite: {losses}")
+    # the first step's loss, as a relative deviation under the gradients'
+    # gate
+    l_kernel = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
+    l_ref = abs(losses["plain"] - losses["fp32"]) / abs(losses["fp32"])
+    d_kernel, per_k = _vit_grad_deviation(models["kernel"], models["plain"],
+                                          blocks)
+    d_ref, _ = _vit_grad_deviation(models["plain"], models["fp32"], blocks)
+    print(f"  E3 one episodic step at batch {FEWSHOT_BATCH}, losses "
+          f"{losses}: |kernel - plain| / |plain| {l_kernel:.6g}, |plain bf16 "
+          f"- fp32| / |fp32| {l_ref:.6g}; inter of the kernel step "
+          f"{inter.tolist()[:2]} ...; ViT gradients |kernel - plain| / "
+          f"|plain| {d_kernel:.6g}, |plain bf16 - fp32| / |fp32| "
+          f"{d_ref:.6g}; worst block {max(per_k):.4g} (both bounds "
+          f"{GRAD_RATIO} * ref + {GRAD_FLOOR:g})")
+    if not l_kernel <= GRAD_RATIO * l_ref + GRAD_FLOOR:
+        fail(f"E3: the kernel path's loss deviates {l_kernel} > {GRAD_RATIO} "
+             f"* {l_ref} + {GRAD_FLOOR}")
+    if not d_kernel <= GRAD_RATIO * d_ref + GRAD_FLOOR:
+        fail(f"E3: kernel-path gradients deviate {d_kernel} > {GRAD_RATIO} "
+             f"* {d_ref} + {GRAD_FLOOR}")
+    del models, states["plain"], states["fp32"]
+    _free()
+
+    state = states["kernel"]
+    step_losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        before = {k: c.launches for k, c in counters.items()}
+        _, metrics = step(state, batch, pairs)
+        delta = {k: c.launches - before[k] for k, c in counters.items()}
+        if delta != expect:
+            fail(f"E3 step {state.step}: launches {delta}, expected {expect}")
+        step_losses.append(metrics["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 5
+    peak = torch.cuda.max_memory_allocated()
+    step_losses = [float(v) for v in step_losses]
+    print(f"  E3 five more kernel steps on the same episodes: losses "
+          f"{[round(v, 5) for v in step_losses]} (first step "
+          f"{losses['kernel']:.5f}); {ms:.3f} ms/step, train img/s "
+          f"{FEWSHOT_BATCH * 1e3 / ms:.2f}, peak memory {peak / 2**30:.3f} "
+          f"GiB ({resident / 2**30:.3f} GiB resident), launches per step "
+          f"{ {k: v for k, v in expect.items() if v} }")
+    if not step_losses[-1] < losses["kernel"]:
+        fail(f"E3: the loss did not fall: {losses['kernel']} -> "
+             f"{step_losses}")
+    launches = {k: launches[k] + 5 * expect[k] for k in counters}
+    del state, states
+    _free()
+    return launches
+
+
+def phase_fewshot(dev):
+    """Phase 9: few-shot / zero-shot transfer through the calls of the
+    reference's test_zs.py: the binary ['others', class] head on test_zs's
+    model (E1, ViT-L/16 and ResNet-101), the same predictor on fast_cal's
+    embeddings (E2), episodic training (E3) and `python -m
+    lseg_tpu_torch.test_zs` end to end (E4). Returns the launches of its
+    counted runs (E2's batch, E3's kernel steps)."""
+    from lseg_tpu_torch import fast_serving, get_config, get_labels
+    from lseg_tpu_torch.data.fewshot import build_fewshot_dataset
+    from lseg_tpu_torch.engine.episodic import (
+        EpisodicEvaluator,
+        make_episodic_predictor,
+        pair_logits,
+    )
+    from lseg_tpu_torch.models.clip_text import CLIPTextEncoder
+    from lseg_tpu_torch.ops.resize import upsample2x
+    from lseg_tpu_torch.models.layers import random_init_
+    from lseg_tpu_torch.models.lseg import LSegNet
+    from lseg_tpu_torch.testing import write_reference_vocab
+    from lseg_tpu_torch.text.cache import TextFeatureCache
+    from lseg_tpu_torch.text.tokenizer import ClipBPETokenizer
+    from lseg_tpu_torch.utils.checkpoint_convert import (
+        load_reference_checkpoint,
+    )
+
+    print("[9] few-shot / zero-shot transfer: the ['others', class] head, "
+          "episodic training, python -m lseg_tpu_torch.test_zs")
+    t_phase = time.perf_counter()
+    counters = _kernel_counters()
+    labels = get_labels("pascal")
+    total = {k: 0 for k in counters}
+    with tempfile.TemporaryDirectory() as tmp:
+        datapath, splits = _fewshot_tree(tmp)
+        ckpt, vocab = (os.path.join(tmp, "zs.ckpt"),
+                       os.path.join(tmp, "bpe_vocab.txt.gz"))
+        write_reference_vocab(vocab)
+        tok = ClipBPETokenizer.from_file(vocab)
+
+        def dataset(imagenet_norm):
+            return build_fewshot_dataset(
+                "pascal", datapath, 0, "test", 0, splits_dir=splits,
+                img_size=480, imagenet_norm=imagenet_norm, seed=0)
+
+        # E1 on test_zs's model: seeded weights written as a lang-seg .ckpt
+        # and loaded as test_zs loads them
+        cfg = get_config("clip_vitl16_384")
+        g = torch.Generator(device=dev).manual_seed(SEED + 9)
+        t0 = time.perf_counter()
+        ref32 = random_init_(LSegNet(cfg, torch.float32, dev), g)
+        text = random_init_(CLIPTextEncoder(cfg.text, device=dev), g)
+        _write_lang_seg_ckpt(ckpt, cfg, ref32.state_dict(),
+                             text.state_dict())
+        del ref32, text
+        _free()
+        state, text_state = load_reference_checkpoint(ckpt, cfg)
+        model = LSegNet(cfg, torch.bfloat16, dev)
+        model.load_state_dict(state)
+        del state
+        cache = TextFeatureCache(cfg.text, text_state, tok, device=dev)
+        print(f"  test_zs's model: get_config(clip_vitl16_384) (attn "
+              f"{cfg.vit.attn_impl}, head {cfg.head_dtype}) in bf16 from a "
+              f"lang-seg .ckpt of seeded weights "
+              f"({os.path.getsize(ckpt) / 2**30:.3f} GiB), written and "
+              f"loaded in {time.perf_counter() - t0:.2f} s")
+        ds = dataset(False)
+        batch, class_ids = _episode_batch(ds, dev)
+        pairs = _pairs(cache, labels, class_ids)
+        print(f"  episodes 0-{FEWSHOT_BATCH - 1}: classes {class_ids}, "
+              f"pairs {tuple(pairs.shape)}, ignore share "
+              f"{float(batch['query_ignore'].float().mean()):.4f}")
+        images = batch["query_img"]
+        predict = _zero_shot_gate("clip_vitl16_384", model, images, pairs,
+                                  counters)
+        _timed_batches("E1 clip_vitl16_384 predictor",
+                       lambda: predict(images, pairs))
+
+        rn_cfg = get_config("clip_resnet101")
+        rn = random_init_(LSegNet(rn_cfg, torch.float32, dev), g)
+        rn_model = LSegNet(rn_cfg, torch.bfloat16, dev)
+        rn_model.load_state_dict(rn.state_dict())
+        del rn
+        rn_text = random_init_(CLIPTextEncoder(rn_cfg.text, device=dev), g)
+        rn_cache = TextFeatureCache(rn_cfg.text, rn_text.state_dict(), tok,
+                                    device=dev)
+        del rn_text
+        rn_batch, _ = _episode_batch(dataset(True), dev)
+        rn_pairs = _pairs(rn_cache, labels, class_ids)
+        rn_predict = _zero_shot_gate("clip_resnet101 (ImageNet norm)",
+                                     rn_model, rn_batch["query_img"],
+                                     rn_pairs, counters)
+        _timed_batches("E1 clip_resnet101 predictor",
+                       lambda: rn_predict(rn_batch["query_img"], rn_pairs))
+        del rn_model, rn_cache, rn_batch, rn_predict
+        _free()
+
+        # E2: the predictor on fast_cal's embeddings (B1, B2, B3)
+        qcfg = fast_serving(cfg, "static_cal")
+        ref32 = _ref32_model(cfg, dev, torch.Generator(
+            device=dev).manual_seed(SEED))
+        model_q, plain_q = _quantized(qcfg, dev, ref32, g)
+        blocks = qcfg.vit.hooks[-1] + 1
+        want = {k: 0 for k in counters}
+        want.update({"patch_embed": 1, "flash_attention_ln_qkv_fused_q8":
+                     blocks, "ln_quantize_rows": blocks})
+        pq = make_episodic_predictor(model_q)
+        for c in counters.values():
+            c.launches = 0
+        lab_k = pq(images, pairs)
+        got = {k: c.launches for k, c in counters.items()}
+        if got != want:
+            fail(f"E2: launches {got}, expected {want}")
+        for k, v in got.items():
+            total[k] += v
+        lab_p = _idle("E2 plain", counters,
+                      lambda: make_episodic_predictor(plain_q)(images, pairs))
+        with torch.inference_mode():
+            lk, lp, lr = (pair_logits(m(images, None), pairs,
+                                      cfg.logit_scale)
+                          for m in (model_q, plain_q, ref32))
+        d_kernel = float((lk - lp).abs().max())
+        d_ref = float((lp - lr).abs().max())
+        # labels where the plain twin's full-res margin between 'others'
+        # and the class exceeds the logits bound (the upsample is a convex
+        # blend, so no full-res logit strays further than the half-res
+        # ones); random-weight near-ties below it may flip with a code
+        bound = SERVE_RATIO * d_ref + SERVE_FLOOR
+        up_p = upsample2x(lp, align_corners=True)
+        clear = (up_p[..., 1] - up_p[..., 0]).abs() > bound
+        n_clear = int(clear.sum())
+        eq_clear = (float((lab_k == lab_p)[clear].float().mean())
+                    if n_clear else 0.0)
+        print(f"  E2 fast_cal embeddings: launches "
+              f"{ {k: v for k, v in got.items() if v} }; half-res pair "
+              f"logits {tuple(lk.shape)}: |kernel - plain| max "
+              f"{d_kernel:.6g}, |plain int8 - fp32| max {d_ref:.6g} (bound "
+              f"{SERVE_RATIO} * d_ref + {SERVE_FLOOR} = {bound:.6g}); labels "
+              f"equal to the plain twins' on {eq_clear:.6f} of the "
+              f"{n_clear / lab_p.numel():.6f} of pixels whose plain margin "
+              f"exceeds the bound (gate >= {HEAD_SERVE_MIN_EQUAL}), on "
+              f"{_agree(lab_k, lab_p):.6f} of all (not gated)")
+        if n_clear == 0:
+            fail("E2: no pixel's plain margin exceeds the logits bound, so "
+                 "the label gate would count none")
+        if eq_clear < HEAD_SERVE_MIN_EQUAL:
+            fail(f"E2: kernel-path labels equal the plain twins' on "
+                 f"{eq_clear} < {HEAD_SERVE_MIN_EQUAL} of the clear pixels")
+        if d_kernel > SERVE_RATIO * d_ref + SERVE_FLOOR:
+            fail(f"E2: kernel path deviates {d_kernel} > {SERVE_RATIO} * "
+                 f"{d_ref} + {SERVE_FLOOR}")
+        _timed_batches("E2 fast_cal kernel path", lambda: pq(images, pairs))
+        _timed_batches("E2 fast_cal plain path",
+                       lambda: make_episodic_predictor(plain_q)(images,
+                                                                pairs))
+        del model_q, plain_q, ref32, pq
+        _free()
+
+        # E3: episodic training
+        launches_t = _fewshot_train(dev, batch, pairs, counters)
+        for k, v in launches_t.items():
+            total[k] += v
+
+        # E4: test_zs end to end against the in-process evaluator on the
+        # same 1000 episodes (the protocol's clamp; the ten images wrap)
+        logpath = os.path.join(tmp, "logs")
+        line, dt_cli = _test_zs_cli(datapath, splits, ckpt, vocab, logpath)
+        log_file = os.path.join(logpath, "log_fewshot-test_pascal_fold0.txt")
+        if not os.path.exists(log_file):
+            fail(f"E4: test_zs wrote no {log_file}")
+        with open(log_file) as f:
+            logged = f.read().strip()
+        if logged != line:
+            fail(f"E4: the log holds {logged!r}, the command printed "
+                 f"{line!r}")
+        rec = _RecountingEpisodes(ds, predict)
+        t0 = time.perf_counter()
+        miou, fb = _idle("E4 in-process evaluator", counters, lambda:
+                         EpisodicEvaluator(rec.predict, ds.class_ids).run(
+                             rec, lambda c: cache.pair_features(labels[c]),
+                             batch_size=FEWSHOT_BATCH, log=lambda *_: None))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        want_line = (f"dataset=pascal fold=0 nshot=0 backbone="
+                     f"clip_vitl16_384 mIoU={miou:.2f} FB-IoU={fb:.2f}")
+        r_miou, r_fb = rec.metrics()
+        print(f"  E4 in-process EpisodicEvaluator on the same {len(ds)} "
+              f"episodes (each of the {len(ds.img_metadata)} distinct ones "
+              f"decoded once): mIoU {miou:.6f} FB-IoU {fb:.6f}; numpy "
+              f"recount of its labels with the ignore region folded in: "
+              f"mIoU {r_miou:.6f} FB-IoU {r_fb:.6f}; {dt:.2f} s with the "
+              f"recount (a harness time, not the evaluator's); the command "
+              f"line {dt_cli:.2f} s per 1000 episodes, start-up, weights, "
+              f"text tower and every decode included")
+        if abs(miou - r_miou) > 1e-9 or abs(fb - r_fb) > 1e-9:
+            fail(f"E4: the evaluator's meter ({miou}, {fb}) differs from the "
+                 f"recount ({r_miou}, {r_fb})")
+        if line != want_line:
+            fail(f"E4: test_zs printed {line!r}, the in-process evaluator "
+                 f"gives {want_line!r}")
+    del model, cache, predict
+    _free()
+    print(f"  phase 9 launches: { {k: v for k, v in total.items() if v} }, "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    print(f"  {card_line()}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is False)")
@@ -3620,6 +4183,12 @@ def main() -> int:
     if ran != BACKBONE_KERNELS:
         fail(f"phase 8 launched {sorted(ran)}, expected "
              f"{sorted(BACKBONE_KERNELS)}")
+    _free()
+    launches_f = phase_fewshot(dev)
+    ran = {k for k, v in launches_f.items() if v}
+    if ran != FEWSHOT_KERNELS:
+        fail(f"phase 9 launched {sorted(ran)}, expected "
+             f"{sorted(FEWSHOT_KERNELS)}")
     # each kernel's launches on the path that runs it: B1 and B6 on the
     # bf16 path (phase 3), B10 and B11 on the streamed head (phase 3c),
     # B2, B3 and B4 on the int8 path (phase 3b, which also checked B1 per
@@ -3732,6 +4301,7 @@ def main() -> int:
         rows.append({"name": k, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches[k], **res,
                      "backbone_launches": launches_b.get(k, 0),
+                     "fewshot_launches": launches_f.get(k, 0),
                      **({"widths": widths[k]} if k in widths else {})})
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(card_line())

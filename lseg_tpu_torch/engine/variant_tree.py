@@ -7,7 +7,8 @@ or a mutation that the card's checks must catch.
 
 DIR (a git-ignored directory such as `build/variants/NAME`) receives the
 checkout without `.git`, `build/` and `chiprun_out/`, with the variant's
-text substitutions applied to `lseg_tpu_torch/csrc`; run a script from
+text substitutions applied to a source of `lseg_tpu_torch/csrc` (or,
+as `../<path>.py`, a module of the package); run a script from
 there (`cd DIR && python3 chip_smoke.py`) or time it against the tree
 (`lseg_tpu_torch/engine/time_gemm.py --root DIR`). A substitution that no
 longer matches its source fails with exit code 1. `--timeline`, run from
@@ -78,6 +79,12 @@ Variants:
   (`--timeline b1`);
 - `b1_stale_stage`: B1's consumers reading a stage's A one stage ahead,
   before its converted A is published, a mutation (phase 2 catches it);
+- `b7_dk_zeroed`: B7 writing zeros for dK, a mutation (phase 2 and phase
+  9's E3 catch it);
+- `episodic_pairs_rolled`: `engine/episodic.py`'s predictor pairing image
+  i with image i - 1's labels, a mutation (phase 9's E1 catches it);
+- `episode_ignore_dropped`: `ops.metrics.episode_inter_union` counting
+  the ignore region, a mutation (phase 9's E4 catches it);
 - `b6_last_keys_dropped`: B6 (its own kernel only, not the attention
   interior that B2, B8 and B9 share) masking the last 64 valid keys of
   each image, a mutation (phase 7's single-scale gate is run against it);
@@ -727,6 +734,21 @@ VARIANTS = {
     "b15_pair0_scale": ("flash_attention_qkvp_fused.cu", [
         ("? sa[static_cast<long long>(r0 + 8 * h) * pairs + p]",
          "? sa[static_cast<long long>(r0 + 8 * h) * pairs]"),
+    ]),
+    "b7_dk_zeroed": ("flash_attention_flat_bwd.cu", [
+        ("  store_rows(ob, 3LL * D, D + head * HD, row0, T, dk, a.scale, g, "
+         "t4);\n",
+         "  zero(dk);\n  store_rows(ob, 3LL * D, D + head * HD, row0, T, dk, "
+         "a.scale, g, t4);\n"),
+    ]),
+    "episodic_pairs_rolled": ("../engine/episodic.py", [
+        ("        txt_pairs = torch.as_tensor(txt_pairs, device=device)\n",
+         "        txt_pairs = torch.as_tensor(txt_pairs, device=device).roll(1, "
+         "0)\n"),
+    ]),
+    "episode_ignore_dropped": ("../ops/metrics.py", [
+        ("    valid = ~ignore_mask\n",
+         "    valid = torch.ones_like(ignore_mask)\n"),
     ]),
 }
 

@@ -1,6 +1,7 @@
 """The port stands alone: no module of `lseg_tpu_torch`, and not
 `chip_smoke.py`, imports `lseg_tpu` or `jax`; and its own copies of the
 framework-free modules (config, labels, tokenizer, the data readers,
+the native decode binding, the few-shot episodes and their visualizer,
 `utils/sinks.py`) and pieces (the checkpoint reader, the reference-file
 writers, the TTA protocol and plan) have not drifted from the JAX
 package's: each equals its original apart from its import statements."""
@@ -27,8 +28,9 @@ REPO = Path(__file__).resolve().parent.parent
 REFUSED = ("lseg_tpu", "jax", "jaxlib", "flax")
 
 # Runs in a fresh interpreter: a meta-path finder refuses the JAX package
-# and JAX, then every module of the port is imported and the training
-# CLI's --help runs.
+# and JAX, then every module of the port is imported (the few-shot
+# modules and `test_zs` among them) and the --help of the training CLI
+# and of `python -m lseg_tpu_torch.test_zs` runs.
 _IMPORT_ALL = """
 import importlib.abc, pkgutil, runpy, sys
 
@@ -48,11 +50,14 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not leaked, leaked
-sys.argv = ["lseg_tpu_torch.train", "--help"]
-try:
-    runpy.run_module("lseg_tpu_torch.train", run_name="__main__")
-except SystemExit as e:
-    assert e.code in (0, None), e.code
+for cli in ("lseg_tpu_torch.train", "lseg_tpu_torch.test_zs"):
+    sys.argv = [cli, "--help"]
+    try:
+        runpy.run_module(cli, run_name="__main__")
+    except SystemExit as e:
+        assert e.code in (0, None), e.code
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+assert not leaked, leaked
 print("imported", len(names))
 """
 
@@ -64,7 +69,8 @@ def test_port_imports_without_lseg_tpu_or_jax():
         [sys.executable, "-c", _IMPORT_ALL.format(refused=REFUSED)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "--device" in proc.stdout  # the CLI's help ran
+    assert "--device" in proc.stdout  # the CLIs' help ran
+    assert "zero-shot eval" in proc.stdout and "--nshot" in proc.stdout
     n = int(proc.stdout.strip().splitlines()[-1].split()[-1])
     assert n >= 40
 
@@ -142,7 +148,7 @@ def _without_imports(src: str) -> str:
 @pytest.mark.parametrize("module", [
     "data/labels", "data/transforms", "data/synthetic", "data/ade20k",
     "data/voc", "data/coco", "data/cityscapes", "utils/sinks",
-    "text/tokenizer"])
+    "text/tokenizer", "data/native", "data/fewshot", "utils/fewshot_vis"])
 def test_module_copy_matches_reference(module):
     ref = (REPO / "lseg_tpu" / f"{module}.py").read_text()
     got = (REPO / "lseg_tpu_torch" / f"{module}.py").read_text()

@@ -7,12 +7,14 @@ transposed one would show."""
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from lseg_tpu.config import ViTConfig, fast_serving, flat_flash_eligible
 from lseg_tpu.testing import tiny_vit_config
@@ -141,3 +143,112 @@ def cuda_device():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+# --- few-shot fixtures ------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def native_libs(tmp_path_factory):
+    """Both packages' `data.native` on one private build of
+    `native/lseg_io.cpp`, made before any comparison: with xdist, another
+    worker may be writing the shared `native/liblseg_io.so` at the moment
+    a module loads it, and a reader of a half-written library takes the
+    PIL route, so the two packages' arrays would differ. Yields whether
+    the library is available, the same in both packages; the modules'
+    own paths and state come back afterwards."""
+    from lseg_tpu.data import native as jnative
+    from lseg_tpu_torch.data import native as tnative
+
+    so = str(tmp_path_factory.mktemp("native") / "liblseg_io.so")
+    mods = (tnative, jnative)
+    saved = [(m._SO, m._lib, m._tried) for m in mods]
+    for m in mods:
+        m._SO, m._lib, m._tried = so, None, False
+    try:
+        ok = [m.available() for m in mods]
+        assert ok[0] == ok[1], ok
+        yield ok[0]
+    finally:
+        for m, (path, lib, tried) in zip(mods, saved):
+            m._SO, m._lib, m._tried = path, lib, tried
+
+
+def _save_image(path, rng, h, w):
+    Image.fromarray(rng.randint(0, 255, (h, w, 3), np.uint8)).save(path)
+
+
+def write_voc_tree(root, names_per_class, h=50, w=60, seed=0):
+    """A PASCAL-5i tree under `root`: `VOC2012/JPEGImages/<name>.jpg`,
+    `VOC2012/SegmentationClassAug/<name>.png` (the class, 1-based, in a
+    box, and a 255 ignore rim) and `splits/pascal/val/fold0.txt` of
+    'name__class' lines. Returns (datapath, splits_dir)."""
+    root = Path(root)
+    img_dir = root / "VOC2012" / "JPEGImages"
+    ann_dir = root / "VOC2012" / "SegmentationClassAug"
+    splits = root / "splits" / "pascal" / "val"
+    for d in (img_dir, ann_dir, splits):
+        d.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    lines = []
+    for cid, names in names_per_class.items():
+        for name in names:
+            _save_image(img_dir / f"{name}.jpg", rng, h, w)
+            mask = np.zeros((h, w), np.uint8)
+            y, x = rng.randint(0, h // 2), rng.randint(0, w // 2)
+            mask[y:y + h // 2, x:x + w // 2] = cid + 1
+            mask[:3] = 255
+            Image.fromarray(mask).save(ann_dir / f"{name}.png")
+            lines.append(f"{name}__{cid + 1}")
+    (splits / "fold0.txt").write_text("\n".join(lines) + "\n")
+    return str(root), str(root / "splits")
+
+
+def write_coco_tree(root, class_ids, per_class=2, h=40, w=50, seed=1):
+    """A COCO-20i tree: `COCO2014/val2014/*.jpg`, masks under
+    `COCO2014/annotations/val2014/*.png`, and the classwise dict in
+    `splits/coco/val/fold0.pkl`."""
+    import pickle
+
+    root = Path(root)
+    base = root / "COCO2014"
+    (base / "val2014").mkdir(parents=True, exist_ok=True)
+    (base / "annotations" / "val2014").mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    classwise = {}
+    for cid in class_ids:
+        names = []
+        for j in range(per_class):
+            name = f"val2014/COCO_val2014_c{cid}_{j}.jpg"
+            _save_image(base / name, rng, h, w)
+            m = np.zeros((h, w), np.uint8)
+            m[5:20, 5:30] = cid + 1
+            Image.fromarray(m).save(base / "annotations"
+                                    / (name[:-4] + ".png"))
+            names.append(name)
+        classwise[cid] = names
+    splits = root / "splits" / "coco" / "val"
+    splits.mkdir(parents=True, exist_ok=True)
+    with open(splits / "fold0.pkl", "wb") as f:
+        pickle.dump(classwise, f)
+    return str(root), str(root / "splits")
+
+
+def write_fss_tree(root, cats, n=10, size=40, seed=2):
+    """An FSS-1000 tree: `FSS-1000/<cat>/<i>.jpg` and `<i>.png` masks for
+    i = 1..n (the reader draws supports from 1..10), and
+    `splits/fss/test.txt`."""
+    root = Path(root)
+    rng = np.random.RandomState(seed)
+    for cat in cats:
+        d = root / "FSS-1000" / cat
+        d.mkdir(parents=True, exist_ok=True)
+        for i in range(1, n + 1):
+            _save_image(d / f"{i}.jpg", rng, size, size)
+            m = np.zeros((size, size), np.uint8)
+            m[5:20, 5 + i:20 + i] = 255
+            Image.fromarray(m).save(d / f"{i}.png")
+    splits = root / "splits" / "fss"
+    splits.mkdir(parents=True, exist_ok=True)
+    (splits / "test.txt").write_text("\n".join(cats) + "\n")
+    return str(root), str(root / "splits")
