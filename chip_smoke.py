@@ -226,6 +226,32 @@ the result line is printed:
    command's seconds per 1000 episodes. The phase fails
    unless its counted runs (E2's batch, E3's kernel steps) launched
    exactly B1, B2, B3, B6 and B7.
+10. multi-GPU, the JAX package's `parallel/` and sharded predictors: (a)
+   two ranks share the card over gloo (NCCL refuses two ranks on one
+   device), each a process of its own (`chip_smoke.py --parallel-rank`)
+   that loads phase 1's kernel library and never builds, on phase 3b's
+   seeded weights, 480x480, K = 150: (P1) `make_data_sharded_predictor`
+   on fast_cal at a global batch of 8, each rank's rows of the gathered
+   labels equal to the single-process call on its 4 images bit for bit,
+   B1 1, B2 = B3 = 24, B4 1 a rank, its half-res logits held as in 3b;
+   (P2) `make_labelset_sharded_predictor` on fast_bf16 (75 labels a
+   rank), its labels equal to the unsharded `make_predictor`'s on every
+   pixel whose unsharded top-2 margin exceeds LABELSET_MARGIN, and with
+   the same 75 labels on both ranks the lowest label must win every tie,
+   B1 1, B6 24 a rank; (P3) one data-parallel train step of train.py's
+   configuration, 2 ranks x 4 images from the port's loader (each rank's
+   rows checked against its shard of the index stream; rank 0's images
+   with their top 192 rows ignored), the ranks' states equal bit for bit,
+   and against one process x 8 on rank 0: the loss, the parameter update
+   and the BatchNorm statistics within 2 d_ref + 2^-8 (d_ref the
+   single-process bf16 step's gap to its fp32 twin), the single-process
+   kernel step against its plain twin the same way, B6 48, B7 24 a rank,
+   ms/step and peak memory a rank; (P4) `torchrun --nproc_per_node=2 -m
+   lseg_tpu_torch.train` on synthetic data, exit 0, one writer's files;
+   (b) one NCCL rank in this process: its collectives on the card, then
+   P1's and P2's calls bit for bit the undistributed ones. The phase
+   fails unless its counted runs launched exactly B1, B2, B3, B4, B6 and
+   B7.
 
 Phase 2 also times, for each kernel, the PyTorch library call that
 computes the same function where there is one, and computes its bound
@@ -238,8 +264,9 @@ the probe path; phase 7 adds no row), error, times and bound (B10's row
 also holds its bf16 mode's under "bf16", B17's its fp32 mode's under "fp32"; the fp32 modes
 of B6 and B7 have rows of their own, with the launches of phase 5b2;
 B19's holds its hand-off shape's under "handoff"; each row also holds
-its launches in phase 8 under "backbone_launches" and in phase 9 under
-"fewshot_launches", and the rows of B2,
+its launches in phase 8 under "backbone_launches", in phase 9 under
+"fewshot_launches" and in phase 10 under "parallel_launches" (a list,
+one count a rank), and the rows of B2,
 B3, B4, B10 and B14 phase 8a's numbers under "widths"); the last line is
 the result object. Needs one
 GPU and no network; imports no JAX and nothing of the JAX package.
@@ -457,6 +484,28 @@ PROBE_KERNELS = {"flash_attention_ln_qkv_fused", "dense_residual",
 # tile of B4, B13 and B14 against bit for bit. Every serving phase counts
 # it and expects 0 launches a request; its row's `launches` is that 0.
 YARDSTICK_KERNELS = {"head1_correlate_fused_mma"}
+
+# Phase 10 (multi-GPU): two ranks share the one card over gloo (NCCL
+# refuses two ranks on one device), each a process of its own that loads
+# phase 1's kernel library and never builds; a rank that exits non-zero
+# or has not finished after PARALLEL_RANK_TIMEOUT s fails the phase.
+PARALLEL_WORLD = 2
+PARALLEL_BATCH = 8
+PARALLEL_RANK_TIMEOUT = 300
+# P2, the label-set-sharded head: each rank's K / W logits come from a
+# product of its own width, which may round a bf16 logit one ulp
+# (SERVE_FLOOR at the logit scale) apart from the unsharded product's,
+# and the bf16 x2 upsample may round it once more. Each of the two logits
+# a label compares moves by at most two ulps, so the labels must equal
+# the unsharded predictor's wherever its top-2 margin exceeds four.
+LABELSET_MARGIN = 4 * SERVE_FLOOR
+# The kernels phase 10's counted runs launch on each rank: P1's fast_cal
+# forward (B1, B2, B3, B4), P2's fast_bf16 embedding (B1, B6), P3's
+# train step (B6, B7).
+PARALLEL_KERNELS = {"patch_embed", "flash_attention_ln_qkv_fused_q8",
+                    "ln_quantize_rows", "head1_correlate_fused",
+                    "flash_attention_flat", "flash_attention_flat_bwd"}
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def fail(msg: str) -> None:
@@ -4131,6 +4180,520 @@ def phase_fewshot(dev):
     return total
 
 
+def _state_hash(model) -> torch.Tensor:
+    """One int64 a state tensor: the sum of its 32-bit patterns, equal on
+    two ranks whose states are equal bit for bit."""
+    return torch.stack([t.detach().float().contiguous().view(torch.int32)
+                        .to(torch.int64).sum()
+                        for t in model.state_dict().values()]).cpu()
+
+
+def _rel(a: dict, b: dict, base: dict, keys) -> float:
+    """|(a - base) - (b - base)| / |b - base| over `keys` (one norm)."""
+    num = den = 0.0
+    for k in keys:
+        da = a[k].double() - base[k].double()
+        db = b[k].double() - base[k].double()
+        num += float(((da - db) ** 2).sum())
+        den += float((db ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def _rank_models(dev):
+    """Phase 3b's seeded fp32 weights: the fp32 twin, the calibrated
+    fast_cal model and its plain twin; the fast_bf16 model and its plain
+    twin on the same weights."""
+    from lseg_tpu_torch import fast_serving, get_config
+    from lseg_tpu_torch.models.lseg import LSegNet
+
+    cfg = get_config("clip_vitl16_384")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    ref32 = _ref32_model(cfg, dev, g)
+    model_q, plain_q = _quantized(fast_serving(cfg, "static_cal"), dev,
+                                  ref32, g)
+    fast = fast_serving(cfg, quant=False)
+    plain_cfg = dataclasses.replace(fast, vit=dataclasses.replace(
+        fast.vit, attn_impl="xla", attn_scores_dtype="float32",
+        patch_fused=False))
+    model_f = LSegNet(fast, torch.bfloat16, dev)
+    plain_f = LSegNet(plain_cfg, torch.bfloat16, dev)
+    for m in (model_f, plain_f):
+        m.load_state_dict(ref32.state_dict())
+    return ref32, model_q, plain_q, model_f, plain_f
+
+
+def _rank_request(dev):
+    """The global batch of 8 at 480x480 and K = 150 seeded label
+    embeddings, the same on every rank."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    return (_images(g, dev, PARALLEL_BATCH, 480, 480),
+            torch.randn(150, 512, device=dev, generator=g))
+
+
+def _wall_ms(group, fn, iters=5):
+    """ms a call of `fn` on every rank together: one warm-up, a barrier,
+    `iters` calls, a synchronize and a barrier."""
+    from lseg_tpu_torch.parallel.dist import barrier
+
+    fn()
+    torch.cuda.synchronize()
+    barrier(group)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    barrier(group)
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _counted(counters, expect, tag, fn):
+    """`fn()` with the counters set to 0 just before and read just after;
+    they must read `expect` (missing keys: 0)."""
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    got = {k: c.launches for k, c in counters.items()}
+    want = {k: expect.get(k, 0) for k in counters}
+    if got != want:
+        fail(f"{tag}: launches {got}, expected {want}")
+    return out, got
+
+
+def _p1_data_sharded(r, group, dev, models, request, counters):
+    """P1: `make_data_sharded_predictor` on fast_cal, the global batch
+    over the ranks."""
+    from lseg_tpu_torch.engine.serve import make_data_sharded_predictor
+    from lseg_tpu_torch.parallel.dist import all_gather_rows, barrier
+
+    ref32, model_q, plain_q, _, _ = models
+    images, txt = request
+    per = PARALLEL_BATCH // PARALLEL_WORLD
+    shard = images[r * per:(r + 1) * per]
+    blocks = model_q.cfg.vit.hooks[-1] + 1
+    predict = make_data_sharded_predictor(model_q, None, group)
+    labels, got = _counted(counters, {
+        "patch_embed": 1, "flash_attention_ln_qkv_fused_q8": blocks,
+        "ln_quantize_rows": blocks, "head1_correlate_fused": 1},
+        "P1 data-sharded fast_cal", lambda: predict(images, txt))
+    local = _argmax_call(model_q)(shard, txt)
+    if labels.shape != (PARALLEL_BATCH, 480, 480):
+        fail(f"P1: gathered labels {tuple(labels.shape)}")
+    if not torch.equal(labels[r * per:(r + 1) * per], local):
+        fail(f"P1: rank {r}'s rows of the gathered map differ from the "
+             f"single-process predictor on its shard")
+    others = all_gather_rows(labels.to(torch.int64).sum(dim=(1, 2))
+                             .reshape(1, -1).cpu(), group)
+    if not bool((others == others[0]).all()):
+        fail("P1: the ranks hold different gathered maps")
+    _int8_logits_gate(f"P1 rank {r} shard", model_q, plain_q, ref32,
+                      ("shard", None, shard), lambda _: txt,
+                      return_halfres=True)
+    ms = _wall_ms(group, lambda: predict(images, txt))
+    out = {"launches": got, "ms": ms}
+    print(f"  P1 rank {r}: rows {r * per}-{(r + 1) * per - 1} equal the "
+          f"single-process predictor on the shard bit for bit; the gathered"
+          f" map is the ranks' shards in order; {ms:.3f} ms per global "
+          f"batch of {PARALLEL_BATCH} (both ranks on one card)")
+    if r == 0:
+        ms1 = cuda_time_ms(lambda: _argmax_call(model_q)(images, txt),
+                           warmup=2, iters=5)
+        out["single_ms"] = ms1
+        print(f"  P1 beside it: the single-process fast_cal call at batch "
+              f"{PARALLEL_BATCH} on rank 0 alone, {ms1:.3f} ms")
+    barrier(group)
+    return out
+
+
+def _p2_labelset_sharded(r, group, dev, models, request, counters):
+    """P2: `make_labelset_sharded_predictor` on fast_bf16, K = 150 split
+    over the ranks, against the unsharded `make_predictor`."""
+    from lseg_tpu_torch.engine.serve import (
+        make_labelset_sharded_predictor,
+        make_predictor,
+    )
+    from lseg_tpu_torch.ops.correlation import correlate
+    from lseg_tpu_torch.ops.resize import upsample2x
+    from lseg_tpu_torch.parallel.dist import barrier
+
+    ref32, _, _, model_f, plain_f = models
+    images, txt = request
+    k = txt.shape[0]
+    blocks = model_f.cfg.vit.hooks[-1] + 1
+    predict = make_labelset_sharded_predictor(model_f, None, group)
+    labels, got = _counted(counters, {"patch_embed": 1,
+                                      "flash_attention_flat": blocks},
+                           "P2 label-set-sharded fast_bf16",
+                           lambda: predict(images, txt))
+    # equal logits on both halves: every pixel ties across the ranks, and
+    # the lowest label index (rank 0's) must win
+    twin = torch.cat([txt[:k // 2], txt[:k // 2]])
+    tied = predict(images, twin)
+    if int(tied.max()) >= k // 2:
+        fail(f"P2: on labels tied across the ranks the gathered argmax took "
+             f"a label >= {k // 2} (the lowest index must win)")
+    _int8_logits_gate(f"P2 rank {r} embedding", model_f, plain_f, ref32,
+                      ("b1", None, images[:1]), lambda _: txt, what="bf16",
+                      return_halfres=True)
+    ms = _wall_ms(group, lambda: predict(images, txt))
+    out = {"launches": got, "ms": ms}
+    if r == 0:
+        whole = make_predictor(model_f)
+        ref = whole(images, txt)
+        with torch.inference_mode():
+            up = upsample2x(correlate(model_f(images, None), txt,
+                                      logit_scale=model_f.cfg.logit_scale,
+                                      compute_dtype=torch.bfloat16),
+                            align_corners=True,
+                            compute_dtype=torch.bfloat16)
+            top2 = up.float().topk(2, dim=-1).values
+        del up
+        clear = (top2[..., 0] - top2[..., 1]) > LABELSET_MARGIN
+        n_clear = int(clear.sum())
+        eq = labels == ref
+        eq_clear = float(eq[clear].float().mean()) if n_clear else 0.0
+        out.update(clear_share=n_clear / eq.numel(), eq_clear=eq_clear,
+                   agree=float(eq.float().mean()),
+                   single_ms=cuda_time_ms(lambda: whole(images, txt),
+                                          warmup=2, iters=5))
+        print(f"  P2: labels equal the unsharded make_predictor's on "
+              f"{eq_clear:.6f} of the {out['clear_share']:.6f} of pixels "
+              f"whose unsharded top-2 margin exceeds {LABELSET_MARGIN} "
+              f"(gate: all), on {out['agree']:.6f} of all (not gated); "
+              f"ties across the ranks to the lowest label; {ms:.3f} ms per "
+              f"batch on both ranks, the unsharded predictor "
+              f"{out['single_ms']:.3f} ms on rank 0 alone")
+        if n_clear == 0 or eq_clear < 1.0:
+            fail(f"P2: labels differ from the unsharded predictor's on "
+                 f"pixels with a clear margin ({eq_clear} of {n_clear})")
+    barrier(group)
+    return out
+
+
+def _p3_batches(r, dev, ds):
+    """The rank's batch from the port's loader (4 rows, its shard) and
+    the global batch of 8 built from the dataset by the loader's
+    documented rule: rank q's batch 0 is rows [0, 4) of its contiguous
+    half of epoch 0's shuffled stream. Rank 0's images lose their top 192
+    rows to the ignore label, rank 1's none."""
+    import numpy as np
+
+    from lseg_tpu_torch.data.loader import DataLoader
+
+    per = PARALLEL_BATCH // PARALLEL_WORLD
+    loader = DataLoader(ds, per, num_workers=per, device=dev,
+                        process_count=PARALLEL_WORLD, process_index=r)
+    batch = next(iter(loader))
+    stream = np.arange(len(ds))
+    np.random.RandomState(0).shuffle(stream)
+    half = len(ds) // PARALLEL_WORLD
+    rows = [stream[q * half:q * half + per] for q in range(PARALLEL_WORLD)]
+    glob = {key: torch.from_numpy(np.stack([
+        ds[int(i)][key] for q in rows for i in q])).to(dev)
+        for key in ("image", "target")}
+    glob["target"] = glob["target"].long()
+    if not torch.equal(batch["image"], glob["image"][r * per:(r + 1) * per]):
+        fail(f"P3: rank {r}'s loader rows are not rows 0-{per - 1} of its "
+             f"shard of the index stream")
+    glob["target"][:per, :192] = -1
+    if r == 0:
+        batch["target"][:, :192] = -1
+    return batch, glob
+
+
+def _p3_training(r, group, dev, counters):
+    """P3: one data-parallel train step on train.py's configuration
+    (flashflat, remat, bf16 on fp32 masters), 2 ranks x 4 images, against
+    one process x 8 (rank 0)."""
+    from lseg_tpu_torch import get_config
+    from lseg_tpu_torch.data.synthetic import SyntheticSegDataset
+    from lseg_tpu_torch.models.layers import random_init_
+    from lseg_tpu_torch.models.lseg import LSegNet
+    from lseg_tpu_torch.parallel.dist import all_gather_rows, barrier
+    from lseg_tpu_torch.train.optim import make_optimizer
+    from lseg_tpu_torch.train.step import (
+        TrainState,
+        enable_grads,
+        make_train_step,
+    )
+
+    base = get_config("clip_vitl16_384")
+    cfg = dataclasses.replace(base, vit=dataclasses.replace(
+        base.vit, attn_impl="flashflat"))
+    blocks = cfg.vit.hooks[-1] + 1
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    txt = torch.randn(150, 512, device=dev, generator=g)
+    model = random_init_(LSegNet(cfg, torch.bfloat16, dev, remat=True,
+                                 param_dtype=torch.float32), g)
+    init = ({n: t.detach().clone() for n, t in model.state_dict().items()}
+            if r == 0 else None)
+    enable_grads(model)
+    state = TrainState(model, make_optimizer(model, 0.004, 100,
+                                             batch_size=PARALLEL_BATCH))
+    ds = SyntheticSegDataset(n=16, size=480, num_classes=150)
+    batch, glob = _p3_batches(r, dev, ds)
+    step = make_train_step(group=group)
+    (_, metrics), got = _counted(
+        counters, {"flash_attention_flat": 2 * blocks,
+                   "flash_attention_flat_bwd": blocks},
+        "P3 data-parallel train step", lambda: step(state, batch, txt))
+    loss = float(metrics["loss"])
+    hashes = all_gather_rows(_state_hash(model).reshape(1, -1), group)
+    if not bool((hashes == hashes[0]).all()):
+        fail("P3: the ranks' parameters and statistics differ after the "
+             "step")
+    ddp = ({n: t.detach().clone() for n, t in model.state_dict().items()}
+           if r == 0 else None)
+    torch.cuda.reset_peak_memory_stats()
+    ms = _wall_ms(group, lambda: step(state, batch, txt), iters=3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    params = [n for n, _ in model.named_parameters()]
+    print(f"  P3 rank {r}: labeled {int(metrics['labeled'])} of "
+          f"{PARALLEL_BATCH * 480 * 480} pixels (global), loss {loss:.6f}; "
+          f"parameters and statistics equal on both ranks; {ms:.3f} "
+          f"ms/step, peak {peak:.3f} GiB")
+    out = {"launches": got, "ms": ms, "peak_gib": peak}
+    del state, model
+    _free()
+    if r == 0:
+        refs = {}
+        for name, dtype, plain in (("kernel", torch.bfloat16, False),
+                                   ("plain", torch.bfloat16, True),
+                                   ("fp32", torch.float32, True)):
+            m = LSegNet(cfg, dtype, dev, plain=plain, remat=True,
+                        param_dtype=torch.float32)
+            m.load_state_dict(init)
+            enable_grads(m)
+            st = TrainState(m, make_optimizer(m, 0.004, 100,
+                                              batch_size=PARALLEL_BATCH))
+            _, met = make_train_step()(st, glob, txt)
+            refs[name] = (float(met["loss"]), {
+                n: t.detach().clone() for n, t in m.state_dict().items()})
+            del m, st
+            _free()
+        stats = [n for n in init if n.endswith(("running_mean",
+                                                "running_var"))]
+        lk, sk = refs["kernel"]
+        lp, sp = refs["plain"]
+        lf, sf = refs["fp32"]
+        gates = {
+            "loss": (abs(loss - lk) / abs(lk), abs(lk - lf) / abs(lf)),
+            "update": (_rel(ddp, sk, init, params),
+                       _rel(sk, sf, init, params)),
+            "BatchNorm statistics": (_rel(ddp, sk, init, stats),
+                                     _rel(sk, sf, init, stats)),
+            "update, kernel vs plain": (_rel(sk, sp, init, params),
+                                        _rel(sp, sf, init, params))}
+        print(f"  P3: losses 2 x 4 {loss:.6f}, 1 x 8 kernel {lk:.6f}, plain "
+              f"{lp:.6f}, fp32 {lf:.6f}")
+        for what, (d, d_ref) in gates.items():
+            print(f"  P3 {what}: d {d:.6g} <= {GRAD_RATIO} x d_ref "
+                  f"{d_ref:.6g} + {GRAD_FLOOR:g}")
+            if not d <= GRAD_RATIO * d_ref + GRAD_FLOOR:
+                fail(f"P3 {what}: {d} > {GRAD_RATIO} * {d_ref} + "
+                     f"{GRAD_FLOOR}")
+        out["gates"] = gates
+    barrier(group)
+    return out
+
+
+def parallel_rank(rank: str, world: str, store: str, out_dir: str) -> int:
+    """One rank of phase 10 (a process of its own): gloo over a file
+    store, the card shared with the other rank."""
+    import torch.distributed as dist
+
+    from lseg_tpu_torch.ops._build import library_path
+    from lseg_tpu_torch.parallel import create_mesh, init_distributed
+
+    r, w = int(rank), int(world)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not library_path().exists():
+        fail(f"rank {r}: phase 1's kernel library {library_path()} is "
+             f"missing (the ranks never build)")
+    group = init_distributed(f"file://{store}", w, r, backend="gloo")
+    if create_mesh() is not group or dist.get_backend(group) != "gloo":
+        fail(f"rank {r}: not in a gloo group of {w}")
+    counters = _kernel_counters()
+    t0 = time.perf_counter()
+    models = _rank_models(dev)
+    request = _rank_request(dev)
+    print(f"  rank {r}: models built, {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    out = {"P1": _p1_data_sharded(r, group, dev, models, request, counters),
+           "P2": _p2_labelset_sharded(r, group, dev, models, request,
+                                      counters)}
+    del models
+    _free()
+    out["P3"] = _p3_training(r, group, dev, counters)
+    with open(os.path.join(out_dir, f"rank{r}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _run_ranks(tmp):
+    """Start PARALLEL_WORLD ranks of `parallel_rank`, wait for all of them
+    (failing on the first non-zero exit or at the timeout, killing the
+    rest), print their output; returns their results."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in [env.get("PYTHONPATH")] if p])
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w")
+            for r in range(PARALLEL_WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+         str(r), str(PARALLEL_WORLD), os.path.join(tmp, "store"), tmp],
+        stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+        for r, log in enumerate(logs)]
+    deadline = time.monotonic() + PARALLEL_RANK_TIMEOUT
+    problem = None
+    try:
+        while problem is None and any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                problem = "a rank exited with an error"
+            elif time.monotonic() > deadline:
+                problem = f"a rank ran past {PARALLEL_RANK_TIMEOUT} s"
+            else:
+                time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    for r in range(PARALLEL_WORLD):
+        with open(os.path.join(tmp, f"rank{r}.log")) as f:
+            for line in f.read().splitlines():
+                print(f"  [rank {r}] {line.strip()}")
+    codes = [p.returncode for p in procs]
+    if problem or any(codes):
+        fail(f"phase 10: {problem or 'a rank failed'} (exit codes {codes})")
+    results = []
+    for r in range(PARALLEL_WORLD):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def _torchrun_cli(tmp):
+    """P4: `torchrun --nproc_per_node=2 -m lseg_tpu_torch.train` on
+    synthetic data (the tiny config, global batch 16, one epoch: four
+    steps and one validation batch a rank); rank 0 alone writes."""
+    root = os.path.join(tmp, "cli")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in [env.get("PYTHONPATH")] if p])
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={PARALLEL_WORLD}", "-m", "lseg_tpu_torch.train",
+           "--dataset", "synthetic", "--crop_size", "64", "--batch_size",
+           "16", "--max_epochs", "1", "--num_workers", "2", "--ckpt_root",
+           root, "--device", "cuda"]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=PARALLEL_RANK_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"P4: torchrun ran past {PARALLEL_RANK_TIMEOUT} s")
+    dt = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        print(f"  [torchrun] {line}")
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:])
+        fail(f"P4: torchrun exited {proc.returncode}")
+    run = os.path.join(root, "lseg")
+    files = sorted(os.path.relpath(os.path.join(d, f), run)
+                   for d, _, fs in os.walk(run) for f in fs)
+    with open(os.path.join(run, "metrics.csv")) as f:
+        rows = f.read().splitlines()
+    events = [f for f in files if f.startswith("tb")]
+    want = sorted(["metrics.csv", "ckpt_0000000004.json",
+                   "ckpt_0000000004.pt"] + events)
+    print(f"  P4 torchrun --nproc_per_node={PARALLEL_WORLD} -m "
+          f"lseg_tpu_torch.train: exit 0 in {dt:.2f} s (start-up included);"
+          f" wrote {files}; metrics.csv {rows}")
+    if files != want or len(events) > 1 or len(rows) != 2:
+        fail(f"P4: the run wrote {files} and {len(rows) - 1} csv rows; one "
+             f"writer writes {want} and one row")
+
+
+def _nccl_one_rank(dev, tmp):
+    """(b) One rank with NCCL in this process: the collectives on the card
+    at world size 1, then P1's and P2's calls, bit for bit the
+    undistributed ones."""
+    import torch.distributed as dist
+
+    from lseg_tpu_torch.engine.serve import (
+        make_data_sharded_predictor,
+        make_labelset_sharded_predictor,
+        make_predictor,
+    )
+    from lseg_tpu_torch.parallel import create_mesh, init_distributed
+
+    group = init_distributed(f"file://{os.path.join(tmp, 'nccl')}", 1, 0,
+                             backend="nccl")
+    if dist.get_backend(group) != "nccl" or create_mesh() is not group:
+        fail("(b): not in an NCCL group")
+    x = torch.arange(8.0, device=dev)
+    y = x.clone()
+    dist.all_reduce(y, group=group)
+    dist.broadcast(y, 0, group=group)
+    parts = [torch.empty_like(x)]
+    dist.all_gather(parts, y, group=group)
+    if not torch.equal(parts[0], x):
+        fail("(b): NCCL collectives changed a world-size-1 tensor")
+    _, model_q, _, model_f, _ = models = _rank_models(dev)
+    images, txt = _rank_request(dev)
+    p1 = make_data_sharded_predictor(model_q, None, group)(images, txt)
+    p2 = make_labelset_sharded_predictor(model_f, None, group)(images, txt)
+    ok1 = torch.equal(p1, _argmax_call(model_q)(images, txt))
+    ok2 = torch.equal(p2, make_predictor(model_f)(images, txt))
+    dist.destroy_process_group()
+    print(f"  (b) NCCL, one rank: all_reduce, broadcast, all_gather on the "
+          f"card; P1 equal to the undistributed call {ok1}, P2 {ok2}")
+    del models, model_q, model_f
+    _free()
+    if not (ok1 and ok2):
+        fail("(b): an NCCL world-size-1 call differs from the "
+             "undistributed one")
+
+
+def phase_parallel(dev):
+    """Phase 10: multi-GPU. (a) Two gloo ranks share the card: P1
+    data-sharded fast_cal serving, P2 label-set-sharded fast_bf16
+    serving, P3 one data-parallel train step, P4 the training CLI under
+    torchrun; (b) one NCCL rank in this process. Returns each kernel's
+    launches per rank, [rank 0, rank 1], over the counted runs."""
+    print("[10] multi-GPU: data- and label-set-sharded serving, a "
+          "synced-BN data-parallel train step and torchrun, two gloo ranks "
+          "on one card; one NCCL rank")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        results = _run_ranks(tmp)
+        _torchrun_cli(tmp)
+        _nccl_one_rank(dev, tmp)
+    launches = {}
+    for res in results:
+        for part in ("P1", "P2", "P3"):
+            for k, v in res[part]["launches"].items():
+                launches.setdefault(k, [0] * PARALLEL_WORLD)
+    for r, res in enumerate(results):
+        for part in ("P1", "P2", "P3"):
+            for k, v in res[part]["launches"].items():
+                launches[k][r] += v
+    ran = {k for k, v in launches.items() if any(v)}
+    if ran != PARALLEL_KERNELS:
+        fail(f"phase 10 launched {sorted(ran)}, expected "
+             f"{sorted(PARALLEL_KERNELS)}")
+    print(f"  phase 10 launches per rank: "
+          f"{ {k: v for k, v in launches.items() if any(v)} }, "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    print(f"  {card_line()}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is False)")
@@ -4189,6 +4752,8 @@ def main() -> int:
     if ran != FEWSHOT_KERNELS:
         fail(f"phase 9 launched {sorted(ran)}, expected "
              f"{sorted(FEWSHOT_KERNELS)}")
+    _free()
+    launches_par = phase_parallel(dev)
     # each kernel's launches on the path that runs it: B1 and B6 on the
     # bf16 path (phase 3), B10 and B11 on the streamed head (phase 3c),
     # B2, B3 and B4 on the int8 path (phase 3b, which also checked B1 per
@@ -4302,6 +4867,8 @@ def main() -> int:
                      "replaces": rep, "launches": launches[k], **res,
                      "backbone_launches": launches_b.get(k, 0),
                      "fewshot_launches": launches_f.get(k, 0),
+                     "parallel_launches": launches_par.get(
+                         k, [0] * PARALLEL_WORLD),
                      **({"widths": widths[k]} if k in widths else {})})
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(card_line())
@@ -4313,4 +4880,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank(*sys.argv[2:]))
     sys.exit(main())

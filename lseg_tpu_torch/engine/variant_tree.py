@@ -85,6 +85,18 @@ Variants:
   i with image i - 1's labels, a mutation (phase 9's E1 catches it);
 - `episode_ignore_dropped`: `ops.metrics.episode_inter_union` counting
   the ignore region, a mutation (phase 9's E4 catches it);
+- `bn_local_statistics`: `models.layers.BatchNorm` normalizing a data-
+  parallel rank's batch by its own statistics, a mutation (phase 10's P3
+  catches it);
+- `loss_local_count`: `ops.losses.cross_entropy` with a group dividing
+  by the rank's own valid-pixel count, a mutation (phase 10's P3
+  catches it);
+- `labelset_ties_to_highest_rank`: the label-set-sharded predictor's
+  global argmax taking the highest rank on equal values, a mutation
+  (phase 10's P2 catches it);
+- `loader_shards_overlap`: the loader's process shards overlapping by
+  half (process q from q * per / 2), a mutation (phase 10's P3 catches
+  it);
 - `b6_last_keys_dropped`: B6 (its own kernel only, not the attention
   interior that B2, B8 and B9 share) masking the last 64 valid keys of
   each image, a mutation (phase 7's single-scale gate is run against it);
@@ -749,6 +761,22 @@ VARIANTS = {
     "episode_ignore_dropped": ("../ops/metrics.py", [
         ("    valid = ~ignore_mask\n",
          "    valid = torch.ones_like(ignore_mask)\n"),
+    ]),
+    "bn_local_statistics": ("../models/layers.py", [
+        ("            if size(self.group) > 1:\n",
+         "            if False:\n"),
+    ]),
+    "loss_local_count": ("../ops/losses.py", [
+        ("    all_reduce_([count], group)\n", ""),
+    ]),
+    "labelset_ties_to_highest_rank": ("../engine/serve.py", [
+        ("        pick = torch.argmax(values, dim=0, keepdim=True)\n",
+         "        pick = w - 1 - torch.argmax(values.flip(0), dim=0, "
+         "keepdim=True)\n"),
+    ]),
+    "loader_shards_overlap": ("../data/loader.py", [
+        ("        return idx[q * per:(q + 1) * per]\n",
+         "        return idx[q * per // 2:q * per // 2 + per]\n"),
     ]),
 }
 

@@ -12,7 +12,12 @@
   train mode with the batch statistics, taken in fp32 as
   E[x^2] - E[x]^2 clamped at 0 (flax's `_compute_stats`), and updates the
   running statistics with the BIASED variance (which `F.batch_norm` does
-  not). fp32 affine, output cast to `dt`.
+  not). fp32 affine, output cast to `dt`. With a process group of more
+  than one rank (`parallel.dist.sync_batchnorm_`) the train-mode
+  statistics are those of the global batch: one differentiable
+  all_reduce of each rank's (sum, sum of squares, count) in float64, so
+  the backward carries the cross-rank terms (the reference's
+  `sync_batchnorm=True`; JAX's global view computes the same).
 
 Storage and compute dtypes are apart, as flax's `param_dtype` and `dtype`
 are: every layer casts its parameters to its compute dtype at each call.
@@ -32,6 +37,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from lseg_tpu_torch.parallel.dist import all_reduce_sum, size
 
 
 def _empty(shape, dtype, device):
@@ -111,6 +118,7 @@ class BatchNorm(nn.Module):
     value, as the reference's `nn.BatchNorm(momentum=0.9)`."""
 
     MOMENTUM = 0.9
+    group = None  # the data group of the batch statistics (None: local)
 
     def __init__(self, features: int, eps: float = 1e-5,
                  dtype=torch.float32, device=None):
@@ -134,8 +142,12 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             axes = tuple(range(xf.dim() - 1))
-            mean = xf.mean(dim=axes)
-            var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+            if size(self.group) > 1:
+                mean, var = self._global_stats(xf, axes)
+            else:
+                mean = xf.mean(dim=axes)
+                var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean,
+                                  min=0.0)
             with torch.no_grad():
                 m = self.MOMENTUM
                 self.running_mean.copy_(m * self.running_mean
@@ -147,6 +159,18 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean) * mul + self.bias
         return y.to(self.dtype)
+
+    def _global_stats(self, xf, axes):
+        """(E[x], max(E[x^2] - E[x]^2, 0)) over every rank's batch."""
+        c = xf.shape[-1]
+        count = xf.new_full((1,), xf.numel() // c, dtype=torch.float64)
+        sums = all_reduce_sum(torch.cat([xf.sum(dim=axes).double(),
+                                         (xf * xf).sum(dim=axes).double(),
+                                         count]), self.group)
+        mean = (sums[:c] / sums[-1]).float()
+        var = torch.clamp((sums[c:2 * c] / sums[-1]).float() - mean * mean,
+                          min=0.0)
+        return mean, var
 
 
 def set_param_dtype_(module: nn.Module, dtype: torch.dtype) -> nn.Module:

@@ -4,6 +4,12 @@ Masked means over the valid (non-ignore) pixels, in fp32, as the
 reference's `SegmentationLosses`: cross-entropy with `ignore_index`, an
 optional auxiliary-head CE at `aux_weight` and an optional per-image
 class-presence BCE ("SE loss") at `se_weight`. LSeg trains with plain CE.
+
+With a data `group` of more than one rank, `cross_entropy` is a rank's
+share of the CE of the global batch: its own pixels' sum over the valid
+pixels of every rank (the JAX package's mean over the global batch), so
+that the gradients of the ranks' shares SUM to the gradient of the
+global loss.
 """
 
 from __future__ import annotations
@@ -13,18 +19,24 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from lseg_tpu_torch.parallel.dist import all_reduce_
+
 
 def cross_entropy(logits: torch.Tensor, target: torch.Tensor,
-                  ignore_index: int = -1) -> torch.Tensor:
+                  ignore_index: int = -1, group=None) -> torch.Tensor:
     """Mean softmax cross-entropy of (N, H, W, K) logits over the pixels
-    of the (N, H, W) integer target that are not `ignore_index`."""
+    of the (N, H, W) integer target that are not `ignore_index`; with a
+    `group`, this rank's CE sum over the valid-pixel count of the whole
+    group (one all_reduce of the count)."""
     valid = target != ignore_index
     tgt = torch.where(valid, target, 0).long()
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, tgt.unsqueeze(-1)).squeeze(-1)
     nll = torch.where(valid, logz - picked, 0.0)
-    return nll.sum() / valid.sum().clamp_min(1)
+    count = valid.sum()
+    all_reduce_([count], group)
+    return nll.sum() / count.clamp_min(1)
 
 
 def se_loss(logits_se: torch.Tensor, target: torch.Tensor, nclass: int,

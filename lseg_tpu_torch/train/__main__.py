@@ -18,6 +18,17 @@ they are fixed random embeddings (smoke mode). `--dataset synthetic`
 trains the tiny test config on colored shapes. `--device` defaults to
 `cuda`; without a card the command exits unless it is given
 `--device cpu`.
+
+Under `torchrun --nproc_per_node=N` (its environment, no flag of its
+own) the command trains data parallel: one process a card (NCCL; gloo
+where ranks share a card or with `--device cpu`), `--batch_size` the
+global batch, each rank loading its shard of the index stream,
+BatchNorm over the global batch, the gradients of the global loss summed
+over the ranks; rank 0 alone writes checkpoints, `metrics.csv` and the
+sinks:
+
+    torchrun --nproc_per_node=8 -m lseg_tpu_torch.train --dataset ade20k \
+        --batch_size 16 ...
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from lseg_tpu_torch import flat_flash_eligible, get_config, get_labels
 from lseg_tpu_torch.data.loader import DataLoader
 from lseg_tpu_torch.models.layers import random_init_
 from lseg_tpu_torch.models.lseg import LSegNet
+from lseg_tpu_torch.parallel.dist import init_distributed, rank, size
 from lseg_tpu_torch.train.loop import FitConfig, fit
 from lseg_tpu_torch.train.optim import make_optimizer
 from lseg_tpu_torch.train.step import TrainState, enable_grads
@@ -175,6 +187,16 @@ def main(argv=None):
         raise SystemExit(
             f"--device {args.device}: no CUDA card is available; pass "
             f"--device cpu to train on the CPU")
+    group = init_distributed(backend="gloo" if device.type == "cpu"
+                             else None)
+    world, rk = size(group), rank(group)
+    if group is not None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    if args.batch_size % (world * args.accumulate_grad_batches):
+        raise SystemExit(
+            f"--batch_size {args.batch_size} must divide into "
+            f"{args.accumulate_grad_batches} micro-batches over {world} "
+            f"processes")
 
     train_ds, val_ds, labels = build_dataset(args)
     if args.dry_run:
@@ -218,12 +240,15 @@ def main(argv=None):
                          weight_decay=args.weight_decay,
                          midas_proto=args.midasproto)
     state = TrainState(model, opt)
-    train_loader = DataLoader(train_ds, args.batch_size, shuffle=True,
-                              num_workers=args.num_workers, device=device)
+    shard = dict(device=device, num_workers=args.num_workers,
+                 process_count=world, process_index=rk)
+    train_loader = DataLoader(train_ds, args.batch_size // world, shuffle=True,
+                              accumulate=args.accumulate_grad_batches,
+                              **shard)
     val_loader = None
     if val_ds is not None:
-        val_loader = DataLoader(val_ds, args.batch_size, shuffle=False,
-                                num_workers=args.num_workers, device=device)
+        val_loader = DataLoader(val_ds, args.batch_size // world,
+                                shuffle=False, **shard)
     fit_cfg = FitConfig(
         max_epochs=args.max_epochs if not args.dry_run else 10,
         ignore_index=args.ignore_index,
@@ -231,7 +256,9 @@ def main(argv=None):
         ckpt_dir=f"{args.ckpt_root}/{args.exp_name}",
         resume=not args.no_resume)
     fit(state, train_loader, text_features, fit_cfg, val_loader,
-        nclass=len(labels))
+        nclass=len(labels), group=group)
+    if group is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

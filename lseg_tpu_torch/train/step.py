@@ -14,18 +14,40 @@ count. The step runs eagerly and updates the state in place:
 - the metrics are `loss` (mean over micro-batches), `correct`,
   `labeled`, `inter` and `union` (`ops.metrics.seg_update`), left on the
   device so that nothing waits for them until they are read.
+
+Data parallel (`group` of more than one rank, one process each): every
+rank holds the same model and steps on its rows of the global batch
+(`parallel.dist.rank_rows`: with accumulation, its part of each global
+micro-batch, so the local micro-batch i of all ranks together is the
+global micro-batch i). On its first call with a model the step
+broadcasts rank 0's parameters and buffers and syncs its BatchNorms over
+the group (global batch statistics and running-statistics updates). The
+loss of a micro-batch is each rank's CE sum over the group's valid-pixel
+count (`ops.losses.cross_entropy` with the group), so the gradients are
+SUMMED over the ranks (one bucketed all_reduce after the last
+micro-batch) to give the gradient of the global loss, even where the
+ranks differ in their ignored pixels. The metrics are summed over the
+ranks and the loss is the global one; the optimizer then steps
+identically on every rank.
 """
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 from typing import Callable, Dict
 
 import torch
 from torch import nn
 
-from lseg_tpu_torch.ops.losses import segmentation_loss
+from lseg_tpu_torch.ops.losses import cross_entropy, segmentation_loss
 from lseg_tpu_torch.ops.metrics import seg_update
+from lseg_tpu_torch.parallel.dist import (
+    all_reduce_,
+    broadcast_module,
+    size,
+    sync_batchnorm_,
+)
 from lseg_tpu_torch.train.optim import Optimizer
 
 # leaves of the int8 serving layers, never trained
@@ -53,14 +75,22 @@ def _metrics(out, tgt, ignore_index):
         return seg_update(out, tgt, out.shape[-1], ignore_index)
 
 
-def make_train_step(ignore_index: int = -1, accumulate: int = 1) -> Callable:
+def make_train_step(ignore_index: int = -1, accumulate: int = 1,
+                    group=None) -> Callable:
     """train_step(state, batch, text_features) -> (state, metrics);
     `batch` is {'image': (N, H, W, 3) fp32, 'target': (N, H, W) int} on
-    the model's device, N divisible by `accumulate`."""
+    the model's device, N divisible by `accumulate`: with a `group` of
+    more than one rank, this rank's rows of the global batch."""
+    parallel = size(group) > 1
+    joined = weakref.WeakSet()
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    text_features: torch.Tensor):
         model = state.model
+        if parallel and model not in joined:
+            broadcast_module(model, group)
+            sync_batchnorm_(model, group)
+            joined.add(model)
         model.train()
         img, tgt = batch["image"], batch["target"]
         n = img.shape[0]
@@ -73,13 +103,17 @@ def make_train_step(ignore_index: int = -1, accumulate: int = 1) -> Callable:
         for i in range(accumulate):
             mi, mt = img[i * m:(i + 1) * m], tgt[i * m:(i + 1) * m]
             out = model(mi, text_features)
-            loss = segmentation_loss(out, mt, ignore_index=ignore_index)
+            loss = cross_entropy(out, mt, ignore_index, group)
             loss.backward()
             losses.append(loss.detach())
             part = _metrics(out.detach(), mt, ignore_index)
             sums = part if sums is None else tuple(
                 a + b for a, b in zip(sums, part))
             del out, loss
+        losses = torch.stack(losses)
+        all_reduce_([p.grad for p in model.parameters()
+                     if p.grad is not None], group)
+        all_reduce_([losses, *sums], group)
         if accumulate > 1:
             for p in model.parameters():
                 if p.grad is not None:
@@ -87,7 +121,7 @@ def make_train_step(ignore_index: int = -1, accumulate: int = 1) -> Callable:
         state.optimizer.step(state.step)
         state.step += 1
         correct, labeled, inter, union = sums
-        return state, {"loss": torch.stack(losses).mean(),
+        return state, {"loss": losses.mean(),
                        "correct": correct, "labeled": labeled,
                        "inter": inter, "union": union}
 
