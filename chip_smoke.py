@@ -252,6 +252,30 @@ the result line is printed:
    P1's and P2's calls bit for bit the undistributed ones. The phase
    fails unless its counted runs launched exactly B1, B2, B3, B4, B6 and
    B7.
+11. the HSNet side-car and the remaining entry points, on phase 9's
+   PASCAL-5i tree (with a `trn` split added), `.ckpt` and vocabulary:
+   seeded torchvision-format ResNet-101 and VGG16 files; (a) hsnet_run's
+   model (ResNet-101 (3, 4, 23, 3), bf16, 400 x 400, batch 8), its
+   backbone read through `torchvision_resnet_key_map` bit for bit, its 1-
+   and 5-shot `predict_mask_nshot` votes against the same weights in fp32
+   (logits within HSNET_LOGITS_REL of the fp32 maximum, votes by E2's
+   margin rule), ms a batch and peak memory; (b) the same with VGG16;
+   (c) `use_original_imgsize` at batch 1 on the 375 x 500 original; (d)
+   three Adam steps of hsnet_run's recipe on fp32 masters, the first
+   step's loss and learner gradients against the fp32 step, the frozen
+   backbone (parameters and BatchNorm statistics) bit for bit unchanged;
+   (e) `python -m lseg_tpu_torch.hsnet_run test` over the 1000 episodes
+   and `train --niter 3`; (f) `demo.main` at clip_vitl16_384 with
+   `--weights random` plain (no launch), `--fast` (B1 1, B6 24), `--fast
+   --int8` (B1 1, B2 = B3 = 24), `--fast --tta` (B1 and 24 B6 a crop
+   chunk) and `--fast` from the `.ckpt`; (g) `python -m
+   lseg_tpu_torch.parity_check` on logits written from the `.ckpt` on the
+   plain fp32 `emulate_fp16` path: PARITY: PASS; (h) `app.load` and a
+   single-scale and a TTA `app.request` (no launch); (i) a
+   `profiling.trace` of one HSNet call, with device kernels in it;
+   `StepTimer` takes the times of (a)-(d). HSNet launches no kernel of
+   ours; the phase fails unless the demo runs launched exactly B1, B2, B3
+   and B6.
 
 Phase 2 also times, for each kernel, the PyTorch library call that
 computes the same function where there is one, and computes its bound
@@ -265,8 +289,9 @@ also holds its bf16 mode's under "bf16", B17's its fp32 mode's under "fp32"; the
 of B6 and B7 have rows of their own, with the launches of phase 5b2;
 B19's holds its hand-off shape's under "handoff"; each row also holds
 its launches in phase 8 under "backbone_launches", in phase 9 under
-"fewshot_launches" and in phase 10 under "parallel_launches" (a list,
-one count a rank), and the rows of B2,
+"fewshot_launches", in phase 10 under "parallel_launches" (a list,
+one count a rank) and in phase 11 under "tools_launches", and the rows
+of B2,
 B3, B4, B10 and B14 phase 8a's numbers under "widths"); the last line is
 the result object. Needs one
 GPU and no network; imports no JAX and nothing of the JAX package.
@@ -277,6 +302,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -3974,13 +4000,15 @@ def _fewshot_train(dev, batch, pairs, counters):
     return launches
 
 
-def phase_fewshot(dev):
+def phase_fewshot(dev, root):
     """Phase 9: few-shot / zero-shot transfer through the calls of the
     reference's test_zs.py: the binary ['others', class] head on test_zs's
     model (E1, ViT-L/16 and ResNet-101), the same predictor on fast_cal's
     embeddings (E2), episodic training (E3) and `python -m
     lseg_tpu_torch.test_zs` end to end (E4). Returns the launches of its
-    counted runs (E2's batch, E3's kernel steps)."""
+    counted runs (E2's batch, E3's kernel steps). The PASCAL-5i tree, the
+    `.ckpt` and the vocabulary go into the directory `root` (phase 11
+    reads them)."""
     from lseg_tpu_torch import fast_serving, get_config, get_labels
     from lseg_tpu_torch.data.fewshot import build_fewshot_dataset
     from lseg_tpu_torch.engine.episodic import (
@@ -4005,173 +4033,172 @@ def phase_fewshot(dev):
     counters = _kernel_counters()
     labels = get_labels("pascal")
     total = {k: 0 for k in counters}
-    with tempfile.TemporaryDirectory() as tmp:
-        datapath, splits = _fewshot_tree(tmp)
-        ckpt, vocab = (os.path.join(tmp, "zs.ckpt"),
-                       os.path.join(tmp, "bpe_vocab.txt.gz"))
-        write_reference_vocab(vocab)
-        tok = ClipBPETokenizer.from_file(vocab)
+    datapath, splits = _fewshot_tree(root)
+    ckpt, vocab = (os.path.join(root, "zs.ckpt"),
+                   os.path.join(root, "bpe_vocab.txt.gz"))
+    write_reference_vocab(vocab)
+    tok = ClipBPETokenizer.from_file(vocab)
 
-        def dataset(imagenet_norm):
-            return build_fewshot_dataset(
-                "pascal", datapath, 0, "test", 0, splits_dir=splits,
-                img_size=480, imagenet_norm=imagenet_norm, seed=0)
+    def dataset(imagenet_norm):
+        return build_fewshot_dataset(
+            "pascal", datapath, 0, "test", 0, splits_dir=splits,
+            img_size=480, imagenet_norm=imagenet_norm, seed=0)
 
-        # E1 on test_zs's model: seeded weights written as a lang-seg .ckpt
-        # and loaded as test_zs loads them
-        cfg = get_config("clip_vitl16_384")
-        g = torch.Generator(device=dev).manual_seed(SEED + 9)
-        t0 = time.perf_counter()
-        ref32 = random_init_(LSegNet(cfg, torch.float32, dev), g)
-        text = random_init_(CLIPTextEncoder(cfg.text, device=dev), g)
-        _write_lang_seg_ckpt(ckpt, cfg, ref32.state_dict(),
-                             text.state_dict())
-        del ref32, text
-        _free()
-        state, text_state = load_reference_checkpoint(ckpt, cfg)
-        model = LSegNet(cfg, torch.bfloat16, dev)
-        model.load_state_dict(state)
-        del state
-        cache = TextFeatureCache(cfg.text, text_state, tok, device=dev)
-        print(f"  test_zs's model: get_config(clip_vitl16_384) (attn "
-              f"{cfg.vit.attn_impl}, head {cfg.head_dtype}) in bf16 from a "
-              f"lang-seg .ckpt of seeded weights "
-              f"({os.path.getsize(ckpt) / 2**30:.3f} GiB), written and "
-              f"loaded in {time.perf_counter() - t0:.2f} s")
-        ds = dataset(False)
-        batch, class_ids = _episode_batch(ds, dev)
-        pairs = _pairs(cache, labels, class_ids)
-        print(f"  episodes 0-{FEWSHOT_BATCH - 1}: classes {class_ids}, "
-              f"pairs {tuple(pairs.shape)}, ignore share "
-              f"{float(batch['query_ignore'].float().mean()):.4f}")
-        images = batch["query_img"]
-        predict = _zero_shot_gate("clip_vitl16_384", model, images, pairs,
-                                  counters)
-        _timed_batches("E1 clip_vitl16_384 predictor",
-                       lambda: predict(images, pairs))
+    # E1 on test_zs's model: seeded weights written as a lang-seg .ckpt
+    # and loaded as test_zs loads them
+    cfg = get_config("clip_vitl16_384")
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    t0 = time.perf_counter()
+    ref32 = random_init_(LSegNet(cfg, torch.float32, dev), g)
+    text = random_init_(CLIPTextEncoder(cfg.text, device=dev), g)
+    _write_lang_seg_ckpt(ckpt, cfg, ref32.state_dict(),
+                         text.state_dict())
+    del ref32, text
+    _free()
+    state, text_state = load_reference_checkpoint(ckpt, cfg)
+    model = LSegNet(cfg, torch.bfloat16, dev)
+    model.load_state_dict(state)
+    del state
+    cache = TextFeatureCache(cfg.text, text_state, tok, device=dev)
+    print(f"  test_zs's model: get_config(clip_vitl16_384) (attn "
+          f"{cfg.vit.attn_impl}, head {cfg.head_dtype}) in bf16 from a "
+          f"lang-seg .ckpt of seeded weights "
+          f"({os.path.getsize(ckpt) / 2**30:.3f} GiB), written and "
+          f"loaded in {time.perf_counter() - t0:.2f} s")
+    ds = dataset(False)
+    batch, class_ids = _episode_batch(ds, dev)
+    pairs = _pairs(cache, labels, class_ids)
+    print(f"  episodes 0-{FEWSHOT_BATCH - 1}: classes {class_ids}, "
+          f"pairs {tuple(pairs.shape)}, ignore share "
+          f"{float(batch['query_ignore'].float().mean()):.4f}")
+    images = batch["query_img"]
+    predict = _zero_shot_gate("clip_vitl16_384", model, images, pairs,
+                              counters)
+    _timed_batches("E1 clip_vitl16_384 predictor",
+                   lambda: predict(images, pairs))
 
-        rn_cfg = get_config("clip_resnet101")
-        rn = random_init_(LSegNet(rn_cfg, torch.float32, dev), g)
-        rn_model = LSegNet(rn_cfg, torch.bfloat16, dev)
-        rn_model.load_state_dict(rn.state_dict())
-        del rn
-        rn_text = random_init_(CLIPTextEncoder(rn_cfg.text, device=dev), g)
-        rn_cache = TextFeatureCache(rn_cfg.text, rn_text.state_dict(), tok,
-                                    device=dev)
-        del rn_text
-        rn_batch, _ = _episode_batch(dataset(True), dev)
-        rn_pairs = _pairs(rn_cache, labels, class_ids)
-        rn_predict = _zero_shot_gate("clip_resnet101 (ImageNet norm)",
-                                     rn_model, rn_batch["query_img"],
-                                     rn_pairs, counters)
-        _timed_batches("E1 clip_resnet101 predictor",
-                       lambda: rn_predict(rn_batch["query_img"], rn_pairs))
-        del rn_model, rn_cache, rn_batch, rn_predict
-        _free()
+    rn_cfg = get_config("clip_resnet101")
+    rn = random_init_(LSegNet(rn_cfg, torch.float32, dev), g)
+    rn_model = LSegNet(rn_cfg, torch.bfloat16, dev)
+    rn_model.load_state_dict(rn.state_dict())
+    del rn
+    rn_text = random_init_(CLIPTextEncoder(rn_cfg.text, device=dev), g)
+    rn_cache = TextFeatureCache(rn_cfg.text, rn_text.state_dict(), tok,
+                                device=dev)
+    del rn_text
+    rn_batch, _ = _episode_batch(dataset(True), dev)
+    rn_pairs = _pairs(rn_cache, labels, class_ids)
+    rn_predict = _zero_shot_gate("clip_resnet101 (ImageNet norm)",
+                                 rn_model, rn_batch["query_img"],
+                                 rn_pairs, counters)
+    _timed_batches("E1 clip_resnet101 predictor",
+                   lambda: rn_predict(rn_batch["query_img"], rn_pairs))
+    del rn_model, rn_cache, rn_batch, rn_predict
+    _free()
 
-        # E2: the predictor on fast_cal's embeddings (B1, B2, B3)
-        qcfg = fast_serving(cfg, "static_cal")
-        ref32 = _ref32_model(cfg, dev, torch.Generator(
-            device=dev).manual_seed(SEED))
-        model_q, plain_q = _quantized(qcfg, dev, ref32, g)
-        blocks = qcfg.vit.hooks[-1] + 1
-        want = {k: 0 for k in counters}
-        want.update({"patch_embed": 1, "flash_attention_ln_qkv_fused_q8":
-                     blocks, "ln_quantize_rows": blocks})
-        pq = make_episodic_predictor(model_q)
-        for c in counters.values():
-            c.launches = 0
-        lab_k = pq(images, pairs)
-        got = {k: c.launches for k, c in counters.items()}
-        if got != want:
-            fail(f"E2: launches {got}, expected {want}")
-        for k, v in got.items():
-            total[k] += v
-        lab_p = _idle("E2 plain", counters,
-                      lambda: make_episodic_predictor(plain_q)(images, pairs))
-        with torch.inference_mode():
-            lk, lp, lr = (pair_logits(m(images, None), pairs,
-                                      cfg.logit_scale)
-                          for m in (model_q, plain_q, ref32))
-        d_kernel = float((lk - lp).abs().max())
-        d_ref = float((lp - lr).abs().max())
-        # labels where the plain twin's full-res margin between 'others'
-        # and the class exceeds the logits bound (the upsample is a convex
-        # blend, so no full-res logit strays further than the half-res
-        # ones); random-weight near-ties below it may flip with a code
-        bound = SERVE_RATIO * d_ref + SERVE_FLOOR
-        up_p = upsample2x(lp, align_corners=True)
-        clear = (up_p[..., 1] - up_p[..., 0]).abs() > bound
-        n_clear = int(clear.sum())
-        eq_clear = (float((lab_k == lab_p)[clear].float().mean())
-                    if n_clear else 0.0)
-        print(f"  E2 fast_cal embeddings: launches "
-              f"{ {k: v for k, v in got.items() if v} }; half-res pair "
-              f"logits {tuple(lk.shape)}: |kernel - plain| max "
-              f"{d_kernel:.6g}, |plain int8 - fp32| max {d_ref:.6g} (bound "
-              f"{SERVE_RATIO} * d_ref + {SERVE_FLOOR} = {bound:.6g}); labels "
-              f"equal to the plain twins' on {eq_clear:.6f} of the "
-              f"{n_clear / lab_p.numel():.6f} of pixels whose plain margin "
-              f"exceeds the bound (gate >= {HEAD_SERVE_MIN_EQUAL}), on "
-              f"{_agree(lab_k, lab_p):.6f} of all (not gated)")
-        if n_clear == 0:
-            fail("E2: no pixel's plain margin exceeds the logits bound, so "
-                 "the label gate would count none")
-        if eq_clear < HEAD_SERVE_MIN_EQUAL:
-            fail(f"E2: kernel-path labels equal the plain twins' on "
-                 f"{eq_clear} < {HEAD_SERVE_MIN_EQUAL} of the clear pixels")
-        if d_kernel > SERVE_RATIO * d_ref + SERVE_FLOOR:
-            fail(f"E2: kernel path deviates {d_kernel} > {SERVE_RATIO} * "
-                 f"{d_ref} + {SERVE_FLOOR}")
-        _timed_batches("E2 fast_cal kernel path", lambda: pq(images, pairs))
-        _timed_batches("E2 fast_cal plain path",
-                       lambda: make_episodic_predictor(plain_q)(images,
-                                                                pairs))
-        del model_q, plain_q, ref32, pq
-        _free()
+    # E2: the predictor on fast_cal's embeddings (B1, B2, B3)
+    qcfg = fast_serving(cfg, "static_cal")
+    ref32 = _ref32_model(cfg, dev, torch.Generator(
+        device=dev).manual_seed(SEED))
+    model_q, plain_q = _quantized(qcfg, dev, ref32, g)
+    blocks = qcfg.vit.hooks[-1] + 1
+    want = {k: 0 for k in counters}
+    want.update({"patch_embed": 1, "flash_attention_ln_qkv_fused_q8":
+                 blocks, "ln_quantize_rows": blocks})
+    pq = make_episodic_predictor(model_q)
+    for c in counters.values():
+        c.launches = 0
+    lab_k = pq(images, pairs)
+    got = {k: c.launches for k, c in counters.items()}
+    if got != want:
+        fail(f"E2: launches {got}, expected {want}")
+    for k, v in got.items():
+        total[k] += v
+    lab_p = _idle("E2 plain", counters,
+                  lambda: make_episodic_predictor(plain_q)(images, pairs))
+    with torch.inference_mode():
+        lk, lp, lr = (pair_logits(m(images, None), pairs,
+                                  cfg.logit_scale)
+                      for m in (model_q, plain_q, ref32))
+    d_kernel = float((lk - lp).abs().max())
+    d_ref = float((lp - lr).abs().max())
+    # labels where the plain twin's full-res margin between 'others'
+    # and the class exceeds the logits bound (the upsample is a convex
+    # blend, so no full-res logit strays further than the half-res
+    # ones); random-weight near-ties below it may flip with a code
+    bound = SERVE_RATIO * d_ref + SERVE_FLOOR
+    up_p = upsample2x(lp, align_corners=True)
+    clear = (up_p[..., 1] - up_p[..., 0]).abs() > bound
+    n_clear = int(clear.sum())
+    eq_clear = (float((lab_k == lab_p)[clear].float().mean())
+                if n_clear else 0.0)
+    print(f"  E2 fast_cal embeddings: launches "
+          f"{ {k: v for k, v in got.items() if v} }; half-res pair "
+          f"logits {tuple(lk.shape)}: |kernel - plain| max "
+          f"{d_kernel:.6g}, |plain int8 - fp32| max {d_ref:.6g} (bound "
+          f"{SERVE_RATIO} * d_ref + {SERVE_FLOOR} = {bound:.6g}); labels "
+          f"equal to the plain twins' on {eq_clear:.6f} of the "
+          f"{n_clear / lab_p.numel():.6f} of pixels whose plain margin "
+          f"exceeds the bound (gate >= {HEAD_SERVE_MIN_EQUAL}), on "
+          f"{_agree(lab_k, lab_p):.6f} of all (not gated)")
+    if n_clear == 0:
+        fail("E2: no pixel's plain margin exceeds the logits bound, so "
+             "the label gate would count none")
+    if eq_clear < HEAD_SERVE_MIN_EQUAL:
+        fail(f"E2: kernel-path labels equal the plain twins' on "
+             f"{eq_clear} < {HEAD_SERVE_MIN_EQUAL} of the clear pixels")
+    if d_kernel > SERVE_RATIO * d_ref + SERVE_FLOOR:
+        fail(f"E2: kernel path deviates {d_kernel} > {SERVE_RATIO} * "
+             f"{d_ref} + {SERVE_FLOOR}")
+    _timed_batches("E2 fast_cal kernel path", lambda: pq(images, pairs))
+    _timed_batches("E2 fast_cal plain path",
+                   lambda: make_episodic_predictor(plain_q)(images,
+                                                            pairs))
+    del model_q, plain_q, ref32, pq
+    _free()
 
-        # E3: episodic training
-        launches_t = _fewshot_train(dev, batch, pairs, counters)
-        for k, v in launches_t.items():
-            total[k] += v
+    # E3: episodic training
+    launches_t = _fewshot_train(dev, batch, pairs, counters)
+    for k, v in launches_t.items():
+        total[k] += v
 
-        # E4: test_zs end to end against the in-process evaluator on the
-        # same 1000 episodes (the protocol's clamp; the ten images wrap)
-        logpath = os.path.join(tmp, "logs")
-        line, dt_cli = _test_zs_cli(datapath, splits, ckpt, vocab, logpath)
-        log_file = os.path.join(logpath, "log_fewshot-test_pascal_fold0.txt")
-        if not os.path.exists(log_file):
-            fail(f"E4: test_zs wrote no {log_file}")
-        with open(log_file) as f:
-            logged = f.read().strip()
-        if logged != line:
-            fail(f"E4: the log holds {logged!r}, the command printed "
-                 f"{line!r}")
-        rec = _RecountingEpisodes(ds, predict)
-        t0 = time.perf_counter()
-        miou, fb = _idle("E4 in-process evaluator", counters, lambda:
-                         EpisodicEvaluator(rec.predict, ds.class_ids).run(
-                             rec, lambda c: cache.pair_features(labels[c]),
-                             batch_size=FEWSHOT_BATCH, log=lambda *_: None))
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        want_line = (f"dataset=pascal fold=0 nshot=0 backbone="
-                     f"clip_vitl16_384 mIoU={miou:.2f} FB-IoU={fb:.2f}")
-        r_miou, r_fb = rec.metrics()
-        print(f"  E4 in-process EpisodicEvaluator on the same {len(ds)} "
-              f"episodes (each of the {len(ds.img_metadata)} distinct ones "
-              f"decoded once): mIoU {miou:.6f} FB-IoU {fb:.6f}; numpy "
-              f"recount of its labels with the ignore region folded in: "
-              f"mIoU {r_miou:.6f} FB-IoU {r_fb:.6f}; {dt:.2f} s with the "
-              f"recount (a harness time, not the evaluator's); the command "
-              f"line {dt_cli:.2f} s per 1000 episodes, start-up, weights, "
-              f"text tower and every decode included")
-        if abs(miou - r_miou) > 1e-9 or abs(fb - r_fb) > 1e-9:
-            fail(f"E4: the evaluator's meter ({miou}, {fb}) differs from the "
-                 f"recount ({r_miou}, {r_fb})")
-        if line != want_line:
-            fail(f"E4: test_zs printed {line!r}, the in-process evaluator "
-                 f"gives {want_line!r}")
+    # E4: test_zs end to end against the in-process evaluator on the
+    # same 1000 episodes (the protocol's clamp; the ten images wrap)
+    logpath = os.path.join(root, "logs")
+    line, dt_cli = _test_zs_cli(datapath, splits, ckpt, vocab, logpath)
+    log_file = os.path.join(logpath, "log_fewshot-test_pascal_fold0.txt")
+    if not os.path.exists(log_file):
+        fail(f"E4: test_zs wrote no {log_file}")
+    with open(log_file) as f:
+        logged = f.read().strip()
+    if logged != line:
+        fail(f"E4: the log holds {logged!r}, the command printed "
+             f"{line!r}")
+    rec = _RecountingEpisodes(ds, predict)
+    t0 = time.perf_counter()
+    miou, fb = _idle("E4 in-process evaluator", counters, lambda:
+                     EpisodicEvaluator(rec.predict, ds.class_ids).run(
+                         rec, lambda c: cache.pair_features(labels[c]),
+                         batch_size=FEWSHOT_BATCH, log=lambda *_: None))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    want_line = (f"dataset=pascal fold=0 nshot=0 backbone="
+                 f"clip_vitl16_384 mIoU={miou:.2f} FB-IoU={fb:.2f}")
+    r_miou, r_fb = rec.metrics()
+    print(f"  E4 in-process EpisodicEvaluator on the same {len(ds)} "
+          f"episodes (each of the {len(ds.img_metadata)} distinct ones "
+          f"decoded once): mIoU {miou:.6f} FB-IoU {fb:.6f}; numpy "
+          f"recount of its labels with the ignore region folded in: "
+          f"mIoU {r_miou:.6f} FB-IoU {r_fb:.6f}; {dt:.2f} s with the "
+          f"recount (a harness time, not the evaluator's); the command "
+          f"line {dt_cli:.2f} s per 1000 episodes, start-up, weights, "
+          f"text tower and every decode included")
+    if abs(miou - r_miou) > 1e-9 or abs(fb - r_fb) > 1e-9:
+        fail(f"E4: the evaluator's meter ({miou}, {fb}) differs from the "
+             f"recount ({r_miou}, {r_fb})")
+    if line != want_line:
+        fail(f"E4: test_zs printed {line!r}, the in-process evaluator "
+             f"gives {want_line!r}")
     del model, cache, predict
     _free()
     print(f"  phase 9 launches: { {k: v for k, v in total.items() if v} }, "
@@ -4694,6 +4721,551 @@ def phase_parallel(dev):
     return launches
 
 
+# Phase 11: the HSNet side-car and the remaining entry points (A13, A15)
+HSNET_BATCH, HSNET_SIZE, HSNET_SHOTS = 8, 400, 5
+HSNET_LAYERS = (3, 4, 23, 3)
+# HSNet has no kernel of ours (its correlation is a matmul, its 4-D
+# convolutions cuDNN's), so the bf16 model is held against the same
+# weights in fp32 on the card. Each bound is about 3x the largest reading
+# on an H100 80GB HBM3 at 700 W over three runs of this phase (the
+# readings repeat to every digit shown): logits within HSNET_LOGITS_REL of
+# max |fp32 logits| (read 0.0191, at (c)), the first step's loss within
+# HSNET_LOSS_REL (read 6.48e-6) and the learner's gradients within
+# HSNET_GRAD_REL (read 3.68e-3; global relative norms). Labels and votes
+# by E2's rule at HSNet's logit scale: equal (>= HEAD_SERVE_MIN_EQUAL) on
+# the pixels whose fp32 margin of every shot exceeds SERVE_RATIO times the
+# shots' largest logits deviation plus one bf16 ulp of max |fp32 logits|
+# (where LSeg's logits of scale 1/0.07 take SERVE_FLOOR).
+HSNET_LOGITS_REL = 0.06
+HSNET_LOSS_REL = 2e-5
+HSNET_GRAD_REL = 1.2e-2
+# the longest a command-line run of phase 11 may take, in seconds
+CLI_TIMEOUT = 600
+# the kernels the entry points of phase 11 launch: the demo's --fast (B1,
+# B6) and --fast --int8 (B1, B2, B3); HSNet, the parity check and the
+# app's parity config launch none
+TOOLS_KERNELS = {"patch_embed", "flash_attention_flat",
+                 "flash_attention_ln_qkv_fused_q8", "ln_quantize_rows"}
+
+
+def _hsnet_splits(root):
+    """Phase 9's PASCAL-5i tree made ready for HSNet: four more VOC-sized
+    images of each of fold 0's classes in `val/fold0.txt` (six a class, so
+    a query has five distinct supports), and the `trn` split of fold 0:
+    two images of classes 5, 10 and 15 in `trn/fold1..3.txt`."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(SEED + 11)
+    h, w = 375, 500
+
+    def write(c, j):
+        name = f"2009_{c:03d}{j:03d}"
+        low = rng.randint(0, 255, (12, 16, 3)).astype(np.uint8)
+        Image.fromarray(low).resize((w, h), Image.BILINEAR).save(
+            os.path.join(root, "VOC2012", "JPEGImages", name + ".jpg"),
+            quality=90)
+        mask = np.zeros((h, w), np.uint8)
+        y, x = rng.randint(10, h // 2), rng.randint(0, w // 2)
+        mask[y:y + h // 2, x:x + w // 2] = c + 1
+        mask[:5] = 255
+        Image.fromarray(mask).save(os.path.join(
+            root, "VOC2012", "SegmentationClassAug", name + ".png"))
+        return f"{name}__{c + 1}"
+
+    splits = os.path.join(root, "splits", "pascal")
+    with open(os.path.join(splits, "val", "fold0.txt"), "a") as f:
+        f.write("\n".join(write(c, j) for j in range(4)
+                          for c in range(FEWSHOT_CLASSES)) + "\n")
+    os.makedirs(os.path.join(splits, "trn"))
+    for fold, c in ((1, 5), (2, 10), (3, 15)):
+        with open(os.path.join(splits, "trn", f"fold{fold}.txt"), "w") as f:
+            f.write("\n".join(write(c, j) for j in range(2)) + "\n")
+
+
+def _torchvision_files(tmp, dev, g):
+    """A seeded torchvision-format ResNet-101 `state_dict` (BatchNorm
+    statistics moved off 0 and 1) and VGG16 `features` state_dict,
+    written as `.pth` files; returns their paths and the written
+    tensors."""
+    from lseg_tpu_torch.config import ResNetConfig
+    from lseg_tpu_torch.models.layers import random_init_
+    from lseg_tpu_torch.models.resnet import ResNetBackbone
+    from lseg_tpu_torch.models.vgg import VGG16Features
+
+    rn = random_init_(ResNetBackbone(ResNetConfig(HSNET_LAYERS),
+                                     device=dev), g)
+    sd_rn = {}
+    for name, t in rn.state_dict().items():
+        t = t.detach().clone()
+        if name.endswith("running_mean") or name.endswith(".bias"):
+            t += 0.1 * torch.randn(t.shape, generator=g, device=dev)
+        elif name.endswith("running_var") or (t.dim() == 1 and
+                                              name.endswith(".weight")):
+            t = 1.0 + 0.1 * torch.rand(t.shape, generator=g, device=dev)
+        name = name.replace("_block", ".").replace(".down_conv",
+                                                   ".downsample.0")
+        sd_rn[name.replace(".down_bn", ".downsample.1")] = t.cpu()
+    vgg = random_init_(VGG16Features(device=dev), g)
+    sd_vgg = {}
+    for name, t in vgg.state_dict().items():
+        t = t.detach().clone()
+        if name.endswith(".bias"):
+            t += 0.01 * torch.randn(t.shape, generator=g, device=dev)
+        sd_vgg[f"features.{name[len('conv'):]}"] = t.cpu()
+    paths = (os.path.join(tmp, "resnet101.pth"), os.path.join(tmp,
+                                                              "vgg16.pth"))
+    torch.save(sd_rn, paths[0])
+    torch.save(sd_vgg, paths[1])
+    del rn, vgg
+    return paths, (sd_rn, sd_vgg)
+
+
+def _hsnet_model(backbone, path, written, dev, g):
+    """HSNet in bf16, its learner seeded from `g`, its backbone read
+    from the torchvision file at `path` by `hsnet.load_backbone` (as
+    hsnet_run's), every backbone entry held bit for bit to the written
+    tensor."""
+    from lseg_tpu_torch.config import ResNetConfig
+    from lseg_tpu_torch.models.hsnet import HSNet, load_backbone
+    from lseg_tpu_torch.models.layers import random_init_
+
+    model = random_init_(HSNet(ResNetConfig(HSNET_LAYERS), backbone,
+                               torch.bfloat16, dev), g)
+    key_map = load_backbone(model, path)
+    state = model.state_dict()
+    if len(key_map) != len(model.backbone.state_dict()):
+        fail(f"{backbone} backbone: {len(key_map)} entries mapped of "
+             f"{len(model.backbone.state_dict())}")
+    for name, (ref, _) in key_map.items():
+        got = state[name]
+        if not torch.equal(got.cpu(), written[ref].to(got.dtype)):
+            fail(f"{backbone} backbone: {name} differs from the written "
+                 f"{ref}")
+    return model
+
+
+def _same_weights(model, dev, dtype=torch.float32,
+                  use_original_imgsize=False, param_dtype=None):
+    """An HSNet of `model`'s weights (cast to the storage dtype) in
+    `dtype`."""
+    from lseg_tpu_torch.models.hsnet import HSNet
+
+    twin = HSNet(model.resnet_cfg, model.backbone_name, dtype, dev,
+                 use_original_imgsize=use_original_imgsize,
+                 param_dtype=param_dtype)
+    twin.load_state_dict(model.state_dict())
+    return twin
+
+
+def _recorded(model, store):
+    def apply(q, s, m):
+        out = model(q, s, m)
+        store.append(out.float())
+        return out
+    return apply
+
+
+def _hsnet_votes_gate(tag, model, twin, batch, nshot, timer, org=None):
+    """`predict_mask_nshot` on the bf16 model and its fp32 twin: the
+    logits of every shot within HSNET_LOGITS_REL, the votes equal on the
+    pixels whose fp32 margin of every shot exceeds the bound; then the
+    bf16 call timed by `timer` (StepTimer, 3 calls after 1). Returns
+    ms a batch."""
+    from lseg_tpu_torch.models.hsnet import predict_mask_nshot
+    from lseg_tpu_torch.ops.resize import resize_bilinear
+
+    got, ref = [], []
+    with torch.inference_mode():
+        pred = predict_mask_nshot(_recorded(model, got), batch, nshot,
+                                  org_size=org)
+        want = predict_mask_nshot(_recorded(twin, ref), batch, nshot,
+                                  org_size=org)
+    n = batch["query_img"].shape[0]
+    shape = (n,) + (org or tuple(batch["query_img"].shape[1:3]))
+    if tuple(pred.shape) != shape or not all(
+            torch.isfinite(t).all() for t in got):
+        fail(f"{tag}: votes {tuple(pred.shape)}, expected {shape}, or "
+             f"non-finite logits")
+    d = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    top = max(float(b.abs().max()) for b in ref)
+    ulp = torch.finfo(torch.bfloat16).eps * 2.0 ** math.floor(math.log2(top))
+    bound = SERVE_RATIO * d + ulp
+    clear = torch.ones(shape, dtype=torch.bool, device=pred.device)
+    for lg in ref:
+        if org is not None:
+            lg = resize_bilinear(lg, *org, align_corners=True)
+        clear &= (lg[..., 1] - lg[..., 0]).abs() > bound
+    n_clear = int(clear.sum())
+    eq = float((pred == want)[clear].float().mean()) if n_clear else 0.0
+    print(f"  {tag}: {nshot}-shot votes {tuple(pred.shape)}, foreground "
+          f"{float(pred.float().mean()):.4f}; logits |bf16 - fp32| max "
+          f"{d:.6g} of max |fp32| {top:.6g} (gate <= {HSNET_LOGITS_REL} of "
+          f"it); votes equal on {eq:.6f} of the {n_clear / pred.numel():.6f}"
+          f" of pixels whose fp32 margin exceeds {bound:.6g} ({SERVE_RATIO}"
+          f" x {d:.6g} + a bf16 ulp {ulp:.6g}) in every shot "
+          f"(gate >= {HEAD_SERVE_MIN_EQUAL}), on "
+          f"{_agree(pred, want):.6f} of all (not gated)")
+    if d > HSNET_LOGITS_REL * top:
+        fail(f"{tag}: bf16 logits deviate {d} > {HSNET_LOGITS_REL} * {top}")
+    if n_clear == 0 or eq < HEAD_SERVE_MIN_EQUAL:
+        fail(f"{tag}: votes equal on {eq} of {n_clear} clear pixels")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        for _ in range(4):
+            timer.step(predict_mask_nshot(model, batch, nshot, org_size=org))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"    {1e3 * timer.mean:.3f} ms a batch of {n} ({nshot}-shot, "
+          f"StepTimer over 3 calls after 1), peak memory "
+          f"{peak / 2**30:.3f} GiB")
+    return 1e3 * timer.mean
+
+
+def _hsnet_batch(ds, dev, n):
+    """The first `n` episodes of `ds` as a batch on the card."""
+    from lseg_tpu_torch.hsnet_run import batches
+
+    return next(batches(ds, [range(n)], dev))[0]
+
+
+def _learner_grads(model):
+    return {n: p.grad.float().clone() for n, p in
+            model.hpn_learner.named_parameters()}
+
+
+def _hsnet_training(tag, model, twin, batch):
+    """(d): three Adam steps of hsnet_run's recipe on the bf16 model (fp32
+    masters); the first step's loss and learner gradients against the
+    fp32 twin's first step, relatively; the backbone's parameters and
+    BatchNorm statistics bit for bit unchanged, the backbone in eval mode;
+    ms/step (StepTimer over steps 2 and 3) and peak memory."""
+    from lseg_tpu_torch.hsnet_run import make_optimizer, train_step
+    from lseg_tpu_torch.utils.profiling import StepTimer
+
+    before = {k: t.clone() for k, t in model.backbone.state_dict().items()}
+    opt, opt32 = make_optimizer(model, 1e-3), make_optimizer(twin, 1e-3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(train_step(model, opt, batch))]
+    loss32 = float(train_step(twin, opt32, batch))
+    g, g32 = _learner_grads(model), _learner_grads(twin)
+    num = sum(float(((g[k] - g32[k]) ** 2).sum()) for k in g32)
+    den = sum(float((g32[k] ** 2).sum()) for k in g32)
+    grad_rel = (num / den) ** 0.5
+    loss_rel = abs(losses[0] - loss32) / abs(loss32)
+    timer = StepTimer(warmup=1)
+    timer.step(g)
+    for _ in range(2):
+        loss = train_step(model, opt, batch)
+        timer.step(loss)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {tag}: losses {[round(v, 6) for v in losses]}; the first step"
+          f" against the fp32 twin's: loss |bf16 - fp32| / |fp32| "
+          f"{loss_rel:.6g} (gate <= {HSNET_LOSS_REL}), learner gradients "
+          f"{grad_rel:.6g} (gate <= {HSNET_GRAD_REL}); "
+          f"{1e3 * timer.mean:.3f} ms/step (StepTimer, steps 2-3), peak "
+          f"memory {peak / 2**30:.3f} GiB (both models' steps)")
+    if not all(v == v and abs(v) != float("inf") for v in losses):
+        fail(f"{tag}: a loss is not finite: {losses}")
+    if loss_rel > HSNET_LOSS_REL or not grad_rel <= HSNET_GRAD_REL:
+        fail(f"{tag}: the bf16 step deviates from the fp32 one")
+    if model.backbone.training or any(
+            p.requires_grad for p in model.backbone.parameters()):
+        fail(f"{tag}: the backbone trains")
+    after = model.backbone.state_dict()
+    changed = [k for k, t in before.items() if not torch.equal(t, after[k])]
+    if changed:
+        fail(f"{tag}: the frozen backbone changed: {changed[:3]}")
+    print(f"    backbone: {len(before)} tensors (parameters and BatchNorm "
+          f"statistics) bit for bit unchanged after 3 steps")
+    return 1e3 * timer.mean
+
+
+def _cli(tag, args):
+    """`python -m <args>` in a process of its own on the default device;
+    returns its stdout lines and its seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m"] + args, cwd=root, env=env,
+                          capture_output=True, text=True, timeout=CLI_TIMEOUT)
+    dt = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-2000:], proc.stderr[-4000:])
+        fail(f"{tag} exited {proc.returncode}")
+    return proc.stdout.strip().splitlines(), dt
+
+
+def _demo_runs(tmp, image, ckpt, vocab, counters):
+    """(f): `demo.main` in process at clip_vitl16_384: random weights
+    plain, --fast, --fast --int8 and --fast --tta, then --fast from the
+    written `.ckpt`; each saves its PNG and launches fixed counts.
+    Returns the launches of the five runs."""
+    import numpy as np
+    from PIL import Image
+
+    from lseg_tpu_torch import demo, get_config
+    from lseg_tpu_torch.engine.tta import (
+        CROPS_PER_STEP,
+        TTAProtocol,
+        make_plan,
+    )
+
+    blocks = get_config("clip_vitl16_384").vit.hooks[-1] + 1
+    h, w = np.asarray(Image.open(image)).shape[:2]
+    chunks = -(-make_plan(TTAProtocol(), h, w).n_valid // CROPS_PER_STEP)
+    bf16 = {"patch_embed": 1, "flash_attention_flat": blocks}
+    runs = (
+        ("random", ["--weights", "random"], {}, (360, 480)),
+        ("random --fast", ["--weights", "random", "--fast"], bf16,
+         (360, 480)),
+        ("random --fast --int8", ["--weights", "random", "--fast", "--int8"],
+         {"patch_embed": 1, "flash_attention_ln_qkv_fused_q8": blocks,
+          "ln_quantize_rows": blocks}, (360, 480)),
+        ("random --fast --tta", ["--weights", "random", "--fast", "--tta"],
+         {k: chunks * v for k, v in bf16.items()}, (h, w)),
+        (".ckpt --fast", ["--weights", ckpt, "--bpe_vocab", vocab, "--fast"],
+         bf16, (360, 480)),
+    )
+    total = {k: 0 for k in counters}
+    for tag, flags, want, size in runs:
+        out = os.path.join(tmp, f"demo_{len(os.listdir(tmp))}.png")
+        want = {k: want.get(k, 0) for k in counters}
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        pred = demo.main(["--image", image, "--labels",
+                          ",".join(FIVE_LABELS), "--out", out] + flags)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = {k: c.launches for k, c in counters.items()}
+        saved = np.asarray(Image.open(out))
+        print(f"  (f) demo {tag}: labels {pred.shape} in "
+              f"[{pred.min()}, {pred.max()}], {os.path.basename(out)} "
+              f"{saved.shape}, {dt:.2f} s (model build included), launches "
+              f"{ {k: v for k, v in got.items() if v} }")
+        if got != want:
+            fail(f"demo {tag}: launches {got}, expected {want}")
+        if pred.shape != size or saved.shape != size + (3,) or not (
+                0 <= pred.min() and pred.max() < len(FIVE_LABELS)):
+            fail(f"demo {tag}: labels {pred.shape}, image {saved.shape}")
+        _add(total, got)
+        _free()
+    return total
+
+
+def _parity_check_cli(tmp, ckpt, vocab):
+    """(g): a `ref_input` / `ref_logits` pair from the `.ckpt`'s weights on
+    the plain fp32 path with `emulate_fp16`, computed on the host's CPU
+    (NCHW and NKHW, as lang-seg dumps them), then `python -m
+    lseg_tpu_torch.parity_check` on the card against it: the card's
+    arithmetic (cuBLAS, cuDNN, TF32 off) against the CPU's, under the
+    command's own PASS rule."""
+    import numpy as np
+
+    from lseg_tpu_torch import get_config
+    from lseg_tpu_torch.models.lseg import LSegNet
+    from lseg_tpu_torch.text.cache import TextFeatureCache
+    from lseg_tpu_torch.text.tokenizer import ClipBPETokenizer
+    from lseg_tpu_torch.utils.checkpoint_convert import (
+        load_reference_checkpoint,
+    )
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    cfg = get_config("clip_vitl16_384")
+    state, text_state = load_reference_checkpoint(ckpt, cfg)
+    model = LSegNet(cfg, torch.float32, cpu, plain=True, emulate_fp16=True)
+    model.load_state_dict(state)
+    txt = TextFeatureCache(cfg.text, text_state, ClipBPETokenizer.from_file(
+        vocab), device=cpu)(FIVE_LABELS)
+    g = torch.Generator().manual_seed(SEED + 111)
+    x = torch.randn((1, 384, 480, 3), generator=g)
+    with torch.inference_mode():
+        ref = model(x, txt)
+    paths = [os.path.join(tmp, f) for f in ("ref_input.npy",
+                                            "ref_logits.npy")]
+    np.save(paths[0], x.permute(0, 3, 1, 2).numpy())
+    np.save(paths[1], ref.permute(0, 3, 1, 2).numpy())
+    dt_ref = time.perf_counter() - t0
+    del model, state, text_state, txt, x, ref
+    _free()
+    lines, dt = _cli("parity_check", [
+        "lseg_tpu_torch.parity_check", "--weights", ckpt, "--bpe_vocab",
+        vocab, "--ref_input", paths[0], "--ref_logits", paths[1],
+        "--labels", ",".join(FIVE_LABELS)])
+    print(f"  (g) python -m lseg_tpu_torch.parity_check on (1, 3, 384, 480)"
+          f" / (1, 5, 384, 480) written on the CPU in {dt_ref:.2f} s: "
+          f"{lines[-4:]}, {dt:.2f} s")
+    if not lines or lines[-1] != "PARITY: PASS":
+        fail("parity_check did not pass")
+
+
+def _app_requests(ckpt, vocab, image, dev, counters):
+    """(h): `app.load` on the `.ckpt` (the parity config in bf16), then one
+    single-scale and one TTA request; no kernel launches."""
+    import numpy as np
+    from PIL import Image
+
+    from lseg_tpu_torch import app
+
+    t0 = time.perf_counter()
+    loaded = app.load(ckpt, vocab, "clip_vitl16_384", dev)
+    dt_load = time.perf_counter() - t0
+    h, w = np.asarray(Image.open(image)).shape[:2]
+    for tta, size in ((False, (360, 480)), (True, (h, w))):
+        t0 = time.perf_counter()
+        overlay, legend = _idle(f"(h) app request tta={tta}", counters,
+                                lambda: app.request(
+                                    loaded, image, ", ".join(FIVE_LABELS),
+                                    use_tta=tta))
+        dt = time.perf_counter() - t0
+        print(f"  (h) app.request (tta={tta}): overlay {overlay.shape}, "
+              f"legend {[n for n, _ in legend]}, {dt:.3f} s (load "
+              f"{dt_load:.2f} s), no kernel launched")
+        if overlay.shape != size + (3,) or not legend or not {
+                n for n, _ in legend} <= set(FIVE_LABELS):
+            fail(f"app request tta={tta}: overlay {overlay.shape}, legend "
+                 f"{legend}")
+    del loaded
+    _free()
+
+
+def phase_tools(dev, root):
+    """Phase 11: the HSNet side-car at hsnet_run's defaults (ResNet-101
+    and VGG16, bf16, 400 x 400, batch 8; 1- and 5-shot votes against the
+    fp32 twin, `use_original_imgsize`, three training steps, `python -m
+    lseg_tpu_torch.hsnet_run test` and `train`), then the demo, the parity
+    check and the app on phase 9's `.ckpt`, vocabulary and PASCAL-5i tree
+    in `root`, and a `profiling.trace`. Returns the launches of the demo
+    runs, the only counted runs that launch kernels."""
+    from lseg_tpu_torch.data.fewshot import build_fewshot_dataset
+    from lseg_tpu_torch.utils.profiling import (
+        StepTimer,
+        device_memory_stats,
+        trace,
+    )
+
+    print("[11] the HSNet side-car (ResNet-101, VGG16) at hsnet_run's "
+          "defaults, python -m lseg_tpu_torch.hsnet_run, the demo, the "
+          "parity check, the app, profiling.trace")
+    t_phase = time.perf_counter()
+    counters = _kernel_counters()
+    datapath, splits = root, os.path.join(root, "splits")
+    ckpt, vocab = (os.path.join(root, "zs.ckpt"),
+                   os.path.join(root, "bpe_vocab.txt.gz"))
+    image = os.path.join(root, "VOC2012", "JPEGImages", "2008_000000.jpg")
+    _hsnet_splits(root)
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    t0 = time.perf_counter()
+    paths, written = _torchvision_files(root, dev, g)
+    print(f"  torchvision-format files: ResNet-101 "
+          f"{os.path.getsize(paths[0]) / 2**20:.1f} MiB, VGG16 features "
+          f"{os.path.getsize(paths[1]) / 2**20:.1f} MiB, written in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    def episodes(**kw):
+        return build_fewshot_dataset(
+            "pascal", datapath, 0, "test", HSNET_SHOTS, splits_dir=splits,
+            img_size=HSNET_SIZE, imagenet_norm=True, **kw)
+
+    batch = _hsnet_batch(episodes(), dev, HSNET_BATCH)
+    numbers = {}
+    for backbone, path, sd in (("resnet", paths[0], written[0]),
+                               ("vgg16", paths[1], written[1])):
+        tag = "(a) ResNet-101" if backbone == "resnet" else "(b) VGG16"
+        model = _hsnet_model(backbone, path, sd, dev, g)
+        twin = _same_weights(model, dev)
+        print(f"  {tag}: HSNet bf16, learner seeded, backbone from the "
+              f"torchvision file through the key map, bit for bit; stack "
+              f"sizes {model.stack_sizes}")
+        for c in counters.values():
+            c.launches = 0
+        for nshot in (1, HSNET_SHOTS):
+            numbers[backbone, nshot] = _hsnet_votes_gate(
+                f"{tag} {nshot}-shot", model, twin, batch, nshot,
+                StepTimer(warmup=1))
+        if backbone == "resnet":
+            with tempfile.TemporaryDirectory() as logdir:
+                with torch.inference_mode(), trace(logdir):
+                    model(batch["query_img"], batch["support_imgs"][:, 0],
+                          batch["support_masks"][:, 0])
+                files = os.listdir(logdir)
+                size = sum(os.path.getsize(os.path.join(logdir, f))
+                           for f in files)
+                with open(os.path.join(logdir, files[0])) as f:
+                    events = json.load(f)["traceEvents"]
+            on_card = sum(1 for e in events if e.get("cat") == "kernel")
+            print(f"  (i) profiling.trace around one 1-shot call: {files}, "
+                  f"{size / 2**20:.2f} MiB, {len(events)} events, {on_card} "
+                  f"device kernels")
+            if not size or not on_card:
+                fail("profiling.trace wrote no device kernel")
+            # (c) use_original_imgsize at bsz 1 on the 375 x 500 original
+            one = _hsnet_batch(episodes(use_original_imgsize=True), dev, 1)
+            org = tuple(one["query_mask"].shape[1:3])
+            numbers["orig"] = _hsnet_votes_gate(
+                f"(c) use_original_imgsize {org}",
+                _same_weights(model, dev, torch.bfloat16, True),
+                _same_weights(model, dev, torch.float32, True), one, 1,
+                StepTimer(warmup=1), org=org)
+            del one
+            # (d) training, on fp32 masters
+            train = _same_weights(model, dev, torch.bfloat16,
+                                  param_dtype=torch.float32)
+            twin_t = _same_weights(model, dev)
+            del model, twin
+            _free()
+            numbers["train"] = _hsnet_training("(d) 3 training steps",
+                                               train, twin_t, batch)
+            del train, twin_t
+        else:
+            del model, twin
+        ran = {k: c.launches for k, c in counters.items() if c.launches}
+        if ran:
+            fail(f"{tag}: kernels launched {ran}, expected none")
+        _free()
+    print(f"  {card_line()}; memory now {device_memory_stats()}")
+
+    # (e) the hsnet_run command line on the written tree
+    common = ["--datapath", datapath, "--splits_dir", splits,
+              "--backbone_weights", paths[0]]
+    lines, dt = _cli("hsnet_run test", ["lseg_tpu_torch.hsnet_run", "test",
+                                        "--nshot", "1"] + common)
+    print(f"  (e) python -m lseg_tpu_torch.hsnet_run test (1-shot, 1000 "
+          f"episodes, batch 8, 400 x 400): {dt:.2f} s, so {dt / 1e3:.4f} s "
+          f"an episode, start-up, weights and decodes included; last lines "
+          f"{lines[-2:]}")
+    if not lines or not lines[-1].startswith(
+            "FINAL pascal fold0 1-shot mIoU "):
+        fail(f"hsnet_run test printed {lines[-1:]}")
+    lines, dt = _cli("hsnet_run train", ["lseg_tpu_torch.hsnet_run", "train",
+                                         "--niter", "3"] + common)
+    print(f"  (e) python -m lseg_tpu_torch.hsnet_run train --niter 3: "
+          f"{dt:.2f} s; {lines}")
+    if not lines or not lines[0].startswith("iter 0 loss "):
+        fail(f"hsnet_run train printed {lines}")
+
+    # (f)-(h) the demo, the parity check and the app on phase 9's files
+    launches = _demo_runs(root, image, ckpt, vocab, counters)
+    _parity_check_cli(root, ckpt, vocab)
+    _app_requests(ckpt, vocab, image, dev, counters)
+    print(f"  HSNet ms a batch of {HSNET_BATCH}: ResNet-101 1-shot "
+          f"{numbers['resnet', 1]:.3f}, 5-shot "
+          f"{numbers['resnet', HSNET_SHOTS]:.3f}; VGG16 1-shot "
+          f"{numbers['vgg16', 1]:.3f}, 5-shot "
+          f"{numbers['vgg16', HSNET_SHOTS]:.3f}; use_original_imgsize "
+          f"{numbers['orig']:.3f} a query; training "
+          f"{numbers['train']:.3f} ms/step")
+    print(f"  phase 11 launches: "
+          f"{ {k: v for k, v in launches.items() if v} }, "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    print(f"  {card_line()}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is False)")
@@ -4747,13 +5319,23 @@ def main() -> int:
         fail(f"phase 8 launched {sorted(ran)}, expected "
              f"{sorted(BACKBONE_KERNELS)}")
     _free()
-    launches_f = phase_fewshot(dev)
+    # phase 9's tree, .ckpt and vocabulary serve phase 11 too
+    shared_dir = tempfile.TemporaryDirectory()
+    shared = shared_dir.name
+    launches_f = phase_fewshot(dev, shared)
     ran = {k for k, v in launches_f.items() if v}
     if ran != FEWSHOT_KERNELS:
         fail(f"phase 9 launched {sorted(ran)}, expected "
              f"{sorted(FEWSHOT_KERNELS)}")
     _free()
     launches_par = phase_parallel(dev)
+    _free()
+    launches_tools = phase_tools(dev, shared)
+    shared_dir.cleanup()
+    ran = {k for k, v in launches_tools.items() if v}
+    if ran != TOOLS_KERNELS:
+        fail(f"phase 11 launched {sorted(ran)}, expected "
+             f"{sorted(TOOLS_KERNELS)}")
     # each kernel's launches on the path that runs it: B1 and B6 on the
     # bf16 path (phase 3), B10 and B11 on the streamed head (phase 3c),
     # B2, B3 and B4 on the int8 path (phase 3b, which also checked B1 per
@@ -4869,6 +5451,7 @@ def main() -> int:
                      "fewshot_launches": launches_f.get(k, 0),
                      "parallel_launches": launches_par.get(
                          k, [0] * PARALLEL_WORLD),
+                     "tools_launches": launches_tools.get(k, 0),
                      **({"widths": widths[k]} if k in widths else {})})
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(card_line())

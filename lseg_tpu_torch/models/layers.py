@@ -7,6 +7,10 @@
 - `Conv2d`: NHWC in and out (the reference's layout); the convolution
   runs on an NCHW view of the channels-last tensor, so no copy is made.
   Bias added after the product, in `dt`, as flax `nn.Conv` does.
+- `GroupNorm`: flax `nn.GroupNorm(num_groups)` on a channels-last tensor
+  of any rank: epsilon 1e-6 (flax's default; torch's is 1e-5), the
+  statistics of each (sample, group) over every non-batch axis in fp32 as
+  E[x^2] - E[x]^2 clamped at 0, fp32 affine, output cast to `dt`.
 - `BatchNorm`: flax `nn.BatchNorm(momentum=0.9, epsilon=1e-5)`, driven by
   `nn.Module.train()`. Eval mode normalizes with the running statistics;
   train mode with the batch statistics, taken in fp32 as
@@ -171,6 +175,35 @@ class BatchNorm(nn.Module):
         var = torch.clamp((sums[c:2 * c] / sums[-1]).float() - mean * mean,
                           min=0.0)
         return mean, var
+
+
+class GroupNorm(nn.Module):
+    """flax `nn.GroupNorm(num_groups)` over a channels-last tensor: the
+    statistics of each (sample, group) over every non-batch axis."""
+
+    def __init__(self, num_groups: int, features: int, eps: float = 1e-6,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.num_groups = num_groups
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = _empty((features,), torch.float32, device)
+        self.bias = _empty((features,), torch.float32, device)
+
+    def reset_parameters(self, generator=None):
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, g = x.shape[0], x.shape[-1], self.num_groups
+        xg = x.float().reshape(b, -1, g, c // g)
+        mean = xg.mean(dim=(1, 3), keepdim=True)
+        var = torch.clamp((xg * xg).mean(dim=(1, 3), keepdim=True)
+                          - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float().reshape(
+            g, c // g)
+        y = (xg - mean) * mul + self.bias.float().reshape(g, c // g)
+        return y.reshape(x.shape).to(self.dtype)
 
 
 def set_param_dtype_(module: nn.Module, dtype: torch.dtype) -> nn.Module:

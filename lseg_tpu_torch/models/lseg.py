@@ -118,6 +118,10 @@ class LSegNet(nn.Module):
       nearest-x2 upsampled (half-res with `return_halfres`).
 
     `plain=True` swaps every kernel for its plain PyTorch twin.
+    `emulate_fp16=True` takes the correlation through
+    `correlate(..., emulate_fp16=True)` (the fp16 operands of lang-seg's
+    own head, for parity checks against its logits) and never the fused
+    heads.
 
     The model is built in eval mode, as the reference's `train=False`
     default; `.train()` turns on the BatchNorm batch statistics (training
@@ -128,12 +132,14 @@ class LSegNet(nn.Module):
 
     def __init__(self, cfg: LSegConfig, dtype=torch.float32, device=None,
                  plain: bool = False, remat: bool = False,
-                 param_dtype: torch.dtype = None):
+                 param_dtype: torch.dtype = None,
+                 emulate_fp16: bool = False):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
         self.dtype = dtype
         self.plain = plain
+        self.emulate_fp16 = emulate_fp16
         # set by ops.quant.calibrate_act_scales: head1 then runs unfused
         # so that its act_scale site records path1
         self.calibrating = False
@@ -226,7 +232,7 @@ class LSegNet(nn.Module):
         use_head_fused = (
             bool(cfg.head_fused) and cfg.decoder_quant in QUANT_MODES
             and cfg.head_dtype == "bfloat16"
-            and cfg.arch_option not in (1, 2)
+            and cfg.arch_option not in (1, 2) and not self.emulate_fp16
             and text_features is not None and not self.calibrating)
         use_lowres_head = (use_head_fused and cfg.head_fused == "lowres"
                            and cfg.decoder_conv_first and return_argmax)
@@ -269,7 +275,8 @@ class LSegNet(nn.Module):
             return image_features
         out = correlate(image_features, text_features,
                         logit_scale=cfg.logit_scale, compute_dtype=hd,
-                        defer_pixel_norm=cfg.head_dtype == "bfloat16")
+                        defer_pixel_norm=cfg.head_dtype == "bfloat16",
+                        emulate_fp16=self.emulate_fp16)
         if cfg.arch_option in (1, 2):
             out = out.float()
             for _ in range(cfg.block_depth - 1):

@@ -10,6 +10,10 @@ runs this backbone outside any Pallas kernel) and the BatchNorms
 `layers.BatchNorm`: running statistics in eval mode, batch statistics
 (and running-statistics updates) under `.train()`.
 
+`all_taps=True` is HSNet's feature-extraction mode: the forward returns
+every bottleneck's pre-relu sum (`out + identity` before the block's last
+relu), in block order, instead of the stage outputs.
+
 The module names follow the reference's parameter tree (`conv1`, `bn1`,
 `layer{s}_block{b}.conv{1,2,3}` / `bn{1,2,3}` / `down_conv` / `down_bn`),
 so `utils.convert.from_jax_variables` fills it without a renaming.
@@ -52,21 +56,26 @@ class Bottleneck(nn.Module):
                                     device)
             self.down_bn = BatchNorm(out, 1e-5, dtype, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, with_prerelu: bool = False):
         out = torch.relu(self.bn1(self.conv1(x)))
         out = torch.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
         identity = (self.down_bn(self.down_conv(x))
                     if hasattr(self, "down_conv") else x)
-        return torch.relu(out + identity)
+        pre = out + identity
+        post = torch.relu(pre)
+        return (post, pre) if with_prerelu else post
 
 
 class ResNetBackbone(nn.Module):
     """(N, H, W, 3) -> the 4-stage feature pyramid (strides 4, 8, 16, 32;
-    channels 256 .. 2048)."""
+    channels 256 .. 2048), or with `all_taps` every block's pre-relu
+    sum."""
 
-    def __init__(self, cfg: ResNetConfig, dtype=torch.float32, device=None):
+    def __init__(self, cfg: ResNetConfig, dtype=torch.float32, device=None,
+                 all_taps: bool = False):
         super().__init__()
+        self.all_taps = all_taps
         self.conv1 = Conv2d(3, 64, 7, 2, 3, False, dtype, device)
         self.bn1 = BatchNorm(64, 1e-5, dtype, device)
         in_ch = 64
@@ -84,9 +93,14 @@ class ResNetBackbone(nn.Module):
         # torch MaxPool2d(3, stride=2, padding=1): the reference pads with
         # -inf and pools VALID, the same function
         x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
-        outs = []
+        outs, taps = [], []
         for stage, n_blocks in enumerate(self.layers):
             for b in range(n_blocks):
-                x = getattr(self, f"layer{stage + 1}_block{b}")(x)
+                block = getattr(self, f"layer{stage + 1}_block{b}")
+                if self.all_taps:
+                    x, pre = block(x, with_prerelu=True)
+                    taps.append(pre)
+                else:
+                    x = block(x)
             outs.append(x)
-        return outs
+        return taps if self.all_taps else outs

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from lseg_tpu_torch import CLIPTextConfig
@@ -45,3 +46,11 @@ class TextFeatureCache:
                       other: str = "others") -> torch.Tensor:
         """Zero-shot episode head: the ['others', <class>] pair."""
         return self((other, label))
+
+
+def encode_labels(cfg: CLIPTextConfig, state, tokenizer,
+                  labels: Sequence[str], device="cpu") -> np.ndarray:
+    """One-shot convenience (no cache): the (K, embed_dim) fp32 text
+    features of `labels` as a numpy array."""
+    return TextFeatureCache(cfg, state, tokenizer, device=device)(
+        labels).float().cpu().numpy()

@@ -26,11 +26,13 @@ layers); BatchNorm running statistics become the buffers of the port's
 (`refinenet4.resConfUnit1`, the ViT blocks after the last hook and its
 final norm, `logit_scale`) are dropped, as in the JAX package.
 
-Two initialisations of the reference have key maps of their own, each the
-JAX package's converter followed by `from_jax_variables`:
+Three initialisations of the reference have key maps of their own, each
+the JAX package's converter followed by `from_jax_variables`:
 `torchvision_resnet_key_map` (a torchvision resnet50/101 `state_dict`
-into `ResNetBackbone`) and `clip_visual_key_map` (the CLIP visual tower
-transplanted into `DenseViT`).
+into `ResNetBackbone`), `torchvision_vgg16_key_map` (torchvision's vgg16
+`features` into HSNet's `VGG16Features`) and `clip_visual_key_map` (the
+CLIP visual tower transplanted into `DenseViT`); `prefixed` puts a
+submodule's map under its name in a whole model (HSNet's `backbone.`).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ import numpy as np
 import torch
 
 from lseg_tpu_torch.config import LSegConfig
+from lseg_tpu_torch.models.vgg import vgg16_conv_indices
 
 # ---------------------------------------------------------------------------
 # torch-free .pt/.ckpt reader
@@ -278,6 +281,23 @@ def torchvision_resnet_key_map(
     _resnet_blocks(out, "", layers, lambda s: f"{prefix}layer{s + 1}",
                    lambda ref, b: f"{ref}.downsample.0.weight" in sd)
     return out
+
+
+def torchvision_vgg16_key_map(prefix: str = "features.") -> KeyMap:
+    """Every entry of `VGG16Features().state_dict()` and the key of a
+    torchvision vgg16 `state_dict` (`{prefix}{idx}.weight` / `.bias`) it
+    comes from: the same `features` index, the same OIHW layout (JAX
+    package: `convert_torchvision_vgg16`)."""
+    out: KeyMap = {}
+    for idx in vgg16_conv_indices():
+        _module(out, f"conv{idx}", f"{prefix}{idx}")
+    return out
+
+
+def prefixed(key_map: KeyMap, prefix: str) -> KeyMap:
+    """`key_map` with every port name under `prefix` (a submodule's map
+    for the whole model's `state_dict`, e.g. HSNet's `backbone.`)."""
+    return {prefix + name: src for name, src in key_map.items()}
 
 
 def _zeros_like_rows(w: np.ndarray) -> np.ndarray:

@@ -1,7 +1,9 @@
 """Convert the JAX package's variables into the port's `state_dict`.
 
 `from_jax_variables` takes `LSegNet` variables (`params` +
-`batch_stats`) as a nested dict of numpy arrays; `from_jax_text_params`
+`batch_stats`) as a nested dict of numpy arrays (and any other model
+whose port names follow the JAX tree, as `models.hsnet.HSNet`'s do, with
+either backbone); `from_jax_text_params`
 takes `CLIPTextEncoder` params. Both return {name: tensor} for
 `load_state_dict`: int8 leaves stay int8, everything else is fp32, which
 `load_state_dict` rounds to its parameter's dtype, the same cast the

@@ -2,7 +2,7 @@
 `chip_smoke.py`, imports `lseg_tpu` or `jax`; and its own copies of the
 framework-free modules (config, labels, tokenizer, the data readers,
 the native decode binding, the few-shot episodes and their visualizer,
-`utils/sinks.py`) and pieces (the checkpoint reader, the reference-file
+`utils/sinks.py`, `utils/palette.py`) and pieces (the checkpoint reader, the reference-file
 writers, the TTA protocol and plan) have not drifted from the JAX
 package's: each equals its original apart from its import statements."""
 
@@ -28,9 +28,10 @@ REPO = Path(__file__).resolve().parent.parent
 REFUSED = ("lseg_tpu", "jax", "jaxlib", "flax")
 
 # Runs in a fresh interpreter: a meta-path finder refuses the JAX package
-# and JAX, then every module of the port is imported (the few-shot
-# modules and `test_zs` among them) and the --help of the training CLI
-# and of `python -m lseg_tpu_torch.test_zs` runs.
+# and JAX (and Streamlit, which only the app's page imports), then every
+# module of the port is imported (the few-shot modules, `test_zs`, the
+# HSNet side-car and the app among them) and the --help of the port's
+# command lines runs.
 _IMPORT_ALL = """
 import importlib.abc, pkgutil, runpy, sys
 
@@ -50,7 +51,9 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not leaked, leaked
-for cli in ("lseg_tpu_torch.train", "lseg_tpu_torch.test_zs"):
+for cli in ("lseg_tpu_torch.train", "lseg_tpu_torch.test_zs",
+            "lseg_tpu_torch.hsnet_run", "lseg_tpu_torch.demo",
+            "lseg_tpu_torch.parity_check"):
     sys.argv = [cli, "--help"]
     try:
         runpy.run_module(cli, run_name="__main__")
@@ -66,11 +69,15 @@ def test_port_imports_without_lseg_tpu_or_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env["PYTHONPATH"] = str(REPO)
     proc = subprocess.run(
-        [sys.executable, "-c", _IMPORT_ALL.format(refused=REFUSED)],
+        [sys.executable, "-c", _IMPORT_ALL.format(
+            refused=REFUSED + ("streamlit",))],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "--device" in proc.stdout  # the CLIs' help ran
     assert "zero-shot eval" in proc.stdout and "--nshot" in proc.stdout
+    for prog in ("usage: hsnet", "usage: lseg_tpu demo",
+                 "usage: lseg_tpu parity check"):
+        assert prog in proc.stdout, prog
     n = int(proc.stdout.strip().splitlines()[-1].split()[-1])
     assert n >= 40
 
@@ -148,7 +155,8 @@ def _without_imports(src: str) -> str:
 @pytest.mark.parametrize("module", [
     "data/labels", "data/transforms", "data/synthetic", "data/ade20k",
     "data/voc", "data/coco", "data/cityscapes", "utils/sinks",
-    "text/tokenizer", "data/native", "data/fewshot", "utils/fewshot_vis"])
+    "text/tokenizer", "data/native", "data/fewshot", "utils/fewshot_vis",
+    "utils/palette"])
 def test_module_copy_matches_reference(module):
     ref = (REPO / "lseg_tpu" / f"{module}.py").read_text()
     got = (REPO / "lseg_tpu_torch" / f"{module}.py").read_text()
