@@ -21,8 +21,9 @@ the result line is printed:
    three channel widths and in B13's embed, and beside bulk copies
    (UBLKCP) in B19's kernels and B4's two copies; HGMMA and UTMALDG in
    the head-pair attention kernels of B2 and B15 and in B1's three copies
-   (k-chunks of 16, 32 and 48 floats); IGMMA and UTMALDG in B20's
-   cluster kernel; bulk copies in B3's LN routine and in B11's fp32 and
+   (k-chunks of 16, 32 and 48 floats); IGMMA, HGMMA and UTMALDG in B2's
+   int8 Q.K^T mode (`flash_q8_i8qk_cluster_kernel`); IGMMA and UTMALDG in
+   B20's cluster kernel; bulk copies in B3's LN routine and in B11's fp32 and
    bf16 kernels;
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the serving path, with its time beside the plain version's
@@ -52,7 +53,14 @@ the result line is printed:
    yardstick of the wgmma head tile, which phases 3-6 never launch), as
    are B14's W-interp and B13's tail; B11 in fp32 (its row) and bf16
    (under "bf16") at the flagship, and at one source column, one source
-   row, K = 151 and 1536, on ties and NaNs, every label equal);
+   row, K = 151 and 1536, on ties and NaNs, every label equal; B2's int8
+   Q.K^T mode (`qk_int8=True`) at the flagship, the padded (8, 904, 1024)
+   with keys masked past 901 and ViT-B's (8, 226, 768) within LNQKV_REL
+   of its plain twin, and at the flagship at 10x B2's weight scales (rows
+   nearly one-hot) within LNQKV_REL of the twin's attention on B3's codes,
+   where the default mode's kernel must miss that twin by more than
+   LNQKV_REL (the check sees which kernel ran), timed at the flagship
+   beside the default mode on the same inputs (its row's "i8qk" entry));
 3. serving: the full-width `fast_serving(clip_vitl16_384, quant=False)`
    model (ViT-L/16, bf16) with seeded random weights answers three
    requests through `TextFeatureCache` + `make_predictor`; the kernels'
@@ -276,6 +284,21 @@ the result line is printed:
    `StepTimer` takes the times of (a)-(d). HSNet launches no kernel of
    ours; the phase fails unless the demo runs launched exactly B1, B2, B3
    and B6.
+12. the int8 modes, at full width with phase 3b's seeded fp32 weights
+   (made again from the same seed): (a) `fast_serving(clip_vitl16_384
+   with attn_variant='i8qk', 'static_cal')`, quantized and calibrated as
+   in 3b, per request B1 = 1, B2 = B3 = blocks (every B2 launch in its
+   int8 Q.K^T mode), B4 = 1; (b) `fast_serving(clip_vitl16_384 with
+   quant_int8=True, False)`, `QuantDense` on fp32 weights quantized at
+   every call, per request B1 = 1, B6 = blocks; each answers phase 3's
+   three requests through `model(x, txt, return_argmax=True)`, its
+   half-res logits held as in 3b, with ms/batch and peak memory (kernel,
+   plain, kernel); (b)'s reference pair, the parity config with
+   quant_int8=True (einsum attention), answers one request with no
+   launch, its half-res logits within SERVE_RATIO * (b)'s |plain - fp32|
+   + SERVE_FLOOR of the fp32 parity model's. The
+   phase fails unless its counted runs launched exactly B1, B2, B3, B4
+   and B6.
 
 Phase 2 also times, for each kernel, the PyTorch library call that
 computes the same function where there is one, and computes its bound
@@ -290,8 +313,9 @@ of B6 and B7 have rows of their own, with the launches of phase 5b2;
 B19's holds its hand-off shape's under "handoff"; each row also holds
 its launches in phase 8 under "backbone_launches", in phase 9 under
 "fewshot_launches", in phase 10 under "parallel_launches" (a list,
-one count a rank) and in phase 11 under "tools_launches", and the rows
-of B2,
+one count a rank), in phase 11 under "tools_launches" and in phase 12
+under "int8_modes_launches"; B2's row holds its int8 Q.K^T mode's
+phase-2 numbers and phase-12 launches under "i8qk"; and the rows of B2,
 B3, B4, B10 and B14 phase 8a's numbers under "widths"); the last line is
 the result object. Needs one
 GPU and no network; imports no JAX and nothing of the JAX package.
@@ -382,6 +406,9 @@ SASS_REQUIRED = {
     "head1_wup_wgmma_kernel": (r"\bIGMMA\.", r"\bUTMALDG\b"),
     "head1_argmax_wgmma_kernel": (r"\bIGMMA\.", r"\bUTMALDG\b"),
     "flash_q8_cluster_kernel": WGMMA_TMA,
+    # B2's int8 Q.K^T mode: Q.K^T on s8 warpgroup products, P.V on bf16
+    "flash_q8_i8qk_cluster_kernel": (r"\bIGMMA\.", r"\bHGMMA\.",
+                                     r"\bUTMALDG\b"),
     "pair_attention_kernel": WGMMA_TMA,
     # B1 (its k-chunks of 16, 32 and 48 floats): the image's segments and
     # the weight by TMA
@@ -1062,6 +1089,8 @@ def _int8_kernels(dev, g):
                                           os_),
                 {"int8": 2 * 8 * t * d * 3 * d,
                  "bf16": 4 * 8 * 16 * t * t * 64})
+    results["flash_attention_ln_qkv_fused_q8"]["i8qk"] = _b2_i8qk(
+        dev, ln_g, ln_b, wq, sw, bias)
 
     # B8 at (8, 901, 1024) and the padded (8, 904, 1024), valid_len 901:
     # the row codes and scales of a LayerNorm-1 output, B2's weights; and
@@ -1113,6 +1142,107 @@ def _int8_kernels(dev, g):
 
     results.update(_b4_kernels(dev, g))
     return results
+
+
+def _b2_i8qk(dev, ln_g, ln_b, wq, sw, bias):
+    """B2's int8 Q.K^T mode (`qk_int8=True`, attn_variant 'i8qk') against
+    its plain twin at the flagship (8, 901, 1024), 16 heads, on B2's
+    weights, at the padded (8, 904, 1024) with keys masked past 901, and at
+    ViT-B's (8, 226, 768), 12 heads, on weights drawn at phase 2's scales
+    (scores of a few units), each within LNQKV_REL; and at the flagship on
+    B2's weights with 10x their scales (rows nearly one-hot), where the
+    default mode's kernel must miss the i8qk twin by more than LNQKV_REL:
+    at scores of a few units the two modes sit within about LNQKV_REL of
+    each other (printed), so only that case shows which kernel ran. At
+    10x a code that the plain LayerNorm puts one level off B3's moves a
+    whole code step of a score, which near a tie of one-hot rows moves an
+    output by more than LNQKV_REL (0.034 in a run); so there the twin
+    starts from B2's first step, B3's codes (B2 launches B3's routine),
+    and its qkv product equals B2's second (`_qkv_plain` is bit for bit
+    `qkv_int8_gemm`, checked in this phase): the mode's attention alone
+    is held within LNQKV_REL, and the whole twin's reading is printed. Its time at the flagship beside
+    its bound and the default mode's time on the same inputs. Inputs from
+    a generator of their own, so the draws of the other checks stay as
+    they were."""
+    from lseg_tpu_torch.ops.flash_attention import (
+        _qkv_attention_plain,
+        flash_attention_ln_qkv_fused_q8,
+        flash_attention_ln_qkv_fused_q8_plain,
+    )
+    from lseg_tpu_torch.ops.ln_quant import ln_quantize_rows
+    from lseg_tpu_torch.ops.quant import quantize_rows
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    scale = 64 ** -0.5
+    row = None
+    d = 768
+    vitb = (1 + 0.1 * torch.randn(d, device=dev, generator=g),
+            0.1 * torch.randn(d, device=dev, generator=g),
+            torch.randint(-127, 128, (3 * d, d), device=dev, generator=g,
+                          dtype=torch.int8),
+            1e-3 * torch.rand(3 * d, device=dev, generator=g),
+            0.05 * torch.randn(3 * d, device=dev, generator=g))
+    for t, vl, heads, weights, one_hot in (
+            (901, None, 16, (ln_g, ln_b, wq, sw, bias), False),
+            (904, 901, 16, (ln_g, ln_b, wq, sw, bias), False),
+            (VITB32_TOKENS, None, 12, vitb, False),
+            (901, None, 16, (ln_g, ln_b, wq, 10 * sw, bias), True)):
+        d = weights[0].shape[0]
+        x = torch.randn(8, t, d, device=dev, generator=g).to(torch.bfloat16)
+        args = (x, *weights, heads, scale, vl)
+        oq, os_ = flash_attention_ln_qkv_fused_q8(*args, qk_int8=True)
+        pq, ps = flash_attention_ln_qkv_fused_q8_plain(*args, qk_int8=True)
+        dq, ds = flash_attention_ln_qkv_fused_q8(*args)
+        got, ref = oq.float() * os_, pq.float() * ps
+        name = (f"flash_attention_ln_qkv_fused_q8 i8qk (8,{t},{d}) {heads} "
+                f"heads{', 10x weight scales' if one_hot else ''}")
+        if one_hot:
+            whole = float((got - ref).abs().max() / ref.abs().max())
+            print(f"  {name}: against the whole twin {whole:.4g} of "
+                  f"max|plain| (not gated)")
+            xq, sx = ln_quantize_rows(x, *weights[:2])
+            pq, ps = quantize_rows(_qkv_attention_plain(
+                xq, sx, *weights[2:], heads, scale, vl, qk_int8=True))
+            ref = pq.float() * ps
+            name += " on B3's codes"
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        miss = float((dq.float() * ds - ref).abs().max() / ref.abs().max())
+        equal = float((oq == pq).float().mean())
+        gate = f"gate: > {LNQKV_REL:g}" if one_hot else "not gated"
+        print(f"  {name} valid_len={vl}: dequant max_abs {err:.6g} = "
+              f"{rel:.4g} of max|plain| (tol {LNQKV_REL:g}), codes equal "
+              f"{equal:.6f}; the default mode's kernel against this twin "
+              f"{miss:.4g} of max|plain| ({gate})")
+        if not torch.isfinite(got).all() or rel > LNQKV_REL:
+            fail(f"{name}: the int8 Q.K^T mode disagrees with its plain "
+                 f"twin")
+        if one_hot and miss <= LNQKV_REL:
+            fail(f"{name}: the default mode's kernel agrees with the int8 "
+                 f"Q.K^T twin as well, so the check cannot tell the modes "
+                 f"apart")
+        if (t, vl, one_hot) != (901, None, False):
+            continue
+        ms, plain_ms = _timed(
+            "flash_attention_ln_qkv_fused_q8 i8qk", f"(8,{t},{d})",
+            lambda: flash_attention_ln_qkv_fused_q8(*args, qk_int8=True),
+            lambda: flash_attention_ln_qkv_fused_q8_plain(*args,
+                                                          qk_int8=True))
+        bf16_ms = cuda_time_ms(lambda: flash_attention_ln_qkv_fused_q8(*args))
+        print(f"  the default (bf16 Q.K^T) mode on the same inputs: "
+              f"{bf16_ms:.4f} ms")
+        # the qkv product and Q.K^T in int8, P.V in bf16
+        qk = 2 * 8 * heads * t * t * 64
+        row = result(err, ms, plain_ms,
+                     nbytes(x, *weights, oq, os_),
+                     {"int8": 2 * 8 * t * d * 3 * d + qk, "bf16": qk})
+        row["bf16_mode_ms"] = bf16_ms
+        i8qk_args = args
+        ATTN_RETIME["B2 flash_attention_ln_qkv_fused_q8 i8qk"] = (
+            lambda: flash_attention_ln_qkv_fused_q8(*i8qk_args,
+                                                    qk_int8=True))
+    return row
 
 
 def _b4_kernels(dev, g):
@@ -2258,8 +2388,6 @@ def phase_serving_head_fused(dev, model_q, cache, requests):
 
 def phase_serving_int8(dev, cache, requests):
     from lseg_tpu_torch import fast_serving, get_config
-    from lseg_tpu_torch.models.layers import random_init_
-    from lseg_tpu_torch.models.lseg import LSegNet
 
     print("[3b] serving fast_serving(clip_vitl16_384, 'static_cal'), int8")
     cfg = fast_serving(get_config("clip_vitl16_384"), "static_cal")
@@ -2268,16 +2396,8 @@ def phase_serving_int8(dev, cache, requests):
           f"mlp_act_cal {vit.mlp_act_cal}, quant_int8 {vit.quant_int8}; "
           f"decoder_quant {cfg.decoder_quant}, head_fused {cfg.head_fused},"
           f" decoder_conv_first {cfg.decoder_conv_first}")
-    # the same function unquantized in fp32: the source of the int8 tree
-    # and the reference of d_ref
-    fast = fast_serving(get_config("clip_vitl16_384"), quant=False)
-    ref_cfg = dataclasses.replace(fast, head_dtype="float32",
-                                  vit=dataclasses.replace(
-                                      fast.vit, attn_impl="xla",
-                                      attn_scores_dtype="float32",
-                                      patch_fused=False))
     g = torch.Generator(device=dev).manual_seed(SEED)
-    ref32 = random_init_(LSegNet(ref_cfg, torch.float32, dev), g).eval()
+    ref32 = _fp32_reference(dev, g)
     model, plain = _quantized(cfg, dev, ref32, g)
 
     blocks = vit.hooks[-1] + 1
@@ -2292,11 +2412,29 @@ def phase_serving_int8(dev, cache, requests):
     return model, plain, ref32, launches
 
 
+def _fp32_reference(dev, g):
+    """The fast config's function unquantized in fp32 (`fast_serving(
+    clip_vitl16_384, False)` with xla attention, fp32 scores and head, no
+    patch kernel), seeded `random_init_` from `g`: the source of the int8
+    trees and the reference of d_ref."""
+    from lseg_tpu_torch import fast_serving, get_config
+    from lseg_tpu_torch.models.layers import random_init_
+    from lseg_tpu_torch.models.lseg import LSegNet
+
+    fast = fast_serving(get_config("clip_vitl16_384"), quant=False)
+    ref_cfg = dataclasses.replace(fast, head_dtype="float32",
+                                  vit=dataclasses.replace(
+                                      fast.vit, attn_impl="xla",
+                                      attn_scores_dtype="float32",
+                                      patch_fused=False))
+    return random_init_(LSegNet(ref_cfg, torch.float32, dev), g).eval()
+
+
 def _int8_logits_gate(tag, model, plain, ref32, request, cache,
                       what="int8", **kw):
     """Logits of `model(images, txt, **kw)` on the kernel path vs the plain
     path (`what`: its kind, for the printout) vs the fp32 model: d_kernel
-    <= 2 d_ref + floor."""
+    <= 2 d_ref + floor. Returns d_ref, |plain - fp32| max."""
     _, labels, images = request
     txt = cache(labels)
     with torch.inference_mode():
@@ -2317,6 +2455,7 @@ def _int8_logits_gate(tag, model, plain, ref32, request, cache,
     if d_kernel > SERVE_RATIO * d_ref + SERVE_FLOOR:
         fail(f"{tag}: kernel path deviates {d_kernel} > {SERVE_RATIO} * "
              f"{d_ref} + {SERVE_FLOOR}")
+    return d_ref
 
 
 def _quantized(cfg, dev, ref32, g, mlp_act_scale=True, images=None):
@@ -4748,6 +4887,14 @@ TOOLS_KERNELS = {"patch_embed", "flash_attention_flat",
                  "flash_attention_ln_qkv_fused_q8", "ln_quantize_rows"}
 
 
+# Phase 12 (the int8 modes): the kernels its counted runs launch: (a)
+# fast_cal with B2 in its int8 Q.K^T mode (B1, B3, B2, B4), (b) the
+# dynamic int8 projections around B6 (B1, B6).
+INT8_MODES_KERNELS = {"patch_embed", "ln_quantize_rows",
+                      "flash_attention_ln_qkv_fused_q8",
+                      "head1_correlate_fused", "flash_attention_flat"}
+
+
 def _hsnet_splits(root):
     """Phase 9's PASCAL-5i tree made ready for HSNet: four more VOC-sized
     images of each of fold 0's classes in `val/fold0.txt` (six a class, so
@@ -5266,6 +5413,130 @@ def phase_tools(dev, root):
     return launches
 
 
+def phase_int8_modes(dev, cache, requests):
+    """Phase 12: the int8 modes of the reference's ViTConfig, at full width
+    (ViT-L/16, 480x480) with phase 3b's seeded fp32 weights, made again
+    from the same seed: (a) `fast_serving(clip_vitl16_384 with
+    attn_variant='i8qk', 'static_cal')`, quantized and calibrated as in
+    3b, B2 in its int8 Q.K^T mode; (b) `fast_serving(clip_vitl16_384 with
+    quant_int8=True, False)`: `QuantDense` on fp32 weights (quantized at
+    every call) around B6. Each answers phase 3's three requests through
+    `model(x, txt, return_argmax=True)` with fixed launch counts per
+    request, its half-res logits held against its plain twins and the fp32
+    model as in 3b, then ms/batch and peak memory at batch 8, kernel,
+    plain, kernel. (b)'s reference pair, the parity config with
+    quant_int8=True (einsum attention, no kernel), answers one request
+    with no launch, its half-res logits within SERVE_RATIO * (b)'s
+    |plain - fp32| + SERVE_FLOOR of the fp32 parity model's. Returns the
+    launches of the counted runs of (a) and (b), and B2's launches in its
+    int8 Q.K^T mode."""
+    from lseg_tpu_torch import fast_serving, get_config
+    from lseg_tpu_torch.models.lseg import LSegNet
+    from lseg_tpu_torch.ops.flash_attention import (
+        flash_attention_ln_qkv_fused_q8,
+    )
+    from lseg_tpu_torch.ops.quant import QuantDense
+
+    print("[12] the int8 modes at full width: (a) fast_cal with "
+          "attn_variant='i8qk' (B2's int8 Q.K^T mode), (b) dynamic int8 "
+          "projections (quant_int8=True) around B6")
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    ref32 = _fp32_reference(dev, g)
+    base = get_config("clip_vitl16_384")
+    blocks = base.vit.hooks[-1] + 1
+    counters = _kernel_counters()
+    total = {}
+
+    def variant(**kw):
+        return dataclasses.replace(base, vit=dataclasses.replace(base.vit,
+                                                                 **kw))
+
+    # (a) fast_cal, B2 in its int8 Q.K^T mode
+    cfg = fast_serving(variant(attn_variant="i8qk"), "static_cal")
+    print(f"  (a) attn {cfg.vit.attn_impl}, attn_variant "
+          f"{cfg.vit.attn_variant}, quant_int8 {cfg.vit.quant_int8}")
+    model, plain = _quantized(cfg, dev, ref32, g)
+    if not all(b.attn.ln_fused and b.attn.qk_int8
+               for b in model.vit.blocks):
+        fail("i8qk: a block does not take B2's int8 Q.K^T mode")
+    flash_attention_ln_qkv_fused_q8.i8qk_launches = 0
+    _, launches = _serve_requests(
+        "i8qk", _argmax_call(model), requests, cache, counters,
+        {"patch_embed": 1, "ln_quantize_rows": blocks,
+         "flash_attention_ln_qkv_fused_q8": blocks,
+         "head1_correlate_fused": 1})
+    i8qk = flash_attention_ln_qkv_fused_q8.i8qk_launches
+    if i8qk != launches["flash_attention_ln_qkv_fused_q8"]:
+        fail(f"i8qk: {i8qk} of B2's "
+             f"{launches['flash_attention_ln_qkv_fused_q8']} launches took "
+             f"the int8 Q.K^T mode")
+    _add(total, launches)
+    _int8_logits_gate("i8qk half-res", model, plain, ref32, requests[1],
+                      cache, what="int8 i8qk", return_halfres=True)
+    _backbone_numbers("(a) fast_cal i8qk", _argmax_call(model),
+                      _argmax_call(plain), requests, cache)
+    del model, plain
+    _free()
+
+    # (b) dynamic int8 projections around B6
+    cfg = fast_serving(variant(quant_int8=True), False)
+    print(f"  (b) attn {cfg.vit.attn_impl}, quant_int8 "
+          f"{cfg.vit.quant_int8}")
+    model = LSegNet(cfg, torch.bfloat16, dev).eval()
+    model.load_state_dict(ref32.state_dict())
+    plain = LSegNet(cfg, torch.bfloat16, dev, plain=True).eval()
+    plain.load_state_dict(ref32.state_dict())
+    dense = [m for m in model.modules() if isinstance(m, QuantDense)]
+    if (len(dense) != 4 * blocks
+            or any(m.weight.dtype != torch.float32 for m in dense)):
+        fail(f"dynamic: {len(dense)} QuantDense layers (expected "
+             f"{4 * blocks}), weights "
+             f"{sorted({str(m.weight.dtype) for m in dense})}")
+    _, launches = _serve_requests(
+        "dynamic", _argmax_call(model), requests, cache, counters,
+        {"patch_embed": 1, "flash_attention_flat": blocks})
+    _add(total, launches)
+    d_ref = _int8_logits_gate("dynamic int8 half-res", model, plain, ref32,
+                              requests[1], cache, what="dynamic int8",
+                              return_halfres=True)
+    _backbone_numbers("(b) dynamic int8", _argmax_call(model),
+                      _argmax_call(plain), requests, cache)
+    del model, plain
+    _free()
+
+    # (b)'s reference pair: the parity config with quant_int8=True
+    par = LSegNet(variant(quant_int8=True), torch.bfloat16, dev).eval()
+    par.load_state_dict(ref32.state_dict())
+    par32 = LSegNet(base, torch.float32, dev).eval()
+    par32.load_state_dict(ref32.state_dict())
+    del ref32
+    _serve_requests("parity dynamic", _argmax_call(par), requests[1:2],
+                    cache, counters, {})
+    _, labels, images = requests[1]
+    txt = cache(labels)
+    with torch.inference_mode():
+        lq = par(images, txt, return_halfres=True).float()
+        lr = par32(images, txt, return_halfres=True).float()
+    if not torch.isfinite(lq).all():
+        fail("parity dynamic: half-res logits not finite")
+    # the same function as (b)'s plain path with einsum attention: as far
+    # from fp32 as phase 3b's rule lets a kernel path sit from its twin
+    d_par = float((lq - lr).abs().max())
+    bound = SERVE_RATIO * d_ref + SERVE_FLOOR
+    print(f"  parity config, quant_int8=True (bf16) vs fp32: half-res "
+          f"logits |diff| max {d_par:.6g} (gate: <= {SERVE_RATIO} * (b)'s "
+          f"|plain - fp32| {d_ref:.6g} + {SERVE_FLOOR} = {bound:.6g}), max "
+          f"|logit| {float(lr.abs().max()):.4g}, label agreement "
+          f"{_agree(lq.argmax(-1), lr.argmax(-1)):.4f} (not gated)")
+    if d_par > bound:
+        fail(f"parity dynamic: half-res logits {d_par} from fp32 > {bound}")
+    del par, par32
+    _free()
+    print(f"  phase 12: {time.perf_counter() - t_phase:.1f} s")
+    return total, i8qk
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is False)")
@@ -5336,6 +5607,15 @@ def main() -> int:
     if ran != TOOLS_KERNELS:
         fail(f"phase 11 launched {sorted(ran)}, expected "
              f"{sorted(TOOLS_KERNELS)}")
+    _free()
+    launches_im, i8qk_launches = phase_int8_modes(dev, cache, requests)
+    ran = {k for k, v in launches_im.items() if v}
+    if ran != INT8_MODES_KERNELS:
+        fail(f"phase 12 launched {sorted(ran)}, expected "
+             f"{sorted(INT8_MODES_KERNELS)}")
+    # B2's int8 Q.K^T mode runs on phase 12's path (a) alone
+    kernels["flash_attention_ln_qkv_fused_q8"]["i8qk"][
+        "launches"] = i8qk_launches
     # each kernel's launches on the path that runs it: B1 and B6 on the
     # bf16 path (phase 3), B10 and B11 on the streamed head (phase 3c),
     # B2, B3 and B4 on the int8 path (phase 3b, which also checked B1 per
@@ -5452,6 +5732,7 @@ def main() -> int:
                      "parallel_launches": launches_par.get(
                          k, [0] * PARALLEL_WORLD),
                      "tools_launches": launches_tools.get(k, 0),
+                     "int8_modes_launches": launches_im.get(k, 0),
                      **({"widths": widths[k]} if k in widths else {})})
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(card_line())

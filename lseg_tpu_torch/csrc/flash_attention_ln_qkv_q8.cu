@@ -26,6 +26,21 @@
 // running row maximum (rescaling when it grows), where the TPU kernel uses
 // the maximum of the whole row; and the exponent is ex2.approx of one FMA.
 //
+// qk_int8 (the TPU kernel's `qk_int8` branch of _pair_softmax_attention,
+// attn_variant 'i8qk'): in step 3 each head's bf16 q and k rows are
+// re-quantized per row, s = max(max|x|, 1e-8) / 127 (an IEEE division),
+// codes round-half-even(x / s) clipped to +-127; Q.K^T is an exact int32
+// sum of int8 products, and each score is float(acc) * ((sq * scale) *
+// sk_j), rounded in that order, before the key mask. The rest of step 3
+// and step 4 are unchanged, with the same two differences. Its third
+// launch is `flash_q8_i8qk_cluster_kernel`: the same cluster block, whose
+// warpgroups quantize the Q tile once and each K tile as it lands from
+// TMA, in place in shared memory (the 128-byte swizzle kept; a row's 64
+// codes in two 32-byte k-steps), and run Q.K^T as two s8 wgmma m64n64k32
+// (IGMMA) a key tile; P.V stays a bf16 wgmma. Its bound at the flagship:
+// the qkv product as above, Q.K^T's 13.3 G int8 operations (0.0067 ms at
+// 1979 TOP/s) and P.V's 13.3 GFLOP (0.0134 ms at 989 TFLOP/s).
+//
 // What bounds it on the card: at the flagship (8, 901, 1024) with 16
 // heads, the 8 * 901 * 1024 * 3072 = 22.7 G int8 MAC of the qkv product
 // (0.023 ms at 1979 TOP/s) and the 2 * 2 * 901^2 * 64 FLOP per head and
@@ -62,6 +77,37 @@ __global__ void __launch_bounds__(pa::THREADS, 2) flash_q8_cluster_kernel(
   pa::run<true>(map, oq, os, T, D, valid_len, scale);
 }
 
+// the int8 Q.K^T mode (qk_int8)
+__global__ void __launch_bounds__(pa::THREADS, 2)
+    flash_q8_i8qk_cluster_kernel(const __grid_constant__ CUtensorMap map,
+                                 int8_t* __restrict__ oq,
+                                 float* __restrict__ os, int T, int D,
+                                 int valid_len, float scale) {
+  pa::run<true, true>(map, oq, os, T, D, valid_len, scale);
+}
+
+// The cluster launch of the third step (QK8: the int8 Q.K^T mode) over
+// the bf16 qkv.
+template <bool QK8>
+int launch_attention(const void* qkv, void* oq, void* os, int n, int t,
+                     int dim, int valid_len, float scale, cudaStream_t st) {
+  const auto kernel =
+      QK8 ? flash_q8_i8qk_cluster_kernel : flash_q8_cluster_kernel;
+  const int pairs = dim / pa::PW;
+  static const int attr = lseg::wg::allow_smem(kernel, pa::SMEM);
+  if (attr != 0) return attr;
+  CUtensorMap map;
+  const int rc = lseg::wg::make_map(&map, qkv, 3 * dim, t, n);
+  if (rc != 0) return rc;
+  lseg::cluster::Launch l(dim3(pairs, (t + pa::BQ - 1) / pa::BQ, n),
+                          pa::THREADS, pa::SMEM, pairs, st);
+  const cudaError_t e =
+      cudaLaunchKernelEx(&l.cfg, kernel, map, static_cast<int8_t*>(oq),
+                         static_cast<float*>(os), t, dim, valid_len, scale);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Launch the three-step chain on `stream`; returns the first non-zero
@@ -69,12 +115,13 @@ __global__ void __launch_bounds__(pa::THREADS, 2) flash_q8_cluster_kernel(
 // returns it, with no other route. xq (N*T, D) int8, sx (N*T,) fp32 and
 // qkv (N*T, 3D) bf16 are scratch buffers allocated by the wrapper.
 // Requires dim % 128 == 0, 128 <= dim <= 1024, 1 <= valid_len <= t,
-// 16-byte aligned tensors (checked by the wrapper).
+// 16-byte aligned tensors (checked by the wrapper). qk_int8 != 0 takes
+// the int8 Q.K^T mode.
 extern "C" int lseg_flash_attention_ln_qkv_q8(
     const void* x, const void* ln_g, const void* ln_b, const void* wq,
     const void* sw, const void* bias, void* xq, void* sx, void* qkv,
-    void* oq, void* os, int n, int t, int dim, int valid_len, float scale,
-    float eps, void* stream) {
+    void* oq, void* os, int n, int t, int dim, int valid_len, int qk_int8,
+    float scale, float eps, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = n * t;
   const int pairs = dim / pa::PW;
@@ -87,17 +134,9 @@ extern "C" int lseg_flash_attention_ln_qkv_q8(
                             st);
   if (rc != 0) return rc;
 
-  static const int attr =
-      lseg::wg::allow_smem(flash_q8_cluster_kernel, pa::SMEM);
-  if (attr != 0) return attr;
-  CUtensorMap map;
-  rc = lseg::wg::make_map(&map, qkv, 3 * dim, t, n);
-  if (rc != 0) return rc;
-  lseg::cluster::Launch l(dim3(pairs, (t + pa::BQ - 1) / pa::BQ, n),
-                          pa::THREADS, pa::SMEM, pairs, st);
-  const cudaError_t e = cudaLaunchKernelEx(
-      &l.cfg, flash_q8_cluster_kernel, map, static_cast<int8_t*>(oq),
-      static_cast<float*>(os), t, dim, valid_len, scale);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  return qk_int8
+             ? launch_attention<true>(qkv, oq, os, n, t, dim, valid_len,
+                                      scale, st)
+             : launch_attention<false>(qkv, oq, os, n, t, dim, valid_len,
+                                       scale, st);
 }

@@ -2,7 +2,8 @@
 // (flash_attention_flat.cu), B8 (flash_attention_qkv_fused.cu) and B9
 // (flash_attention_ln_qkv_fused.cu), and, as the device routine `attend`
 // of one warpgroup, by the head-pair blocks of B2 and B15
-// (pair_attention.cuh).
+// (pair_attention.cuh). `attend<true>` is B2's int8 Q.K^T mode (the TPU
+// kernel's `qk_int8`), described below its bf16 form.
 //
 // Input: qkv (N, T, 3D) bf16; head h reads q, k and v at column offsets
 // h*64, D + h*64 and 2D + h*64 of each row. Output: flat (N, T, D) bf16,
@@ -50,6 +51,7 @@
 
 #include "lseg_common.cuh"
 #include "wgmma.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace lseg {
 namespace {
@@ -96,6 +98,58 @@ __device__ __forceinline__ void issue_first(Tiles& t, Bars& b,
   }
 }
 
+// B2's int8 Q.K^T mode: quantize one warpgroup's 64 x 64 bf16 tile (the
+// 128-byte swizzled layout TMA wrote) per row, in place, into the s8
+// K-major operand of an 8-bit wgmma, as the TPU kernel re-quantizes each
+// head's q and k rows: s = max(max|x|, 1e-8) / 127 (an IEEE division),
+// codes clip(rint(x / s), -127, 127) (by code_bits_fast, with the
+// division where the product lies near a half-integer, as B3). Thread
+// tid takes row tid / 2, values 32 h..32 h + 31 (h = tid % 2: the row's
+// logical 16-byte chunks 4h..4h+3), and writes its 32 codes over the
+// first two chunks it read, logical bytes 64 h..64 h + 31 of the row: no
+// thread writes a byte that another reads, and k-step kk of 32 codes
+// lies 64 kk bytes along each row (descriptor + 4 kk), in the same
+// swizzle. out[row] = s * mult (rounded once), from the h = 0 thread.
+__device__ __forceinline__ void quantize_rows_s8(void* tile, float* out,
+                                                 float mult, int tid) {
+  const int r = tid >> 1, h = tid & 1;
+  uint8_t* row = static_cast<uint8_t*>(tile) + r * 128;
+  uint4 v[4];
+  float amax = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[k] = *reinterpret_cast<const uint4*>(row + (((4 * h + k) ^ (r & 7))
+                                                  << 4));
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v[k]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(p[i]);
+      amax = fmaxf(amax, fmaxf(fabsf(f.x), fabsf(f.y)));
+    }
+  }
+  amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+  const float s = __fdiv_rn(fmaxf(amax, 1e-8f), 127.0f);
+  const float inv = __frcp_rn(s);
+  uint32_t c[8];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float f[8];
+    unpack8(v[k], f);
+    bool near = false;  // the product near a half-integer: divide
+    c[2 * k] = pack_codes_fast(f[0], f[1], f[2], f[3], inv, near);
+    c[2 * k + 1] = pack_codes_fast(f[4], f[5], f[6], f[7], inv, near);
+    if (__builtin_expect(near, 0)) {
+      c[2 * k] = pack_codes(f[0], f[1], f[2], f[3], s);
+      c[2 * k + 1] = pack_codes(f[4], f[5], f[6], f[7], s);
+    }
+  }
+  *reinterpret_cast<uint4*>(row + (((4 * h) ^ (r & 7)) << 4)) =
+      make_uint4(c[0], c[1], c[2], c[3]);
+  *reinterpret_cast<uint4*>(row + (((4 * h + 1) ^ (r & 7)) << 4)) =
+      make_uint4(c[4], c[5], c[6], c[7]);
+  if (h == 0) out[r] = __fmul_rn(s, mult);
+}
+
 // The interior, run by the 128 threads of one warpgroup (`tid` 0..127 in
 // it, named barrier `bar_id` of its own): the online softmax of the Q
 // tile's 64 rows against the n_kt key tiles, keys at or past valid_len
@@ -103,12 +157,26 @@ __device__ __forceinline__ void issue_first(Tiles& t, Bars& b,
 // and for each of the thread's two rows the maximum m2 of s * c and the
 // sum l of P (reduced over the 4 threads of the row). Thread 0 refills
 // each K/V stage two tiles ahead.
+//
+// QK8 (B2's int8 Q.K^T mode; `fac` 2 * BQ floats of shared memory, `c`
+// = log2(e)): the Q tile is quantized in place once (quantize_rows_s8,
+// fac[row] = sq * scale), each K tile in place as it lands (fac[BQ +
+// key] = sk), and S runs as two s8 wgmma m64n64k32 (IGMMA) with exact
+// int32 sums; each score is dequantized as float(acc) * ((sq * scale) *
+// sk), rounded in that order as the TPU kernel computes it, before the
+// key mask. Everything after the scores (mask, online softmax, bf16 P.V)
+// is the bf16 form's. The stage's K codes (generic-proxy writes) are
+// fenced for the async proxy before the products read them, and before
+// TMA refills the stage.
+template <bool QK8 = false>
 __device__ __forceinline__ void attend(Tiles& t, Bars& b,
                                        const CUtensorMap* map, int k_col,
                                        int v_col, int img, int n_kt,
                                        int valid_len, float c, int tid,
                                        int bar_id, float (&o)[8][4],
-                                       float (&m2)[2], float (&l)[2]) {
+                                       float (&m2)[2], float (&l)[2],
+                                       float* fac = nullptr,
+                                       float scale = 1.0f) {
   const int t4 = tid % 4;  // columns 2*t4, 2*t4 + 1 of each 8
   const float neg_inf = -__int_as_float(0x7f800000);
   float sc[8][4];
@@ -120,13 +188,47 @@ __device__ __forceinline__ void attend(Tiles& t, Bars& b,
   l[0] = l[1] = 0.0f;       // per-thread partial sums of P
   wg::bar_wait(&b.q, 0);
   const uint64_t dq = wg::desc(t.q);
+  float qa[2] = {0.0f, 0.0f};  // QK8: sq * scale of the thread's two rows
+  if constexpr (QK8) {
+    quantize_rows_s8(t.q, fac, scale, tid);
+    gemm::fence_proxy_async();
+    wg::named_sync(bar_id, THREADS);
+    const int r0 = tid / 32 * 16 + tid % 32 / 4;
+    qa[0] = fac[r0];
+    qa[1] = fac[r0 + 8];
+  }
 
   for (int j = 0; j < n_kt; ++j) {
     const int s = j % STAGES;
     wg::bar_wait(&b.full[s], (j / STAGES) & 1);
-    wg::product_abt(sc, dq, wg::desc(t.k[s]));
-    wg::wait<0>();
-    wg::fence_acc(sc);
+    if constexpr (QK8) {
+      quantize_rows_s8(t.k[s], fac + BQ, 1.0f, tid);
+      gemm::fence_proxy_async();
+      wg::named_sync(bar_id, THREADS);  // every code and key scale written
+      int acc[8][4];
+      gemm::zero(acc);
+      gemm::fence_acc(acc);
+      wg::fence();
+      const uint64_t dk = wg::desc(t.k[s]);
+      gemm::MmaS8<64>::ss(acc, dq, dk, 0);
+      gemm::MmaS8<64>::ss(acc, dq + 4, dk + 4, 1);
+      wg::commit();
+      wg::wait<0>();
+      gemm::fence_acc(acc);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float2 sk =
+            *reinterpret_cast<const float2*>(fac + BQ + nt * 8 + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[nt][e] = __fmul_rn(__int2float_rn(acc[nt][e]),
+                                __fmul_rn(qa[e / 2], (e & 1) ? sk.y : sk.x));
+      }
+    } else {
+      wg::product_abt(sc, dq, wg::desc(t.k[s]));
+      wg::wait<0>();
+      wg::fence_acc(sc);
+    }
 
     const int k0 = j * BKV;
     if (k0 + BKV > valid_len) {

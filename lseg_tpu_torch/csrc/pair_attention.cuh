@@ -28,7 +28,14 @@
 // Either way each block writes only its pair's 128 code columns, staged
 // in shared memory and stored 16 bytes a thread.
 //
-// Budgets: 94 KB of shared memory and at most 128 registers a thread, so
+// QK8 (B2's int8 Q.K^T mode, the TPU kernel's `qk_int8`): each warpgroup
+// runs `attend<true>` (flash_flat.cuh), which re-quantizes its head's Q
+// tile and each K tile per row in shared memory and takes Q.K^T as s8
+// wgmma with int32 sums, the scores dequantized as float(acc) * ((sq *
+// scale) * sk); P.V and the epilogue are unchanged. Its row factors and
+// key scales take 1 KB (`fac`).
+//
+// Budgets: 95 KB of shared memory and at most 128 registers a thread, so
 // two blocks (four warpgroups) share an SM.
 
 #pragma once
@@ -56,12 +63,14 @@ struct Smem {
   float hmax[2][BQ];            // each head's row maxima
   float amax[MAX_CLUSTER][BQ];  // row mode: each CTA's slice maxima
   uint8_t codes[BQ * LDC];      // the block's (64, 128) codes
+  float fac[2][2 * BQ];         // QK8: each head's sq * scale and sk
 };
 constexpr int SMEM = sizeof(Smem) + 1024;  // + alignment slack
 
 // The block's work; blockIdx = (pair, row tile, image). ROW selects B2's
-// row mode (launched as clusters along x), else B15's pair mode.
-template <bool ROW>
+// row mode (launched as clusters along x), else B15's pair mode; QK8
+// B2's int8 Q.K^T mode.
+template <bool ROW, bool QK8 = false>
 __device__ __forceinline__ void run(const CUtensorMap& map,
                                     int8_t* __restrict__ aq,
                                     float* __restrict__ scales, int T, int D,
@@ -88,8 +97,14 @@ __device__ __forceinline__ void run(const CUtensorMap& map,
     ff::issue_first(sm.t[hh], sm.b[hh], &map, head * HD, k_col, v_col, q0,
                     img, n_kt);
   float o[8][4], m2[2], l[2];
-  ff::attend(sm.t[hh], sm.b[hh], &map, k_col, v_col, img, n_kt, valid_len,
-             scale * 1.4426950408889634f, tid, 1 + hh, o, m2, l);
+  if constexpr (QK8)
+    ff::attend<true>(sm.t[hh], sm.b[hh], &map, k_col, v_col, img, n_kt,
+                     valid_len, 1.4426950408889634f, tid, 1 + hh, o, m2, l,
+                     sm.fac[hh], scale);
+  else
+    ff::attend(sm.t[hh], sm.b[hh], &map, k_col, v_col, img, n_kt,
+               valid_len, scale * 1.4426950408889634f, tid, 1 + hh, o, m2,
+               l);
 
   // O = o / l in fp32 (bf16 in row mode), and each row's amax over the
   // head's 64 columns

@@ -43,6 +43,12 @@ Variants:
   own hidden slice only (no cluster exchange), a mutation;
 - `b2_slice_amax`: B2 with each CTA's row scale taken over its own head
   pair's 128 columns only (no cluster exchange), a mutation;
+- `b2_i8qk_key_scale_dropped`: B2's int8 Q.K^T mode dequantizing its
+  scores without the key rows' scales, a mutation;
+- `b2_i8qk_one_kstep`: B2's int8 Q.K^T mode summing the first 32 of the
+  64 codes of each q and k row only (one s8 k-step), a mutation;
+- `b2_i8qk_not_dispatched`: B2's entry point launching the default
+  (bf16 Q.K^T) kernel whatever its `qk_int8` argument, a mutation;
 - `b15_pair0_scale`: B15's projection flushing every pair's int32 sum
   with pair 0's row scale, a mutation;
 - `b18_skip_peer`: B18's q2 exchange skipping one peer's slice (CTA r
@@ -292,8 +298,10 @@ VARIANTS = {
          "      for (int b = 0; b < 0; ++b)\n"),
     ]),
     "pair_no_epilogue": ("pair_attention.cuh", [
-        ("             scale * 1.4426950408889634f, tid, 1 + hh, o, m2, l);\n",
-         "             scale * 1.4426950408889634f, tid, 1 + hh, o, m2, l);\n"
+        ("               valid_len, scale * 1.4426950408889634f, tid, 1 + hh, "
+         "o, m2,\n               l);\n",
+         "               valid_len, scale * 1.4426950408889634f, tid, 1 + hh, "
+         "o, m2,\n               l);\n"
          "  if constexpr (!ROW) return;\n"),
     ]),
     "pair_rcp": ("pair_attention.cuh", [
@@ -742,6 +750,15 @@ VARIANTS = {
         ("      for (int p = 0; p < pairs; ++p)\n"
          "        mx[r] = fmaxf(mx[r], sm.amax[p][row[r]]);\n",
          "      mx[r] = sm.amax[rank][row[r]];\n"),
+    ]),
+    "b2_i8qk_key_scale_dropped": ("flash_flat.cuh", [
+        ("__fmul_rn(qa[e / 2], (e & 1) ? sk.y : sk.x)", "qa[e / 2]"),
+    ]),
+    "b2_i8qk_one_kstep": ("flash_flat.cuh", [
+        ("      gemm::MmaS8<64>::ss(acc, dq + 4, dk + 4, 1);\n", ""),
+    ]),
+    "b2_i8qk_not_dispatched": ("flash_attention_ln_qkv_q8.cu", [
+        ("  return qk_int8\n", "  return false\n"),
     ]),
     "b15_pair0_scale": ("flash_attention_qkvp_fused.cu", [
         ("? sa[static_cast<long long>(r0 + 8 * h) * pairs + p]",

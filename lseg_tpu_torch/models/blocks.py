@@ -52,7 +52,11 @@ from lseg_tpu_torch.ops.qconv import (
     rcu_fusable,
     rcu_weight,
 )
-from lseg_tpu_torch.ops.quant import StaticQuantConv, StaticQuantDense
+from lseg_tpu_torch.ops.quant import (
+    StaticQuantConv,
+    StaticQuantDense,
+    div127,
+)
 from lseg_tpu_torch.ops.resize import upsample2x
 
 QUANT_MODES = ("static", "static_cal")
@@ -229,7 +233,7 @@ class ResidualConvUnit(nn.Module):
             for cv, bn in zip(convs, bns):
                 stats = ((bn.weight, bn.bias, bn.running_mean,
                           bn.running_var) if bn is not None else (None,) * 4)
-                d, e = fold_bn_affine(cv.act_scale / 127.0, cv.scale, *stats,
+                d, e = fold_bn_affine(div127(cv.act_scale), cv.scale, *stats,
                                       conv_bias=cv.bias)
                 ops += [rcu_weight(cv.weight_q), d.contiguous(),
                         e.contiguous(), 127.0 / cv.act_scale]
@@ -295,8 +299,8 @@ class FeatureFusionBlock(nn.Module):
         op = (fused_upsample_outconv_plain if self.plain
               else fused_upsample_outconv)
         wq = oc.weight_q.reshape(oc.weight_q.shape[0], -1)   # (Co, C) view
-        return op(x.contiguous(), wq, oc.scale, oc.bias, oc.act_scale / 127.0,
-                  out_scale)
+        return op(x.contiguous(), wq, oc.scale, oc.bias,
+                  div127(oc.act_scale), out_scale)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor = None,
                 skip_out_upsample: bool = False,

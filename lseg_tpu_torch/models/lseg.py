@@ -77,7 +77,7 @@ from lseg_tpu_torch.ops.head1_correlate import (
     head1_correlate_wup_fused,
     head1_correlate_wup_fused_plain,
 )
-from lseg_tpu_torch.ops.quant import quantize_tensor
+from lseg_tpu_torch.ops.quant import div127, quantize_tensor
 from lseg_tpu_torch.ops.resize import resize_bilinear, upsample2x
 
 
@@ -88,24 +88,6 @@ def head_dtype(cfg: LSegConfig) -> torch.dtype:
 def _nearest2x(pred: torch.Tensor) -> torch.Tensor:
     """x2 nearest upsample of an (N, H, W) label map."""
     return pred.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-
-
-def _check_supported(cfg: LSegConfig) -> None:
-    """Raise for the options whose reference path runs a kernel (or a
-    module) the port does not have yet."""
-    if not cfg.is_vit:
-        return
-    vit = cfg.vit
-    unported = {
-        "vit.quant_int8 dynamic": vit.quant_int8 in (True, "dynamic"),
-        # int8 q.k^T inside the int8 attention (the reference measured it
-        # worse: config.py's note on attn_variant)
-        "vit.attn_variant i8qk": vit.attn_variant == "i8qk",
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(
-            f"config options not ported yet: {', '.join(bad)}")
 
 
 class LSegNet(nn.Module):
@@ -135,7 +117,6 @@ class LSegNet(nn.Module):
                  param_dtype: torch.dtype = None,
                  emulate_fp16: bool = False):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         self.dtype = dtype
         self.plain = plain
@@ -179,10 +160,10 @@ class LSegNet(nn.Module):
         B5 to quantize in the kernel (the same codes)."""
         h1 = self.head1
         if path1.dtype == torch.int8:
-            return path1, h1.act_scale / 127.0
+            return path1, div127(h1.act_scale)
         if not h1.static_act:
             return quantize_tensor(path1)
-        sx = h1.act_scale / 127.0
+        sx = div127(h1.act_scale)
         if keep_bf16 and path1.dtype == torch.bfloat16:
             return path1, sx
         return torch.clamp(torch.round(path1.float() / sx), -127, 127
@@ -238,7 +219,7 @@ class LSegNet(nn.Module):
                            and cfg.decoder_conv_first and return_argmax)
         # head1's grid for refinenet1's fused tail to emit int8 on
         # (reference `lseg.py:168-176`)
-        head_scale = (self.head1.act_scale / 127.0
+        head_scale = (div127(self.head1.act_scale)
                       if use_head_fused and cfg.decoder_quant == "static_cal"
                       else None)
         path1 = self.refinenet1(path, rn[0],

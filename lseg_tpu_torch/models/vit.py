@@ -13,7 +13,10 @@ Attention `impl`:
   64, even heads): LayerNorm 1, the int8 qkv projection, attention and the
   per-row int8 quantize of its output run in kernel B2
   (`ops.flash_attention.flash_attention_ln_qkv_fused_q8`), whose codes
-  feed the int8 output projection directly;
+  feed the int8 output projection directly; `attn_variant='i8qk'` takes
+  B2's int8 Q.K^T mode (`qk_int8=True`). The reference's other variants
+  (lean, lx2, st, leanst, quad, octo, mono) reorder or refold the same
+  arithmetic on the TPU, and the port runs them all as B2's default mode;
 - 'flashq' with `quant_int8='static'` (bench.py's `fast_flashq` rung): the
   LayerNorm-1 output is row-quantized (`ops.quant.quantize_rows`), and the
   int8 qkv projection of those codes and attention run in kernel B8
@@ -34,7 +37,10 @@ Attention `impl`:
 - anything else: einsum attention with fp32 softmax (the reference's
   'xla' path), scores in `scores_dtype`.
 
-With `quant_int8='static'` the projections are `StaticQuantDense`. With
+With `quant_int8='static'` the projections are `StaticQuantDense`; with
+`True` / 'dynamic' they are `QuantDense` (fp32 weights quantized at every
+call), except attention's under 'flash', whose reference branch builds
+float heads-major projections and never quantizes. With
 `mlp_fused` and tanh GELU the LayerNorm-2 output is row-quantized and the
 whole MLP with its residual runs in kernel B16 (`ops.mlp.mlp_fused`);
 otherwise, with `ln_quant_fused`, the MLP takes LayerNorm 2 + the row
@@ -85,7 +91,9 @@ from lseg_tpu_torch.ops.mlp import mlp_fused, mlp_fused_plain
 from lseg_tpu_torch.ops.patch_embed import patch_embed, patch_embed_plain
 from lseg_tpu_torch.ops.quant import (
     EPS,
+    QuantDense,
     StaticQuantDense,
+    div127,
     int8_matmul_preact,
     int8_matmul_prequant,
     int8_matmul_prequant_act,
@@ -104,10 +112,13 @@ def _dtype(name: str) -> torch.dtype:
 
 def dense(in_features: int, out_features: int, dtype, quant,
           device=None) -> nn.Module:
-    """`Dense`, or `StaticQuantDense` for `quant='static'`."""
+    """`Dense`, `StaticQuantDense` for `quant='static'`, or `QuantDense`
+    for `True` / 'dynamic' (the reference's `_dense`)."""
     if quant == "static":
         return StaticQuantDense(in_features, out_features, dtype,
                                 device=device)
+    if quant in (True, "dynamic"):
+        return QuantDense(in_features, out_features, dtype, device=device)
     return Dense(in_features, out_features, dtype, device)
 
 
@@ -116,9 +127,12 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32,
                  impl: str = "xla", scores_dtype=torch.float32,
-                 quant=False, plain: bool = False, device=None):
+                 quant=False, plain: bool = False, device=None,
+                 variant: str = "v1"):
         super().__init__()
         self.num_heads = num_heads
+        # B2's int8 Q.K^T mode (the reference passes qk_int8 on flashlnq)
+        self.qk_int8 = variant == "i8qk"
         self.dtype = dtype
         self.scores_dtype = scores_dtype
         self.plain = plain
@@ -133,6 +147,8 @@ class Attention(nn.Module):
         self.flat = (impl in ("flashflat", "flashq", "flashqp", "flashlnq")
                      and flat_ok and not self.qkv_fused
                      and not self.qkvp_fused)
+        if impl == "flash" and quant in (True, "dynamic"):
+            quant = False  # the reference's 'flash' never quantizes
         self.qkv = dense(dim, 3 * dim, dtype, quant, device)
         self.proj = dense(dim, dim, dtype, quant, device)
 
@@ -161,7 +177,7 @@ class Attention(nn.Module):
         oq, os_ = op(x.to(torch.bfloat16).contiguous(), norm.weight,
                      norm.bias, qkv.weight_q, qkv.scale, qkv.bias,
                      self.num_heads, (d // self.num_heads) ** -0.5,
-                     eps=norm.eps)
+                     eps=norm.eps, qk_int8=self.qk_int8)
         p = self.proj
         return int8_matmul_prequant_act(oq, os_, p.weight_q, p.scale, p.bias,
                                         self.dtype)
@@ -222,7 +238,7 @@ class Block(nn.Module):
         self.norm1 = LayerNorm(d, 1e-6, dtype, device)
         self.attn = Attention(d, cfg.num_heads, dtype, cfg.attn_impl,
                               _dtype(cfg.attn_scores_dtype), quant, plain,
-                              device)
+                              device, cfg.attn_variant)
         self.norm2 = LayerNorm(d, 1e-6, dtype, device)
         self.mlp = Mlp(d, int(d * cfg.mlp_ratio), dtype, cfg.mlp_gelu,
                        quant, device)
@@ -280,7 +296,7 @@ class Block(nn.Module):
                     "calibrated (the calibration input's token count "
                     "skipped the LN2 + quantize branch that reads it)")
             # calibrated per-tensor scale of the GELU output
-            sh = torch.clamp(self.act_scale, min=EPS) / 127.0
+            sh = div127(torch.clamp(self.act_scale, min=EPS))
             hq = torch.clamp(torch.round(h.float() / sh), -127, 127).to(
                 torch.int8)
             y = int8_matmul_preact(hq, sh.reshape(1, 1), fc2.weight_q,

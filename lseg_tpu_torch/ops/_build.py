@@ -60,9 +60,9 @@ SIGNATURES = {
     # x, ln_g, ln_b, q, s, rows, dim, eps, stream
     "lseg_ln_quantize_rows": (_P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P),
     # x, ln_g, ln_b, wq, sw, bias, xq, sx, qkv (scratch), oq, os,
-    # n, t, dim, valid_len, scale, eps, stream
+    # n, t, dim, valid_len, qk_int8, scale, eps, stream
     "lseg_flash_attention_ln_qkv_q8": (_P,) * 11 + (
-        _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _P),
+        _I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _P),
     # xq, w, sc, b1, tn, out, m, c, e, k, normalize, ctas, stream
     "lseg_head1_correlate": (_P,) * 6 + (_I,) * 6 + (_P,),
     # B4's C > 256 route and mma.sync yardstick (head1_correlate_wide.cu):

@@ -23,7 +23,11 @@ GEMM of `csrc/qkv_wgmma.cuh`, and the head-pair attention of
 `csrc/pair_attention.cuh` launched as thread-block clusters that share
 each row's amax); its header says which tensors now pass through device
 memory that the TPU kept on chip. The kernel takes the widths of
-`B2_KERNEL_WIDTHS`.
+`B2_KERNEL_WIDTHS`. `qk_int8=True` is the TPU kernel's int8 Q.K^T mode
+(`attn_variant='i8qk'`): each head's bf16 q and k rows re-quantized per
+row to int8, an exact int32 Q.K^T, the scores float(acc) * ((sq * scale) *
+sk_j); on the card the third launch then quantizes the tiles in shared
+memory and runs Q.K^T as s8 warpgroup products.
 
 B8 replaces `pallas_attention.py` · `flash_attention_qkv_fused`: the int8
 qkv projection of rows quantized beforehand (`quantize_rows` of the
@@ -108,13 +112,17 @@ def _check(qkv: torch.Tensor, num_heads: int, valid_len):
 
 
 def _flat_attention_f32(qkv: torch.Tensor, num_heads: int, scale: float,
-                        valid_len: int):
+                        valid_len: int, qk_int8: bool = False):
     """(N, T, 3D) -> ((N, T, D) fp32 per-head attention, o / l left in
-    fp32; (N, H, T) fp32 lse = m + log(l))."""
+    fp32; (N, H, T) fp32 lse = m + log(l)). `qk_int8`: the scores of
+    B2's int8 Q.K^T mode (`_int8_scores`)."""
     n, t, d, vl = _check(qkv, num_heads, valid_len)
     r = qkv.reshape(n, t, 3, num_heads, HEAD_DIM)
     q, k, v = r[:, :, 0].float(), r[:, :, 1].float(), r[:, :, 2]
-    s = torch.einsum("nqhd,nkhd->nhqk", q, k) * scale
+    if qk_int8:
+        s = _int8_scores(q, k, scale)
+    else:
+        s = torch.einsum("nqhd,nkhd->nhqk", q, k) * scale
     if vl != t:
         s[..., vl:] = float("-inf")
     m = s.amax(dim=-1, keepdim=True)
@@ -124,6 +132,21 @@ def _flat_attention_f32(qkv: torch.Tensor, num_heads: int, scale: float,
     o = o / l
     lse = (m + torch.log(l)).squeeze(-1)
     return o.permute(0, 2, 1, 3).reshape(n, t, d), lse
+
+
+def _int8_scores(q: torch.Tensor, k: torch.Tensor,
+                 scale: float) -> torch.Tensor:
+    """The scores of the TPU kernel's `qk_int8` branch: q and k (N, T, H,
+    64) fp32 (bf16 values) re-quantized per head and row (`quantize_rows`:
+    s = max(max|x|, 1e-8) / 127, codes round-half-even(x / s)), the exact
+    int32 Q.K^T (taken in float64, which holds every sum of 64 products of
+    codes exactly), then float(acc) * ((sq * scale) * sk_j) in fp32, in
+    that order: (N, H, T, T)."""
+    qi, sq = quantize_rows(q)
+    ki, sk = quantize_rows(k)
+    acc = torch.einsum("nqhd,nkhd->nhqk", qi.double(), ki.double()).float()
+    fac = (sq.permute(0, 2, 1, 3) * scale) * sk.permute(0, 2, 3, 1)
+    return acc * fac
 
 
 def flash_attention_flat_plain(qkv: torch.Tensor, num_heads: int,
@@ -368,11 +391,12 @@ qkv_int8_gemm.launches = 0
 
 
 def _qkv_attention_plain(xq, sx, wq, sw, bias, num_heads, scale,
-                         valid_len):
-    """`_qkv_plain`, then the attention of `flash_attention_flat_plain`:
-    (N, T, D) bf16."""
-    return flash_attention_flat_plain(_qkv_plain(xq, sx, wq, sw, bias),
-                                      num_heads, scale, valid_len)
+                         valid_len, qk_int8=False):
+    """`_qkv_plain`, then the attention of `flash_attention_flat_plain`
+    (with `qk_int8`, on the scores of `_int8_scores`): (N, T, D) bf16."""
+    qkv = _qkv_plain(xq, sx, wq, sw, bias)
+    o, _ = _flat_attention_f32(qkv, num_heads, scale, valid_len, qk_int8)
+    return o.to(qkv.dtype)
 
 
 # B2's widths on the card: its row scale is shared by a thread-block
@@ -392,34 +416,36 @@ def flash_attention_ln_qkv_fused_q8_plain(
         x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
         wq: torch.Tensor, sw: torch.Tensor, bias: torch.Tensor,
         num_heads: int, scale: float, valid_len: int = None,
-        eps: float = 1e-6):
+        eps: float = 1e-6, qk_int8: bool = False):
     """(N, T, D) raw residual stream -> (int8 (N, T, D), fp32 (N, T, 1)):
     fp32 LN + row quantize, the qkv product and attention of
     `flash_attention_qkv_fused_plain`, and `quantize_rows` of its bf16
     output. `wq` is the (3D, D) int8 weight, `sw` and `bias` its (3D,)
-    fp32 scales and bias."""
+    fp32 scales and bias. `qk_int8`: the int8 Q.K^T mode
+    (`_int8_scores`)."""
     _check_q8(x, wq, sw, bias, num_heads, valid_len)
     xq, sx = ln_quantize_rows_plain(x, ln_scale, ln_bias, eps)
     return quantize_rows(_qkv_attention_plain(xq, sx, wq, sw, bias,
-                                              num_heads, scale, valid_len))
+                                              num_heads, scale, valid_len,
+                                              qk_int8))
 
 
 def flash_attention_ln_qkv_fused_q8(
         x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
         wq: torch.Tensor, sw: torch.Tensor, bias: torch.Tensor,
         num_heads: int, scale: float, valid_len: int = None,
-        eps: float = 1e-6):
+        eps: float = 1e-6, qk_int8: bool = False):
     """Kernel wrapper: (N, T, D) bf16, fp32 LN params (D,), int8 (3D, D)
     weight, fp32 (3D,) scales and bias -> (int8 (N, T, D), fp32
     (N, T, 1)). head_dim 64; on the card D must be a kernel width
-    (`check_b2_widths`); any T."""
+    (`check_b2_widths`); any T. `qk_int8` takes the int8 Q.K^T mode."""
     check_no_grad("flash_attention_ln_qkv_fused_q8", x, ln_scale, ln_bias,
                   bias)
     n, t, d, vl = _check_q8(x, wq, sw, bias, num_heads, valid_len)
     if x.device.type == "cpu":
         return flash_attention_ln_qkv_fused_q8_plain(
             x, ln_scale, ln_bias, wq, sw, bias, num_heads, scale, valid_len,
-            eps)
+            eps, qk_int8)
     if x.device.type != "cuda":
         raise ValueError(f"flash_attention_ln_qkv_fused_q8: unsupported "
                          f"device {x.device}")
@@ -441,13 +467,18 @@ def flash_attention_ln_qkv_fused_q8(
             x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
             wq.data_ptr(), sw.data_ptr(), bias.data_ptr(), xq.data_ptr(),
             sx.data_ptr(), qkv.data_ptr(), oq.data_ptr(), os_.data_ptr(),
-            n, t, d, vl, float(scale), float(eps), stream)
+            n, t, d, vl, int(bool(qk_int8)), float(scale), float(eps),
+            stream)
     check_launch(lib, "lseg_flash_attention_ln_qkv_q8", rc)
     flash_attention_ln_qkv_fused_q8.launches += 1
+    if qk_int8:
+        flash_attention_ln_qkv_fused_q8.i8qk_launches += 1
     return oq, os_
 
 
 flash_attention_ln_qkv_fused_q8.launches = 0
+# the launches of them in the int8 Q.K^T mode
+flash_attention_ln_qkv_fused_q8.i8qk_launches = 0
 
 
 def _check_qkv_fused(xq, sx, wq, sw, bias, num_heads, valid_len):

@@ -2,14 +2,17 @@
 `lseg_tpu/ops/quant.py`).
 
 Symmetric int8 everywhere: per-output-channel weight scales fixed at load
-time by `quantize_tree`, per-row (dense) or per-tensor (conv) activation
-scales computed per call, or calibrated once (`calibrate_act_scales`) for
-the `static_cal` sites. Products accumulate exactly in int32
+time by `quantize_tree` (or, for `QuantDense`, the dynamic mode of
+`quant_int8=True` / 'dynamic', taken from the fp32 weight at every call by
+`quantize_cols`), per-row (dense) or per-tensor (conv) activation scales
+computed per call, or calibrated once (`calibrate_act_scales`) for the
+`static_cal` sites. Products accumulate exactly in int32
 (`torch._int_mm`, on the card and on the CPU), so every rounding point is
 the reference's:
 
-- `quantize_rows` / `quantize_tensor`: scale = max(max|x|, 1e-8) / 127,
-  codes round-half-even(x / scale) clipped to +-127;
+- `quantize_rows` / `quantize_tensor`: scale = max(max|x|, 1e-8) / 127
+  (`div127`, an IEEE division on every device), codes
+  round-half-even(x / scale) clipped to +-127;
 - dense: fp32 (acc * sx) * sw, cast to the out dtype, bias added AFTER the
   cast in the out dtype (`int8_matmul_prequant_act`);
 - conv: fp32 acc * (sx * sw), the scale product taken first
@@ -29,7 +32,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lseg_tpu_torch.models.layers import lecun_normal_
+from lseg_tpu_torch.ops._build import check_no_grad
+
 EPS = 1e-8
+
+
+def div127(x: torch.Tensor) -> torch.Tensor:
+    """x / 127 as an IEEE division on every device: on the card PyTorch
+    takes a division by a Python scalar as a product with its reciprocal,
+    an ulp off the quotient at times, which moves a code at a bin edge;
+    the reference and the kernels divide."""
+    return x / torch.full_like(x, 127.0)
 
 
 def _codes(xf: torch.Tensor, scale) -> torch.Tensor:
@@ -39,14 +53,23 @@ def _codes(xf: torch.Tensor, scale) -> torch.Tensor:
 def quantize_rows(x: torch.Tensor, eps: float = EPS):
     """(..., K) -> int8 codes with per-row fp32 scales (..., 1)."""
     xf = x.float()
-    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=eps) / 127.0
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = div127(torch.clamp(amax, min=eps))
     return _codes(xf, scale), scale
+
+
+def quantize_cols(w: torch.Tensor, eps: float = EPS):
+    """(out, in) weight -> int8 codes with per-output-channel fp32 scales
+    (out,): the reference's `quantize_cols` of its (in, out) kernel, on the
+    port's (out, in) storage (each output channel is a row here)."""
+    codes, scale = quantize_rows(w, eps)
+    return codes, scale.reshape(-1)
 
 
 def quantize_tensor(x: torch.Tensor, eps: float = EPS):
     """(...) -> int8 codes with one fp32 scale (a 0-d tensor)."""
     xf = x.float()
-    scale = torch.clamp(xf.abs().amax(), min=eps) / 127.0
+    scale = div127(torch.clamp(xf.abs().amax(), min=eps))
     return _codes(xf, scale), scale
 
 
@@ -98,6 +121,15 @@ def int8_matmul_prequant(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     return int8_matmul_preact(xq, sx, wq, sw, out_dtype)
 
 
+def int8_matmul(x: torch.Tensor, w: torch.Tensor,
+                out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """x @ w^T with both operands quantized at the call: the (out, in)
+    weight per output channel (`quantize_cols`), x per row; exact int32
+    sums (the reference's `int8_matmul`)."""
+    wq, sw = quantize_cols(w)
+    return int8_matmul_prequant(x, wq, sw, out_dtype)
+
+
 def _im2col(x: torch.Tensor, k: int, stride: int, padding: int
            ) -> torch.Tensor:
     """NHWC (N, H, W, C) -> (N, Ho, Wo, k*k*C), features ordered
@@ -138,6 +170,34 @@ def int8_conv_prequant(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
 def _param(shape, dtype, device):
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
+
+
+class QuantDense(nn.Module):
+    """Dense with the dynamic int8 product (`quant_int8=True` /
+    'dynamic'): fp32 `weight` (out, in) and `bias` under `Dense`'s names,
+    so checkpoints and the reference's trees load unchanged; the weight is
+    quantized per output channel at every call (`int8_matmul`), the bias
+    added in the out dtype after the cast. The weight stays fp32 whatever
+    the compute dtype, as the reference quantizes its fp32 param: codes of
+    a bf16-rounded weight would differ. Serving only (no gradient through
+    the rounding): under grad a tensor that requires it raises."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = _param((out_features, in_features), torch.float32,
+                             device)
+        self.bias = _param((out_features,), torch.float32, device)
+
+    def reset_parameters(self, generator=None):
+        lecun_normal_(self.weight, self.weight.shape[1], generator)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        check_no_grad("QuantDense", x, self.weight, self.bias)
+        y = int8_matmul(x, self.weight, self.dtype)
+        return y + self.bias.to(self.dtype)
 
 
 class StaticQuantDense(nn.Module):
@@ -206,9 +266,9 @@ class StaticQuantConv(nn.Module):
             if self.calibrating:
                 amax = x.float().abs().amax()
                 record_amax(self, amax)
-                sx = torch.clamp(amax, min=EPS) / 127.0
+                sx = div127(torch.clamp(amax, min=EPS))
             else:
-                sx = self.act_scale / 127.0
+                sx = div127(self.act_scale)
         y = int8_conv_prequant(x, self.weight_q, self.scale, self.stride,
                                self.padding, self.dtype, sx)
         return y if self.bias is None else y + self.bias.to(self.dtype)
@@ -245,7 +305,7 @@ def _quantize_weight(w: torch.Tensor):
     output channel: scale = max(max|w|, 1e-8) / 127 over the other axes."""
     wf = w.float()
     amax = wf.abs().amax(dim=tuple(range(1, wf.dim())))
-    scale = torch.clamp(amax, min=EPS) / 127.0
+    scale = div127(torch.clamp(amax, min=EPS))
     return _codes(wf, scale.reshape(-1, *([1] * (wf.dim() - 1)))), scale
 
 

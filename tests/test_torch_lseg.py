@@ -112,28 +112,6 @@ def test_lseg_return_argmax_matches_jitted_batch1(setup):
     assert agree >= 0.99, agree
 
 
-def _option_cases():
-    """config option -> a tiny config whose reference path runs a kernel
-    (or a module) the port does not have yet."""
-    import dataclasses
-
-    base = tiny_parity_config()
-    return {
-        "vit.quant_int8 dynamic": dataclasses.replace(
-            base, vit=dataclasses.replace(base.vit, quant_int8="dynamic")),
-        "attn_variant i8qk": dataclasses.replace(
-            base, vit=dataclasses.replace(base.vit, attn_variant="i8qk")),
-    }
-
-
-@pytest.mark.parametrize("option", list(_option_cases()))
-def test_lseg_rejects_unported_options(option):
-    import re
-
-    with pytest.raises(NotImplementedError, match=re.escape(option)):
-        LSegNet(_option_cases()[option])
-
-
 @pytest.mark.parametrize("quant", ["static", "static_cal"])
 def test_lseg_builds_int8_configs(quant):
     from lseg_tpu.config import fast_serving
