@@ -328,6 +328,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -682,7 +683,6 @@ def sass_check():
     """Fail unless every compiled copy of each kernel of SASS_REQUIRED
     holds each of its opcodes, read from the built library by
     `cuobjdump --dump-sass`."""
-    import re
     from pathlib import Path
 
     from lseg_tpu_torch.ops._build import (
@@ -1860,6 +1860,7 @@ def _rcu_operands(dev, g, c):
     the dequant scales, whose positive shift makes conv1 of the zero-padded
     border non-zero, so conv2's edge padding counts."""
     from lseg_tpu_torch.ops.qconv import fold_bn_affine
+    from lseg_tpu_torch.ops.quant import div127, inv127
 
     ops = []
     for a in (4.0, 16.0):
@@ -1871,8 +1872,8 @@ def _rcu_operands(dev, g, c):
               0.1 * torch.randn(c, device=dev, generator=g),
               torch.rand(c, device=dev, generator=g) + 0.5)
         act = torch.tensor(a, device=dev)
-        d, e = fold_bn_affine(act / 127.0, sw, *bn)
-        ops += [wq, d, e, 127.0 / act]
+        d, e = fold_bn_affine(div127(act), sw, *bn)
+        ops += [wq, d, e, inv127(act)]
     return ops
 
 
@@ -4346,12 +4347,14 @@ def phase_fewshot(dev, root):
     return total
 
 
-def _state_hash(model) -> torch.Tensor:
-    """One int64 a state tensor: the sum of its 32-bit patterns, equal on
-    two ranks whose states are equal bit for bit."""
+def _state_hash(model, skip=()) -> torch.Tensor:
+    """One int64 a state tensor (but those named in `skip`): the sum of its
+    32-bit patterns, equal on two ranks whose states are equal bit for
+    bit."""
     return torch.stack([t.detach().float().contiguous().view(torch.int32)
                         .to(torch.int64).sum()
-                        for t in model.state_dict().values()]).cpu()
+                        for n, t in model.state_dict().items()
+                        if n not in skip]).cpu()
 
 
 def _rel(a: dict, b: dict, base: dict, keys) -> float:
@@ -4699,18 +4702,20 @@ def parallel_rank(rank: str, world: str, store: str, out_dir: str) -> int:
     return 0
 
 
-def _run_ranks(tmp):
-    """Start PARALLEL_WORLD ranks of `parallel_rank`, wait for all of them
-    (failing on the first non-zero exit or at the timeout, killing the
-    rest), print their output; returns their results."""
+def _run_ranks(tmp, flag="--parallel-rank", world=PARALLEL_WORLD,
+               what="phase 10"):
+    """Start `world` ranks of this script with `flag` (`parallel_rank` or
+    `tensor_parallel_rank`), wait for all of them (failing on the first
+    non-zero exit or at the timeout, killing the rest), print their
+    output; returns their results."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [ROOT] + [p for p in [env.get("PYTHONPATH")] if p])
     logs = [open(os.path.join(tmp, f"rank{r}.log"), "w")
-            for r in range(PARALLEL_WORLD)]
+            for r in range(world)]
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--parallel-rank",
-         str(r), str(PARALLEL_WORLD), os.path.join(tmp, "store"), tmp],
+        [sys.executable, os.path.abspath(__file__), flag, str(r),
+         str(world), os.path.join(tmp, "store"), tmp],
         stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
         for r, log in enumerate(logs)]
     deadline = time.monotonic() + PARALLEL_RANK_TIMEOUT
@@ -4730,15 +4735,15 @@ def _run_ranks(tmp):
             p.wait()
         for log in logs:
             log.close()
-    for r in range(PARALLEL_WORLD):
+    for r in range(world):
         with open(os.path.join(tmp, f"rank{r}.log")) as f:
             for line in f.read().splitlines():
                 print(f"  [rank {r}] {line.strip()}")
     codes = [p.returncode for p in procs]
     if problem or any(codes):
-        fail(f"phase 10: {problem or 'a rank failed'} (exit codes {codes})")
+        fail(f"{what}: {problem or 'a rank failed'} (exit codes {codes})")
     results = []
-    for r in range(PARALLEL_WORLD):
+    for r in range(world):
         with open(os.path.join(tmp, f"rank{r}.json")) as f:
             results.append(json.load(f))
     return results
@@ -5537,6 +5542,439 @@ def phase_int8_modes(dev, cache, requests):
     return total, i8qk
 
 
+# Phase 13: tensor parallelism (A10b), two gloo ranks sharing the card as
+# a 1 x 2 ("data", "model") mesh at the flagship's full width
+TP_WORLD = 2
+TP_KERNELS = {"patch_embed", "flash_attention_flat",
+              "flash_attention_flat_bwd"}
+# T3: the fp32 text features of the cut tower against one process's, a
+# relative norm: the two differ only in the order the partial products
+# of each row-parallel layer are summed (TF32 off on both)
+TEXT_TP_REL = 1e-5
+
+
+def _t0_attention(r, dev):
+    """T0: B6 and B7 at a rank's cut of T1's attention, (8, 901, 1536)
+    bf16 qkv at 8 heads (T1 runs them there, outside phase 2's grid),
+    through the wrappers T1 calls, each against its plain version within
+    phase 2's limits: the forward and its lse, and the gradient through
+    `flash_attention_flat_fn` against the plain autograd path's."""
+    from lseg_tpu_torch.ops.flash_attention import (
+        flash_attention_flat,
+        flash_attention_flat_fn,
+        flash_attention_flat_plain,
+    )
+
+    heads = 16 // TP_WORLD
+    d, t, scale = 64 * heads, 901, 64 ** -0.5
+    g = torch.Generator(device=dev).manual_seed(SEED + 20 + r)
+    qkv = torch.randn(PARALLEL_BATCH, t, 3 * d, device=dev, generator=g
+                      ).to(torch.bfloat16)
+    do = torch.randn(PARALLEL_BATCH, t, d, device=dev, generator=g
+                     ).to(torch.bfloat16)
+    tag = f"T0 rank {r}: flash_attention_flat ({PARALLEL_BATCH},{t},{3 * d})"
+    out, lse = flash_attention_flat(qkv, heads, scale, return_lse=True)
+    ref, ref_lse = flash_attention_flat_plain(qkv, heads, scale,
+                                              return_lse=True)
+    check_close(f"{tag} {heads} heads", out, ref, FLASH_RTOL, FLASH_ATOL)
+    check_close(f"{tag} lse", lse, ref_lse, 0.0, LSE_ATOL)
+    del out, lse, ref, ref_lse
+    grads = []
+    for plain in (False, True):
+        x = qkv.clone().requires_grad_()
+        flash_attention_flat_fn(x, heads, scale, plain=plain).backward(do)
+        grads.append(x.grad)
+    got, bref = grads
+    if not torch.isfinite(got.float()).all():
+        fail(f"{tag}: the kernel gradient is not finite")
+    for name, lo in (("dq", 0), ("dk", d), ("dv", 2 * d)):
+        a, b = got[..., lo:lo + d].float(), bref[..., lo:lo + d].float()
+        rel = float((a - b).abs().max()) / float(b.abs().max())
+        print(f"  {tag} backward {name}: max_abs = {rel:.4g} of max|plain| "
+              f"(tol {FLASH_BWD_REL:g})")
+        if rel > FLASH_BWD_REL:
+            fail(f"T0 rank {r}: flash_attention_flat_fn {name} disagrees "
+                 f"with its plain autograd path")
+    del qkv, do, grads, got, bref
+    _free()
+
+
+def _grad_rel(a: dict, b: dict, keys) -> float:
+    """|a - b| / |b| over `keys` (one norm)."""
+    num = den = 0.0
+    for k in keys:
+        num += float(((a[k].double() - b[k].double()) ** 2).sum())
+        den += float((b[k].double() ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def _t1_split(r, mesh, fn):
+    """`fn()` (one T1 step) with the model group's collectives timed on
+    the host, the card synchronized before and after each: every sum of
+    `parallel.tensor` (the forward sums, their recomputation under remat,
+    the backward sums; each with its fp32 staging) and the replicated
+    gradients' broadcast (`sync_replicated_`); the rest of the step is
+    the ranks' compute."""
+    from lseg_tpu_torch.parallel import tensor
+    from lseg_tpu_torch.parallel.dist import barrier
+    from lseg_tpu_torch.train import step as step_mod
+
+    spent = {"sums": [0, 0.0, 0], "broadcast": [0, 0.0, 0]}
+
+    def timed(key, f):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = f(*args)
+            torch.cuda.synchronize()
+            c = spent[key]
+            c[0] += 1
+            c[1] += (time.perf_counter() - t0) * 1e3
+            if key == "sums":
+                c[2] += args[0].numel() * 4
+            return out
+        return run
+
+    summed, sync = tensor._summed, step_mod.sync_replicated_
+    tensor._summed = timed("sums", summed)
+    step_mod.sync_replicated_ = timed("broadcast", sync)
+    try:
+        torch.cuda.synchronize()
+        barrier(mesh.model)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        tensor._summed, step_mod.sync_replicated_ = summed, sync
+    (n, sums_ms, nb), (_, bc_ms, _) = spent["sums"], spent["broadcast"]
+    rest = total - sums_ms - bc_ms
+    print(f"  T1 rank {r} split: {total:.1f} ms/step; {n} model-group sums "
+          f"of {nb / max(n, 1) / 1e6:.1f} MB each {sums_ms:.1f} ms "
+          f"({100 * sums_ms / total:.1f}%); replicated-gradient broadcast "
+          f"{bc_ms:.1f} ms; the rest {rest:.1f} ms")
+    return {"ms": total, "sums": n, "sum_mb": nb / max(n, 1) / 1e6,
+            "sums_ms": sums_ms, "broadcast_ms": bc_ms, "rest_ms": rest}
+
+
+def _t1_batch(dev):
+    """P3's batch: 8 synthetic 480x480 images with 150 classes, the top
+    192 rows of the first four ignored."""
+    import numpy as np
+
+    from lseg_tpu_torch.data.synthetic import SyntheticSegDataset
+
+    ds = SyntheticSegDataset(n=PARALLEL_BATCH, size=480, num_classes=150)
+    batch = {key: torch.from_numpy(np.stack([
+        ds[i][key] for i in range(PARALLEL_BATCH)])).to(dev)
+        for key in ("image", "target")}
+    batch["target"] = batch["target"].long()
+    batch["target"][:PARALLEL_BATCH // 2, :192] = -1
+    return batch
+
+
+def _replicated_equal(tag, model, group):
+    """Fail unless the replicated (uncut) parameters and buffers of a cut
+    model are equal bit for bit on the ranks of its model group."""
+    from lseg_tpu_torch.parallel.dist import all_gather_rows
+
+    h = _state_hash(model, model.tp_splits)
+    hashes = all_gather_rows(h.reshape(1, -1), group)
+    if not bool((hashes == hashes[0]).all()):
+        fail(f"{tag}: the replicated parameters differ across the model "
+             f"group")
+    return h.numel()
+
+
+def _t1_training(r, mesh, dev, counters):
+    """T1: one tensor-parallel train step of train.py's configuration
+    (flashflat, remat, bf16 on fp32 masters, batch 8 at 480x480), each
+    rank 8 of the 16 heads and half the MLP of every block, against one
+    process's step (rank 0) on the gathered parameters."""
+    from lseg_tpu_torch import get_config
+    from lseg_tpu_torch.models.layers import random_init_
+    from lseg_tpu_torch.models.lseg import LSegNet
+    from lseg_tpu_torch.parallel import gather_grads, gather_module
+    from lseg_tpu_torch.parallel.dist import barrier
+    from lseg_tpu_torch.train.optim import make_optimizer
+    from lseg_tpu_torch.train.step import (
+        TrainState,
+        enable_grads,
+        make_train_step,
+    )
+
+    base = get_config("clip_vitl16_384")
+    cfg = dataclasses.replace(base, vit=dataclasses.replace(
+        base.vit, attn_impl="flashflat"))
+    blocks = cfg.vit.hooks[-1] + 1
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    txt = torch.randn(150, 512, device=dev, generator=g)
+    model = random_init_(LSegNet(cfg, torch.bfloat16, dev, remat=True,
+                                 param_dtype=torch.float32), g)
+    init = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    enable_grads(model)
+    state = TrainState(model, make_optimizer(model, 0.004, 100,
+                                             batch_size=PARALLEL_BATCH))
+    batch = _t1_batch(dev)
+    step = make_train_step(group=mesh)
+    (_, metrics), got = _counted(
+        counters, {"flash_attention_flat": 2 * blocks,
+                   "flash_attention_flat_bwd": blocks},
+        "T1 tensor-parallel train step", lambda: step(state, batch, txt))
+    attn = model.vit.blocks[0].attn
+    heads = cfg.vit.num_heads // TP_WORLD
+    if not (attn.flat and attn.num_heads == heads):
+        fail(f"T1: a rank runs {attn.num_heads} heads, flat {attn.flat} "
+             f"(expected {heads} heads on B6 and B7)")
+    loss = float(metrics["loss"])
+    n_rep = _replicated_equal("T1", model, mesh.model)
+    # a copy: the replicated entries alias the parameters the timed steps
+    # below go on updating
+    full = {n: t.clone() for n, t in gather_module(model).items()}
+    grads = {n: t.clone() for n, t in gather_grads(model).items()}
+    splits = dict(model.tp_splits)
+    torch.cuda.reset_peak_memory_stats()
+    ms = _wall_ms(mesh.model, lambda: step(state, batch, txt), iters=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  T1 rank {r}: loss {loss:.6f}; {n_rep} replicated tensors equal"
+          f" on both ranks; {ms:.3f} ms/step, peak {peak:.3f} GiB")
+    out = {"launches": got, "ms": ms, "peak_gib": peak,
+           "split": _t1_split(r, mesh, lambda: step(state, batch, txt))}
+    params = [n for n, _ in model.named_parameters()]
+    del state, model
+    if r != 0:
+        del grads
+    _free()
+    if r == 0:
+        refs = {}
+        for name, dtype, plain in (("kernel", torch.bfloat16, False),
+                                   ("fp32", torch.float32, True)):
+            m = LSegNet(cfg, dtype, dev, plain=plain, remat=True,
+                        param_dtype=torch.float32)
+            m.load_state_dict(init)
+            enable_grads(m)
+            st = TrainState(m, make_optimizer(m, 0.004, 100,
+                                              batch_size=PARALLEL_BATCH))
+            t0 = time.perf_counter()
+            one_step = make_train_step()
+            _, met = one_step(st, batch, txt)
+            torch.cuda.synchronize()
+            refs[name] = (float(met["loss"]), {
+                n: t.detach().clone() for n, t in m.state_dict().items()},
+                {n: p.grad.detach().clone()
+                 for n, p in m.named_parameters() if p.grad is not None})
+            if name == "kernel":
+                out["single_ms"] = cuda_time_ms(
+                    lambda: one_step(st, batch, txt), warmup=0, iters=2)
+            print(f"  T1 one process, {name}: loss {refs[name][0]:.6f}, "
+                  f"first step {time.perf_counter() - t0:.2f} s")
+            del m, st
+            _free()
+        stats = [n for n in init if n.endswith(("running_mean",
+                                                "running_var"))]
+        lk, sk, gk = refs["kernel"]
+        lf, sf, gf = refs["fp32"]
+        if list(grads) != list(gk):
+            fail("T1: the gathered gradients' names differ from one "
+                 "process's")
+        # the gradients of the first step, whole and by cut layer over
+        # the blocks (an update alone would hide a rescaled gradient)
+        by_kind = {}
+        for n in splits:
+            by_kind.setdefault(re.sub(r"\.\d+\.", ".*.", n), []).append(n)
+        gates = {
+            "gradient": (_grad_rel(grads, gk, gk), _grad_rel(gk, gf, gk)),
+            "gradient, replicated": (
+                _grad_rel(grads, gk, [n for n in gk if n not in splits]),
+                _grad_rel(gk, gf, [n for n in gk if n not in splits])),
+            **{f"gradient {kind}": (_grad_rel(grads, gk, keys),
+                                    _grad_rel(gk, gf, keys))
+               for kind, keys in sorted(by_kind.items())},
+            "loss": (abs(loss - lk) / abs(lk), abs(lk - lf) / abs(lf)),
+            "update": (_rel(full, sk, init, params),
+                       _rel(sk, sf, init, params)),
+            "BatchNorm statistics": (_rel(full, sk, init, stats),
+                                     _rel(sk, sf, init, stats))}
+        print(f"  T1: losses 1 x 2 {loss:.6f}, one process kernel "
+              f"{lk:.6f}, fp32 {lf:.6f}; one-process kernel step "
+              f"{out['single_ms']:.3f} ms")
+        for what, (d, d_ref) in gates.items():
+            print(f"  T1 {what}: d {d:.6g} <= {GRAD_RATIO} x d_ref "
+                  f"{d_ref:.6g} + {GRAD_FLOOR:g}")
+            if not d <= GRAD_RATIO * d_ref + GRAD_FLOOR:
+                fail(f"T1 {what}: {d} > {GRAD_RATIO} * {d_ref} + "
+                     f"{GRAD_FLOOR}")
+        out["gates"] = gates
+    barrier(mesh.model)
+    return out, init
+
+
+def _rel_norm(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def _t2_tp_layout(r, mesh, dev, counters, init):
+    """T2: the `tp_layout` bf16 forward (einsum attention, the patch
+    embedding on B1) at (8, 480, 480, 3) and K = 150, each rank 8 heads,
+    against one process's `tp_layout` model and the fp32 model on T1's
+    initial weights."""
+    from lseg_tpu_torch import get_config
+    from lseg_tpu_torch.engine.serve import (
+        make_data_sharded_logits_fn,
+        make_logits_fn,
+    )
+    from lseg_tpu_torch.models.lseg import LSegNet
+    from lseg_tpu_torch.parallel.dist import barrier
+
+    base = get_config("clip_vitl16_384")
+    cfg = dataclasses.replace(base, vit=dataclasses.replace(
+        base.vit, tp_layout=True, patch_fused=True))
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    x = _images(g, dev, PARALLEL_BATCH, 480, 480)
+    txt = torch.randn(150, 512, device=dev, generator=g)
+    fwd = make_data_sharded_logits_fn(LSegNet(cfg, torch.bfloat16, dev),
+                                      init, mesh)
+    logits, got = _counted(counters, {"patch_embed": 1},
+                           "T2 tp_layout forward", lambda: fwd(x, txt))
+    ms = _wall_ms(mesh.model, lambda: fwd(x, txt), iters=3)
+    out = {"launches": got, "ms": ms}
+    if r == 0:
+        one = make_logits_fn(LSegNet(cfg, torch.bfloat16, dev), init)
+        ref = one(x, txt)
+        out["single_ms"] = cuda_time_ms(lambda: one(x, txt), warmup=1,
+                                        iters=2)
+        f32 = dataclasses.replace(base, vit=dataclasses.replace(
+            base.vit, attn_scores_dtype="float32"))
+        ref32 = make_logits_fn(LSegNet(f32, torch.float32, dev, plain=True),
+                               init)(x, txt)
+        if not bool(torch.isfinite(logits).all()) or \
+                logits.shape != (PARALLEL_BATCH, 480, 480, 150):
+            fail(f"T2: logits {tuple(logits.shape)}, finite "
+                 f"{bool(torch.isfinite(logits).all())}")
+        d, d_ref = _rel_norm(logits, ref), _rel_norm(ref, ref32)
+        print(f"  T2: |1 x 2 - one process| / |one process| {d:.6g} <= "
+              f"{GRAD_RATIO} x |bf16 - fp32| / |fp32| {d_ref:.6g} + "
+              f"{GRAD_FLOOR:g}; {ms:.3f} ms per batch of {PARALLEL_BATCH} "
+              f"on both ranks, one process {out['single_ms']:.3f} ms")
+        if not d <= GRAD_RATIO * d_ref + GRAD_FLOOR:
+            fail(f"T2: {d} > {GRAD_RATIO} * {d_ref} + {GRAD_FLOOR}")
+        out["gate"] = (d, d_ref)
+        del ref, ref32
+    del logits, fwd
+    _free()
+    barrier(mesh.model)
+    return out
+
+
+def _t3_text(r, mesh, dev):
+    """T3: the CLIP text tower (width 512, 12 layers, 8 heads: 4 a rank)
+    on the 150 ADE20K labels, fp32, against one process's."""
+    from lseg_tpu_torch import get_config
+    from lseg_tpu_torch.data.labels import get_labels
+    from lseg_tpu_torch.models.clip_text import CLIPTextEncoder
+    from lseg_tpu_torch.models.layers import random_init_
+    from lseg_tpu_torch.text.cache import TextFeatureCache
+    from lseg_tpu_torch.text.tokenizer import ClipBPETokenizer
+
+    tcfg = get_config("clip_vitl16_384").text
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    state = random_init_(CLIPTextEncoder(tcfg, device=dev), g).state_dict()
+    labels = get_labels("ade20k")
+    tok = ClipBPETokenizer.for_tests(tcfg.context_length)
+    cut = TextFeatureCache(tcfg, state, tok, device=dev, mesh=mesh)
+    one = TextFeatureCache(tcfg, state, tok, device=dev)
+    feats, ref = cut(labels), one(labels)
+    tokens = torch.as_tensor(tok(labels), device=dev)
+    with torch.inference_mode():
+        ms = _wall_ms(mesh.model, lambda: cut.encoder(tokens), iters=5)
+        single = cuda_time_ms(lambda: one.encoder(tokens), warmup=1,
+                              iters=5)
+    d = _rel_norm(feats, ref)
+    print(f"  T3 rank {r}: {len(labels)} labels, |1 x 2 - one process| / "
+          f"|one process| {d:.3g} (bound {TEXT_TP_REL:g}); {ms:.3f} ms on "
+          f"both ranks, one process {single:.3f} ms")
+    if feats.shape != (len(labels), tcfg.embed_dim) or not d <= TEXT_TP_REL:
+        fail(f"T3: text features {tuple(feats.shape)} differ by {d}")
+    return {"ms": ms, "single_ms": single, "rel": d}
+
+
+def tensor_parallel_rank(rank: str, world: str, store: str,
+                         out_dir: str) -> int:
+    """One rank of phase 13 (a process of its own): gloo over a file
+    store, a 1 x 2 mesh, the card shared with the other rank."""
+    import torch.distributed as dist
+
+    from lseg_tpu_torch.ops._build import library_path
+    from lseg_tpu_torch.parallel import Mesh, create_mesh, init_distributed
+
+    r, w = int(rank), int(world)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not library_path().exists():
+        fail(f"rank {r}: phase 1's kernel library {library_path()} is "
+             f"missing (the ranks never build)")
+    init_distributed(f"file://{store}", w, r, backend="gloo")
+    mesh = create_mesh(1, w)
+    if not isinstance(mesh, Mesh) or mesh.coord != (0, r) or \
+            dist.get_backend(mesh.model) != "gloo":
+        fail(f"rank {r}: not in a gloo model group of {w}")
+    counters = _kernel_counters()
+    t0 = time.perf_counter()
+    _t0_attention(r, dev)
+    t1, init = _t1_training(r, mesh, dev, counters)
+    out = {"T1": t1, "T2": _t2_tp_layout(r, mesh, dev, counters, init)}
+    del init
+    _free()
+    out["T3"] = _t3_text(r, mesh, dev)
+    print(f"  rank {r}: {time.perf_counter() - t0:.2f} s", flush=True)
+    with open(os.path.join(out_dir, f"rank{r}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_tensor_parallel(dev):
+    """Phase 13: tensor parallelism. Two gloo ranks share the card as a
+    1 x 2 mesh: T1 one train step of train.py's configuration, T2 the
+    `tp_layout` bf16 forward, T3 the text tower, each against one
+    process; then `graft_entry.entry()`'s flagship forward in this
+    process. Returns each kernel's launches per rank, [rank 0, rank 1],
+    over the counted runs."""
+    from lseg_tpu_torch.graft_entry import entry
+
+    print("[13] tensor parallelism: a 1 x 2 (data, model) mesh of two gloo "
+          "ranks on one card, the ViT and CLIP text blocks cut by heads")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        results = _run_ranks(tmp, "--tp-rank", TP_WORLD, "phase 13")
+    launches = {}
+    for r, res in enumerate(results):
+        for part in ("T1", "T2"):
+            for k, v in res[part]["launches"].items():
+                launches.setdefault(k, [0] * TP_WORLD)[r] += v
+    ran = {k for k, v in launches.items() if all(v)}
+    if ran != TP_KERNELS or any(any(v) for k, v in launches.items()
+                                if k not in TP_KERNELS):
+        fail(f"phase 13 launched {launches}, expected {sorted(TP_KERNELS)} "
+             f"on both ranks")
+    fn, args = entry(dev)
+    logits = fn(*args)
+    torch.cuda.synchronize()
+    if logits.shape != (1, 480, 480, 150) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"graft_entry.entry(): logits {tuple(logits.shape)}")
+    del fn, args, logits
+    _free()
+    print(f"  graft_entry.entry(): the flagship bf16 forward, (1, 480, 480, "
+          f"150) finite logits")
+    print(f"  phase 13 launches per rank: "
+          f"{ {k: v for k, v in launches.items() if any(v)} }, "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    print(f"  {card_line()}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is False)")
@@ -5613,6 +6051,8 @@ def main() -> int:
     if ran != INT8_MODES_KERNELS:
         fail(f"phase 12 launched {sorted(ran)}, expected "
              f"{sorted(INT8_MODES_KERNELS)}")
+    _free()
+    launches_tp = phase_tensor_parallel(dev)
     # B2's int8 Q.K^T mode runs on phase 12's path (a) alone
     kernels["flash_attention_ln_qkv_fused_q8"]["i8qk"][
         "launches"] = i8qk_launches
@@ -5733,6 +6173,8 @@ def main() -> int:
                          k, [0] * PARALLEL_WORLD),
                      "tools_launches": launches_tools.get(k, 0),
                      "int8_modes_launches": launches_im.get(k, 0),
+                     "tensor_parallel_launches": launches_tp.get(
+                         k, [0] * TP_WORLD),
                      **({"widths": widths[k]} if k in widths else {})})
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(card_line())
@@ -5746,4 +6188,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-rank"]:
         sys.exit(parallel_rank(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(tensor_parallel_rank(*sys.argv[2:]))
     sys.exit(main())

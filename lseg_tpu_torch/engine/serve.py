@@ -51,6 +51,11 @@ Multi-GPU serving, one process a card over a data group
 - `make_data_sharded_logits_fn`: the TTA evaluator's crop forward on
   each rank's rows of the crop batch, the fp32 logits all-gathered in
   order.
+
+The two data-sharded functions also take a `parallel.dist.Mesh`: the
+rows go over its data group and the model is cut over its model group
+(`parallel.tensor.shard_module_`; int8 blocks stay whole, so a fast_cal
+model runs whole on every rank of the group).
 """
 
 from __future__ import annotations
@@ -73,9 +78,11 @@ from lseg_tpu_torch.ops.upsample_argmax import (
 from lseg_tpu_torch.parallel.dist import (
     all_gather_rows,
     batch_shard,
+    data_group,
     rank,
     size,
 )
+from lseg_tpu_torch.parallel.tensor import shard_module_
 
 
 def _device(model: torch.nn.Module) -> torch.device:
@@ -137,10 +144,12 @@ def make_data_sharded_predictor(model: LSegNet, state=None,
     """(global images (N, H, W, 3), text_features) -> (N, H, W) int32 on
     every rank: each rank's rows through `model(x, txt,
     return_argmax=True)`, the label maps all-gathered. N must divide
-    by the group's size."""
+    by the (data) group's size."""
     if state is not None:
         model.load_state_dict(state)
     model.eval()
+    shard_module_(model, group)
+    group = data_group(group)
     device = _device(model)
 
     @torch.inference_mode()
@@ -204,6 +213,8 @@ def make_data_sharded_logits_fn(model: LSegNet, state=None,
     every rank: each rank's rows through `LSegNet.forward`, gathered in
     rank order (the TTA evaluator's crop forward)."""
     logits = make_logits_fn(model, state)
+    shard_module_(model, group)
+    group = data_group(group)
 
     @torch.inference_mode()
     def sharded(images, text_features):

@@ -112,6 +112,7 @@ def rcu_operands(dev, g, c: int = 256) -> list:
     import torch
 
     from lseg_tpu_torch.ops.qconv import fold_bn_affine
+    from lseg_tpu_torch.ops.quant import div127, inv127
 
     ops = []
     for a in (4.0, 16.0):
@@ -123,8 +124,8 @@ def rcu_operands(dev, g, c: int = 256) -> list:
               0.1 * torch.randn(c, device=dev, generator=g),
               torch.rand(c, device=dev, generator=g) + 0.5)
         act = torch.tensor(a, device=dev)
-        d, e = fold_bn_affine(act / 127.0, sw, *bn)
-        ops += [wq, d, e, 127.0 / act]
+        d, e = fold_bn_affine(div127(act), sw, *bn)
+        ops += [wq, d, e, inv127(act)]
     return ops
 
 

@@ -56,6 +56,7 @@ from lseg_tpu_torch.ops.quant import (
     StaticQuantConv,
     StaticQuantDense,
     div127,
+    inv127,
 )
 from lseg_tpu_torch.ops.resize import upsample2x
 
@@ -236,7 +237,7 @@ class ResidualConvUnit(nn.Module):
                 d, e = fold_bn_affine(div127(cv.act_scale), cv.scale, *stats,
                                       conv_bias=cv.bias)
                 ops += [rcu_weight(cv.weight_q), d.contiguous(),
-                        e.contiguous(), 127.0 / cv.act_scale]
+                        e.contiguous(), inv127(cv.act_scale)]
             return tuple(ops)
 
         return _prepared(self, tensors, make)

@@ -4,7 +4,10 @@ token embedding -> learned positional embedding -> pre-norm blocks with
 a causal mask and QuickGELU MLPs -> final LayerNorm (eps 1e-5) -> the
 activation at each sequence's EOT token (argmax of the token ids) ->
 linear projection to the joint embedding width. It runs once per label
-set, never on the image path.
+set, never on the image path. Cut over a model group
+(`parallel.tensor.shard_module_`), each block runs this rank's heads and
+hidden units, Megatron's layout, as the JAX package's tensor-parallel
+rules shard the tower.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from torch import nn
 
 from lseg_tpu_torch import CLIPTextConfig
 from lseg_tpu_torch.models.layers import Dense, LayerNorm
+from lseg_tpu_torch.parallel.tensor import copy_to_model, row_parallel
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -28,14 +32,22 @@ class CausalSelfAttention(nn.Module):
                  device=None):
         super().__init__()
         self.heads = heads
+        self.head_dim = width // heads
+        self.group = None
         self.dtype = dtype
         self.in_proj = Dense(width, 3 * width, dtype, device)
         self.out_proj = Dense(width, width, dtype, device)
 
+    def shard(self, group, n: int) -> None:
+        """Run this rank's `heads / n` heads of a model group."""
+        self.group = group
+        self.heads //= n
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n, t, d = x.shape
-        h = self.heads
-        hd = d // h
+        n, t, _ = x.shape
+        h, hd = self.heads, self.head_dim
+        d = h * hd
+        x = copy_to_model(x, self.group)
         q, k, v = self.in_proj(x).reshape(n, t, 3, h, hd).unbind(2)
         s = torch.einsum("nqhd,nkhd->nhqk", q.float(), k.float())
         s = s * hd ** -0.5
@@ -43,7 +55,8 @@ class CausalSelfAttention(nn.Module):
         s = s.masked_fill(~causal, float("-inf"))
         attn = torch.softmax(s, dim=-1).to(self.dtype)
         out = torch.einsum("nhqk,nkhd->nqhd", attn.float(), v.float())
-        return self.out_proj(out.to(self.dtype).reshape(n, t, d))
+        return row_parallel(self.out_proj, out.to(self.dtype).reshape(n, t, d),
+                            self.group)
 
 
 class TextBlock(nn.Module):
@@ -57,10 +70,16 @@ class TextBlock(nn.Module):
         self.ln_2 = LayerNorm(width, 1e-5, dtype, device)
         self.c_fc = Dense(width, 4 * width, dtype, device)
         self.c_proj = Dense(4 * width, width, dtype, device)
+        self.group = None
+
+    def shard(self, group, n: int) -> None:
+        """c_fc column- and c_proj row-parallel over a model group."""
+        self.group = group
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln_1(x))
-        return x + self.c_proj(quick_gelu(self.c_fc(self.ln_2(x))))
+        y = quick_gelu(self.c_fc(copy_to_model(self.ln_2(x), self.group)))
+        return x + row_parallel(self.c_proj, y, self.group)
 
 
 class CLIPTextEncoder(nn.Module):

@@ -55,6 +55,14 @@ the parameter when a loaded state_dict lacks it, and calibration drops it
 where the calibration forward skipped the branch (running the branch
 without it then raises).
 
+`tp_layout=True` is the reference's head-major parameter layout for
+tensor parallelism ((D, 3, H, hd) qkv, (H, hd, D) proj); its branch runs
+einsum attention in `scores_dtype`, no flat kernel and no token padding.
+The port keeps the flat parameters (`utils.convert` reshapes the
+head-major leaves) and runs the same einsum path. Cut over a model group
+(`parallel.tensor.shard_module_`), each Attention and Mlp of a float
+block runs this rank's heads and hidden units, in either layout.
+
 `plain=True` swaps every kernel for its plain PyTorch twin (the
 comparison path of `chip_smoke.py`); nothing picks it automatically.
 
@@ -101,9 +109,12 @@ from lseg_tpu_torch.ops.quant import (
     record_amax,
 )
 from lseg_tpu_torch.ops.resize import resize_bilinear
+from lseg_tpu_torch.parallel.tensor import copy_to_model, row_parallel
 
 # attention impls whose reference path pads T to a multiple of 8
 _PADDING_IMPLS = ("flashflat", "flashq", "flashlnq")
+# attention impls that run the flat kernels B6 and B7 on float weights
+_FLAT_IMPLS = _PADDING_IMPLS + ("flashqp",)
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -123,20 +134,28 @@ def dense(in_features: int, out_features: int, dtype, quant,
 
 
 class Attention(nn.Module):
-    """timm ViT self-attention: fused qkv with bias, scale hd**-0.5."""
+    """timm ViT self-attention: fused qkv with bias, scale hd**-0.5.
+
+    Cut over a model group (`parallel.tensor.shard_module_`), it holds
+    `num_heads` = H / n of the heads, takes its input through
+    `copy_to_model` and sums its output projection over the group."""
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32,
                  impl: str = "xla", scores_dtype=torch.float32,
                  quant=False, plain: bool = False, device=None,
-                 variant: str = "v1"):
+                 variant: str = "v1", tp_layout: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.group = None
+        self.impl = impl
+        self.tp_layout = tp_layout
         # B2's int8 Q.K^T mode (the reference passes qk_int8 on flashlnq)
         self.qk_int8 = variant == "i8qk"
         self.dtype = dtype
         self.scores_dtype = scores_dtype
         self.plain = plain
-        flat_ok = flat_flash_eligible(dim, num_heads, False)
+        flat_ok = flat_flash_eligible(dim, num_heads, tp_layout)
         # LN1 inside kernel B2 (the reference's flashlnq branch)
         self.ln_fused = impl == "flashlnq" and flat_ok and quant == "static"
         # int8 qkv of row-quantized inputs inside kernel B8 (flashq)
@@ -144,13 +163,21 @@ class Attention(nn.Module):
         # the whole half-block with its residual inside kernel B15
         self.qkvp_fused = (impl == "flashqp" and flat_ok
                            and quant == "static")
-        self.flat = (impl in ("flashflat", "flashq", "flashqp", "flashlnq")
-                     and flat_ok and not self.qkv_fused
+        self.flat = (impl in _FLAT_IMPLS and flat_ok and not self.qkv_fused
                      and not self.qkvp_fused)
         if impl == "flash" and quant in (True, "dynamic"):
             quant = False  # the reference's 'flash' never quantizes
         self.qkv = dense(dim, 3 * dim, dtype, quant, device)
         self.proj = dense(dim, dim, dtype, quant, device)
+
+    def shard(self, group, n: int) -> None:
+        """Run this rank's H / n heads of a cut model group: the flat
+        kernels where `flat_flash_eligible(D / n, H / n, tp_layout)`
+        holds, einsum attention otherwise."""
+        self.group = group
+        self.num_heads //= n
+        self.flat = self.impl in _FLAT_IMPLS and flat_flash_eligible(
+            self.num_heads * self.head_dim, self.num_heads, self.tp_layout)
 
     def forward_qkvp(self, x: torch.Tensor,
                      resid: torch.Tensor) -> torch.Tensor:
@@ -183,10 +210,11 @@ class Attention(nn.Module):
                                         self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n, t, d = x.shape
-        h = self.num_heads
-        hd = d // h
+        n, t, _ = x.shape
+        h, hd = self.num_heads, self.head_dim
+        d = h * hd
         scale = hd ** -0.5
+        x = copy_to_model(x, self.group)
         if self.qkv_fused:
             op = flash_attention_qkv_fused_plain if self.plain else \
                 flash_attention_qkv_fused
@@ -197,31 +225,39 @@ class Attention(nn.Module):
         qkv = self.qkv(x)
         if self.flat:
             if torch.is_grad_enabled():
-                return self.proj(flash_attention_flat_fn(
-                    qkv, h, scale, plain=self.plain))
+                return row_parallel(self.proj, flash_attention_flat_fn(
+                    qkv, h, scale, plain=self.plain), self.group)
             op = flash_attention_flat_plain if self.plain else \
                 flash_attention_flat
-            return self.proj(op(qkv, h, scale))
+            return row_parallel(self.proj, op(qkv, h, scale), self.group)
         q, k, v = qkv.reshape(n, t, 3, h, hd).unbind(2)
         s = torch.einsum("nqhd,nkhd->nhqk", q.float(), k.float())
         s = s.to(self.scores_dtype) * scale
         attn = torch.softmax(s.float(), dim=-1).to(self.dtype)
         out = torch.einsum("nhqk,nkhd->nqhd", attn.float(), v.float())
-        return self.proj(out.to(self.dtype).reshape(n, t, d))
+        return row_parallel(self.proj, out.to(self.dtype).reshape(n, t, d),
+                            self.group)
 
 
 class Mlp(nn.Module):
-    """fc1 -> GELU ('exact' erf or 'tanh') -> fc2."""
+    """fc1 -> GELU ('exact' erf or 'tanh') -> fc2; cut over a model
+    group, fc1 column- and fc2 row-parallel."""
 
     def __init__(self, dim: int, hidden: int, dtype=torch.float32,
                  gelu: str = "exact", quant=False, device=None):
         super().__init__()
         self.approximate = "tanh" if gelu == "tanh" else "none"
+        self.group = None
         self.fc1 = dense(dim, hidden, dtype, quant, device)
         self.fc2 = dense(hidden, dim, dtype, quant, device)
 
+    def shard(self, group, n: int) -> None:
+        self.group = group
+
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+        h = F.gelu(self.fc1(copy_to_model(x, self.group)),
+                   approximate=self.approximate)
+        return row_parallel(self.fc2, h, self.group)
 
 
 class Block(nn.Module):
@@ -238,7 +274,7 @@ class Block(nn.Module):
         self.norm1 = LayerNorm(d, 1e-6, dtype, device)
         self.attn = Attention(d, cfg.num_heads, dtype, cfg.attn_impl,
                               _dtype(cfg.attn_scores_dtype), quant, plain,
-                              device, cfg.attn_variant)
+                              device, cfg.attn_variant, cfg.tp_layout)
         self.norm2 = LayerNorm(d, 1e-6, dtype, device)
         self.mlp = Mlp(d, int(d * cfg.mlp_ratio), dtype, cfg.mlp_gelu,
                        quant, device)
@@ -374,8 +410,6 @@ class DenseViT(nn.Module):
     def __init__(self, cfg: ViTConfig, dtype=torch.float32, device=None,
                  plain: bool = False, remat: bool = False):
         super().__init__()
-        if cfg.tp_layout:
-            raise NotImplementedError("tp_layout is a JAX sharding layout")
         self.cfg = cfg
         self.dtype = dtype
         self.remat = remat

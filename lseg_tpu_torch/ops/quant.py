@@ -46,6 +46,14 @@ def div127(x: torch.Tensor) -> torch.Tensor:
     return x / torch.full_like(x, 127.0)
 
 
+def inv127(a: torch.Tensor) -> torch.Tensor:
+    """127 / a as an IEEE division on every device: PyTorch takes a Python
+    scalar over a tensor as a product with the tensor's reciprocal, on the
+    CPU as well, an ulp off the quotient for about a quarter of fp32
+    values; the reference divides."""
+    return torch.full_like(a, 127.0) / a
+
+
 def _codes(xf: torch.Tensor, scale) -> torch.Tensor:
     return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
 

@@ -1,14 +1,18 @@
-"""Data-parallel process groups (torch port of `lseg_tpu/parallel/mesh.py`).
+"""Process groups of the ("data", "model") mesh (torch port of
+`lseg_tpu/parallel/mesh.py`).
 
-The JAX package shards the batch over a `data` mesh axis and lets XLA
-insert the collectives. The port runs one process per GPU (the
+The JAX package shards the batch over a `data` mesh axis (and, with
+`n_model > 1`, the ViT and CLIP text blocks over a `model` axis) and lets
+XLA insert the collectives. The port runs one process per GPU (the
 reference's `accelerator="ddp"`, `sync_batchnorm=True`, utils.py:20-34)
 and names each collective:
 
 - `init_distributed` joins the processes (torchrun's `RANK`,
   `WORLD_SIZE`, `LOCAL_RANK`, `MASTER_ADDR` / `MASTER_PORT`, or explicit
-  arguments); `create_mesh` returns the data group. A `group` of `None`
-  everywhere in the port means one process and no collective at all;
+  arguments); `create_mesh` returns the data group, or with `n_model > 1`
+  a `Mesh` of data and model groups (tensor parallelism:
+  `parallel.tensor`). A `group` of `None` everywhere in the port means one
+  process and no collective at all;
 - `rank_rows` / `batch_shard`: the rows of a global batch that a rank
   owns (`batch_sharding`). With gradient accumulation, rank r owns its
   `m / W` rows of each global micro-batch of `m` rows, so that the local
@@ -27,15 +31,15 @@ tensors, but gloo in torch 2.11 on an H100 also ran all_gather,
 all_gather_into_tensor, reduce_scatter_tensor and all_to_all_single on
 them, so no helper stages a tensor through host memory: each runs one
 collective on the tensor where it lies, under either backend (phase 10
-of `chip_smoke.py` gathers CUDA tensors over gloo). Tensor parallelism
-(`n_model > 1`, the JAX package's `_TP_RULES`) is not ported.
+of `chip_smoke.py` gathers CUDA tensors over gloo).
 """
 
 from __future__ import annotations
 
 import os
 import sys
-from typing import Iterable, List, Optional
+from dataclasses import dataclass
+from typing import Any, Iterable, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -92,17 +96,61 @@ def init_distributed(coordinator: Optional[str] = None,
     return dist.group.WORLD
 
 
+@dataclass(frozen=True)
+class Mesh:
+    """A rank's place in the ("data", "model") mesh of `n_data * n_model`
+    processes, rank = d * n_model + m (JAX's `reshape(n_data, n_model)`):
+    `data` is the group of the ranks that hold its model shard `m`,
+    `model` the group of the ranks that hold its batch shard `d`, `coord`
+    is (d, m). A group is None where it would hold this rank alone."""
+
+    n_data: int
+    n_model: int
+    coord: Tuple[int, int] = (0, 0)
+    data: Any = None
+    model: Any = None
+
+
 def create_mesh(n_data: Optional[int] = None, n_model: int = 1):
-    """The data group of `n_data` ranks (all of them by default), or None
-    for one process. Tensor parallelism is not ported."""
-    if n_model > 1:
-        raise NotImplementedError(
-            "tensor parallelism (n_model > 1) is not ported: ROADMAP A10b")
+    """With `n_model == 1`: the data group of `n_data` ranks (all of them
+    by default), or None for one process. With `n_model > 1`: a `Mesh` of
+    `n_data * n_model` ranks (`n_data` = world / n_model by default). Every
+    rank makes every group, in one order, as `torch.distributed.new_group`
+    requires."""
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if n_data is not None and n_data != world:
-        raise ValueError(f"n_data {n_data} must equal the number of "
-                         f"processes {world}")
-    return dist.group.WORLD if dist.is_initialized() else None
+    if n_model == 1:
+        if n_data is not None and n_data != world:
+            raise ValueError(f"n_data {n_data} must equal the number of "
+                             f"processes {world}")
+        return dist.group.WORLD if dist.is_initialized() else None
+    if n_data is None:
+        n_data = world // n_model
+    if n_model < 1 or n_data < 1 or n_data * n_model != world:
+        raise ValueError(f"a {n_data} x {n_model} mesh needs "
+                         f"{n_data * n_model} processes, the world size is "
+                         f"{world}")
+    r = dist.get_rank()
+    coord = (r // n_model, r % n_model)
+    model = data = None
+    for d in range(n_data):
+        g = dist.new_group([d * n_model + m for m in range(n_model)])
+        if d == coord[0]:
+            model = g
+    for m in range(n_model):
+        g = dist.new_group([d * n_model + m for d in range(n_data)])
+        if m == coord[1] and n_data > 1:
+            data = g
+    return Mesh(n_data, n_model, coord, data, model)
+
+
+def data_group(group):
+    """The data group of `group` (a `Mesh` or a process group)."""
+    return group.data if isinstance(group, Mesh) else group
+
+
+def model_group(group):
+    """The model group of a `Mesh`; None for a process group."""
+    return group.model if isinstance(group, Mesh) else None
 
 
 def collective_device(group) -> torch.device:
@@ -154,12 +202,11 @@ def barrier(group) -> None:
         dist.barrier(group=group)
 
 
-@torch.no_grad()
 def broadcast_module(module: nn.Module, group) -> nn.Module:
-    """Every parameter and buffer of `module` from rank 0."""
-    if size(group) > 1:
-        for t in list(module.parameters()) + list(module.buffers()):
-            dist.broadcast(t.data, 0, group=group)
+    """Every parameter and buffer of `module` from the group's first
+    rank."""
+    broadcast_([t.data for t in list(module.parameters())
+                + list(module.buffers())], group)
     return module
 
 
@@ -199,13 +246,9 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     return _AllReduceSum.apply(x, group)
 
 
-@torch.no_grad()
-def all_reduce_(tensors: Iterable[torch.Tensor], group) -> None:
-    """Sum each tensor over the ranks, in place: tensors of one dtype and
-    device are flattened into buckets of up to BUCKET_BYTES, one
-    all_reduce each."""
-    if size(group) == 1:
-        return
+def _bucketed_(tensors: Iterable[torch.Tensor], collective) -> None:
+    """Run `collective` in place on the tensors flattened into buckets of
+    up to BUCKET_BYTES (one dtype and device each), then copy back."""
     groups: dict = {}
     for t in tensors:
         groups.setdefault((t.dtype, t.device), []).append(t)
@@ -221,11 +264,30 @@ def all_reduce_(tensors: Iterable[torch.Tensor], group) -> None:
             nbytes += b
         for bucket in buckets:
             flat = torch.cat([t.reshape(-1) for t in bucket])
-            dist.all_reduce(flat, group=group)
+            collective(flat)
             offset = 0
             for t in bucket:
                 t.copy_(flat[offset:offset + t.numel()].view_as(t))
                 offset += t.numel()
+
+
+@torch.no_grad()
+def all_reduce_(tensors: Iterable[torch.Tensor], group) -> None:
+    """Sum each tensor over the ranks, in place: tensors of one dtype and
+    device are flattened into buckets of up to BUCKET_BYTES, one
+    all_reduce each."""
+    if size(group) > 1:
+        _bucketed_(tensors, lambda flat: dist.all_reduce(flat, group=group))
+
+
+@torch.no_grad()
+def broadcast_(tensors: Iterable[torch.Tensor], group) -> None:
+    """Each tensor from the group's first rank, in place, in buckets as
+    `all_reduce_`'s."""
+    if size(group) > 1:
+        src = dist.get_global_rank(group, 0)
+        _bucketed_(tensors, lambda flat: dist.broadcast(flat, src,
+                                                         group=group))
 
 
 def sync_batchnorm_(module: nn.Module, group) -> nn.Module:

@@ -2,7 +2,9 @@
 `lseg_tpu/text/cache.py`).
 
 The text tower runs once per distinct label set; the image path takes the
-cached (K, C) matrix as a plain argument.
+cached (K, C) matrix as a plain argument. Given a `parallel.dist.Mesh`,
+the tower is cut over its model group (`parallel.tensor.shard_module_`)
+and every rank of the group gets the whole (K, C) matrix.
 """
 
 from __future__ import annotations
@@ -14,20 +16,24 @@ import torch
 
 from lseg_tpu_torch import CLIPTextConfig
 from lseg_tpu_torch.models.clip_text import CLIPTextEncoder
+from lseg_tpu_torch.parallel.tensor import shard_module_
 
 
 class TextFeatureCache:
     """labelset (tuple of strings) -> (K, embed_dim) text features on
-    `device`."""
+    `device`; with a `mesh`, the tower cut over its model group (every
+    rank of the group must call with the same labels)."""
 
     def __init__(self, cfg: CLIPTextConfig, state, tokenizer,
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, device="cuda", mesh=None):
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.device = torch.device(device)
         self.encoder = CLIPTextEncoder(cfg, dtype=dtype, device=self.device)
         self.encoder.load_state_dict(state)
         self.encoder.eval()
+        if mesh is not None:
+            shard_module_(self.encoder, mesh)
         self._cache: Dict[Tuple[str, ...], torch.Tensor] = {}
 
     def __call__(self, labels: Sequence[str]) -> torch.Tensor:
@@ -49,8 +55,10 @@ class TextFeatureCache:
 
 
 def encode_labels(cfg: CLIPTextConfig, state, tokenizer,
-                  labels: Sequence[str], device="cpu") -> np.ndarray:
+                  labels: Sequence[str], device="cpu",
+                  mesh=None) -> np.ndarray:
     """One-shot convenience (no cache): the (K, embed_dim) fp32 text
-    features of `labels` as a numpy array."""
-    return TextFeatureCache(cfg, state, tokenizer, device=device)(
-        labels).float().cpu().numpy()
+    features of `labels` as a numpy array, the tower cut over the model
+    group of `mesh` if given."""
+    return TextFeatureCache(cfg, state, tokenizer, device=device,
+                            mesh=mesh)(labels).float().cpu().numpy()

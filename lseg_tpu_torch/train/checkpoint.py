@@ -26,6 +26,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from lseg_tpu_torch.parallel.tensor import gather_module
 from lseg_tpu_torch.utils.convert import from_jax_variables, to_jax_variables
 
 _NAME = re.compile(r"ckpt_(\d+)\.pt")
@@ -104,7 +105,9 @@ class CheckpointManager:
 
 def export_params(path: str, model) -> None:
     """Raw-params export of an `LSegNet` (float or quantized tree) as the
-    JAX package's `.npz` of flat 'a/b/c' keys."""
+    JAX package's `.npz` of flat 'a/b/c' keys; a model cut over a model
+    group is gathered first (every rank of the group must call), so the
+    file is one process's."""
     flat = {}
 
     def visit(prefix, tree):
@@ -115,7 +118,7 @@ def export_params(path: str, model) -> None:
             flat[prefix] = np.asarray(tree)
 
     vit = model.cfg.vit
-    visit("", to_jax_variables(model.state_dict(),
+    visit("", to_jax_variables(gather_module(model),
                                vit.hooks if vit is not None else ()))
     np.savez(path, **flat)
 

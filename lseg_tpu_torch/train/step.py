@@ -29,6 +29,17 @@ micro-batch) to give the gradient of the global loss, even where the
 ranks differ in their ignored pixels. The metrics are summed over the
 ranks and the loss is the global one; the optimizer then steps
 identically on every rank.
+
+Tensor parallel (`group` a `parallel.dist.Mesh` with `n_model > 1`): on
+its first call with a full model the step broadcasts rank 0's model to
+every rank and cuts it over the model group
+(`parallel.tensor.shard_module_`; a model already cut is broadcast over
+its data group only). The ranks of a model group step on the same rows
+(their data group's), so the batch, the loss, BatchNorm and the
+gradient sum above all run over the data group; a gradient of a cut
+parameter is this rank's part. The replicated parameters' gradients and
+the buffers then come from the model group's first rank, so the ranks of
+a model group keep them equal bit for bit.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ from dataclasses import dataclass
 from typing import Callable, Dict
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from lseg_tpu_torch.ops.losses import cross_entropy, segmentation_loss
@@ -45,9 +57,12 @@ from lseg_tpu_torch.ops.metrics import seg_update
 from lseg_tpu_torch.parallel.dist import (
     all_reduce_,
     broadcast_module,
+    data_group,
+    model_group,
     size,
     sync_batchnorm_,
 )
+from lseg_tpu_torch.parallel.tensor import shard_module_, sync_replicated_
 from lseg_tpu_torch.train.optim import Optimizer
 
 # leaves of the int8 serving layers, never trained
@@ -80,16 +95,23 @@ def make_train_step(ignore_index: int = -1, accumulate: int = 1,
     """train_step(state, batch, text_features) -> (state, metrics);
     `batch` is {'image': (N, H, W, 3) fp32, 'target': (N, H, W) int} on
     the model's device, N divisible by `accumulate`: with a `group` of
-    more than one rank, this rank's rows of the global batch."""
-    parallel = size(group) > 1
+    more than one rank, this rank's rows of the global batch (of its data
+    group's, for a `Mesh`)."""
+    dgroup, mgroup = data_group(group), model_group(group)
+    parallel = size(dgroup) > 1 or size(mgroup) > 1
     joined = weakref.WeakSet()
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    text_features: torch.Tensor):
         model = state.model
         if parallel and model not in joined:
-            broadcast_module(model, group)
-            sync_batchnorm_(model, group)
+            if size(mgroup) > 1 and getattr(model, "tp_splits",
+                                            None) is None:
+                broadcast_module(model, dist.group.WORLD)
+                shard_module_(model, group)
+            else:
+                broadcast_module(model, dgroup)
+            sync_batchnorm_(model, dgroup)
             joined.add(model)
         model.train()
         img, tgt = batch["image"], batch["target"]
@@ -103,7 +125,7 @@ def make_train_step(ignore_index: int = -1, accumulate: int = 1,
         for i in range(accumulate):
             mi, mt = img[i * m:(i + 1) * m], tgt[i * m:(i + 1) * m]
             out = model(mi, text_features)
-            loss = cross_entropy(out, mt, ignore_index, group)
+            loss = cross_entropy(out, mt, ignore_index, dgroup)
             loss.backward()
             losses.append(loss.detach())
             part = _metrics(out.detach(), mt, ignore_index)
@@ -112,8 +134,9 @@ def make_train_step(ignore_index: int = -1, accumulate: int = 1,
             del out, loss
         losses = torch.stack(losses)
         all_reduce_([p.grad for p in model.parameters()
-                     if p.grad is not None], group)
-        all_reduce_([losses, *sums], group)
+                     if p.grad is not None], dgroup)
+        all_reduce_([losses, *sums], dgroup)
+        sync_replicated_(model)
         if accumulate > 1:
             for p in model.parameters():
                 if p.grad is not None:

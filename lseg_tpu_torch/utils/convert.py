@@ -28,12 +28,18 @@ The rules:
   (C_in, C_out, s, s); it is told apart from the stride-2 (3, 3, C, C)
   conv that can sit at the same place by its equal middle dimensions;
 - the patch-embed kernel (p, p, C, D) flattens to (p*p*C, D);
+- the head-major attention leaves of a `tp_layout=True` tree (qkv kernel
+  (D, 3, H, hd), bias (3, H, hd); proj kernel (H, hd, D)) reshape to the
+  flat (D, 3D), (3D,) and (D, D) they were made from
+  (`to_tp_layout` of `utils/checkpoint_convert.py`), then transpose as
+  any kernel;
 - LayerNorm/BatchNorm `scale` -> `weight`, batch stats `mean`/`var` ->
   `running_mean`/`running_var`; raw parameters keep their names.
 
 `to_jax_variables` is the inverse: a port `state_dict` back to the JAX
 tree (`.npz` export and import, `train.checkpoint`), for the float and
-the quantized trees alike.
+the quantized trees alike, with the ViT attention in the head-major
+layout when given `tp_heads` (the heads of a `tp_layout=True` tree).
 """
 
 from __future__ import annotations
@@ -67,8 +73,14 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
 
 
 def _convert_leaf(path: tuple, a: np.ndarray) -> np.ndarray:
+    if path[-2:] == ("qkv", "bias") and a.ndim == 3:
+        return a.reshape(-1)                 # head-major (3, H, hd)
     if path[-1] not in ("kernel", "kernel_q"):
         return a
+    if path[-2:] == ("qkv", "kernel") and a.ndim == 4:
+        return a.reshape(a.shape[0], -1).T   # head-major (D, 3, H, hd)
+    if path[-2:] == ("proj", "kernel") and a.ndim == 3:
+        return a.reshape(-1, a.shape[-1]).T  # head-major (H, hd, D)
     if "patch_embed" in path:
         return a.reshape(-1, a.shape[-1])
     if a.ndim == 2:
@@ -157,10 +169,22 @@ def _put(tree: dict, path: tuple, a) -> None:
     tree[path[-1]] = a
 
 
-def to_jax_variables(state, hooks=()) -> dict:
+def _head_major(path: tuple, a: np.ndarray, heads: int) -> np.ndarray:
+    """A ViT attention leaf (JAX layout, flat) in the `tp_layout=True`
+    layout of `heads` heads."""
+    if path[-3:-1] == ("attn", "qkv") and path[-1] in ("weight", "bias"):
+        return a.reshape(*a.shape[:-1], 3, heads, -1)
+    if path[-3:] == ("attn", "proj", "weight"):
+        return a.reshape(heads, -1, a.shape[-1])
+    return a
+
+
+def to_jax_variables(state, hooks=(), tp_heads: int = None) -> dict:
     """Port `LSegNet` state_dict -> {'params', 'batch_stats'} of numpy
     arrays (int8 leaves int8, the rest fp32), the ViT blocks stacked into
-    the scan segments that end at `hooks` (none for a ResNet model)."""
+    the scan segments that end at `hooks` (none for a ResNet model); with
+    `tp_heads`, the float attention leaves in the head-major layout of a
+    `tp_layout=True` tree of that many heads."""
     params: dict = {}
     stats: dict = {}
     blocks: Dict[tuple, list] = {}
@@ -173,6 +197,8 @@ def to_jax_variables(state, hooks=()) -> dict:
             _put(stats, path[:-1] + (path[-1][len("running_"):],), a)
             continue
         leaf, a = _jax_leaf(path, a)
+        if tp_heads is not None and path[:2] == ("vit", "blocks"):
+            a = _head_major(path, a, tp_heads)
         if path[:2] == ("vit", "blocks"):
             k = int(path[2])
             seg = next(s for s, h in enumerate(hooks) if k <= h)

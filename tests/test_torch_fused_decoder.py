@@ -49,7 +49,12 @@ from lseg_tpu_torch.ops.qconv import (
     fused_rcu_plain,
     rcu_tile,
 )
-from lseg_tpu_torch.ops.quant import calibrate_act_scales, int8_mm
+from lseg_tpu_torch.ops.quant import (
+    calibrate_act_scales,
+    div127,
+    int8_mm,
+    inv127,
+)
 from lseg_tpu_torch.utils.convert import from_jax_variables
 
 # Bit for bit is the aim: every product of the kernels' arithmetic is
@@ -131,12 +136,12 @@ def _port_rcu_ops(x, conv1, conv2):
     layout, `fold_bn_affine`, the inverse scales."""
     ops = []
     for k, sw, b, stats, a in (conv1, conv2):
-        d, e = fold_bn_affine(torch.tensor(a) / 127.0, _t(sw),
+        d, e = fold_bn_affine(div127(torch.tensor(a)), _t(sw),
                               *[None if s is None else _t(s) for s in stats],
                               conv_bias=None if b is None else _t(b))
         c = k.shape[-1]
         ops += [_t(np.ascontiguousarray(k.reshape(9 * c, c).T)), d, e,
-                127.0 / torch.tensor(a)]
+                inv127(torch.tensor(a))]
     return (_t(x).bfloat16(), *ops)
 
 
@@ -750,6 +755,81 @@ def test_rcu_operands_are_prepared_once():
     np.testing.assert_array_equal(
         first[0].reshape(128, 3, 3, 128).permute(0, 3, 1, 2).numpy(),
         w.numpy())
+
+
+def _inexact_scales(n):
+    """`n` seeded act scales at which PyTorch's `127.0 / t` (a product with
+    the reciprocal) is an ulp off the quotient `np.float32(127) / a`."""
+    a = np.random.RandomState(5).uniform(0.5, 8.0, 64).astype(np.float32)
+    off = a[(127.0 / torch.from_numpy(a)).numpy() != np.float32(127) / a]
+    assert off.size >= n
+    return off[:n]
+
+
+def _rcu_at_inexact_scales():
+    """A static_cal fused RCU (width 128, BatchNorm) whose act scales are
+    `_inexact_scales`, its state carried from the JAX tree; the input x and
+    the JAX operands of `blocks.py:246-251`, built eagerly."""
+    x, conv1, conv2 = _rcu_inputs(11, 1, 15, 15, 128)
+    scales = _inexact_scales(2)
+    params, stats, jops = {}, {}, []
+    for name, (k, sw, _, (g, be, m, v), _), a in zip(
+            ("1", "2"), (conv1, conv2), scales):
+        params[f"conv{name}"] = {"kernel_q": k, "scale": sw,
+                                 "act_scale": a}
+        params[f"bn{name}"] = {"scale": g, "bias": be}
+        stats[f"bn{name}"] = {"mean": m, "var": v}
+        a = jnp.asarray(a)
+        d, e = j_qconv.fold_bn_affine(a / 127.0, jnp.asarray(sw),
+                                      jnp.asarray(g), jnp.asarray(be),
+                                      jnp.asarray(m), jnp.asarray(v))
+        jops += [jnp.asarray(k), d, e, 127.0 / a]
+    rcu = blocks.ResidualConvUnit(128, True, torch.bfloat16, "static_cal",
+                                  fused=True)
+    rcu.load_state_dict(from_jax_variables({"params": params,
+                                            "batch_stats": stats}))
+    rcu.eval()
+    return rcu, x, scales, jops
+
+
+def test_rcu_inverse_scales_are_the_quotient():
+    """At act scales where the reciprocal product is an ulp off, the fused
+    RCU's inverse scales 127 / a equal the reference's bit for bit (a true
+    division), and so do its int8 weights. The folded affines d, e hold to
+    `test_fold_bn_affine_matches_jax`'s tolerance: XLA's CPU rsqrt is an
+    ulp from the correctly rounded 1 / sqrt on about a third of fp32
+    values, so d and e cannot match bit for bit (the kernel's output still
+    does: `test_fused_rcu_at_inexact_scales_matches_pallas`)."""
+    rcu, _, scales, jops = _rcu_at_inexact_scales()
+    ops = rcu._kernel_operands()
+    for i, a in enumerate(scales):
+        assert float(127.0 / torch.tensor(a)) != float(np.float32(127) / a)
+        inv, ref = ops[4 * i + 3].numpy(), np.asarray(jops[4 * i + 3])
+        assert inv.tobytes() == ref.tobytes() == np.float32(
+            np.float32(127) / a).tobytes()
+        k = np.asarray(jops[4 * i])
+        c = k.shape[-1]
+        np.testing.assert_array_equal(
+            ops[4 * i].numpy(), np.ascontiguousarray(k.reshape(9 * c, c).T))
+        for j in (1, 2):
+            got, ref = ops[4 * i + j].numpy(), np.asarray(jops[4 * i + j])
+            np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-7,
+                                       err_msg=f"conv{i} {j}")
+
+
+def test_fused_rcu_at_inexact_scales_matches_pallas():
+    """The port's fused RCU on its own operands (`_kernel_operands`)
+    against JAX's `fused_rcu` in interpret mode on the reference's, bit
+    for bit, at act scales where the reciprocal product is an ulp off."""
+    rcu, x, _, jops = _rcu_at_inexact_scales()
+    xb = _t(x).bfloat16()
+    got = fused_rcu_plain(xb, *rcu._kernel_operands())
+    with torch.no_grad():
+        via_model = rcu(xb)
+    ref = f32(j_qconv.fused_rcu(jnp.asarray(x, jnp.bfloat16), *jops,
+                                interpret=True))
+    np.testing.assert_array_equal(got.float().numpy(), ref)
+    np.testing.assert_array_equal(via_model.float().numpy(), ref)
 
 
 # ---- the tiny model on carried-across JAX-calibrated trees ----

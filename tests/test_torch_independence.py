@@ -30,8 +30,8 @@ REFUSED = ("lseg_tpu", "jax", "jaxlib", "flax")
 # Runs in a fresh interpreter: a meta-path finder refuses the JAX package
 # and JAX (and Streamlit, which only the app's page imports), then every
 # module of the port is imported (the few-shot modules, `test_zs`, the
-# HSNet side-car and the app among them) and the --help of the port's
-# command lines runs.
+# HSNet side-car, the app, `parallel.tensor` and `graft_entry` among them)
+# and the --help of the port's command lines runs.
 _IMPORT_ALL = """
 import importlib.abc, pkgutil, runpy, sys
 
@@ -49,11 +49,14 @@ names = [m.name for m in pkgutil.walk_packages(lseg_tpu_torch.__path__,
                                                "lseg_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+# the tensor-parallel modules and the graft entry points among them
+assert {{"lseg_tpu_torch.parallel.tensor",
+         "lseg_tpu_torch.graft_entry"}} <= set(names), names
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not leaked, leaked
 for cli in ("lseg_tpu_torch.train", "lseg_tpu_torch.test_zs",
             "lseg_tpu_torch.hsnet_run", "lseg_tpu_torch.demo",
-            "lseg_tpu_torch.parity_check"):
+            "lseg_tpu_torch.parity_check", "lseg_tpu_torch.graft_entry"):
     sys.argv = [cli, "--help"]
     try:
         runpy.run_module(cli, run_name="__main__")
@@ -76,7 +79,8 @@ def test_port_imports_without_lseg_tpu_or_jax():
     assert "--device" in proc.stdout  # the CLIs' help ran
     assert "zero-shot eval" in proc.stdout and "--nshot" in proc.stdout
     for prog in ("usage: hsnet", "usage: lseg_tpu demo",
-                 "usage: lseg_tpu parity check"):
+                 "usage: lseg_tpu parity check",
+                 "usage: python -m lseg_tpu_torch.graft_entry"):
         assert prog in proc.stdout, prog
     n = int(proc.stdout.strip().splitlines()[-1].split()[-1])
     assert n >= 40

@@ -25,13 +25,13 @@ from torch_parallel_worker import (
     TTA_PROTOCOL,
     IndexDataset,
     int8_config,
+    int8_tree,
 )
 from torch_parity import seeded_variables
 
 from lseg_tpu.testing import tiny_vit_config as j_tiny_vit_config
-from lseg_tpu_torch.models.layers import BatchNorm, random_init_
+from lseg_tpu_torch.models.layers import BatchNorm
 from lseg_tpu_torch.models.lseg import LSegNet
-from lseg_tpu_torch.ops.quant import calibrate_act_scales, quantize_tree
 from lseg_tpu_torch.parallel import (
     batch_shard,
     create_mesh,
@@ -47,21 +47,6 @@ WORLD = 2
 # rows 0-1 (accumulate 1) or 0 and 2 (accumulate 2), so the two ranks
 # hold different numbers of ignored pixels either way
 IGNORE_SHARE = (0.5, 0.0, 0.3, 0.05)
-
-
-def _int8_tree(x, txt):
-    """The static_cal tiny model's tree, quantized and calibrated by the
-    port (seeded weights, the xla attention of the fp32 twin)."""
-    cfg = int8_config(tiny_vit_config())
-    cfg0 = dataclasses.replace(cfg, vit=dataclasses.replace(
-        cfg.vit, attn_impl="xla", quant_int8=False, patch_fused=False),
-        decoder_quant=False)
-    ref = random_init_(LSegNet(cfg0), torch.Generator().manual_seed(3))
-    model = LSegNet(cfg, torch.bfloat16)
-    model.load_state_dict(quantize_tree(ref.state_dict(), decoder=True,
-                                        act_scale=True))
-    calibrate_act_scales(model, torch.from_numpy(x), torch.from_numpy(txt))
-    return model.state_dict()
 
 
 @pytest.fixture(scope="module")
@@ -86,7 +71,7 @@ def inputs():
         "bn_w": rng.randn(4, 5, 5, 8).astype(np.float32)}
     bn_state = {"weight": rng.randn(8), "bias": rng.randn(8),
                 "running_mean": rng.randn(8), "running_var": bn_var}
-    tiny_q = _int8_tree(xq, txt)
+    tiny_q = int8_tree(xq, txt)
     return {"v": v, "np": arrays, "tiny_q": tiny_q, "torch": {
         **{k: torch.from_numpy(a) for k, a in arrays.items()},
         "tgt": torch.from_numpy(tgt).long(),
@@ -126,7 +111,8 @@ def test_one_process_is_not_distributed(monkeypatch):
     assert create_mesh() is None
     x = torch.arange(6)
     assert batch_shard(x, None) is x
-    with pytest.raises(NotImplementedError, match="A10b"):
+    # tensor parallelism is ported: one process cannot form a 4 x 2 mesh
+    with pytest.raises(ValueError, match="the world size is 1"):
         create_mesh(n_data=4, n_model=2)
 
 

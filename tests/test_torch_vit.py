@@ -85,9 +85,30 @@ def test_attention_flashflat_equals_xla_impl_fp32():
         torch.testing.assert_close(b(x), a(x), rtol=1e-5, atol=1e-5)
 
 
-def test_densevit_rejects_unported_layout():
+def test_densevit_rejects_unported_layout(setup):
+    """The layout the port once refused: `tp_layout=True` (the JAX
+    package's head-major tensor-parallel layout) builds, reads the
+    head-major tree of `to_tp_layout` (`from_jax_variables` reshapes it),
+    and its taps match JAX's `tp_layout` ViT on one process in fp32: the
+    reference's head-major branch, einsum attention without the flat
+    kernels or the token padding."""
     import dataclasses
 
+    from lseg_tpu.utils.checkpoint_convert import to_tp_layout
+
+    x, v, _ = setup
     cfg = tiny_parity_config()
-    with pytest.raises(NotImplementedError, match="tp_layout"):
-        DenseViT(dataclasses.replace(cfg.vit, tp_layout=True))
+    cfg = dataclasses.replace(cfg, vit=dataclasses.replace(
+        cfg.vit, attn_impl="flashflat", tp_layout=True))
+    vit = DenseViT(cfg.vit)
+    assert not any(b.attn.flat for b in vit.blocks)
+    vtp = {"params": to_tp_layout(v["params"], cfg.vit.num_heads),
+           "batch_stats": v["batch_stats"]}
+    assert vtp["params"]["vit"]["seg0"]["blocks"]["attn"]["qkv"][
+        "kernel"].ndim == 5
+    ref, rgrid = _jax_taps(cfg.vit, jnp.float32, vtp, x)
+    got, grid = _port_taps(cfg, torch.float32, from_jax_variables(vtp), x)
+    assert grid == rgrid == (4, 6)
+    for r, g in zip(ref, got):
+        assert g.shape == r.shape == (2, 25, 128)
+        np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-4)

@@ -33,8 +33,12 @@ from lseg_tpu_torch.engine.serve import (  # noqa: E402
     make_predictor,
 )
 from lseg_tpu_torch.engine.tta import MultiScaleEvaluator, TTAProtocol  # noqa: E402
-from lseg_tpu_torch.models.layers import BatchNorm  # noqa: E402
+from lseg_tpu_torch.models.layers import BatchNorm, random_init_  # noqa: E402
 from lseg_tpu_torch.models.lseg import LSegNet  # noqa: E402
+from lseg_tpu_torch.ops.quant import (  # noqa: E402
+    calibrate_act_scales,
+    quantize_tree,
+)
 from lseg_tpu_torch.parallel import (  # noqa: E402
     batch_shard,
     create_mesh,
@@ -64,6 +68,22 @@ def int8_config(base):
     package's `base`)."""
     return fast_serving(dataclasses.replace(base, vit=dataclasses.replace(
         base.vit, embed_dim=128, num_heads=2)), quant="static_cal")
+
+
+def int8_tree(x, txt):
+    """The static_cal tree of `int8_config(tiny_vit_config())`, quantized
+    and calibrated by the port on numpy inputs `x`, `txt` (seeded weights,
+    the xla attention of the fp32 twin)."""
+    cfg = int8_config(tiny_vit_config())
+    cfg0 = dataclasses.replace(cfg, vit=dataclasses.replace(
+        cfg.vit, attn_impl="xla", quant_int8=False, patch_fused=False),
+        decoder_quant=False)
+    ref = random_init_(LSegNet(cfg0), torch.Generator().manual_seed(3))
+    model = LSegNet(cfg, torch.bfloat16)
+    model.load_state_dict(quantize_tree(ref.state_dict(), decoder=True,
+                                        act_scale=True))
+    calibrate_act_scales(model, torch.from_numpy(x), torch.from_numpy(txt))
+    return model.state_dict()
 
 
 class IndexDataset:
